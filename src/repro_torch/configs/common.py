@@ -1,0 +1,54 @@
+"""Architecture registry (port of ``repro.configs.common``). The port builds
+the dense transformer only; the other archs of the reference raise."""
+from __future__ import annotations
+
+import dataclasses
+import importlib
+
+import torch
+
+from repro_torch.models.api import ModelCfg
+
+
+@dataclasses.dataclass(frozen=True)
+class ArchConfig:
+    arch_id: str
+    model: ModelCfg
+    source: str                      # public-literature citation tag
+    notes: str = ""
+
+    def reduced(self) -> "ArchConfig":
+        """Tiny same-family f32 config for CPU tests (the reference's
+        shrink rule)."""
+        m = self.model
+        n_kv = max(1, min(m.n_kv_heads, 2)) if m.n_kv_heads < m.n_heads else 4
+        red = dataclasses.replace(
+            m, n_layers=2, d_model=64, n_heads=4, n_kv_heads=n_kv,
+            d_ff=0 if m.d_ff == 0 else 128, vocab=min(m.vocab, 997),
+            sliding_window=min(m.sliding_window, 8) if m.sliding_window else 0,
+            dtype=torch.float32)
+        return dataclasses.replace(self, model=red)
+
+
+#: every arch of the reference's registry, and whether the port has it
+_ARCH_IDS = [
+    "granite_moe_1b_a400m", "llama4_scout_17b_a16e", "granite_3_8b",
+    "qwen2_0_5b", "h2o_danube_3_4b", "qwen2_5_32b", "jamba_1_5_large_398b",
+    "xlstm_350m", "internvl2_1b", "seamless_m4t_large_v2",
+]
+_PORTED = ("qwen2_0_5b",)
+
+
+def list_archs():
+    return list(_PORTED)
+
+
+def get_arch(arch_id: str) -> ArchConfig:
+    arch_id = arch_id.replace("-", "_").replace(".", "_")
+    if arch_id not in _ARCH_IDS:
+        raise KeyError(f"unknown arch {arch_id!r}; known: {_ARCH_IDS}")
+    if arch_id not in _PORTED:
+        raise NotImplementedError(
+            f"arch {arch_id!r} is not yet ported (ROADMAP queue 1 item 16); "
+            f"ported: {list(_PORTED)}")
+    return importlib.import_module(f"repro_torch.configs.{arch_id}").ARCH

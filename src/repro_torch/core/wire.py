@@ -1,0 +1,207 @@
+"""Flat wire-buffer substrate (port of ``repro.core.wire``): flatten once,
+compress flat, unflatten once.
+
+``TreeSpec`` flattens a parameter tree in jax tree order (dict keys sorted)
+into one contiguous f32 buffer; the sign codecs bitpack that buffer
+little-endian (element 8i+j -> bit j of byte i, ``x >= 0`` -> 1); the server
+sums the +/-1 signs straight from the packed bytes (``unpack_sum``: 8x8 bit
+transpose, then a per-block 256-entry weighted LUT; ``unpack_sum_mask``:
+popcount for 0/1 masks) without a dense (n_clients, d) sign matrix.
+
+Summation order (what makes these bit-exact with the reference and with the
+CUDA ``sign_reduce`` kernel): clients in blocks of SIGN_REDUCE_CLIENT_BLK;
+within a block a left fold in client order that starts from +0.0; block
+partials then added one after another, the first block initialising the sum.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional, Tuple
+
+import torch
+
+from repro_torch.core.tree import Path, tree_paths, tree_set
+
+
+@dataclasses.dataclass(frozen=True)
+class WireFormat:
+    """One client's uplink payload: wire dtype name, logical bits per model
+    coordinate (padding excluded), and layout name."""
+    dtype: str
+    bits_per_coord: float
+    layout: str
+
+
+@dataclasses.dataclass(frozen=True)
+class TreeSpec:
+    """Flatten-once metadata of a parameter tree: leaf paths in jax order,
+    their shapes and offsets into the flat buffer."""
+    paths: Tuple[Path, ...]
+    shapes: Tuple[Tuple[int, ...], ...]
+    offsets: Tuple[int, ...]
+    n_coords: int
+
+    @classmethod
+    def from_tree(cls, tree) -> "TreeSpec":
+        paths, shapes, offsets, off = [], [], [], 0
+        for path, leaf in tree_paths(tree):
+            paths.append(path)
+            shapes.append(tuple(leaf.shape))
+            offsets.append(off)
+            off += leaf.numel()
+        return cls(paths=tuple(paths), shapes=tuple(shapes),
+                   offsets=tuple(offsets), n_coords=off)
+
+    def flatten(self, tree) -> torch.Tensor:
+        """tree -> (n_coords,) f32 buffer."""
+        return torch.cat([leaf.to(torch.float32).reshape(-1)
+                          for _, leaf in tree_paths(tree)])
+
+    def unflatten(self, flat: torch.Tensor) -> dict:
+        """(>= n_coords,) buffer -> tree of f32 leaves (views of ``flat``);
+        padding past n_coords is never read."""
+        tree: dict = {}
+        for path, shape, off in zip(self.paths, self.shapes, self.offsets):
+            n = 1
+            for s in shape:
+                n *= s
+            tree_set(tree, path, flat[off:off + n].reshape(shape))
+        return tree
+
+
+def tree_spec(tree) -> TreeSpec:
+    return TreeSpec.from_tree(tree)
+
+
+# ---------------------------------------------------------------------------
+# sign bitpacking (little-endian bit order)
+# ---------------------------------------------------------------------------
+
+def _bit_weights(device) -> torch.Tensor:
+    return torch.tensor([1, 2, 4, 8, 16, 32, 64, 128], dtype=torch.uint8,
+                        device=device)
+
+
+def pack_bool(bits: torch.Tensor) -> torch.Tensor:
+    """bool (..., len % 8 == 0) -> uint8 bitfield (..., len/8)."""
+    b = bits.to(torch.uint8).reshape(*bits.shape[:-1], -1, 8)
+    return (b * _bit_weights(bits.device)).sum(-1, dtype=torch.uint8)
+
+
+def unpack_signs(packed: torch.Tensor) -> torch.Tensor:
+    """uint8 bitfield -> int8 {-1,+1} of len*8 (bit j of byte i at 8i+j)."""
+    bits = (packed.reshape(-1, 1) & _bit_weights(packed.device)) > 0
+    bits = bits.reshape(-1)
+    one = torch.ones((), dtype=torch.int8, device=packed.device)
+    return torch.where(bits, one, -one)
+
+
+def pad_to(x: torch.Tensor, mult: int) -> torch.Tensor:
+    r = (-x.shape[0]) % mult
+    return torch.nn.functional.pad(x, (0, r)) if r else x
+
+
+def pack_flat(flat: torch.Tensor) -> torch.Tensor:
+    """(d,) f32 -> bitpacked uint8 of ceil(d/8): bit = flat[i] >= 0 (the
+    zero-padded tail packs as +1 bits, never read back)."""
+    return pack_bool(pad_to(flat, 8) >= 0)
+
+
+# Clients per accumulation block; the CUDA sign_reduce kernel folds clients
+# in the same blocks, which is what makes it bit-exact with unpack_sum.
+SIGN_REDUCE_CLIENT_BLK = 8
+
+
+def _bit_transpose_blocks(pm: torch.Tensor, n_blocks: int,
+                          n_bytes: int) -> torch.Tensor:
+    """(n_blocks*8, n_bytes) u8 -> (n_blocks, 8, n_bytes) u8 bitplanes:
+    plane k's byte j holds, in bit i, bit k of client i's byte j (three
+    butterfly stages over all bytes, Hacker's Delight 7-3)."""
+    x = pm.reshape(n_blocks, 2, 2, 2, n_bytes)
+    t, b = x[:, 0], x[:, 1]
+    x = torch.stack([(t & 0x0F) | ((b & 0x0F) << 4),
+                     ((t & 0xF0) >> 4) | (b & 0xF0)], dim=1)
+    t, b = x[:, :, 0], x[:, :, 1]
+    x = torch.stack([(t & 0x33) | ((b & 0x33) << 2),
+                     ((t & 0xCC) >> 2) | (b & 0xCC)], dim=2)
+    t, b = x[:, :, :, 0], x[:, :, :, 1]
+    x = torch.stack([(t & 0x55) | ((b & 0x55) << 1),
+                     ((t & 0xAA) >> 1) | (b & 0xAA)], dim=3)
+    return x.reshape(n_blocks, 8, n_bytes)
+
+
+def _block_luts(wb: torch.Tensor) -> torch.Tensor:
+    """(n_blocks, 8) f32 weights -> (n_blocks, 256) tables
+    ``LUT[v] = sum_i (bit i of v ? +w_i : -w_i)``, summed as a left fold in
+    client order from +0.0 (the reference's in-block order)."""
+    v = torch.arange(256, device=wb.device)
+    vbits = ((v[:, None] >> torch.arange(8, device=wb.device)) & 1) > 0
+    terms = torch.where(vbits[None], wb[:, None, :], -wb[:, None, :])
+    lut = torch.zeros(terms.shape[:2], dtype=torch.float32, device=wb.device)
+    for i in range(terms.shape[-1]):
+        lut = lut + terms[..., i]
+    return lut
+
+
+def _pad_clients(packed: torch.Tensor, weights: torch.Tensor):
+    n = packed.shape[0]
+    cpad = (-n) % SIGN_REDUCE_CLIENT_BLK
+    w = weights.to(torch.float32)
+    if cpad:
+        packed = torch.nn.functional.pad(packed, (0, 0, 0, cpad))
+        w = torch.nn.functional.pad(w, (0, cpad))
+    return packed, w, (n + cpad) // SIGN_REDUCE_CLIENT_BLK
+
+
+def unpack_sum(packed: torch.Tensor, weights: torch.Tensor,
+               acc: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """(n_clients, n_bytes) u8, (n_clients,) f32 -> (8*n_bytes,) weighted
+    sum of the +/-1 signs (LUT over bit-transposed planes; clients padded to
+    blocks of 8 with weight 0). ``acc`` continues the left fold from a
+    carried (8*n_bytes,) partial sum."""
+    if acc is not None and not isinstance(acc, torch.Tensor):
+        raise NotImplementedError(
+            "the partition-invariant SignFoldAcc carry belongs to the "
+            "streaming cohort plan, not yet ported (ROADMAP queue 1 item 10)")
+    n_bytes = packed.shape[1]
+    packed, w, n_blocks = _pad_clients(packed, weights)
+    planes = _bit_transpose_blocks(packed, n_blocks, n_bytes).long()
+    lut = _block_luts(w.reshape(n_blocks, SIGN_REDUCE_CLIENT_BLK))
+    if acc is None:
+        a = lut[0][planes[0]]                     # (8, n_bytes)
+        start = 1
+    else:
+        a = acc.reshape(n_bytes, 8).T
+        start = 0
+    for b in range(start, n_blocks):
+        a = a + lut[b][planes[b]]
+    # a[k, byte] is the weighted sum for coordinate byte*8 + k
+    return a.T.reshape(-1)
+
+
+_POPCOUNT = torch.tensor([bin(i).count("1") for i in range(256)],
+                         dtype=torch.int32)
+
+
+def unpack_sum_mask(packed: torch.Tensor, mask: torch.Tensor,
+                    acc: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """(n_clients, n_bytes) u8, (n_clients,) 0/1 mask -> (8*n_bytes,) f32
+    masked sign sum, as ``2*count - sum(mask)`` of set bits over live
+    clients (popcount of the bit-transposed planes). Exact integers, so
+    bit-identical to ``unpack_sum`` for any 0/1 mask."""
+    n, n_bytes = packed.shape
+    pm = packed * (mask > 0).to(torch.uint8)[:, None]
+    pm, _, n_blocks = _pad_clients(pm, mask)
+    planes = _bit_transpose_blocks(pm, n_blocks, n_bytes)
+    cnt = _POPCOUNT.to(packed.device)[planes.long()].sum(0)   # (8, n_bytes)
+    bitsum = cnt.T.reshape(-1).to(torch.float32)
+    out = 2.0 * bitsum - mask.to(torch.float32).sum()
+    return out if acc is None else acc + out
+
+
+def dense_masked_sum(payload: torch.Tensor, weights: torch.Tensor,
+                     acc: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Server side of the dense f32 uplink: (n, d) payload, (n,) weights ->
+    (d,) weighted sum (float order is torch's, not the reference's)."""
+    out = weights.to(torch.float32) @ payload.to(torch.float32)
+    return out if acc is None else acc + out

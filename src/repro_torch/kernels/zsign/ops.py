@@ -1,0 +1,244 @@
+"""Wrappers of the z-sign CUDA kernels, and their plain PyTorch versions.
+
+Two kernels (sources in ``csrc/``, built by ``build.py``):
+
+  ``zsign_encode``  E1, the fused counter-noise sign encode of a stack of
+                    clients (replaces the TPU kernels K1/K2,
+                    ``compress_rng_pallas`` and ``compress_rng_pallas_batched``)
+  ``sign_reduce``   R1, the weighted sign-reduce over the packed client stack
+                    (replaces K3, ``sign_reduce_pallas``)
+
+Each wrapper takes the plain version for tensors that lie on the CPU and
+launches its kernel for CUDA tensors; it never falls back. The launch counter
+``<wrapper>.launches`` rises by one per kernel launch and nowhere else.
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from repro_torch.core import noise as znoise
+from repro_torch.core.wire import SIGN_REDUCE_CLIENT_BLK, pack_bool
+
+TILE = 8192          # elements per encode tile (8 rows x 1024 lanes on TPU)
+QUARTER = TILE // 4  # counters per tile: one threefry call feeds 4 elements
+CHUNK_TILES = 256    # tiles per chunk of the plain encode
+
+#: encode modes shared with the kernel: noise off, z = inf, z = 1
+_MODES = {None: 0, znoise.Z_INF: 1, 1: 2}
+
+
+def _mode(z) -> int:
+    if z is not None and z <= znoise.Z_INF:
+        z = znoise.Z_INF
+    if z not in _MODES:
+        raise NotImplementedError(
+            f"the counter encode covers z=inf and z=1; finite z={z} > 1 "
+            "needs the dense-noise kernel K5, not yet ported (ROADMAP "
+            "queue 2)")
+    return _MODES[z]
+
+
+def _check_cuda(t: torch.Tensor, name: str, dtype) -> None:
+    if t.device.type != "cuda":
+        raise ValueError(f"{name} must be a CUDA tensor, got {t.device}")
+    if t.dtype != dtype:
+        raise ValueError(f"{name} must be {dtype}, got {t.dtype}")
+    if not t.is_contiguous() or t.data_ptr() % 16:
+        raise ValueError(f"{name} must be contiguous and 16-byte aligned")
+
+
+def _raise_on(err: int, what: str) -> None:
+    if err != 0:
+        raise RuntimeError(f"{what} launch failed: cudaError_t {err}")
+
+
+# ---------------------------------------------------------------------------
+# E1: fused counter-noise sign encode
+# ---------------------------------------------------------------------------
+
+def zsign_encode_plain(x2d: torch.Tensor, keys: torch.Tensor,
+                       sigma: torch.Tensor, z) -> torch.Tensor:
+    """Plain version of E1: (n, d_pad) f32, (n, 2) int64 key words, (n,)
+    f32 sigma -> (n, d_pad/8) uint8. Walks the tiles in chunks of
+    CHUNK_TILES, so its widest intermediate is (n, CHUNK_TILES * 2048)
+    int64 counters, never an (n, d) integer surface."""
+    n, d_pad = x2d.shape
+    if d_pad % TILE:
+        raise ValueError(f"d_pad={d_pad} is not a multiple of {TILE}")
+    mode = _mode(z)
+    out = torch.empty((n, d_pad // 8), dtype=torch.uint8, device=x2d.device)
+    if mode == 0:
+        for s in range(0, d_pad, CHUNK_TILES * TILE):
+            e = min(s + CHUNK_TILES * TILE, d_pad)
+            out[:, s // 8:e // 8] = pack_bool(x2d[:, s:e] >= 0)
+        return out
+    z = znoise.Z_INF if mode == 1 else 1
+    dev = x2d.device
+    k0 = keys[:, 0].to(dev).reshape(n, 1, 1)
+    k1 = keys[:, 1].to(dev).reshape(n, 1, 1)
+    sig = sigma.to(device=dev, dtype=torch.float32).reshape(n, 1, 1, 1)
+    n_tiles = d_pad // TILE
+    for t0 in range(0, n_tiles, CHUNK_TILES):
+        nt = min(CHUNK_TILES, n_tiles - t0)
+        # counters of tiles t0..t0+nt: (1, nt, 2048), client-local
+        c = (t0 + torch.arange(nt, device=dev)).reshape(1, nt, 1) * QUARTER \
+            + torch.arange(QUARTER, device=dev).reshape(1, 1, QUARTER)
+        y0, y1 = znoise.counter_words(k0, k1, c)            # (n, nt, 2048)
+        u0, u1 = znoise.halves_to_u01(y0)
+        u2, u3 = znoise.halves_to_u01(y1)
+        u = torch.stack([u0, u1, u2, u3], dim=2)            # (n, nt, 4, 2048)
+        x = x2d[:, t0 * TILE:(t0 + nt) * TILE].reshape(n, nt, 4, QUARTER)
+        bits = znoise.stochastic_sign_bits(x, u, sig, z)
+        out[:, t0 * TILE // 8:(t0 + nt) * TILE // 8] = \
+            pack_bool(bits.reshape(n, nt * TILE))
+    return out
+
+
+def zsign_encode(x2d: torch.Tensor, keys: torch.Tensor, sigma: torch.Tensor,
+                 z) -> torch.Tensor:
+    """E1: client-batched fused encode. x2d (n, d_pad) f32 with d_pad a
+    multiple of 8192; keys (n, 2) int64 tensor holding each client's two
+    uint32 key words; sigma (n,) f32; z in {Z_INF, 1} or None (noise off).
+    -> (n, d_pad/8) uint8, each client's bytes exactly those of its own
+    n = 1 call (tile ids restart at 0 for every client)."""
+    if x2d.device.type == "cpu":
+        return zsign_encode_plain(x2d, keys, sigma, z)
+    mode = _mode(z)
+    n, d_pad = x2d.shape
+    if d_pad % TILE or d_pad // TILE >= 2 ** 31:
+        raise ValueError(f"d_pad={d_pad} must be a multiple of {TILE}")
+    if not 1 <= n < 65536:
+        raise ValueError(f"n={n} clients is outside the kernel grid")
+    keys = keys.to(device=x2d.device, dtype=torch.int64).contiguous()
+    sigma = sigma.to(device=x2d.device, dtype=torch.float32).contiguous()
+    if keys.shape != (n, 2) or sigma.shape != (n,):
+        raise ValueError(f"keys {tuple(keys.shape)} / sigma "
+                         f"{tuple(sigma.shape)} do not match n={n}")
+    _check_cuda(x2d, "x2d", torch.float32)
+    out = torch.empty((n, d_pad // 8), dtype=torch.uint8, device=x2d.device)
+    from repro_torch.kernels.zsign.build import launcher
+    fn = launcher("zsign_encode.cu", "zsign_encode_launch")
+    with torch.cuda.device(x2d.device):
+        err = fn(x2d.data_ptr(), keys.data_ptr(), sigma.data_ptr(),
+                 out.data_ptr(), n, d_pad, mode,
+                 torch.cuda.current_stream().cuda_stream)
+    _raise_on(err, "zsign_encode")
+    zsign_encode.launches += 1
+    return out
+
+
+zsign_encode.launches = 0
+
+
+def zsign_encode_fused(x: torch.Tensor, key: torch.Tensor, sigma, *, z,
+                       add_noise: bool = True) -> torch.Tensor:
+    """One client's fused encode (mirror of the reference's
+    ``zsign_encode_fused``): any-shape f32 ``x`` and a (2,) key ->
+    uint8 of ceil(x.numel()/8192)*1024 bytes."""
+    flat = x.reshape(-1).to(torch.float32)
+    pad = (-flat.numel()) % TILE
+    if pad:
+        flat = torch.nn.functional.pad(flat, (0, pad))
+    sig = torch.as_tensor(sigma, dtype=torch.float32,
+                          device=flat.device).reshape(1)
+    return zsign_encode(flat.reshape(1, -1), key.reshape(1, 2), sig,
+                        z if add_noise else None).reshape(-1)
+
+
+def element_u01(keys: torch.Tensor, client: torch.Tensor,
+                elem: torch.Tensor) -> torch.Tensor:
+    """The encode's uniform for element ``elem`` of client ``client`` (both
+    int64 index tensors of one shape), without generating its tile."""
+    k0 = keys[:, 0].to(elem.device)[client]
+    k1 = keys[:, 1].to(elem.device)[client]
+    t, e = elem // TILE, elem % TILE
+    q, lane = e // QUARTER, e % QUARTER
+    y0, y1 = znoise.counter_words(k0, k1, t * QUARTER + lane)
+    w = torch.where(q < 2, y0, y1)
+    half = torch.where(q % 2 == 1, w >> 16, w & 0xFFFF)
+    return (half.to(torch.float32) + 0.5) * 2.0 ** -16
+
+
+def erf_rule_flips(x2d: torch.Tensor, keys: torch.Tensor,
+                   sigma: torch.Tensor, z, got: torch.Tensor,
+                   want: torch.Tensor, max_ulps: int = 4):
+    """Compare two encodes of the same inputs bit by bit. Two f32 ``erf``
+    implementations (XLA's, torch's, CUDA's) differ by a few ulp, which can
+    flip a wire bit only where ``u`` lies within a few ulp of the threshold
+    ``1 - P_z(r)``. -> (number of differing bits, number of them farther
+    than ``max_ulps`` f32 ulp from the threshold); the second must be 0."""
+    diff = (got ^ want).to(x2d.device)
+    client, byte = torch.nonzero(diff, as_tuple=True)
+    if client.numel() == 0:
+        return 0, 0
+    bits = (diff[client, byte].unsqueeze(-1)
+            >> torch.arange(8, device=x2d.device, dtype=torch.uint8)) & 1
+    rows, ks = torch.nonzero(bits, as_tuple=True)
+    client, elem = client[rows], byte[rows] * 8 + ks
+    u = element_u01(keys, client, elem)
+    x = x2d[client, elem]
+    sig = sigma.to(x2d.device, torch.float32)[client]
+    thr = 1.0 - znoise.sign_prob(x * torch.reciprocal(
+        torch.clamp_min(sig, 1e-30)), znoise.Z_INF if z <= 0 else z)
+    ulp = torch.abs(torch.nextafter(thr, torch.full_like(thr, 2.0)) - thr)
+    far = (torch.abs(u - thr) > max_ulps * ulp) | (sig <= 0)
+    return int(elem.numel()), int(far.sum())
+
+
+# ---------------------------------------------------------------------------
+# R1: weighted sign-reduce
+# ---------------------------------------------------------------------------
+
+def sign_reduce_plain(packed: torch.Tensor, weights: torch.Tensor,
+                      acc: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Plain version of R1, in the kernel's exact order: left fold from +0.0
+    over each block of 8 clients, block partials added in order (the first
+    initialising), then ``acc + sum``. Padding clients of the last block
+    would add -0.0, which changes no partial, so they are not visited."""
+    n, nb = packed.shape
+    w = weights.to(device=packed.device, dtype=torch.float32)
+    shifts = torch.arange(8, device=packed.device, dtype=torch.uint8)
+    total = None
+    for b0 in range(0, n, SIGN_REDUCE_CLIENT_BLK):
+        part = torch.zeros((nb, 8), dtype=torch.float32, device=packed.device)
+        for c in range(b0, min(b0 + SIGN_REDUCE_CLIENT_BLK, n)):
+            bits = ((packed[c].unsqueeze(-1) >> shifts) & 1).bool()
+            part = part + torch.where(bits, w[c], -w[c])
+        total = part if total is None else total + part
+    out = total.reshape(-1)
+    return out if acc is None else acc + out
+
+
+def sign_reduce(packed: torch.Tensor, weights: torch.Tensor,
+                acc: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """R1: (n, nb) uint8 payload stack, (n,) f32 weights -> (8*nb,) f32
+    weighted sum of the +/-1 signs (plus ``acc`` when given). Clients are
+    reduced in zero-weight-padded blocks of 8, bit-exact with the reference's
+    ``sign_reduce`` for any f32 weights."""
+    if packed.device.type == "cpu":
+        return sign_reduce_plain(packed, weights, acc)
+    n, nb = packed.shape
+    w = weights.to(device=packed.device, dtype=torch.float32).contiguous()
+    if w.shape != (n,):
+        raise ValueError(f"weights {tuple(w.shape)} do not match n={n}")
+    packed = packed.contiguous()
+    _check_cuda(packed, "packed", torch.uint8)
+    if acc is not None:
+        _check_cuda(acc, "acc", torch.float32)
+        if acc.shape != (8 * nb,):
+            raise ValueError(f"acc {tuple(acc.shape)} != ({8 * nb},)")
+    out = torch.empty(8 * nb, dtype=torch.float32, device=packed.device)
+    from repro_torch.kernels.zsign.build import launcher
+    fn = launcher("sign_reduce.cu", "sign_reduce_launch")
+    with torch.cuda.device(packed.device):
+        err = fn(packed.data_ptr(), w.data_ptr(),
+                 None if acc is None else acc.data_ptr(), out.data_ptr(),
+                 n, nb, torch.cuda.current_stream().cuda_stream)
+    _raise_on(err, "sign_reduce")
+    sign_reduce.launches += 1
+    return out
+
+
+sign_reduce.launches = 0

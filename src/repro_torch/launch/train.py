@@ -1,0 +1,145 @@
+"""Federated LM training driver (port of ``repro.launch.train``, the CLI
+subset of the main path).
+
+    PYTHONPATH=src python -m repro_torch.launch.train --arch qwen2_0_5b \
+        --rounds 3 --clients 8 --local-steps 2 --micro-batch 2 --seq-len 64 \
+        --compressor zsign --z 1 --sigma 0.01
+
+Runs on ``cuda`` unless ``--device cpu`` is given; asking for CUDA on a
+machine without a card raises. ``run(args)`` is the same driver, callable in
+process, and returns the rounds' metrics. Not ported yet: checkpointing,
+Plateau sigma, adversaries, async rounds and cohort streaming.
+"""
+from __future__ import annotations
+
+import argparse
+import time
+from typing import Callable, List, Optional
+
+import torch
+
+from repro_torch.configs.common import get_arch
+from repro_torch.core import compression, fedavg, noise
+from repro_torch.core.tree import tree_leaves
+from repro_torch.data.synthetic import TokenStream
+from repro_torch.fed.sampling import ParticipationSampler
+from repro_torch.models.api import build_model
+
+
+def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--arch", required=True)
+    ap.add_argument("--reduced", action="store_true",
+                    help="reduced same-family f32 config (CPU-sized)")
+    ap.add_argument("--rounds", type=int, default=50)
+    ap.add_argument("--clients", type=int, default=4)
+    ap.add_argument("--local-steps", type=int, default=2)
+    ap.add_argument("--micro-batch", type=int, default=2)
+    ap.add_argument("--seq-len", type=int, default=64)
+    ap.add_argument("--compressor", default="zsign",
+                    choices=list(compression.available()))
+    ap.add_argument("--pipeline", default=None, metavar="SPEC",
+                    help="pipeline spec string overriding --compressor, "
+                         "e.g. 'zsign(z=1,sigma=0.01)'")
+    ap.add_argument("--agg-backend", default="auto",
+                    choices=list(compression.AGG_BACKENDS),
+                    help="server sign-reduce backend (auto = CUDA kernel on "
+                         "a card, plain PyTorch elsewhere)")
+    ap.add_argument("--encode-backend", default="auto",
+                    choices=list(compression.ENCODE_BACKENDS),
+                    help="client fused-encode backend (auto = CUDA kernel "
+                         "on a card, plain PyTorch elsewhere)")
+    ap.add_argument("--z", type=int, default=1, help="1=Gaussian, 0=uniform")
+    ap.add_argument("--sigma", type=float, default=0.01,
+                    help="z-sign noise scale")
+    ap.add_argument("--client-lr", type=float, default=0.05)
+    ap.add_argument("--server-lr", type=float, default=0.5)
+    ap.add_argument("--participation", type=float, default=1.0)
+    ap.add_argument("--over-provision", type=float, default=1.0)
+    ap.add_argument("--failure-rate", type=float, default=0.0)
+    ap.add_argument("--device", default="cuda", choices=("cuda", "cpu"))
+    return ap.parse_args(argv)
+
+
+def _device(name: str) -> torch.device:
+    if name == "cuda":
+        if not torch.cuda.is_available():
+            raise RuntimeError("--device cuda was asked for but no CUDA card "
+                               "is visible (pass --device cpu to run on the "
+                               "CPU)")
+        # f32 matmuls stay full f32 (no TF32), as in the reference
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+    return torch.device(name)
+
+
+def run(args: argparse.Namespace,
+        on_round: Optional[Callable] = None) -> List[fedavg.RoundMetrics]:
+    """Train ``args.rounds`` rounds; -> their metrics. ``on_round(t,
+    state_before, state_after, metrics, seconds)`` is called after each."""
+    device = _device(args.device)
+    arch = get_arch(args.arch)
+    if args.reduced:
+        arch = arch.reduced()
+    bundle = build_model(arch.model)
+    if args.pipeline:
+        comp = compression.Pipeline(args.pipeline)
+    elif args.compressor == "identity":
+        comp = compression.Compressor()
+    else:
+        factory = {"zsign": compression.ZSignCompressor,
+                   "zsign_packed": compression.PackedZSignCompressor}
+        comp = factory[args.compressor](z=args.z, sigma=args.sigma)
+    cfg = fedavg.FedConfig(n_clients=args.clients,
+                           local_steps=args.local_steps,
+                           client_lr=args.client_lr,
+                           server_lr=args.server_lr)
+    # the sampler below emits exact 0/1 membership masks
+    ctx = fedavg.RoundContext(agg_backend=args.agg_backend,
+                              encode_backend=args.encode_backend,
+                              weights_are_mask=True)
+    step = fedavg.build_round_step(bundle.loss_fn, comp, cfg, ctx)
+    gen = torch.Generator(device=device).manual_seed(0)
+    params = bundle.init(gen, device)
+    n_params = sum(p.numel() for p in tree_leaves(params))
+    state = fedavg.init_server_state(params, cfg, comp, noise.prng_key(1),
+                                     sigma0=args.sigma)
+    stream = TokenStream(vocab=arch.model.vocab)
+    sampler = ParticipationSampler(
+        total_clients=args.clients,
+        per_round=max(1, int(args.clients * args.participation)),
+        over_provision=args.over_provision, failure_rate=args.failure_rate)
+    layout = (1, args.clients, args.local_steps, args.micro_batch)
+    wf = comp.wire_format()
+    print(f"# arch={arch.model.name} params={n_params:,} "
+          f"compressor={comp.name} wire={wf.layout}/{wf.dtype} "
+          f"({wf.bits_per_coord:g} bits/coord) device={device}")
+    print("round,loss,ghat_norm,live,Mbits_cum,sigma,sec")
+    history, bits = [], 0.0
+    for t in range(args.rounds):
+        batch = {"tokens": stream.round_batch(t, layout, args.seq_len,
+                                              device)}
+        mask = sampler.mask((1, args.clients))
+        t0 = time.time()
+        new_state, m = step(state, batch, mask)
+        loss = float(m.loss)          # waits for the round's device work
+        sec = time.time() - t0
+        bits += float(m.uplink_bits)
+        print(f"{t},{loss:.4f},{float(m.grad_est_norm):.3f},"
+              f"{int(m.participation)},{bits / 1e6:.2f},"
+              f"{float(new_state.sigma):.4f},{sec:.3f}")
+        if on_round is not None:
+            on_round(t, state, new_state, m, sec)
+        state = new_state
+        history.append(m)
+    print(f"# done: {args.rounds} rounds, {bits / 1e6:.1f} Mbit uplink "
+          f"({32.0 / comp.wire_bits_per_coord:.0f}x less than fp32)")
+    return history
+
+
+def main(argv: Optional[List[str]] = None) -> None:
+    run(parse_args(argv))
+
+
+if __name__ == "__main__":
+    main()

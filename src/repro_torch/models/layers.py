@@ -1,0 +1,206 @@
+"""Shared layers, dense subset (port of ``repro.models.layers``): RMSNorm,
+RoPE, GQA attention (single-block and KV-chunked flash), SwiGLU MLP and the
+sequence-chunked cross entropy.
+
+Layer parameters are stacked over depth (leading dim L) with the reference's
+names and layouts, so a parameter tree carries across the two packages as it
+is. The reference's sharding hints (``launch/hints.py``) have no counterpart
+on one card and are left out. Matmuls whose reference asks for an f32 result
+(``preferred_element_type``) run on f32 copies of their operands.
+"""
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+import torch.nn.functional as F
+
+
+def _init(gen: torch.Generator, shape, scale=None, dtype=torch.float32,
+          device="cpu") -> torch.Tensor:
+    scale = scale if scale is not None else (
+        1.0 / (shape[-2] ** 0.5) if len(shape) >= 2 else 1.0)
+    w = torch.randn(shape, generator=gen, dtype=torch.float32,
+                    device=gen.device)
+    return (w * scale).to(device=device, dtype=dtype)
+
+
+# ---------------------------------------------------------------------------
+# norms / rope
+# ---------------------------------------------------------------------------
+
+def rms_norm(x: torch.Tensor, gamma: torch.Tensor, eps: float = 1e-6):
+    x32 = x.to(torch.float32)
+    var = torch.mean(torch.square(x32), dim=-1, keepdim=True)
+    return (x32 * torch.rsqrt(var + eps)).to(x.dtype) * gamma
+
+
+def rope_freqs(d_head: int, theta: float = 1e4, device=None) -> torch.Tensor:
+    exps = torch.arange(0, d_head, 2, dtype=torch.float32,
+                        device=device) / d_head
+    return 1.0 / (theta ** exps)
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor,
+               theta: float = 1e4) -> torch.Tensor:
+    """x: (..., S, H, hd); positions: (S,) integer."""
+    freqs = rope_freqs(x.shape[-1], theta, device=x.device)
+    ang = positions[..., None].to(torch.float32) * freqs     # (S, hd/2)
+    cos, sin = torch.cos(ang)[..., None, :], torch.sin(ang)[..., None, :]
+    x1, x2 = torch.chunk(x.to(torch.float32), 2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
+    return out.to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# attention
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class AttnCfg:
+    d_model: int
+    n_heads: int
+    n_kv_heads: int
+    d_head: int
+    qkv_bias: bool = False
+    sliding_window: int = 0   # 0 => full causal
+    rope_theta: float = 1e4
+    q_chunk: int = 512        # above this length: KV-chunked flash attention
+    causal: bool = True
+
+
+def attn_init(gen, cfg: AttnCfg, n_layers: int, dtype, device="cpu"):
+    D, H, K, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.d_head
+    p = {
+        "wq": _init(gen, (n_layers, D, H * hd), dtype=dtype, device=device),
+        "wk": _init(gen, (n_layers, D, K * hd), dtype=dtype, device=device),
+        "wv": _init(gen, (n_layers, D, K * hd), dtype=dtype, device=device),
+        "wo": _init(gen, (n_layers, H * hd, D), dtype=dtype, device=device),
+    }
+    if cfg.qkv_bias:
+        for name, width in (("bq", H * hd), ("bk", K * hd), ("bv", K * hd)):
+            p[name] = torch.zeros((n_layers, width), dtype=dtype,
+                                  device=device)
+    return p
+
+
+def _qkv(x, lp, cfg: AttnCfg, positions):
+    B, S, _ = x.shape
+    H, K, hd = cfg.n_heads, cfg.n_kv_heads, cfg.d_head
+    q = x @ lp["wq"]
+    k = x @ lp["wk"]
+    v = x @ lp["wv"]
+    if cfg.qkv_bias:
+        q, k, v = q + lp["bq"], k + lp["bk"], v + lp["bv"]
+    q = apply_rope(q.reshape(B, S, H, hd), positions, cfg.rope_theta)
+    k = apply_rope(k.reshape(B, S, K, hd), positions, cfg.rope_theta)
+    return q, k, v.reshape(B, S, K, hd)
+
+
+def _causal_mask(q_pos, k_pos, cfg: AttnCfg):
+    mask = q_pos[:, None] >= k_pos[None, :]
+    if cfg.sliding_window > 0:
+        mask &= (q_pos[:, None] - k_pos[None, :]) < cfg.sliding_window
+    return mask
+
+
+def _sdpa_chunk(q_chunk, k, v, q_pos, k_pos, cfg: AttnCfg):
+    """softmax(q k^T) v for one query chunk against full K/V, grouped GQA.
+    q_chunk: (B, c, H, hd); k/v: (B, S, K, hd)."""
+    B, c, H, hd = q_chunk.shape
+    K = k.shape[2]
+    q5 = q_chunk.reshape(B, c, K, H // K, hd)
+    scores = torch.einsum("bcgrd,bsgd->bgrcs", q5.to(torch.float32),
+                          k.to(torch.float32)) / (hd ** 0.5)
+    if cfg.causal:
+        mask = _causal_mask(q_pos, k_pos, cfg)
+        scores = torch.where(mask, scores, -1e30)
+    probs = torch.softmax(scores, dim=-1).to(q_chunk.dtype)
+    out = torch.einsum("bgrcs,bsgd->bcgrd", probs, v)
+    return out.reshape(B, c, H, hd)
+
+
+def _flash_kv_attention(q, k, v, positions, cfg: AttnCfg, kv_chunk: int):
+    """Attention chunked over the KEY/VALUE axis with an online softmax:
+    peak scores memory (B, H, S, kc) instead of (B, H, S, S)."""
+    B, S, H, hd = q.shape
+    K = k.shape[2]
+    rep = H // K
+    kc = min(kv_chunk, S)
+    if S % kc != 0:
+        kc = S
+    q5 = q.reshape(B, S, K, rep, hd).to(torch.float32)
+    m = torch.full((B, K, rep, S), -1e30, dtype=torch.float32,
+                   device=q.device)
+    l = torch.zeros((B, K, rep, S), dtype=torch.float32, device=q.device)
+    acc = torch.zeros((B, K, rep, S, hd), dtype=torch.float32,
+                      device=q.device)
+    for c0 in range(0, S, kc):
+        k_c, v_c = k[:, c0:c0 + kc], v[:, c0:c0 + kc]
+        s = torch.einsum("bsgrd,btgd->bgrst", q5,
+                         k_c.to(torch.float32)) / (hd ** 0.5)
+        if cfg.causal:
+            mask = _causal_mask(positions, positions[c0:c0 + kc], cfg)
+            s = torch.where(mask, s, -1e30)
+        m_new = torch.maximum(m, s.amax(dim=-1))
+        scale = torch.exp(m - m_new)
+        p = torch.exp(s - m_new[..., None])
+        l = l * scale + p.sum(dim=-1)
+        acc = acc * scale[..., None] + torch.einsum(
+            "bgrst,btgd->bgrsd", p.to(v_c.dtype).to(torch.float32),
+            v_c.to(torch.float32))
+        m = m_new
+    out = acc / torch.clamp_min(l, 1e-30)[..., None]
+    # (B, K, rep, S, hd) -> (B, S, H*hd)
+    return out.permute(0, 3, 1, 2, 4).reshape(B, S, H * hd).to(q.dtype)
+
+
+def attention(x, lp, cfg: AttnCfg, positions):
+    """Training attention, x: (B, S, D) -> (B, S, D): one block for
+    S <= q_chunk, KV-chunked flash attention above."""
+    B, S, _ = x.shape
+    q, k, v = _qkv(x, lp, cfg, positions)
+    if S <= cfg.q_chunk:
+        y = _sdpa_chunk(q, k, v, positions, positions, cfg)
+        y = y.reshape(B, S, cfg.n_heads * cfg.d_head)
+    else:
+        y = _flash_kv_attention(q, k, v, positions, cfg, cfg.q_chunk)
+    return y @ lp["wo"]
+
+
+# ---------------------------------------------------------------------------
+# MLP / loss
+# ---------------------------------------------------------------------------
+
+def mlp_init(gen, d_model, d_ff, n_layers, dtype, device="cpu"):
+    return {"w1": _init(gen, (n_layers, d_model, d_ff), dtype=dtype,
+                        device=device),
+            "w3": _init(gen, (n_layers, d_model, d_ff), dtype=dtype,
+                        device=device),
+            "w2": _init(gen, (n_layers, d_ff, d_model), dtype=dtype,
+                        device=device)}
+
+
+def swiglu(x, lp):
+    return (F.silu(x @ lp["w1"]) * (x @ lp["w3"])) @ lp["w2"]
+
+
+def chunked_ce(x, head, targets, mask=None, chunk: int = 512):
+    """Sequence-chunked mean cross entropy: logits exist one (B, chunk, V)
+    chunk at a time. x: (B, S, D); head: (D, V); targets: (B, S) int;
+    mask: (B, S) float or None."""
+    B, S, _ = x.shape
+    if mask is None:
+        mask = torch.ones((B, S), dtype=torch.float32, device=x.device)
+    c = min(chunk, S)
+    tot = torch.zeros((), dtype=torch.float32, device=x.device)
+    cnt = torch.zeros((), dtype=torch.float32, device=x.device)
+    for s0 in range(0, S, c):
+        logits = (x[:, s0:s0 + c] @ head).to(torch.float32)
+        lse = torch.logsumexp(logits, dim=-1)
+        tgt = torch.gather(logits, -1, targets[:, s0:s0 + c, None].long())
+        nll = lse - tgt[..., 0]
+        mb = mask[:, s0:s0 + c]
+        tot = tot + torch.sum(nll * mb)
+        cnt = cnt + torch.sum(mb)
+    return tot / torch.clamp_min(cnt, 1.0)
