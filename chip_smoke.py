@@ -5,22 +5,32 @@
 
 Phases, each of which raises (non-zero exit, no result line) on failure:
 
-1. device and build: the card's name and power limit; both CUDA kernels
-   (``src/repro_torch/kernels/zsign/csrc``) compiled from the sources here.
+1. device and build: the card's name and power limit; all five CUDA kernels
+   (``src/repro_torch/kernels/*/csrc``) compiled from the sources here, one
+   nvcc each, all started together.
 2. kernels against their plain PyTorch versions on the card, at small
    shapes: E1 ``zsign_encode`` bit-exact (z=1: bit-exact or every differing
    bit within 4 f32 ulp of its threshold, the erf rule) and each client's
    bytes in a batched launch equal to its own n = 1 launch; R1
    ``sign_reduce`` with f32 weights and a 0/1 mask, with and without a
-   carried sum, equal as int32 bit patterns.
-3. the main path at full width: ``repro_torch.launch.train.run`` on
-   qwen2-0.5B (24 layers, d = 494,032,768 coordinates, bf16), 8 clients,
-   2 local steps, 3 rounds of zsign(z=1, sigma=0.01); finite loss, params
-   changed, 8 * d uplink bits per round, and each kernel launched exactly
-   once per round (a wrapper counts only launches on CUDA tensors, so this
-   also shows the cohort buffer and the wire stack lived on the card).
-4. times at the main path's shapes (n = 8, d as above) with CUDA events,
-   kernel and plain version compared on the same inputs, beside the bound.
+   carried sum; F1 ``ef_sign_rows`` (n in {1, 3, 8}, d not a multiple of
+   8192, one dead client, with and without q, in place); C1
+   ``zsign_compress_rows`` (sigma 0 and > 0, elements whose unfused y is
+   exactly 0); U1 ``unpack_sum``. Outputs are compared as int32 bit
+   patterns (bytes for payloads).
+3. three paths at full width through ``repro_torch.launch.train.run``:
+   qwen2-0.5B (24 layers, d = 494,032,768 coordinates, bf16), 8 clients, 2
+   local steps, 3 rounds each of zsign(z=1, sigma=0.01) (E1 + R1 once a
+   round), ef|zsign(use_kernel=true) (F1 + R1 once a round, E1 never; the
+   residual rows non-zero after round 1) and zsign_packed(z=2, sigma=0.01)
+   (C1 + R1 once a round). Each path: finite loss, params changed, 8 * d
+   uplink bits per round, and every launch counter set to 0 just before the
+   path and read just after (a wrapper counts only launches on CUDA
+   tensors, so this also shows the buffers lived on the card).
+4. the public op ``zsign_decompress_sum`` (U1, on no round path) on a
+   full-width payload stack, checked against R1 with unit weights; then
+   times at the paths' shapes (n = 8, d as above) with CUDA events, each
+   kernel beside its plain version on the same inputs and its bound.
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it
 lists each kernel with its check, launches and times.
@@ -49,12 +59,46 @@ NON_TENSOR_OPS_PER_S = 67e12
 OPS_PER_COUNTER = 13 * 3 + 3 * 3 + 4
 OPS_PER_ELEM = 8
 ERF_OPS = 20
+#: f32 ops per element of F1 (add, compare, select, subtract) and of C1
+#: (multiply, add, compare)
+EF_OPS_PER_ELEM = 4
+COMPRESS_OPS_PER_ELEM = 3
 
-FULL_ARGS = ["--arch", "qwen2_0_5b", "--clients", "8", "--local-steps", "2",
-             "--micro-batch", "2", "--seq-len", "64", "--rounds", "3",
-             "--compressor", "zsign", "--z", "1", "--sigma", "0.01",
-             "--device", "cuda"]
+COMMON_ARGS = ["--arch", "qwen2_0_5b", "--clients", "8", "--local-steps",
+               "2", "--micro-batch", "2", "--seq-len", "64", "--rounds", "3",
+               "--device", "cuda"]
+#: the three full-width paths: label, train flags, launches per round
+PATHS = [
+    ("zsign", ["--compressor", "zsign", "--z", "1", "--sigma", "0.01"],
+     {"zsign_encode": 1, "sign_reduce": 1, "ef_sign": 0,
+      "zsign_compress": 0}),
+    ("ef", ["--pipeline", "ef|zsign(use_kernel=true)"],
+     {"zsign_encode": 0, "sign_reduce": 1, "ef_sign": 1,
+      "zsign_compress": 0}),
+    ("zsign_packed_z2", ["--pipeline", "zsign_packed(z=2,sigma=0.01)"],
+     {"zsign_encode": 0, "sign_reduce": 1, "ef_sign": 0,
+      "zsign_compress": 1}),
+]
 QWEN2_COORDS = 494_032_768
+
+
+def _wrappers():
+    """Every kernel wrapper of the port, by kernel name."""
+    from repro_torch.kernels.efsign import ops as eops
+    from repro_torch.kernels.zsign import ops
+    return {"zsign_encode": ops.zsign_encode, "sign_reduce": ops.sign_reduce,
+            "ef_sign": eops.ef_sign_rows,
+            "zsign_compress": ops.zsign_compress_rows,
+            "unpack_sum": ops.unpack_sum}
+
+
+def _reset_counts():
+    for w in _wrappers().values():
+        w.launches = 0
+
+
+def _counts():
+    return {k: w.launches for k, w in _wrappers().items()}
 
 
 def _time_ms(fn, reps: int, warmup: int = 1) -> float:
@@ -77,8 +121,19 @@ def _bound(nbytes: float, ops: float):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+def _same_bits(a, b) -> bool:
+    if a.dtype == torch.float32:
+        return torch.equal(a.view(torch.int32), b.view(torch.int32))
+    return torch.equal(a, b)
+
+
+def _free():
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
 def phase_device_and_build():
-    from repro_torch.kernels.zsign import build
+    from repro_torch.kernels import build
     name = torch.cuda.get_device_name(0)
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -88,7 +143,7 @@ def phase_device_and_build():
     print(smi)
     t0 = time.time()
     build.build_all()
-    print(f"# kernels built in {time.time() - t0:.1f} s")
+    print(f"# {len(build.SOURCES)} kernels built in {time.time() - t0:.1f} s")
     for src, log in build.BUILD_LOG.items():
         used = [ln.strip() for ln in log.splitlines() if "Used" in ln
                 or "spill" in ln]
@@ -96,7 +151,7 @@ def phase_device_and_build():
     return name, smi
 
 
-def phase_kernel_checks(dev):
+def check_encode_and_reduce(dev):
     from repro_torch.core import noise
     from repro_torch.kernels.zsign import ops
     gen = torch.Generator(device=dev).manual_seed(11)
@@ -143,63 +198,130 @@ def phase_kernel_checks(dev):
                 got = ops.sign_reduce(packed, w, a)
                 want = ops.sign_reduce_plain(packed, w, a)
                 torch.cuda.synchronize()
-                if not torch.equal(got.view(torch.int32),
-                                   want.view(torch.int32)):
+                if not _same_bits(got, want):
                     raise AssertionError(f"R1 n={n} {wname} acc="
                                          f"{a is not None}: bits differ")
     print("# R1 checks passed (int32 bit patterns equal)")
     return flips_z1
 
 
-def phase_main_path():
-    from repro_torch.core import wire
+def check_ef_compress_unpack(dev):
+    from repro_torch.kernels.efsign import ops as eops
     from repro_torch.kernels.zsign import ops
+    gen = torch.Generator(device=dev).manual_seed(13)
+    d = 2 * 8192 + 37                     # not a multiple of 8192
+    d_pad = 3 * 8192
+    for n in (1, 3, 8):
+        g = torch.zeros((n, d_pad), device=dev)
+        g[:, :d] = torch.randn((n, d), generator=gen, device=dev)
+        e = torch.randn((n, d), generator=gen, device=dev) * 0.3
+        g[:, :d:7] = -e[:, ::7]           # p == 0 exactly: packs as +1
+        scale = torch.rand((n,), generator=gen, device=dev) + 0.1
+        live = torch.ones((n,), device=dev)
+        live[n // 2] = 0.0                # one dead client
+        for lv in (None, live):
+            for with_q in (False, True):
+                got = eops.ef_sign_rows(g, e, scale, live=lv, with_q=with_q)
+                want = eops.ef_sign_rows_plain(g, e, scale, live=lv,
+                                               with_q=with_q)
+                torch.cuda.synchronize()
+                for k in range(3 if with_q else 2):
+                    if not _same_bits(got[k], want[k]):
+                        raise AssertionError(
+                            f"F1 n={n} live={lv is not None} q={with_q}: "
+                            f"output {k} differs")
+        e2 = e.clone()
+        packed, out, _ = eops.ef_sign_rows(g, e2, scale, live=live,
+                                           in_place=True)
+        want = eops.ef_sign_rows_plain(g, e, scale, live=live)
+        torch.cuda.synchronize()
+        if (out.data_ptr() != e2.data_ptr() or not _same_bits(packed, want[0])
+                or not _same_bits(e2, want[1])
+                or not _same_bits(e2[n // 2], e[n // 2])):
+            raise AssertionError(f"F1 n={n} in place: differs")
+        x = torch.zeros((n, d_pad), device=dev)
+        nz = torch.zeros_like(x)
+        x[:, :d] = torch.randn((n, d), generator=gen, device=dev) * 0.05
+        nz[:, :d] = torch.randn((n, d), generator=gen, device=dev)
+        sig = torch.rand((n,), generator=gen, device=dev) * 0.1
+        x[:, :d:5] = -(sig.reshape(n, 1) * nz[:, :d:5])   # y == 0 unfused
+        for s in (sig, torch.zeros_like(sig)):
+            got = ops.zsign_compress_rows(x, nz, s)
+            want = ops.zsign_compress_rows_plain(x, nz, s)
+            torch.cuda.synchronize()
+            if not torch.equal(got, want):
+                raise AssertionError(f"C1 n={n}: bytes differ")
+        p = torch.randint(0, 256, (n, 5 * 1024 + 7), generator=gen,
+                          device=dev, dtype=torch.uint8)
+        got, want = ops.unpack_sum(p), ops.unpack_sum_plain(p)
+        torch.cuda.synchronize()
+        if not _same_bits(got, want):
+            raise AssertionError(f"U1 n={n}: bits differ")
+    print("# F1, C1, U1 checks passed (bit patterns equal)")
+
+
+def phase_path(label, flags, per_round):
+    """Drive one full-width path through ``train.run`` with every launch
+    counter at 0 just before and read just after."""
+    from repro_torch.core import wire
     from repro_torch.launch import train
-    args = train.parse_args(FULL_ARGS)
-    rounds = []
+    args = train.parse_args(COMMON_ARGS + flags)
+    rounds, residual_ok = [], []
 
     def on_round(t, before, after, m, sec):
         if t == 0:
             rounds.append({"embed0": before.params["embed"][:4].clone()})
+            if after.comp_state is not None:
+                ef = after.comp_state["ef"][0]
+                residual_ok.append(all(bool(torch.any(ef[c] != 0))
+                                       for c in range(ef.shape[0])))
         rounds.append({"sec": sec, "loss": float(m.loss),
                        "bits": float(m.uplink_bits),
                        "n_coords": wire.tree_spec(after.params).n_coords,
                        "final": after.params})
 
-    ops.zsign_encode.launches = 0
-    ops.sign_reduce.launches = 0
+    _reset_counts()
     history = train.run(args, on_round=on_round)
-    launches = {"zsign_encode": ops.zsign_encode.launches,
-                "sign_reduce": ops.sign_reduce.launches}
     torch.cuda.synchronize()
+    launches = _counts()
     first, per = rounds[0], rounds[1:]
     if len(history) != args.rounds or len(per) != args.rounds:
-        raise AssertionError("train.run did not run every round")
+        raise AssertionError(f"{label}: train.run did not run every round")
     for r in per:
         if not math.isfinite(r["loss"]):
-            raise AssertionError(f"non-finite loss {r['loss']}")
+            raise AssertionError(f"{label}: non-finite loss {r['loss']}")
         if r["n_coords"] != QWEN2_COORDS:
             raise AssertionError(f"d = {r['n_coords']} != {QWEN2_COORDS}")
         if r["bits"] != args.clients * QWEN2_COORDS:
-            raise AssertionError(f"uplink bits {r['bits']} != "
+            raise AssertionError(f"{label}: uplink bits {r['bits']} != "
                                  f"{args.clients} * {QWEN2_COORDS}")
-    final = per[-1]["final"]
-    if torch.equal(final["embed"][:4], first["embed0"]):
-        raise AssertionError("params did not change")
-    for name, count in launches.items():
-        if count != args.rounds:
-            raise AssertionError(f"{name} launched {count} times in "
-                                 f"{args.rounds} rounds (want one a round)")
+    if torch.equal(per[-1]["final"]["embed"][:4], first["embed0"]):
+        raise AssertionError(f"{label}: params did not change")
+    if residual_ok and not residual_ok[0]:
+        raise AssertionError(f"{label}: a residual row is zero after "
+                             "round 1")
+    for name, k in per_round.items():
+        if launches[name] != k * args.rounds:
+            raise AssertionError(
+                f"{label}: {name} launched {launches[name]} times in "
+                f"{args.rounds} rounds (want {k} a round)")
     secs = [r["sec"] for r in per]
-    print(json.dumps({"main_path": "qwen2_0_5b", "clients": args.clients,
-                      "local_steps": args.local_steps, "rounds": args.rounds,
-                      "round_s": secs,
+    print(json.dumps({"path": label, "flags": flags,
+                      "clients": args.clients,
+                      "local_steps": args.local_steps,
+                      "rounds": args.rounds, "round_s": secs,
                       "loss": [r["loss"] for r in per],
-                      "launches": launches}))
+                      "launches": launches,
+                      "residual_nonzero_after_round_1":
+                          residual_ok[0] if residual_ok else None}))
+    del rounds, history
+    _free()
     return launches, secs
 
 
-def phase_times(dev):
+def times_encode_reduce(dev):
+    """E1 and R1 at n = 8, full width; then the public op U1 on E1's
+    payload stack, held against R1 with unit weights."""
     from repro_torch.core import noise
     from repro_torch.kernels.zsign import ops
     n, d = 8, QWEN2_COORDS
@@ -212,7 +334,7 @@ def phase_times(dev):
     keys = noise.client_keys(noise.prng_key(7), 0, n)
     sig = torch.full((n,), 0.01, device=dev)
     z = 1
-    rows = []
+    rows = {}
     got = ops.zsign_encode(x, keys, sig, z)
     want = ops.zsign_encode_plain(x, keys, sig, z)
     torch.cuda.synchronize()
@@ -228,20 +350,19 @@ def phase_times(dev):
     enc_bound, enc_by = _bound(
         nbytes=elems * 4 + elems / 8 + keys.numel() * 8 + n * 4,
         ops=elems / 4 * OPS_PER_COUNTER + elems * (OPS_PER_ELEM + ERF_OPS))
-    rows.append({"name": "zsign_encode", "ms": enc_ms,
-                 "plain_ms": enc_plain_ms, "bound_ms": enc_bound,
-                 "bound_by": enc_by, "bits_differing": nflip,
-                 "max_abs_err": 1 if nflip else 0})
+    rows["zsign_encode"] = {
+        "ms": enc_ms, "plain_ms": enc_plain_ms, "bound_ms": enc_bound,
+        "bound_by": enc_by, "bits_differing": nflip,
+        "max_abs_err": 1 if nflip else 0}
     del x, want
-    gc.collect()
-    torch.cuda.empty_cache()
+    _free()
     packed = got
     mask = torch.ones((n,), device=dev)
     mask[3] = 0.0
     r_got = ops.sign_reduce(packed, mask)
     r_want = ops.sign_reduce_plain(packed, mask)
     torch.cuda.synchronize()
-    if not torch.equal(r_got.view(torch.int32), r_want.view(torch.int32)):
+    if not _same_bits(r_got, r_want):
         raise AssertionError("R1 at full width: bits differ")
     red_ms = _time_ms(lambda: ops.sign_reduce(packed, mask), reps=10,
                       warmup=2)
@@ -249,16 +370,121 @@ def phase_times(dev):
                             reps=2)
     red_bound, red_by = _bound(nbytes=n * nb + 8 * nb * 4 + n * 4,
                                ops=n * 8 * nb * 2)
-    rows.append({"name": "sign_reduce", "ms": red_ms,
-                 "plain_ms": red_plain_ms, "bound_ms": red_bound,
-                 "bound_by": red_by,
-                 "max_abs_err": float((r_got - r_want).abs().max())})
-    for r in rows:
-        print(json.dumps({"time": r["name"], "shape": f"n={n} d={d}",
-                          "ms": r["ms"], "plain_ms": r["plain_ms"],
-                          "bound_ms": r["bound_ms"],
-                          "bound_by": r["bound_by"]}))
-    return {r["name"]: r for r in rows}
+    rows["sign_reduce"] = {
+        "ms": red_ms, "plain_ms": red_plain_ms, "bound_ms": red_bound,
+        "bound_by": red_by,
+        "max_abs_err": float((r_got - r_want).abs().max())}
+    del r_got, r_want
+    _free()
+    # U1 through the public op, as a user calls it
+    from repro_torch.kernels.zsign import zsign_decompress_sum
+    _reset_counts()
+    u_got = zsign_decompress_sum(packed, d)
+    torch.cuda.synchronize()
+    u_launches = _counts()["unpack_sum"]
+    unit = ops.sign_reduce(packed, torch.ones((n,), device=dev))[:d]
+    u_plain = ops.unpack_sum_plain(packed)[:d]
+    torch.cuda.synchronize()
+    if not (_same_bits(u_got, unit) and _same_bits(u_got, u_plain)):
+        raise AssertionError("U1 at full width: differs from R1 with unit "
+                             "weights or from its plain version")
+    del unit
+    u_ms = _time_ms(lambda: ops.unpack_sum(packed), reps=10, warmup=2)
+    u_plain_ms = _time_ms(lambda: ops.unpack_sum_plain(packed), reps=2)
+    u_bound, u_by = _bound(nbytes=n * nb + 8 * nb * 4,
+                           ops=n * 8 * nb * 2)
+    rows["unpack_sum"] = {
+        "ms": u_ms, "plain_ms": u_plain_ms, "bound_ms": u_bound,
+        "bound_by": u_by, "launches": u_launches,
+        "max_abs_err": float((u_got - u_plain).abs().max())}
+    del packed, got, u_got, u_plain
+    _free()
+    return rows
+
+
+def times_ef(dev):
+    """F1 at n = 8, full width: the encode form (no q) checked against its
+    plain version and timed, the form with q timed; and the plain-torch
+    scale reduction the EF path runs before F1."""
+    from repro_torch.core import compression
+    from repro_torch.kernels.efsign import ops as eops
+    n, d = 8, QWEN2_COORDS
+    d_pad = -(-d // eops.TILE) * eops.TILE
+    gen = torch.Generator(device=dev).manual_seed(14)
+    g = torch.zeros((n, d_pad), device=dev)
+    e = torch.empty((n, d), device=dev)
+    for c in range(n):
+        g[c, :d] = torch.randn((d,), generator=gen, device=dev) * 0.01
+        e[c] = torch.randn((d,), generator=gen, device=dev) * 0.003
+    live = torch.ones((n,), device=dev)
+    live[3] = 0.0
+    scale = compression._mean_abs_rows(g, d, e)
+    scale_ms = _time_ms(lambda: compression._mean_abs_rows(g, d, e), reps=3)
+    got = eops.ef_sign_rows(g, e, scale, live=live)
+    torch.cuda.synchronize()
+    want = eops.ef_sign_rows_plain(g, e, scale, live=live)
+    torch.cuda.synchronize()
+    if not (_same_bits(got[0], want[0]) and _same_bits(got[1], want[1])):
+        raise AssertionError("F1 at full width: differs from plain")
+    err = 0.0          # equal bit patterns (no (n, d) difference buffer)
+    del got, want
+    _free()
+    # timed as the paths run it: every client live, e' over e in place
+    live = torch.ones((n,), device=dev)
+    ms = _time_ms(lambda: eops.ef_sign_rows(g, e, scale, live=live,
+                                            in_place=True), reps=10,
+                  warmup=2)
+    plain_ms = _time_ms(lambda: eops.ef_sign_rows_plain(
+        g, e, scale, live=live, in_place=True), reps=2)
+    ms_q = _time_ms(lambda: eops.ef_sign_rows(g, e, scale, live=live,
+                                              in_place=True, with_q=True),
+                    reps=5, warmup=1)
+    elems = n * d_pad
+    # reads g and e, writes e' and the payload (and the scale, live flags)
+    nbytes = elems * 4 + 2 * n * d * 4 + elems / 8 + n * 8
+    bound, by = _bound(nbytes=nbytes, ops=elems * EF_OPS_PER_ELEM)
+    bound_q, _ = _bound(nbytes=nbytes + n * d * 4,
+                        ops=elems * EF_OPS_PER_ELEM)
+    scale_bound, _ = _bound(nbytes=2 * n * d * 4 + n * 4, ops=3 * n * d)
+    del g, e
+    _free()
+    return {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
+            "bound_by": by, "ms_with_q": ms_q, "bound_ms_with_q": bound_q,
+            "scale_reduction_ms": scale_ms,
+            "scale_reduction_bound_ms": scale_bound, "max_abs_err": err}
+
+
+def times_compress(dev):
+    """C1 at n = 8, full width, on the z=2 noise the dense path draws."""
+    from repro_torch.core import noise
+    from repro_torch.kernels.zsign import ops
+    n, d = 8, QWEN2_COORDS
+    d_pad = -(-d // ops.TILE) * ops.TILE
+    gen = torch.Generator(device=dev).manual_seed(15)
+    x = torch.zeros((n, d_pad), device=dev)
+    nz = torch.zeros_like(x)
+    keys = noise.client_keys(noise.prng_key(9), 0, n)
+    for c in range(n):
+        x[c, :d] = torch.randn((d,), generator=gen, device=dev) * 0.01
+        nz[c, :d] = noise.sample_z_noise(keys[c], (d,), 2, device=dev)
+    sig = torch.full((n,), 0.01, device=dev)
+    got = ops.zsign_compress_rows(x, nz, sig)
+    want = ops.zsign_compress_rows_plain(x, nz, sig)
+    torch.cuda.synchronize()
+    if not torch.equal(got, want):
+        raise AssertionError("C1 at full width: bytes differ from plain")
+    del got, want
+    ms = _time_ms(lambda: ops.zsign_compress_rows(x, nz, sig), reps=10,
+                  warmup=2)
+    plain_ms = _time_ms(lambda: ops.zsign_compress_rows_plain(x, nz, sig),
+                        reps=2)
+    elems = n * d_pad
+    bound, by = _bound(nbytes=2 * elems * 4 + elems / 8 + n * 4,
+                       ops=elems * COMPRESS_OPS_PER_ELEM)
+    del x, nz
+    _free()
+    return {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
+            "bound_by": by, "max_abs_err": 0}
 
 
 def main() -> int:
@@ -269,36 +495,62 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     name, smi = phase_device_and_build()
-    flips_z1 = phase_kernel_checks(dev)
-    launches, secs = phase_main_path()
-    gc.collect()
-    torch.cuda.empty_cache()
-    times = phase_times(dev)
+    flips_z1 = check_encode_and_reduce(dev)
+    check_ef_compress_unpack(dev)
+    path_launches, path_secs = {}, {}
+    for label, flags, per_round in PATHS:
+        path_launches[label], path_secs[label] = phase_path(label, flags,
+                                                            per_round)
+    times = times_encode_reduce(dev)
+    times["ef_sign"] = times_ef(dev)
+    times["zsign_compress"] = times_compress(dev)
+    for k, r in times.items():
+        print(json.dumps({"time": k, "shape": f"n=8 d={QWEN2_COORDS}",
+                          **{f: v for f, v in r.items()}}))
     enc, red = times["zsign_encode"], times["sign_reduce"]
-    other_ms = min(secs) * 1e3 - enc["ms"] - red["ms"]
+    secs = path_secs["zsign"]
     print(json.dumps({"round_split_ms": {
         "round_min": min(secs) * 1e3, "encode_E1": enc["ms"],
-        "reduce_R1": red["ms"], "local_sgd_and_rest": other_ms},
+        "reduce_R1": red["ms"],
+        "local_sgd_and_rest": min(secs) * 1e3 - enc["ms"] - red["ms"]},
+        "round_min_s": {k: min(v) for k, v in path_secs.items()},
         "card": smi}))
+    src = "src/repro_torch/kernels/"
+    tpu = "src/repro/kernels/"
     kernels = [
         {"name": "zsign_encode", "route": "cuda",
-         "source": "src/repro_torch/kernels/zsign/csrc/zsign_encode.cu",
-         "replaces": "src/repro/kernels/zsign/zsign.py:145",
-         "launches": launches["zsign_encode"],
-         "max_abs_err": enc["max_abs_err"], "ms": enc["ms"],
-         "plain_ms": enc["plain_ms"], "bound_ms": enc["bound_ms"],
-         "bound_by": enc["bound_by"], "library_ms": None,
+         "source": src + "zsign/csrc/zsign_encode.cu",
+         "replaces": tpu + "zsign/zsign.py:145",
+         "launches": path_launches["zsign"]["zsign_encode"],
          "check": f"bit-exact vs plain, z=1 flips {flips_z1} (small) / "
                   f"{enc['bits_differing']} (full width)"},
         {"name": "sign_reduce", "route": "cuda",
-         "source": "src/repro_torch/kernels/zsign/csrc/sign_reduce.cu",
-         "replaces": "src/repro/kernels/zsign/zsign.py:226",
-         "launches": launches["sign_reduce"],
-         "max_abs_err": red["max_abs_err"], "ms": red["ms"],
-         "plain_ms": red["plain_ms"], "bound_ms": red["bound_ms"],
-         "bound_by": red["bound_by"], "library_ms": None,
+         "source": src + "zsign/csrc/sign_reduce.cu",
+         "replaces": tpu + "zsign/zsign.py:226",
+         "launches": path_launches["zsign"]["sign_reduce"],
          "check": "int32 bit patterns equal to plain"},
+        {"name": "ef_sign", "route": "cuda",
+         "source": src + "efsign/csrc/ef_sign.cu",
+         "replaces": tpu + "efsign/efsign.py:39",
+         "launches": path_launches["ef"]["ef_sign"],
+         "check": "payload bytes and e' int32 bit patterns equal to plain"},
+        {"name": "zsign_compress", "route": "cuda",
+         "source": src + "zsign/csrc/zsign_compress.cu",
+         "replaces": tpu + "zsign/zsign.py:68",
+         "launches": path_launches["zsign_packed_z2"]["zsign_compress"],
+         "check": "payload bytes equal to plain"},
+        {"name": "unpack_sum", "route": "cuda",
+         "source": src + "zsign/csrc/unpack_sum.cu",
+         "replaces": tpu + "zsign/zsign.py:193",
+         "launches": times["unpack_sum"]["launches"],
+         "check": "int32 bit patterns equal to plain and to R1 with unit "
+                  "weights; launched by the public op zsign_decompress_sum "
+                  "(on no round path)"},
     ]
+    keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by")
+    for k in kernels:
+        k.update({f: times[k["name"]][f] for f in keys})
+        k["library_ms"] = None
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

@@ -5,7 +5,8 @@
 one: the CUDA kernel for tensors on a card, the plain PyTorch path anywhere
 else. Backend names of the port: ``auto``, ``torch`` (plain PyTorch ops on
 the tensor's device) and ``cuda`` (the hand-written kernel; on a CPU tensor
-its wrapper runs the kernel's plain version).
+its wrapper runs the kernel's plain version); the encode also has
+``reference``, the dense-noise draw (``SignCodec._encode_dense``).
 """
 from __future__ import annotations
 
@@ -14,14 +15,12 @@ from typing import Optional
 
 #: server sign-reduce backends
 AGG_BACKENDS = ("auto", "torch", "cuda")
-#: client fused-encode backends
-ENCODE_BACKENDS = ("auto", "torch", "cuda")
+#: client encode backends
+ENCODE_BACKENDS = ("auto", "torch", "cuda", "reference")
 _VALID = {"agg": AGG_BACKENDS, "encode": ENCODE_BACKENDS}
 #: reference backends with no port yet, and the ROADMAP item that ports them
 _UNPORTED = {
     ("agg", "dense"): "the dense-matrix oracle (ROADMAP queue 1 item 2)",
-    ("encode", "reference"): "the dense-noise encode and kernel K5 "
-                             "(ROADMAP queue 2)",
 }
 
 #: cohort execution modes (see CohortPolicy)

@@ -6,17 +6,22 @@ One round step:
         E local SGD steps from the server params -> pseudo-gradient
         (x0 - xE)/gamma in f32 (or the batch gradient when E == 1),
         written into row c of ONE preallocated (n, d_pad) f32 buffer
-    -> ONE batched fused encode over the n rows (kernel E1 on a card:
-       per-client keys and sigma, 1 bit/coord)
+    -> ONE batched encode over the n rows and their pipeline state (on a
+       card: kernel E1 for the counter-noise sign encode, C1 for the
+       dense-noise one, F1 for the fused EF-SignSGD step; 1 bit/coord)
     -> ONE weighted sign-reduce over the (n, d_pad/8) uint8 stack (R1)
     -> decode_sum (/ n_live, * eta_z * sigma) -> unflatten once -> server
        optimizer step.
 
 That is what the reference runs on a TPU for a cohort of 2 or more clients:
-the batched encode kernel (K2) and then the sign-reduce kernel (K3).
-Per-client PRNG keys are derived by GLOBAL client index exactly like the
-reference (``rng, sub = split(state.rng)``; client j's key is
-``fold_in(sub, j)``), so the port draws the reference's random bits.
+the batched encode kernel (K2, K5 or K4 under vmap) and then the sign-reduce
+kernel (K3). Per-client PRNG keys are derived by GLOBAL client index exactly
+like the reference (``rng, sub = split(state.rng)``; client j's key is
+``fold_in(sub, j)``), so the port draws the reference's counter-stream bits.
+
+Stateful pipelines (``ef``) keep ``ServerState.comp_state`` = ``{slot:
+(1, n_clients, d)}``; a dead client keeps its rows bit-exactly. The fused EF
+path updates those rows in place (see ``Pipeline.encode_batch``).
 
 Ported plan: ``cohort`` auto/vmap with ``client_groups == 1``. A round that
 resolves to the streaming plan, or ``client_groups > 1``, raises.
@@ -54,9 +59,13 @@ class FedConfig:
 class ServerState(NamedTuple):
     params: Any
     opt_state: Any
+    #: stacked per-client pipeline state {slot: (1, n_clients, ...)} or None
+    comp_state: Any
     rng: torch.Tensor             # (2,) int64 key words
     round: int
     sigma: torch.Tensor           # f32 scalar, the codec's noise scale
+    #: shared server-scope pipeline state (no ported stage declares one)
+    comp_server: Any = None
 
 
 class RoundMetrics(NamedTuple):
@@ -80,12 +89,15 @@ def _check_supported(cfg: FedConfig) -> None:
 
 def init_server_state(params, cfg: FedConfig, compressor, rng: torch.Tensor,
                       sigma0: float = 0.0) -> ServerState:
-    del compressor  # no stateful pipeline stage is ported yet
     _check_supported(cfg)
     device = tree_leaves(params)[0].device
+    # one zero state row per client per slot: (groups, n_clients, ...)
+    cstate = compressor.init_state(wire.tree_spec(params).n_coords,
+                                   lead=(cfg.client_groups, cfg.n_clients),
+                                   device=device)
     return ServerState(params=params,
                        opt_state=_server_optimizer(cfg).init(params),
-                       rng=rng, round=0,
+                       comp_state=cstate, rng=rng, round=0,
                        sigma=torch.tensor(sigma0, dtype=torch.float32,
                                           device=device))
 
@@ -184,14 +196,21 @@ def build_round_step(loss_fn: Callable, compressor, cfg: FedConfig,
                           buf[c], gamma_t)
             for c in range(n)])
         with torch.no_grad():
-            enc = compressor.encode_batch(keys, buf)
+            # client group 0 of the stacked state: views of its rows
+            cstate = (None if state.comp_state is None else
+                      {k: v[0] for k, v in state.comp_state.items()})
+            enc, cstate = compressor.encode_batch(keys, buf, d, cstate,
+                                                  mask_g)
             del buf
+            if cstate is not None:
+                cstate = {k: v.unsqueeze(0) for k, v in cstate.items()}
             enc_sum = compressor.aggregate(enc, mask_g, d)
             loss_sum = torch.sum(torch.where(mask_g > 0, losses * mask_g,
                                              0.0))
-            return _finish(state, spec, rng, enc_sum, loss_sum, mask_g)
+            return _finish(state, spec, rng, enc_sum, loss_sum, mask_g,
+                           cstate)
 
-    def _finish(state, spec, rng, enc_sum, loss_sum, mask_g):
+    def _finish(state, spec, rng, enc_sum, loss_sum, mask_g, cstate):
         n_live = torch.clamp_min(torch.sum(mask_g), 1.0)
         g_flat = compressor.decode_sum(enc_sum, n_live)
         # the ONE unflatten: decoded flat estimate -> params-shaped tree
@@ -207,8 +226,9 @@ def build_round_step(loss_fn: Callable, compressor, cfg: FedConfig,
             uplink_bits=n_live * float(spec.n_coords
                                        * compressor.wire_bits_per_coord))
         new_state = ServerState(params=new_params, opt_state=new_opt,
-                                rng=rng, round=state.round + 1,
-                                sigma=state.sigma)
+                                comp_state=cstate, rng=rng,
+                                round=state.round + 1, sigma=state.sigma,
+                                comp_server=state.comp_server)
         return new_state, metrics
 
     return round_step

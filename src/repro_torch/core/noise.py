@@ -10,6 +10,10 @@ feed four coordinates as 16-bit open uniforms. Any tile of the stream can
 therefore be generated on its own, in a CUDA block or in a chunk of the
 plain version, and both give the reference's exact bits.
 
+Finite z > 1 has no cheap inverse CDF: its encode draws a dense noise
+buffer (``sample_z_noise``) from a ``torch.Generator`` seeded from the
+client's key. That draw follows the reference's law, not its bits.
+
 torch has no ``add`` or shifts for ``torch.uint32`` on the CPU, so the plain
 threefry works on int64 tensors (or Python ints) that hold uint32 words and
 masks every result with ``0xFFFFFFFF``.
@@ -162,3 +166,83 @@ def eta_z(z: int) -> float:
     if z <= Z_INF:
         return 1.0
     return 2.0 ** (1.0 / (2 * z)) * math.gamma(1.0 + 1.0 / (2 * z))
+
+
+def u01_to_noise(u: torch.Tensor, z: int) -> torch.Tensor:
+    """u in (0,1) -> xi = F_z^{-1}(u), the z-noise inverse CDF (z=inf or 1)."""
+    xi = 2.0 * u - 1.0
+    if z == 1:
+        return math.sqrt(2.0) * torch.erfinv(xi)
+    if z <= Z_INF:
+        return xi
+    raise ValueError(f"u01_to_noise covers z=inf and z=1 only, got {z}")
+
+
+def counter_noise(key: torch.Tensor, n: int, z: int,
+                  tile: int = 8192) -> torch.Tensor:
+    """(n,) z-noise values from the counter stream (F_z^{-1} of tile_u01),
+    the dense view of the stream the fused encode consumes."""
+    if not counter_supported(z):
+        raise ValueError(f"counter stream covers z=inf and z=1 only, got {z}")
+    k0, k1 = key_words(key)
+    n_tiles = -(-n // tile)
+    u = torch.cat([tile_u01(k0, k1, t * tile, tile) for t in range(n_tiles)])
+    return u01_to_noise(u, z)[:n]
+
+
+def key_generator(key: torch.Tensor, device=None) -> torch.Generator:
+    """A ``torch.Generator`` on ``device`` seeded from a key's two uint32
+    words (seed = k0 << 32 | k1): the same key always gives the same draw."""
+    k0, k1 = (int(w) & M32 for w in torch.as_tensor(key).reshape(2).tolist())
+    gen = torch.Generator(device=torch.device(device or "cpu"))
+    return gen.manual_seed((k0 << 32) | k1)
+
+
+def sample_z_noise(key: torch.Tensor, shape, z: int, device=None,
+                   dtype=torch.float32) -> torch.Tensor:
+    """Draw i.i.d. xi_z with p.d.f. p_z (Definition 1) from the generator
+    of ``key`` (``key_generator``). The law is the reference's: uniform on
+    [-1, 1) for z=inf, standard normal for z=1, and for finite z > 1
+    ``(2 * Gamma(1/(2z)))^(1/(2z))`` with a Rademacher sign. torch cannot
+    reproduce jax.random's bits, so the draw matches the reference in
+    distribution only."""
+    device = torch.device(device or "cpu")
+    gen = key_generator(key, device)
+    shape = tuple(shape)
+    if z <= Z_INF:
+        u = torch.rand(shape, generator=gen, device=device)
+        return (2.0 * u - 1.0).to(dtype)
+    if z == 1:
+        return torch.randn(shape, generator=gen, device=device).to(dtype)
+    k = 1.0 / (2 * z)
+    u = torch._standard_gamma(
+        torch.full(shape, k, dtype=torch.float32, device=device),
+        generator=gen)
+    mag = (u * 2.0) ** k
+    sign = torch.randint(0, 2, shape, generator=gen, device=device,
+                         dtype=torch.int8)
+    return torch.where(sign > 0, mag, -mag).to(dtype)
+
+
+def pdf_z(t, z: int) -> torch.Tensor:
+    """p_z(t), for tests and benchmarks."""
+    t = torch.as_tensor(t, dtype=torch.float32)
+    if z <= Z_INF:
+        return torch.where(torch.abs(t) <= 1.0, 0.5, 0.0)
+    return torch.exp(-(t ** (2 * z)) / 2.0) / (2.0 * eta_z(z))
+
+
+def expected_sign(x, sigma: float, z: int) -> torch.Tensor:
+    """eta_z * sigma * E[Sign(x + sigma*xi_z)], the debiased estimator's
+    mean: ``sigma * Psi_z(x/sigma)`` with Psi_z(r) = int_0^r
+    exp(-t^{2z}/2) dt (exact for z=inf, a 256-point midpoint rule on
+    [0, r] otherwise, as in the reference)."""
+    x = torch.as_tensor(x, dtype=torch.float32)
+    r = x / sigma
+    if z <= Z_INF:
+        return sigma * torch.clip(r, -1.0, 1.0)
+    n = 256
+    u = (torch.arange(n, dtype=torch.float32) + 0.5) / n
+    integ = torch.mean(torch.exp(-((r[..., None] * u) ** (2 * z)) / 2.0),
+                       dim=-1)
+    return sigma * r * integ

@@ -1,12 +1,21 @@
 """Wrappers of the z-sign CUDA kernels, and their plain PyTorch versions.
 
-Two kernels (sources in ``csrc/``, built by ``build.py``):
+Four kernels (sources in ``csrc/``, built by ``repro_torch.kernels.build``):
 
-  ``zsign_encode``  E1, the fused counter-noise sign encode of a stack of
-                    clients (replaces the TPU kernels K1/K2,
-                    ``compress_rng_pallas`` and ``compress_rng_pallas_batched``)
-  ``sign_reduce``   R1, the weighted sign-reduce over the packed client stack
-                    (replaces K3, ``sign_reduce_pallas``)
+  ``zsign_encode``        E1, the fused counter-noise sign encode of a stack
+                          of clients (replaces the TPU kernels K1/K2,
+                          ``compress_rng_pallas`` and
+                          ``compress_rng_pallas_batched``)
+  ``sign_reduce``         R1, the weighted sign-reduce over the packed client
+                          stack (replaces K3, ``sign_reduce_pallas``)
+  ``zsign_compress_rows`` C1, the dense-noise sign encode of a stack of
+                          clients (replaces K5, ``compress_pallas``)
+  ``unpack_sum``          U1, the unweighted sum of signs over the packed
+                          client stack (replaces K6, ``unpack_sum_pallas``)
+
+``zsign_compress`` and ``zsign_decompress_sum`` are the reference's public
+ops of the same names (one client of any shape; a stack with a coordinate
+count), built on C1 and U1.
 
 Each wrapper takes the plain version for tensors that lie on the CPU and
 launches its kernel for CUDA tensors; it never falls back. The launch counter
@@ -19,7 +28,8 @@ from typing import Optional
 import torch
 
 from repro_torch.core import noise as znoise
-from repro_torch.core.wire import SIGN_REDUCE_CLIENT_BLK, pack_bool
+from repro_torch.core.wire import SIGN_REDUCE_CLIENT_BLK, pack_bool, pad_to
+from repro_torch.kernels.build import check_cuda, launcher, raise_on
 
 TILE = 8192          # elements per encode tile (8 rows x 1024 lanes on TPU)
 QUARTER = TILE // 4  # counters per tile: one threefry call feeds 4 elements
@@ -33,25 +43,10 @@ def _mode(z) -> int:
     if z is not None and z <= znoise.Z_INF:
         z = znoise.Z_INF
     if z not in _MODES:
-        raise NotImplementedError(
+        raise ValueError(
             f"the counter encode covers z=inf and z=1; finite z={z} > 1 "
-            "needs the dense-noise kernel K5, not yet ported (ROADMAP "
-            "queue 2)")
+            "takes the dense-noise encode (zsign_compress_rows)")
     return _MODES[z]
-
-
-def _check_cuda(t: torch.Tensor, name: str, dtype) -> None:
-    if t.device.type != "cuda":
-        raise ValueError(f"{name} must be a CUDA tensor, got {t.device}")
-    if t.dtype != dtype:
-        raise ValueError(f"{name} must be {dtype}, got {t.dtype}")
-    if not t.is_contiguous() or t.data_ptr() % 16:
-        raise ValueError(f"{name} must be contiguous and 16-byte aligned")
-
-
-def _raise_on(err: int, what: str) -> None:
-    if err != 0:
-        raise RuntimeError(f"{what} launch failed: cudaError_t {err}")
 
 
 # ---------------------------------------------------------------------------
@@ -116,15 +111,14 @@ def zsign_encode(x2d: torch.Tensor, keys: torch.Tensor, sigma: torch.Tensor,
     if keys.shape != (n, 2) or sigma.shape != (n,):
         raise ValueError(f"keys {tuple(keys.shape)} / sigma "
                          f"{tuple(sigma.shape)} do not match n={n}")
-    _check_cuda(x2d, "x2d", torch.float32)
+    check_cuda(x2d, "x2d", torch.float32)
     out = torch.empty((n, d_pad // 8), dtype=torch.uint8, device=x2d.device)
-    from repro_torch.kernels.zsign.build import launcher
-    fn = launcher("zsign_encode.cu", "zsign_encode_launch")
+    fn = launcher("zsign/csrc/zsign_encode.cu", "zsign_encode_launch")
     with torch.cuda.device(x2d.device):
         err = fn(x2d.data_ptr(), keys.data_ptr(), sigma.data_ptr(),
                  out.data_ptr(), n, d_pad, mode,
                  torch.cuda.current_stream().cuda_stream)
-    _raise_on(err, "zsign_encode")
+    raise_on(err, "zsign_encode")
     zsign_encode.launches += 1
     return out
 
@@ -137,10 +131,7 @@ def zsign_encode_fused(x: torch.Tensor, key: torch.Tensor, sigma, *, z,
     """One client's fused encode (mirror of the reference's
     ``zsign_encode_fused``): any-shape f32 ``x`` and a (2,) key ->
     uint8 of ceil(x.numel()/8192)*1024 bytes."""
-    flat = x.reshape(-1).to(torch.float32)
-    pad = (-flat.numel()) % TILE
-    if pad:
-        flat = torch.nn.functional.pad(flat, (0, pad))
+    flat = pad_to(x.reshape(-1).to(torch.float32), TILE)
     sig = torch.as_tensor(sigma, dtype=torch.float32,
                           device=flat.device).reshape(1)
     return zsign_encode(flat.reshape(1, -1), key.reshape(1, 2), sig,
@@ -224,21 +215,135 @@ def sign_reduce(packed: torch.Tensor, weights: torch.Tensor,
     if w.shape != (n,):
         raise ValueError(f"weights {tuple(w.shape)} do not match n={n}")
     packed = packed.contiguous()
-    _check_cuda(packed, "packed", torch.uint8)
+    check_cuda(packed, "packed", torch.uint8)
     if acc is not None:
-        _check_cuda(acc, "acc", torch.float32)
+        check_cuda(acc, "acc", torch.float32)
         if acc.shape != (8 * nb,):
             raise ValueError(f"acc {tuple(acc.shape)} != ({8 * nb},)")
     out = torch.empty(8 * nb, dtype=torch.float32, device=packed.device)
-    from repro_torch.kernels.zsign.build import launcher
-    fn = launcher("sign_reduce.cu", "sign_reduce_launch")
+    fn = launcher("zsign/csrc/sign_reduce.cu", "sign_reduce_launch")
     with torch.cuda.device(packed.device):
         err = fn(packed.data_ptr(), w.data_ptr(),
                  None if acc is None else acc.data_ptr(), out.data_ptr(),
                  n, nb, torch.cuda.current_stream().cuda_stream)
-    _raise_on(err, "sign_reduce")
+    raise_on(err, "sign_reduce")
     sign_reduce.launches += 1
     return out
 
 
 sign_reduce.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# C1: dense-noise sign encode
+# ---------------------------------------------------------------------------
+
+def zsign_compress_rows_plain(x2d: torch.Tensor, noise2d: torch.Tensor,
+                              sigma: torch.Tensor) -> torch.Tensor:
+    """Plain version of C1: (n, d_pad) f32 x and noise, (n,) f32 sigma ->
+    (n, d_pad/8) uint8 of ``x + sigma*noise >= 0``. The product and the sum
+    are two tensor ops, each rounded on its own (no multiply-add). Walks
+    CHUNK_TILES tiles at a time."""
+    n, d_pad = x2d.shape
+    if d_pad % TILE or noise2d.shape != x2d.shape:
+        raise ValueError(f"x {tuple(x2d.shape)} / noise "
+                         f"{tuple(noise2d.shape)}: rows must match and be a "
+                         f"multiple of {TILE}")
+    sig = sigma.to(device=x2d.device, dtype=torch.float32).reshape(n, 1)
+    out = torch.empty((n, d_pad // 8), dtype=torch.uint8, device=x2d.device)
+    for s in range(0, d_pad, CHUNK_TILES * TILE):
+        e = min(s + CHUNK_TILES * TILE, d_pad)
+        y = x2d[:, s:e] + sig * noise2d[:, s:e]
+        out[:, s // 8:e // 8] = pack_bool(y >= 0)
+    return out
+
+
+def zsign_compress_rows(x2d: torch.Tensor, noise2d: torch.Tensor,
+                        sigma: torch.Tensor) -> torch.Tensor:
+    """C1: client-batched dense-noise encode. x2d and noise2d (n, d_pad)
+    f32 with d_pad a multiple of 8192 (padded noise zero), sigma (n,) f32
+    -> (n, d_pad/8) uint8: bit j of byte i of row c is
+    ``x[c, 8i+j] + sigma_c * noise[c, 8i+j] >= 0``."""
+    if x2d.device.type == "cpu":
+        return zsign_compress_rows_plain(x2d, noise2d, sigma)
+    n, d_pad = x2d.shape
+    if d_pad % TILE or noise2d.shape != x2d.shape:
+        raise ValueError(f"x {tuple(x2d.shape)} / noise "
+                         f"{tuple(noise2d.shape)}: rows must match and be a "
+                         f"multiple of {TILE}")
+    if not 1 <= n < 65536:
+        raise ValueError(f"n={n} clients is outside the kernel grid")
+    sigma = sigma.to(device=x2d.device, dtype=torch.float32).contiguous()
+    if sigma.shape != (n,):
+        raise ValueError(f"sigma {tuple(sigma.shape)} does not match n={n}")
+    check_cuda(x2d, "x2d", torch.float32)
+    check_cuda(noise2d, "noise2d", torch.float32)
+    out = torch.empty((n, d_pad // 8), dtype=torch.uint8, device=x2d.device)
+    fn = launcher("zsign/csrc/zsign_compress.cu", "zsign_compress_launch")
+    with torch.cuda.device(x2d.device):
+        err = fn(x2d.data_ptr(), noise2d.data_ptr(), sigma.data_ptr(),
+                 out.data_ptr(), n, d_pad,
+                 torch.cuda.current_stream().cuda_stream)
+    raise_on(err, "zsign_compress")
+    zsign_compress_rows.launches += 1
+    return out
+
+
+zsign_compress_rows.launches = 0
+
+
+def zsign_compress(x: torch.Tensor, noise: torch.Tensor,
+                   sigma) -> torch.Tensor:
+    """Fused noisy sign + bitpack of one client (mirror of the reference's
+    ``zsign_compress``): any-shape f32 ``x`` and ``noise`` -> uint8 of
+    ceil(x.numel()/8192)*1024 bytes (the zero-padded tail packs as +1)."""
+    flat = pad_to(x.reshape(-1).to(torch.float32), TILE)
+    nz = pad_to(noise.reshape(-1).to(torch.float32), TILE)
+    sig = torch.as_tensor(sigma, dtype=torch.float32,
+                          device=flat.device).reshape(1)
+    return zsign_compress_rows(flat.reshape(1, -1), nz.reshape(1, -1),
+                               sig).reshape(-1)
+
+
+# ---------------------------------------------------------------------------
+# U1: unweighted sign sum
+# ---------------------------------------------------------------------------
+
+def unpack_sum_plain(packed: torch.Tensor) -> torch.Tensor:
+    """Plain version of U1: (n, nb) uint8 -> (8*nb,) f32, the count of set
+    bits per coordinate turned into the sum of +/-1 (exact in f32 for
+    n < 2^24, as any order of the reference's f32 sum is)."""
+    n = packed.shape[0]
+    shifts = torch.arange(8, device=packed.device, dtype=torch.uint8)
+    ones = ((packed.unsqueeze(-1) >> shifts) & 1).sum(0, dtype=torch.int32)
+    return (2 * ones - n).to(torch.float32).reshape(-1)
+
+
+def unpack_sum(packed: torch.Tensor) -> torch.Tensor:
+    """U1: (n, nb) uint8 payload stack -> (8*nb,) f32 sum over clients of
+    the +/-1 signs, bit-exact with the reference's ``unpack_sum_pallas``."""
+    if packed.device.type == "cpu":
+        return unpack_sum_plain(packed)
+    n, nb = packed.shape
+    if not 1 <= n < 2 ** 24:
+        raise ValueError(f"n={n} clients: the f32 sum is exact only below "
+                         f"2^24")
+    packed = packed.contiguous()
+    check_cuda(packed, "packed", torch.uint8)
+    out = torch.empty(8 * nb, dtype=torch.float32, device=packed.device)
+    fn = launcher("zsign/csrc/unpack_sum.cu", "unpack_sum_launch")
+    with torch.cuda.device(packed.device):
+        err = fn(packed.data_ptr(), out.data_ptr(), n, nb,
+                 torch.cuda.current_stream().cuda_stream)
+    raise_on(err, "unpack_sum")
+    unpack_sum.launches += 1
+    return out
+
+
+unpack_sum.launches = 0
+
+
+def zsign_decompress_sum(packed: torch.Tensor, n_coords: int) -> torch.Tensor:
+    """(n_clients, n_bytes) uint8 -> (n_coords,) f32 sum of signs (mirror of
+    the reference's ``zsign_decompress_sum``)."""
+    return unpack_sum(packed)[:n_coords]

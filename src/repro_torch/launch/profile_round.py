@@ -7,6 +7,11 @@ With no flags it profiles 2 rounds of the main path (qwen2-0.5B at full
 width, 8 clients, 2 local steps, zsign z=1 sigma=0.01) after one warm-up
 round, prints device time by kernel name (top 30) and the device's busy
 share of the profiled wall time (summed kernel time over host wall time).
+``--pipeline SPEC`` profiles another path at the same setup, e.g.
+
+    python -m repro_torch.launch.profile_round --pipeline "ef|zsign(use_kernel=true)"
+
+Any other train flag replaces the defaults altogether.
 """
 from __future__ import annotations
 
@@ -26,7 +31,9 @@ DEFAULT = ["--arch", "qwen2_0_5b", "--clients", "8", "--local-steps", "2",
 
 
 def main(argv=None) -> None:
-    argv = list(sys.argv[1:] if argv is None else argv) or DEFAULT
+    argv = list(sys.argv[1:] if argv is None else argv)
+    if not argv or argv[0] == "--pipeline":
+        argv = DEFAULT + argv
     args = train.parse_args(argv + ["--rounds", "3"])
     state = {"prof": None, "t0": 0.0}
 
@@ -52,7 +59,8 @@ def main(argv=None) -> None:
     busy_ms = sum(ms for _, ms, _ in rows)
     print(prof.key_averages().table(sort_by="self_device_time_total",
                                     row_limit=30))
-    print(json.dumps({"profiled_rounds": 2, "wall_ms": wall_ms,
+    print(json.dumps({"profiled_rounds": 2, "pipeline": args.pipeline,
+                      "wall_ms": wall_ms,
                       "kernel_time_ms": busy_ms,
                       "busy_share": busy_ms / wall_ms,
                       "top": [{"name": k[:120], "device_ms": ms, "calls": c}

@@ -5,6 +5,9 @@ subset of the main path).
         --rounds 3 --clients 8 --local-steps 2 --micro-batch 2 --seq-len 64 \
         --compressor zsign --z 1 --sigma 0.01
 
+``--pipeline`` takes a spec string: ``"ef|zsign(use_kernel=true)"`` is the
+EF-SignSGD round through the fused kernel F1, ``"zsign_packed(z=2,
+sigma=0.01)"`` the finite-z round through the dense-noise kernel C1.
 Runs on ``cuda`` unless ``--device cpu`` is given; asking for CUDA on a
 machine without a card raises. ``run(args)`` is the same driver, callable in
 process, and returns the rounds' metrics. Not ported yet: checkpointing,
@@ -40,15 +43,18 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
                     choices=list(compression.available()))
     ap.add_argument("--pipeline", default=None, metavar="SPEC",
                     help="pipeline spec string overriding --compressor, "
-                         "e.g. 'zsign(z=1,sigma=0.01)'")
+                         "e.g. 'zsign(z=1,sigma=0.01)', "
+                         "'ef|zsign(use_kernel=true)' or "
+                         "'zsign_packed(z=2,sigma=0.01)'")
     ap.add_argument("--agg-backend", default="auto",
                     choices=list(compression.AGG_BACKENDS),
                     help="server sign-reduce backend (auto = CUDA kernel on "
                          "a card, plain PyTorch elsewhere)")
     ap.add_argument("--encode-backend", default="auto",
                     choices=list(compression.ENCODE_BACKENDS),
-                    help="client fused-encode backend (auto = CUDA kernel "
-                         "on a card, plain PyTorch elsewhere)")
+                    help="client encode backend (auto = CUDA kernel on a "
+                         "card, plain PyTorch elsewhere; reference = the "
+                         "dense-noise draw)")
     ap.add_argument("--z", type=int, default=1, help="1=Gaussian, 0=uniform")
     ap.add_argument("--sigma", type=float, default=0.01,
                     help="z-sign noise scale")
@@ -84,12 +90,16 @@ def run(args: argparse.Namespace,
     bundle = build_model(arch.model)
     if args.pipeline:
         comp = compression.Pipeline(args.pipeline)
-    elif args.compressor == "identity":
-        comp = compression.Compressor()
     else:
-        factory = {"zsign": compression.ZSignCompressor,
-                   "zsign_packed": compression.PackedZSignCompressor}
-        comp = factory[args.compressor](z=args.z, sigma=args.sigma)
+        # legacy per-name kwargs -> the equivalent pipeline
+        comp = {
+            "zsign": lambda: compression.ZSignCompressor(
+                z=args.z, sigma=args.sigma),
+            "zsign_packed": lambda: compression.PackedZSignCompressor(
+                z=args.z, sigma=args.sigma),
+            "efsign": compression.EFSignCompressor,
+            "identity": compression.Compressor,
+        }[args.compressor]()
     cfg = fedavg.FedConfig(n_clients=args.clients,
                            local_steps=args.local_steps,
                            client_lr=args.client_lr,

@@ -46,7 +46,8 @@ def test_forbidden_rule():
 
 def test_train_import_pulls_in_no_jax():
     code = ("import sys; import repro_torch.launch.train; "
-            "import repro_torch.kernels.zsign.build; "
+            "import repro_torch.kernels.build; "
+            "import repro_torch.kernels.efsign.ops; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'repro')]; assert not bad, bad; print('ok')")
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))

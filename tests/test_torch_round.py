@@ -146,7 +146,7 @@ def test_reduced_qwen_round_wire_bytes_from_reference_gradients():
     x2d = torch.from_numpy(np.pad(flats,
                                   ((0, 0), (0, d_pad - spec.n_coords))))
     comp = TC.ZSignCompressor(z=1, sigma=SIGMA)
-    got = comp.encode_batch(tkeys, x2d)
+    got, _ = comp.encode_batch(tkeys, x2d, spec.n_coords)
     flips, far = TO.erf_rule_flips(x2d, tkeys, torch.full((3,), SIGMA), 1,
                                    got, torch.from_numpy(want))
     print(f"reduced qwen2 wire: {flips} bits differ (erf rule)")
@@ -224,7 +224,7 @@ def test_cuda_device_without_card_raises():
 
 def test_unported_paths_raise():
     with pytest.raises(NotImplementedError, match="item 8"):
-        TC.Pipeline("ef|zsign")
+        TC.Pipeline("dp(clip=1.0,noise=0.1)|zsign")
     with pytest.raises(NotImplementedError, match="item 12"):
         TC.Pipeline("zsign(agg=vote)")
     with pytest.raises(NotImplementedError, match="item 10"):

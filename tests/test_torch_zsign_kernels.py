@@ -141,16 +141,21 @@ def test_plain_sign_reduce_matches_reference(n, kind):
 
 
 def test_wrappers_count_only_kernel_launches():
-    before = (TO.zsign_encode.launches, TO.sign_reduce.launches)
+    wrappers = (TO.zsign_encode, TO.sign_reduce, TO.zsign_compress_rows,
+                TO.unpack_sum)
+    before = [w.launches for w in wrappers]
     x = torch.zeros(2, TILE)
     TO.zsign_encode(x, TN.client_keys(TN.prng_key(0), 0, 2), torch.zeros(2),
                     1)
     TO.sign_reduce(torch.zeros(2, 4, dtype=torch.uint8), torch.ones(2))
-    assert (TO.zsign_encode.launches, TO.sign_reduce.launches) == before
+    TO.zsign_compress_rows(x, x, torch.ones(2))
+    TO.unpack_sum(torch.zeros(2, 4, dtype=torch.uint8))
+    assert [w.launches for w in wrappers] == before
 
 
 def test_unported_encode_modes_raise():
-    with pytest.raises(NotImplementedError, match="K5"):
+    # finite z > 1 has no counter stream: it takes the dense-noise encode
+    with pytest.raises(ValueError, match="dense-noise"):
         TO.zsign_encode(torch.zeros(1, TILE), torch.zeros(1, 2,
                                                           dtype=torch.int64),
                         torch.ones(1), 2)
