@@ -13,24 +13,47 @@ Phases, each of which raises (non-zero exit, no result line) on failure:
    bit within 4 f32 ulp of its threshold, the erf rule) and each client's
    bytes in a batched launch equal to its own n = 1 launch; R1
    ``sign_reduce`` with f32 weights and a 0/1 mask, with and without a
-   carried sum; F1 ``ef_sign_rows`` (n in {1, 3, 8}, d not a multiple of
-   8192, one dead client, with and without q, in place); C1
+   carried sum, and in fold mode (``sign_fold_step``: shard sequences such
+   as (3, 5, 8, 1, 13) whose pending rows carry over, finalized with and
+   without pending rows); F1 ``ef_sign_rows`` (n in {1, 3, 8}, d not a
+   multiple of 8192, one dead client, with and without q, in place); C1
    ``zsign_compress_rows`` (sigma 0 and > 0, elements whose unfused y is
    exactly 0); U1 ``unpack_sum``. Outputs are compared as int32 bit
    patterns (bytes for payloads).
-3. three paths at full width through ``repro_torch.launch.train.run``:
-   qwen2-0.5B (24 layers, d = 494,032,768 coordinates, bf16), 8 clients, 2
-   local steps, 3 rounds each of zsign(z=1, sigma=0.01) (E1 + R1 once a
-   round), ef|zsign(use_kernel=true) (F1 + R1 once a round, E1 never; the
-   residual rows non-zero after round 1) and zsign_packed(z=2, sigma=0.01)
-   (C1 + R1 once a round). Each path: finite loss, params changed, 8 * d
-   uplink bits per round, and every launch counter set to 0 just before the
-   path and read just after (a wrapper counts only launches on CUDA
-   tensors, so this also shows the buffers lived on the card).
+3. six paths at full width through ``repro_torch.launch.train.run``:
+   qwen2-0.5B (24 layers, d = 494,032,768 coordinates, bf16), 2 local steps,
+   micro-batch 2, seq 64, 2 rounds each:
+     zsign            zsign(z=1, sigma=0.01), 8 clients: E1 + R1 once a round
+     ef               ef|zsign(use_kernel=true), 8 clients: F1 + R1 once
+     zsign_packed_z2  zsign_packed(z=2, sigma=0.01), 8 clients: C1 + R1 once
+     zsign_groups     zsign, --clients 1 --groups 8: E1 with n = 1 eight
+                      times, R1 once
+     zsign_stream     zsign, --clients 32 --cohort auto, which resolves to
+                      stream(shard=8): E1 and R1 (add mode) 4 times
+     ef_stream        ef|zsign(use_kernel=true), --clients 16 --cohort
+                      "stream(shard=6)": F1 3 times, R1 in fold mode 3 times
+                      (shard 2 and shard 3 each complete one 8-client block,
+                      the finalize closes the 2 pending rows; shard 1's 6
+                      rows only pend)
+   Each path: finite loss, params changed, n * d uplink bits per round, the
+   EF residual rows all non-zero after round 1, its peak
+   ``torch.cuda.max_memory_allocated``, and every launch counter set to 0
+   just before the path and read just after (a wrapper counts only launches
+   on CUDA tensors, so this also shows the buffers lived on the card).
+   Then the plans' identity, one round each from the same seeds, params
+   compared as bit patterns and residual rows by a position-weighted
+   int64 digest of their int32 patterns: (a) the 8-client vmap round equals
+   --clients 1 --groups 8; (b) 16 zsign clients under vmap equal
+   stream(shard=5); (c) 16 EF clients under stream(shard=6),
+   stream(shard=8), stream(shard=8,feed=host) and the group scan
+   --clients 8 --groups 2 --cohort vmap are one round (at this width
+   --cohort auto streams 16 clients in shards of 8). Each run's plan and
+   launches are checked too.
 4. the public op ``zsign_decompress_sum`` (U1, on no round path) on a
    full-width payload stack, checked against R1 with unit weights; then
    times at the paths' shapes (n = 8, d as above) with CUDA events, each
-   kernel beside its plain version on the same inputs and its bound.
+   kernel beside its plain version on the same inputs and its bound (R1 in
+   add and in fold mode).
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it
 lists each kernel with its check, launches and times.
@@ -64,20 +87,59 @@ ERF_OPS = 20
 EF_OPS_PER_ELEM = 4
 COMPRESS_OPS_PER_ELEM = 3
 
-COMMON_ARGS = ["--arch", "qwen2_0_5b", "--clients", "8", "--local-steps",
-               "2", "--micro-batch", "2", "--seq-len", "64", "--rounds", "3",
-               "--device", "cuda"]
-#: the three full-width paths: label, train flags, launches per round
+COMMON_ARGS = ["--arch", "qwen2_0_5b", "--local-steps", "2",
+               "--micro-batch", "2", "--seq-len", "64", "--device", "cuda"]
+ZSIGN = ["--compressor", "zsign", "--z", "1", "--sigma", "0.01"]
+EF = ["--pipeline", "ef|zsign(use_kernel=true)"]
+#: the full-width paths: label, train flags, launches per round (kernel
+#: counters; "_n1" and "_fold" are the subsets with n = 1 and in fold mode)
 PATHS = [
-    ("zsign", ["--compressor", "zsign", "--z", "1", "--sigma", "0.01"],
+    ("zsign", ZSIGN + ["--clients", "8"],
      {"zsign_encode": 1, "sign_reduce": 1, "ef_sign": 0,
-      "zsign_compress": 0}),
-    ("ef", ["--pipeline", "ef|zsign(use_kernel=true)"],
+      "zsign_compress": 0, "sign_reduce_fold": 0}),
+    ("ef", EF + ["--clients", "8"],
      {"zsign_encode": 0, "sign_reduce": 1, "ef_sign": 1,
-      "zsign_compress": 0}),
-    ("zsign_packed_z2", ["--pipeline", "zsign_packed(z=2,sigma=0.01)"],
+      "zsign_compress": 0, "sign_reduce_fold": 0}),
+    ("zsign_packed_z2", ["--pipeline", "zsign_packed(z=2,sigma=0.01)",
+                         "--clients", "8"],
      {"zsign_encode": 0, "sign_reduce": 1, "ef_sign": 0,
       "zsign_compress": 1}),
+    ("zsign_groups", ZSIGN + ["--clients", "1", "--groups", "8"],
+     {"zsign_encode": 8, "zsign_encode_n1": 8, "sign_reduce": 1,
+      "sign_reduce_fold": 0}),
+    ("zsign_stream", ZSIGN + ["--clients", "32", "--cohort", "auto"],
+     {"zsign_encode": 4, "zsign_encode_n1": 0, "sign_reduce": 4,
+      "sign_reduce_fold": 0, "ef_sign": 0}),
+    ("ef_stream", EF + ["--clients", "16", "--cohort", "stream(shard=6)"],
+     {"zsign_encode": 0, "ef_sign": 3, "sign_reduce": 3,
+      "sign_reduce_fold": 3}),
+]
+#: clients per shard each path must resolve to (0: the vmap plan)
+PATH_SHARD = {"zsign_groups": 0, "zsign_stream": 8, "ef_stream": 6,
+              "zsign_16_vmap": 0, "zsign_16_stream5": 5, "ef_16_stream8": 8,
+              "ef_16_stream8_host": 8, "ef_8x2_groups": 0}
+ROUNDS = 2
+#: the plan identities: (name, [(label, flags, launches per round), ...]);
+#: a label naming a path of PATHS reuses that path's first round. 16
+#: clients stream under --cohort auto at this width, so the group scan is
+#: asked for with --cohort vmap.
+IDENTITIES = [
+    ("a", [("zsign", None, None), ("zsign_groups", None, None)]),
+    ("b", [("zsign_16_vmap", ZSIGN + ["--clients", "16", "--cohort", "vmap"],
+            {"zsign_encode": 1, "sign_reduce": 1}),
+           ("zsign_16_stream5", ZSIGN + ["--clients", "16", "--cohort",
+                                         "stream(shard=5)"],
+            {"zsign_encode": 4, "sign_reduce": 4, "sign_reduce_fold": 0})]),
+    ("c", [("ef_stream", None, None),
+           ("ef_16_stream8", EF + ["--clients", "16", "--cohort",
+                                   "stream(shard=8)"],
+            {"ef_sign": 2, "sign_reduce": 2, "sign_reduce_fold": 2}),
+           ("ef_16_stream8_host", EF + ["--clients", "16", "--cohort",
+                                        "stream(shard=8,feed=host)"],
+            {"ef_sign": 2, "sign_reduce": 2, "sign_reduce_fold": 2}),
+           ("ef_8x2_groups", EF + ["--clients", "8", "--groups", "2",
+                                   "--cohort", "vmap"],
+            {"ef_sign": 2, "sign_reduce": 1, "sign_reduce_fold": 0})]),
 ]
 QWEN2_COORDS = 494_032_768
 
@@ -93,12 +155,19 @@ def _wrappers():
 
 
 def _reset_counts():
-    for w in _wrappers().values():
+    ops = _wrappers()
+    for w in ops.values():
         w.launches = 0
+    ops["zsign_encode"].launches_n1 = 0
+    ops["sign_reduce"].fold_launches = 0
 
 
 def _counts():
-    return {k: w.launches for k, w in _wrappers().items()}
+    ops = _wrappers()
+    out = {k: w.launches for k, w in ops.items()}
+    out["zsign_encode_n1"] = ops["zsign_encode"].launches_n1
+    out["sign_reduce_fold"] = ops["sign_reduce"].fold_launches
+    return out
 
 
 def _time_ms(fn, reps: int, warmup: int = 1) -> float:
@@ -125,6 +194,9 @@ def _same_bits(a, b) -> bool:
     if a.dtype == torch.float32:
         return torch.equal(a.view(torch.int32), b.view(torch.int32))
     return torch.equal(a, b)
+
+
+DEV = torch.device("cuda", 0)
 
 
 def _free():
@@ -205,6 +277,48 @@ def check_encode_and_reduce(dev):
     return flips_z1
 
 
+def check_fold(dev):
+    """R1 in fold mode against its plain version: f32 weights (a first
+    block of -0.0 weights), shard sequences whose pending rows carry over,
+    finalized with and without pending rows; int32 patterns of the final
+    sum, also against the one-shot R1 over all rows."""
+    from repro_torch.core import wire
+    from repro_torch.kernels.zsign import ops
+    gen = torch.Generator(device=dev).manual_seed(16)
+    nb = 5 * 1024 + 7
+    n_cases = 0
+    for shards in ((3, 5, 8, 1, 13), (3, 5, 8, 1, 15), (8, 8), (6, 6, 6),
+                   (1, 2, 3, 4, 5, 6, 7)):
+        n = sum(shards)
+        packed = torch.randint(0, 256, (n, nb), generator=gen, device=dev,
+                               dtype=torch.uint8)
+        w = torch.randn((n,), generator=gen, device=dev)
+        w[:8] = -0.0
+        got = wire.sign_fold_init(nb, dev)
+        want = wire.sign_fold_init(nb, dev)
+        lo = 0
+        for k in shards:
+            got = ops.sign_fold_step(packed[lo:lo + k], w[lo:lo + k], got)
+            want = wire._sign_fold_step(
+                packed[lo:lo + k], w[lo:lo + k], want,
+                close=lambda r, ww, a: ops.sign_reduce_plain(r, ww, a,
+                                                             fold=True))
+            lo += k
+        if got.pend_n != want.pend_n or got.pend_n != n % 8:
+            raise AssertionError(f"R1 fold {shards}: pending rows differ")
+        out = ops.sign_fold_finalize(got)
+        ref = wire.sign_fold_finalize(
+            want, close=lambda r, ww, a: ops.sign_reduce_plain(r, ww, a,
+                                                               fold=True))
+        one = ops.sign_reduce(packed, w)
+        torch.cuda.synchronize()
+        if not (_same_bits(out, ref) and _same_bits(out, one)):
+            raise AssertionError(f"R1 fold {shards}: bits differ")
+        n_cases += 1
+    print(f"# R1 fold-mode checks passed ({n_cases} shard sequences, int32 "
+          "bit patterns equal to the plain fold and to one-shot R1)")
+
+
 def check_ef_compress_unpack(dev):
     from repro_torch.kernels.efsign import ops as eops
     from repro_torch.kernels.zsign import ops
@@ -260,31 +374,76 @@ def check_ef_compress_unpack(dev):
     print("# F1, C1, U1 checks passed (bit patterns equal)")
 
 
-def phase_path(label, flags, per_round):
+def _round0_record(after):
+    """A first round's outcome: the params on the host (bit patterns
+    compared later) and, per residual row, a digest of its int32 pattern
+    (sum and position-weighted sum, int64 arithmetic mod 2^64)."""
+    from repro_torch.core.tree import tree_paths
+    rec = {"params": {p: v.detach().cpu() for p, v in
+                      tree_paths(after.params)}, "ef": None}
+    if after.comp_state is not None:
+        ef = after.comp_state["ef"]
+        ef = ef.reshape(-1, ef.shape[-1])
+        dig = []
+        chunk = 1 << 26
+        for r in range(ef.shape[0]):
+            row = ef[r]
+            a = b = 0
+            for lo in range(0, row.numel(), chunk):
+                x = row[lo:lo + chunk].to(DEV, non_blocking=True)
+                x = x.view(torch.int32).to(torch.int64)
+                pos = torch.arange(lo + 1, lo + 1 + x.numel(), device=DEV,
+                                   dtype=torch.int64) * 2654435761
+                a += int(x.sum())
+                b += int((x * pos).sum())
+            dig.append((a, b))
+        rec["ef"] = dig
+    return rec
+
+
+def _same_record(x, y) -> bool:
+    if x["params"].keys() != y["params"].keys() or x["ef"] != y["ef"]:
+        return False
+    for k, a in x["params"].items():
+        b = y["params"][k]
+        iv = torch.int16 if a.element_size() == 2 else torch.int32
+        if a.dtype != b.dtype or not torch.equal(a.view(iv), b.view(iv)):
+            return False
+    return True
+
+
+def phase_path(label, flags, per_round=None, rounds=ROUNDS):
     """Drive one full-width path through ``train.run`` with every launch
-    counter at 0 just before and read just after."""
+    counter at 0 just before and read just after. -> its summary, with the
+    record of its first round."""
     from repro_torch.core import wire
     from repro_torch.launch import train
-    args = train.parse_args(COMMON_ARGS + flags)
-    rounds, residual_ok = [], []
+    args = train.parse_args(COMMON_ARGS + flags + ["--rounds", str(rounds)])
+    total = args.clients * args.groups
+    per, residual_ok, first = [], [], {}
 
     def on_round(t, before, after, m, sec):
         if t == 0:
-            rounds.append({"embed0": before.params["embed"][:4].clone()})
+            first["embed0"] = before.params["embed"][:4].clone()
+            first["record"] = _round0_record(after)
             if after.comp_state is not None:
-                ef = after.comp_state["ef"][0]
-                residual_ok.append(all(bool(torch.any(ef[c] != 0))
-                                       for c in range(ef.shape[0])))
-        rounds.append({"sec": sec, "loss": float(m.loss),
+                ef = after.comp_state["ef"]
+                residual_ok.append(all(
+                    bool(torch.any(ef[g, c].to(DEV) != 0))
+                    for g in range(ef.shape[0]) for c in range(ef.shape[1])))
+        per.append({"sec": sec, "loss": float(m.loss),
                        "bits": float(m.uplink_bits),
+                       "shard": int(m.shard_clients),
                        "n_coords": wire.tree_spec(after.params).n_coords,
-                       "final": after.params})
+                       "embed": after.params["embed"][:4].clone()})
 
+    _free()
+    torch.cuda.reset_peak_memory_stats()
     _reset_counts()
     history = train.run(args, on_round=on_round)
     torch.cuda.synchronize()
     launches = _counts()
-    first, per = rounds[0], rounds[1:]
+    peak = torch.cuda.max_memory_allocated()
     if len(history) != args.rounds or len(per) != args.rounds:
         raise AssertionError(f"{label}: train.run did not run every round")
     for r in per:
@@ -292,31 +451,62 @@ def phase_path(label, flags, per_round):
             raise AssertionError(f"{label}: non-finite loss {r['loss']}")
         if r["n_coords"] != QWEN2_COORDS:
             raise AssertionError(f"d = {r['n_coords']} != {QWEN2_COORDS}")
-        if r["bits"] != args.clients * QWEN2_COORDS:
+        if r["bits"] != total * QWEN2_COORDS:
             raise AssertionError(f"{label}: uplink bits {r['bits']} != "
-                                 f"{args.clients} * {QWEN2_COORDS}")
-    if torch.equal(per[-1]["final"]["embed"][:4], first["embed0"]):
+                                 f"{total} * {QWEN2_COORDS}")
+        if label in PATH_SHARD and r["shard"] != PATH_SHARD[label]:
+            raise AssertionError(f"{label}: {r['shard']} clients a shard, "
+                                 f"want {PATH_SHARD[label]}")
+    if torch.equal(per[-1]["embed"], first["embed0"]):
         raise AssertionError(f"{label}: params did not change")
     if residual_ok and not residual_ok[0]:
         raise AssertionError(f"{label}: a residual row is zero after "
                              "round 1")
-    for name, k in per_round.items():
+    for name, k in (per_round or {}).items():
         if launches[name] != k * args.rounds:
             raise AssertionError(
                 f"{label}: {name} launched {launches[name]} times in "
                 f"{args.rounds} rounds (want {k} a round)")
     secs = [r["sec"] for r in per]
-    print(json.dumps({"path": label, "flags": flags,
-                      "clients": args.clients,
+    print(json.dumps({"path": label, "flags": flags, "clients": total,
+                      "groups": args.groups, "cohort": args.cohort,
+                      "shard_clients": per[0]["shard"],
                       "local_steps": args.local_steps,
                       "rounds": args.rounds, "round_s": secs,
                       "loss": [r["loss"] for r in per],
+                      "peak_mem_GB": peak / 1e9,
                       "launches": launches,
                       "residual_nonzero_after_round_1":
                           residual_ok[0] if residual_ok else None}))
-    del rounds, history
+    out = {"launches": launches, "secs": secs, "peak": peak,
+           "record": first["record"]}
+    del per, history, first
     _free()
-    return launches, secs
+    return out
+
+
+def phase_identities(results):
+    """The plan identities: each group of runs must give one first round."""
+    for name, runs in IDENTITIES:
+        recs = []
+        for label, flags, per_round in runs:
+            if flags is None:
+                recs.append((label, results[label]["record"]))
+            else:
+                recs.append((label, phase_path(label, flags, per_round,
+                                               rounds=1)["record"]))
+        base_label, base = recs[0]
+        for label, rec in recs[1:]:
+            if not _same_record(base, rec):
+                raise AssertionError(f"plan identity ({name}): {label} "
+                                     f"differs from {base_label}")
+        print(json.dumps({"identity": name,
+                          "runs": [label for label, _ in recs],
+                          "residual_rows_compared":
+                              len(base["ef"]) if base["ef"] else 0,
+                          "equal": True}))
+        del recs, base
+        _free()
 
 
 def times_encode_reduce(dev):
@@ -375,6 +565,35 @@ def times_encode_reduce(dev):
         "bound_by": red_by,
         "max_abs_err": float((r_got - r_want).abs().max())}
     del r_got, r_want
+    _free()
+    # R1 in fold mode: the 8 rows close one block into a carried sum in
+    # place, with f32 weights (the streamed EF route)
+    from repro_torch.core import wire
+    w = torch.rand((n,), generator=gen, device=dev) + 0.5
+    carry = torch.randn((8 * nb,), generator=gen, device=dev)
+    acc = wire.sign_fold_init(nb, dev)
+    acc.sums.copy_(carry)
+    f_got = ops.sign_fold_step(packed, w, acc).sums
+    f_want = ops.sign_reduce_plain(packed, w, carry, fold=True)
+    torch.cuda.synchronize()
+    if acc.pend_n or not _same_bits(f_got, f_want):
+        raise AssertionError("R1 fold mode at full width: bits differ")
+    f_err = float((f_got - f_want).abs().max())
+    del f_want
+    _free()
+    fold_ms = _time_ms(lambda: ops.sign_fold_step(packed, w, acc), reps=10,
+                       warmup=2)
+    fold_plain_ms = _time_ms(lambda: ops.sign_reduce_plain(
+        packed, w, carry, fold=True), reps=2)
+    # the one-shot bytes plus the carry read
+    fold_bound, fold_by = _bound(
+        nbytes=n * nb + 8 * nb * 4 + 8 * nb * 4 + n * 4,
+        ops=n * 8 * nb * 2)
+    rows["sign_reduce"].update({
+        "fold_ms": fold_ms, "fold_plain_ms": fold_plain_ms,
+        "fold_bound_ms": fold_bound, "fold_bound_by": fold_by,
+        "fold_max_abs_err": f_err})
+    del acc, carry, f_got
     _free()
     # U1 through the public op, as a user calls it
     from repro_torch.kernels.zsign import zsign_decompress_sum
@@ -491,16 +710,17 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA card visible", file=sys.stderr)
         return 1
-    dev = torch.device("cuda", 0)
+    dev = DEV
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     name, smi = phase_device_and_build()
     flips_z1 = check_encode_and_reduce(dev)
+    check_fold(dev)
     check_ef_compress_unpack(dev)
-    path_launches, path_secs = {}, {}
+    results = {}
     for label, flags, per_round in PATHS:
-        path_launches[label], path_secs[label] = phase_path(label, flags,
-                                                            per_round)
+        results[label] = phase_path(label, flags, per_round)
+    phase_identities(results)
     times = times_encode_reduce(dev)
     times["ef_sign"] = times_ef(dev)
     times["zsign_compress"] = times_compress(dev)
@@ -508,36 +728,45 @@ def main() -> int:
         print(json.dumps({"time": k, "shape": f"n=8 d={QWEN2_COORDS}",
                           **{f: v for f, v in r.items()}}))
     enc, red = times["zsign_encode"], times["sign_reduce"]
-    secs = path_secs["zsign"]
+    secs = results["zsign"]["secs"]
     print(json.dumps({"round_split_ms": {
         "round_min": min(secs) * 1e3, "encode_E1": enc["ms"],
         "reduce_R1": red["ms"],
         "local_sgd_and_rest": min(secs) * 1e3 - enc["ms"] - red["ms"]},
-        "round_min_s": {k: min(v) for k, v in path_secs.items()},
+        "round_s": {k: v["secs"] for k, v in results.items()},
+        "peak_mem_GB": {k: v["peak"] / 1e9 for k, v in results.items()},
         "card": smi}))
+    total = {k: sum(r["launches"][k] for r in results.values())
+             for k in results["zsign"]["launches"]}
+    by_path = {k: {p: r["launches"][k] for p, r in results.items()
+                   if r["launches"][k]} for k in total}
     src = "src/repro_torch/kernels/"
     tpu = "src/repro/kernels/"
     kernels = [
         {"name": "zsign_encode", "route": "cuda",
          "source": src + "zsign/csrc/zsign_encode.cu",
-         "replaces": tpu + "zsign/zsign.py:145",
-         "launches": path_launches["zsign"]["zsign_encode"],
+         "replaces": tpu + "zsign/zsign.py:145 (n = 1: zsign.py:123)",
+         "launches": total["zsign_encode"],
+         "launches_n1": total["zsign_encode_n1"],
          "check": f"bit-exact vs plain, z=1 flips {flips_z1} (small) / "
-                  f"{enc['bits_differing']} (full width)"},
+                  f"{enc['bits_differing']} (full width); batched bytes "
+                  "equal to n = 1 launches"},
         {"name": "sign_reduce", "route": "cuda",
          "source": src + "zsign/csrc/sign_reduce.cu",
          "replaces": tpu + "zsign/zsign.py:226",
-         "launches": path_launches["zsign"]["sign_reduce"],
-         "check": "int32 bit patterns equal to plain"},
+         "launches": total["sign_reduce"],
+         "launches_fold": total["sign_reduce_fold"],
+         "check": "int32 bit patterns equal to plain, add and fold mode "
+                  "(small shard sequences and full width)"},
         {"name": "ef_sign", "route": "cuda",
          "source": src + "efsign/csrc/ef_sign.cu",
          "replaces": tpu + "efsign/efsign.py:39",
-         "launches": path_launches["ef"]["ef_sign"],
+         "launches": total["ef_sign"],
          "check": "payload bytes and e' int32 bit patterns equal to plain"},
         {"name": "zsign_compress", "route": "cuda",
          "source": src + "zsign/csrc/zsign_compress.cu",
          "replaces": tpu + "zsign/zsign.py:68",
-         "launches": path_launches["zsign_packed_z2"]["zsign_compress"],
+         "launches": total["zsign_compress"],
          "check": "payload bytes equal to plain"},
         {"name": "unpack_sum", "route": "cuda",
          "source": src + "zsign/csrc/unpack_sum.cu",
@@ -551,6 +780,10 @@ def main() -> int:
     for k in kernels:
         k.update({f: times[k["name"]][f] for f in keys})
         k["library_ms"] = None
+        if k["name"] in by_path:
+            k["launches_by_path"] = by_path[k["name"]]
+    kernels[1].update({f: times["sign_reduce"][f] for f in (
+        "fold_ms", "fold_plain_ms", "fold_bound_ms", "fold_max_abs_err")})
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

@@ -50,19 +50,38 @@ _QUEUE1 = "ROADMAP queue 1"
 
 def sign_reduce(packed: torch.Tensor, weights: torch.Tensor,
                 backend: str = "auto", *, weights_are_mask: bool = False,
-                acc: Optional[torch.Tensor] = None) -> torch.Tensor:
+                acc=None):
     """Weighted sign-reduce over stacked bitpacked payloads: (n, n_bytes)
     u8 + (n,) f32 -> (8*n_bytes,) f32. ``backend``: ``auto`` (the CUDA
     kernel R1 for tensors on a card, the plain path elsewhere), ``cuda`` (the
-    kernel's wrapper) or ``torch`` (``wire.unpack_sum``, or its popcount
+    kernel's wrapper), ``torch`` (``wire.unpack_sum``, or its popcount
     form ``wire.unpack_sum_mask`` under the static 0/1 ``weights_are_mask``
-    guarantee). The kernel route adds ``acc`` after the blocked sum."""
+    guarantee) or ``dense`` (the sign-matrix oracle). The kernel route adds
+    a flat ``acc`` after the blocked sum, as the reference's Pallas route
+    does. A ``wire.SignFoldAcc`` ``acc`` takes the partition-invariant fold
+    and returns the updated carry: R1 in fold mode on a card, the LUT fold
+    (``wire.unpack_sum``) elsewhere."""
     backend = resolve_backend("agg", backend, packed.device.type)
+    if isinstance(acc, wire.SignFoldAcc):
+        if backend == "cuda":
+            return K.sign_fold_step(packed, weights, acc)
+        return wire.unpack_sum(packed, weights, acc)
     if backend == "cuda":
         return K.sign_reduce(packed, weights, acc)
+    if backend == "dense":
+        return wire.unpack_sum_dense(packed, weights, acc)
     if weights_are_mask:
         return wire.unpack_sum_mask(packed, weights, acc)
     return wire.unpack_sum(packed, weights, acc)
+
+
+def sign_fold_finalize(acc: wire.SignFoldAcc,
+                       backend: str = "auto") -> torch.Tensor:
+    """Close a fold carry (``backend`` as in ``sign_reduce``): R1 in fold
+    mode on the kernel route, the LUT fold elsewhere."""
+    if resolve_backend("agg", backend, acc.sums.device.type) == "cuda":
+        return K.sign_fold_finalize(acc)
+    return wire.sign_fold_finalize(acc)
 
 
 def _norm_z(z) -> int:
@@ -242,7 +261,17 @@ class SignCodec:
             return K.zsign_compress_rows(x2d, noise, sig)
         if add_noise:
             x2d = x2d + sig.reshape(n, 1) * noise
-        return K.zsign_encode_plain(x2d, keys, sig, None)
+        return self._pack_rows(keys, x2d, sig)
+
+    def _pack_rows(self, keys, x2d, sig):
+        """The noise-free pack ``x >= 0`` (the reference's ``pack_flat``):
+        E1 with z=None (bit-identical) on a card unless the encode backend
+        is ``torch``, the plain pack elsewhere."""
+        backend = resolve_backend("encode", self.encode_backend,
+                                  x2d.device.type)
+        if backend == "torch":
+            return K.zsign_encode_plain(x2d, keys, sig, None)
+        return K.zsign_encode(x2d, keys, sig, None)
 
     def _encode_bits(self, keys, x2d, n_coords: int, sig, add_noise: bool):
         backend = resolve_backend("encode", self.encode_backend,
@@ -274,7 +303,7 @@ class SignCodec:
                 # EF-SignSGD proper: noise-free signs, p >= 0 -> +1 as on
                 # the wire, so the residual accounts exactly for what the
                 # server decodes
-                packed = K.zsign_encode_plain(p2d, keys, sig, None)
+                packed = self._pack_rows(keys, p2d, sig)
                 if need_decode:
                     sc = s.reshape(n, 1)
                     dec = torch.where(p2d[:, :n_coords] >= 0, sc, -sc)
@@ -300,6 +329,18 @@ class SignCodec:
                                self.agg_backend, acc=acc)
         return sign_reduce(payload, mask, self.agg_backend,
                            weights_are_mask=self.weights_are_mask, acc=acc)
+
+    def fold_init(self, payload):
+        """The streaming fold's carry for this codec, or None where a flat
+        zero accumulator is exact already. The f32-weighted routes
+        (``scale="mean_abs"``, and agg=mean without the 0/1-mask guarantee)
+        are order-sensitive, so they get a ``wire.SignFoldAcc`` sized from
+        one shard's payload; 0/1-mask sums are integers, exact under any
+        association."""
+        if not (self.scale == "mean_abs" or not self.weights_are_mask):
+            return None
+        packed = payload["packed"] if isinstance(payload, dict) else payload
+        return wire.sign_fold_init(packed.shape[-1], packed.device)
 
     def decode_mean(self, flat_mean):
         """mean_abs: the magnitudes are already in the aggregation weights;
@@ -493,11 +534,12 @@ class Pipeline:
             [self.transforms[i] for i in self._stateful_idx], n_coords)
 
     def init_state(self, n_coords: int, lead: Tuple[int, ...] = (),
-                   device=None):
+                   device=None, pin_memory: bool = False):
         """Zero per-client state ``{slot: lead + (n_coords,)}`` over the
-        client-scope slots, or None for stateless pipelines."""
+        client-scope slots (in pinned host memory with ``pin_memory``), or
+        None for stateless pipelines."""
         return cstate_lib.init_tree(self.state_slots(n_coords), "client",
-                                    lead, device)
+                                    lead, device, pin_memory)
 
     def _stage_key(self, keys: torch.Tensor, i: int) -> torch.Tensor:
         # a single random stage consumes the raw client keys; several
@@ -553,8 +595,29 @@ class Pipeline:
             new_state = cstate_lib.merge_rows(new_state, state, live)
         return payload, new_state
 
+    def stacks_group_payloads(self) -> bool:
+        """Whether the sequential group scan stacks the raw payloads and
+        reduces them once over all groups x clients (compressed wires), or
+        carries the decoded group sums (the dense f32 wire)."""
+        return self.wire_format().layout != "dense"
+
     def aggregate(self, payload, mask, n_coords: int, acc=None):
         return self.codec.aggregate(payload, mask, n_coords, acc)
+
+    def fold_init(self, payload):
+        """The codec's structured streaming carry (a ``wire.SignFoldAcc`` on
+        the f32-weighted sign routes), or None: the driver then starts from
+        a flat zero accumulator."""
+        init = getattr(self.codec, "fold_init", None)
+        return None if init is None else init(payload)
+
+    def fold_finalize(self, acc):
+        """Close a streaming accumulator into what ``decode_sum`` takes: a
+        ``SignFoldAcc`` flushes its pending block; a flat sum passes
+        through."""
+        if isinstance(acc, wire.SignFoldAcc):
+            return sign_fold_finalize(acc, self.codec.agg_backend)
+        return acc
 
     def decode_sum(self, enc_sum, n_live):
         return self.codec.decode_sum(enc_sum, n_live)

@@ -1,30 +1,49 @@
-"""z-SignFedAvg round engine, vmap plan (port of ``repro.core.fedavg``).
+"""z-SignFedAvg round engine (port of ``repro.core.fedavg``).
 
 One round step:
 
-    for each client c (a Python loop; the reference vmaps it):
+    for each client c of a group or shard (a Python loop; the reference
+    vmaps it):
         E local SGD steps from the server params -> pseudo-gradient
         (x0 - xE)/gamma in f32 (or the batch gradient when E == 1),
-        written into row c of ONE preallocated (n, d_pad) f32 buffer
-    -> ONE batched encode over the n rows and their pipeline state (on a
+        written into row c of ONE preallocated (K, d_pad) f32 buffer
+    -> ONE batched encode over the K rows and their pipeline state (on a
        card: kernel E1 for the counter-noise sign encode, C1 for the
        dense-noise one, F1 for the fused EF-SignSGD step; 1 bit/coord)
-    -> ONE weighted sign-reduce over the (n, d_pad/8) uint8 stack (R1)
+    -> the weighted sign-reduce over the packed payloads (R1)
     -> decode_sum (/ n_live, * eta_z * sigma) -> unflatten once -> server
        optimizer step.
 
-That is what the reference runs on a TPU for a cohort of 2 or more clients:
-the batched encode kernel (K2, K5 or K4 under vmap) and then the sign-reduce
-kernel (K3). Per-client PRNG keys are derived by GLOBAL client index exactly
-like the reference (``rng, sub = split(state.rng)``; client j's key is
-``fold_in(sub, j)``), so the port draws the reference's counter-stream bits.
+Per-client PRNG keys are derived by GLOBAL client index exactly like the
+reference (``rng, sub = split(state.rng)``; client j's key is ``fold_in(sub,
+j)``), so every plan below draws the reference's counter-stream bits.
+``RoundContext.cohort`` picks the plan (``resolve_cohort``):
+
+  vmap, one group   all n clients in one buffer, one encode, one reduce.
+  vmap, G groups    the sequential group scan: the groups run one after
+                    another through the same (N, d_pad) buffer. Compressed
+                    wires keep each group's payload stack and reduce ONCE
+                    over the (G*N, n_bytes) stack; the dense f32 wire
+                    carries the decoded group sums. N == 1 is the
+                    sequential-client mode (E1 with n = 1).
+  stream(shard=K)   the flat cohort of G*N clients in K-client shards
+                    through one (K, d_pad) buffer; each shard's payloads
+                    fold into ONE running accumulator (a flat sum, or the
+                    ``wire.SignFoldAcc`` of ``Pipeline.fold_init`` on the
+                    f32-weighted routes), closed by ``fold_finalize`` before
+                    decode. The last shard wraps to the cohort's first rows
+                    under a zero mask; their state rows are never written
+                    back. Bit-identical to the vmap plan at any K.
+  stream(feed=host) the same shards, with batch, mask and state rows in
+                    pinned host memory: shard s+1 is copied to the card on
+                    a side stream while shard s computes, and finished
+                    state rows return to the host.
 
 Stateful pipelines (``ef``) keep ``ServerState.comp_state`` = ``{slot:
-(1, n_clients, d)}``; a dead client keeps its rows bit-exactly. The fused EF
-path updates those rows in place (see ``Pipeline.encode_batch``).
-
-Ported plan: ``cohort`` auto/vmap with ``client_groups == 1``. A round that
-resolves to the streaming plan, or ``client_groups > 1``, raises.
+(G, N, d)}``; a dead client keeps its rows bit-exactly. The fused EF path
+updates those rows in place, and the group scan and the stream plans write
+each group's or shard's new rows back into them in place: at qwen2-0.5B
+width a second state of 16 clients would cost another 31.6 GB.
 """
 from __future__ import annotations
 
@@ -35,8 +54,9 @@ import torch
 
 from repro_torch.core import noise as znoise
 from repro_torch.core import wire
-from repro_torch.core.context import (STREAM_AUTO_MIN_ELEMS,
-                                      STREAM_DEFAULT_SHARD,
+from repro_torch.core.context import (COHORT_DEVICES_AUTO,
+                                      STREAM_AUTO_MIN_ELEMS,
+                                      STREAM_DEFAULT_SHARD, STREAM_SHARD_AUTO,
                                       STREAM_SHARD_BUDGET_BYTES,
                                       STREAM_SHARD_MAX, STREAM_SHARD_MIN,
                                       CohortPolicy, RoundContext)
@@ -47,8 +67,8 @@ from repro_torch.optim.optimizers import Optimizer, make_optimizer
 
 @dataclasses.dataclass(frozen=True)
 class FedConfig:
-    n_clients: int = 8            # parallel clients of one round
-    client_groups: int = 1        # sequential groups (only 1 is ported)
+    n_clients: int = 8            # parallel clients of one group
+    client_groups: int = 1        # sequential groups; total = n * groups
     local_steps: int = 1          # E
     client_lr: float = 0.01       # gamma
     server_lr: float = 1.0        # eta (decode already applies eta_z * sigma)
@@ -59,7 +79,7 @@ class FedConfig:
 class ServerState(NamedTuple):
     params: Any
     opt_state: Any
-    #: stacked per-client pipeline state {slot: (1, n_clients, ...)} or None
+    #: stacked per-client pipeline state {slot: (G, N, ...)} or None
     comp_state: Any
     rng: torch.Tensor             # (2,) int64 key words
     round: int
@@ -73,6 +93,22 @@ class RoundMetrics(NamedTuple):
     grad_est_norm: torch.Tensor
     participation: torch.Tensor
     uplink_bits: torch.Tensor
+    #: clients per stream shard this round (0 on the vmap plan), an int32
+    #: scalar as in the reference
+    shard_clients: torch.Tensor = torch.zeros((), dtype=torch.int32)
+
+
+class CohortPlan(NamedTuple):
+    """Resolved execution plan of the round driver (see resolve_cohort)."""
+    mode: str          # "vmap" | "stream"
+    shard: int         # clients per stream shard (0 on the vmap plan)
+    unroll: int        # recorded only: the shard loop is a Python loop
+    devices: int       # always 1 (devices > 1 is not yet ported)
+    feed: str          # "device" | "host" shard feeding
+
+
+#: the vmap plan: the whole cohort (or each group) in one batch
+VMAP_PLAN = CohortPlan("vmap", 0, 1, 1, "device")
 
 
 def _server_optimizer(cfg: FedConfig) -> Optimizer:
@@ -80,21 +116,19 @@ def _server_optimizer(cfg: FedConfig) -> Optimizer:
                           **dict(cfg.server_opt_kw))
 
 
-def _check_supported(cfg: FedConfig) -> None:
-    if cfg.client_groups != 1:
-        raise NotImplementedError(
-            "client_groups > 1 (the sequential group scan) is not yet "
-            "ported (ROADMAP queue 1 item 6)")
-
-
 def init_server_state(params, cfg: FedConfig, compressor, rng: torch.Tensor,
-                      sigma0: float = 0.0) -> ServerState:
-    _check_supported(cfg)
+                      sigma0: float = 0.0,
+                      host_state: bool = False) -> ServerState:
+    """Fresh server state. ``host_state`` puts the per-client state rows in
+    host memory (pinned when the params lie on a card), where the
+    ``stream(feed=host)`` plan keeps them."""
     device = tree_leaves(params)[0].device
     # one zero state row per client per slot: (groups, n_clients, ...)
-    cstate = compressor.init_state(wire.tree_spec(params).n_coords,
-                                   lead=(cfg.client_groups, cfg.n_clients),
-                                   device=device)
+    cstate = compressor.init_state(
+        wire.tree_spec(params).n_coords,
+        lead=(cfg.client_groups, cfg.n_clients),
+        device="cpu" if host_state else device,
+        pin_memory=host_state and device.type == "cuda")
     return ServerState(params=params,
                        opt_state=_server_optimizer(cfg).init(params),
                        comp_state=cstate, rng=rng, round=0,
@@ -103,7 +137,11 @@ def init_server_state(params, cfg: FedConfig, compressor, rng: torch.Tensor,
 
 
 def auto_shard_size(n_coords: int) -> int:
-    """The reference's streaming shard size from the memory budget."""
+    """The reference's streaming shard size from the memory budget: about
+    one f32 gradient row plus its packed wire row per client (4*d + d/8
+    bytes), K = budget // that, rounded down to a multiple of
+    SIGN_REDUCE_CLIENT_BLK and clamped to [STREAM_SHARD_MIN,
+    STREAM_SHARD_MAX]."""
     if n_coords <= 0:
         return STREAM_DEFAULT_SHARD
     k = STREAM_SHARD_BUDGET_BYTES // (4 * n_coords + n_coords // 8)
@@ -111,18 +149,130 @@ def auto_shard_size(n_coords: int) -> int:
     return int(min(max(k, STREAM_SHARD_MIN), STREAM_SHARD_MAX))
 
 
-def resolve_cohort(policy, total_clients: int, n_coords: int) -> str:
-    """The reference's plan choice: ``auto`` keeps the vmap plan below the
-    streaming gate, and also above it while one auto-sized shard covers the
-    whole cohort. Anything else would stream, which is not yet ported."""
+def resolve_cohort(policy, total_clients: int, n_coords: int) -> CohortPlan:
+    """CohortPolicy (or its spec string) + the round's shapes -> the plan,
+    as the reference resolves it: ``vmap`` is the vmap plan; ``auto`` and a
+    bare ``stream`` keep it below STREAM_AUTO_MIN_ELEMS client-coordinate
+    elements and while one auto-sized shard covers the cohort; an explicit
+    ``shard=K``, ``shard=auto`` or ``feed=host`` always streams. The shard
+    is clamped to the cohort; ``devices=auto`` is the one process-local
+    device, and the device count is clamped to the shard count."""
     pol = CohortPolicy.parse(policy)
-    if pol.mode == "vmap" or total_clients * n_coords < STREAM_AUTO_MIN_ELEMS:
-        return "vmap"
-    if min(auto_shard_size(n_coords), total_clients) >= total_clients:
-        return "vmap"
-    raise NotImplementedError(
-        f"{total_clients} clients x {n_coords} coords resolve to the "
-        "streaming cohort plan, not yet ported (ROADMAP queue 1 item 10)")
+    if pol.mode == "vmap":
+        return VMAP_PLAN
+    forced = pol.mode == "stream" and (pol.shard != 0 or pol.devices != 1
+                                       or pol.feed == "host")
+    if not forced and total_clients * n_coords < STREAM_AUTO_MIN_ELEMS:
+        return VMAP_PLAN
+    want = (auto_shard_size(n_coords)
+            if pol.shard in (0, STREAM_SHARD_AUTO) else pol.shard)
+    shard = min(want, total_clients)
+    if shard >= total_clients and not forced:
+        return VMAP_PLAN   # one shard IS the vmap plan
+    devices = 1 if pol.devices == COHORT_DEVICES_AUTO else pol.devices
+    devices = max(1, min(devices, -(-total_clients // shard)))
+    return CohortPlan("stream", shard, pol.unroll, devices, pol.feed)
+
+
+def _gather_rows(x: torch.Tensor, rows: torch.Tensor,
+                 pin: bool) -> torch.Tensor:
+    out = torch.empty((rows.numel(),) + tuple(x.shape[1:]), dtype=x.dtype,
+                      device=x.device, pin_memory=pin)
+    return torch.index_select(x, 0, rows.to(x.device), out=out)
+
+
+def iter_shards(batch, mask, cstate, *, shard: int, total: int,
+                pin: bool = False, before_gather: Optional[Callable] = None):
+    """The shard feeder of the streaming plan (port of the reference's
+    ``iter_shards``): yields ``(s, batch_s, cstate_s, mask_s)`` per shard in
+    global shard order. A shard inside the cohort is a view of the flat
+    rows; the last shard wraps to the cohort's first rows (a gathered copy,
+    in pinned memory with ``pin``) under a zero participation mask. The
+    state rows of a view are the caller's own rows. ``before_gather`` runs
+    just before the wrapped rows are read (the host feed waits there for
+    the copies that write earlier shards' rows back)."""
+    n_shards = -(-total // shard)
+
+    def flat(x):
+        return x.reshape((total,) + tuple(x.shape[2:]))
+
+    b = tree_map(flat, batch)
+    m = flat(mask).to(torch.float32)
+    c = None if cstate is None else {k: flat(v) for k, v in cstate.items()}
+    for s in range(n_shards):
+        lo = s * shard
+        if lo + shard <= total:
+            def take(x):
+                return x[lo:lo + shard]
+            mask_s = m[lo:lo + shard]
+        else:
+            slots = torch.arange(lo, lo + shard)
+            rows = slots % total
+            if before_gather is not None:
+                before_gather()
+
+            def take(x):
+                return _gather_rows(x, rows, pin)
+            mask_s = m[rows.to(m.device)] * (slots < total).to(m.device)
+        yield (s, tree_map(take, b),
+               None if c is None else {k: take(v) for k, v in c.items()},
+               mask_s)
+
+
+def _prefetch(shards, device: torch.device):
+    """Copy each host shard to ``device`` on a side stream, one shard ahead
+    of the compute: the copy of shard s+1 is issued after everything the
+    compute stream holds up to shard s-1 (so it never reads host rows that
+    a write-back still owns) and runs while shard s computes."""
+    if device.type != "cuda":
+        yield from shards
+        return
+    main = torch.cuda.current_stream(device)
+    side = torch.cuda.Stream(device)
+
+    def upload(item):
+        s, batch_s, cstate_s, mask_s = item
+        side.wait_stream(main)
+        with torch.cuda.stream(side):
+            moved = [tree_map(lambda x: x.to(device, non_blocking=True), t)
+                     if t is not None else None
+                     for t in (batch_s, cstate_s, mask_s)]
+        done = torch.cuda.Event()
+        done.record(side)
+        return (s, *moved), done
+
+    def use(up):
+        item, done = up
+        main.wait_event(done)
+        # the side stream allocated these; the compute stream uses them
+        for t in item[1:]:
+            for x in ([] if t is None else tree_leaves(t)):
+                x.record_stream(main)
+        return item
+
+    cur = upload(next(shards))
+    for item in shards:
+        nxt = upload(item)
+        yield use(cur)
+        cur = nxt
+    yield use(cur)
+
+
+def _zero_acc(payload) -> torch.Tensor:
+    """The flat zero accumulator of ``aggregate``'s output for one shard's
+    payload stack: 8 coordinates per packed byte, or the f32 row length."""
+    p = payload["packed"] if isinstance(payload, dict) else payload
+    n = p.shape[-1] * 8 if p.dtype == torch.uint8 else p.shape[-1]
+    return torch.zeros((n,), dtype=torch.float32, device=p.device)
+
+
+def _write_rows(dst, src, n: int) -> None:
+    """State rows back into the caller's rows: the first ``n`` rows of each
+    ``src`` buffer into ``dst`` (no copy where they are the same memory)."""
+    for k, d in dst.items():
+        s = src[k][:n]
+        if s.data_ptr() != d.data_ptr() or s.device != d.device:
+            d.copy_(s, non_blocking=True)
 
 
 def build_round_step(loss_fn: Callable, compressor, cfg: FedConfig,
@@ -133,11 +283,12 @@ def build_round_step(loss_fn: Callable, compressor, cfg: FedConfig,
     whose leaves have leading dims (client_groups, n_clients, E, ...);
     ``mask`` is the (client_groups, n_clients) 0/1 (or weight) mask."""
     ctx = ctx or RoundContext()
-    _check_supported(cfg)
     compressor = compressor.with_context(ctx)
+    policy = CohortPolicy.parse(ctx.cohort)
     opt = _server_optimizer(cfg)
     gamma = cfg.client_lr
-    n = cfg.n_clients
+    G, N = cfg.client_groups, cfg.n_clients
+    total = G * N
 
     def client_update(spec, params0, client_batch, row, gamma_t):
         """One client: local SGD, then its pseudo-gradient written into
@@ -172,45 +323,168 @@ def build_round_step(loss_fn: Callable, compressor, cfg: FedConfig,
                 seg.div_(gamma_t)
         return torch.stack(losses).mean()
 
+    def new_buffer(rows: int, d: int, device) -> torch.Tensor:
+        """The (rows, d_pad) f32 client buffer, reused by every group or
+        shard of the round: row c receives client c's pseudo-gradient IN
+        PLACE (the reference stacks the vmapped rows functionally); the
+        tile padding past d stays zero, as the reference's pad does."""
+        mult = compressor.pad_multiple()
+        d_pad = -(-d // mult) * mult
+        buf = torch.empty((rows, d_pad), dtype=torch.float32, device=device)
+        if d_pad > d:
+            buf[:, d:].zero_()
+        return buf
+
+    def encode_clients(spec, params, batch_rows, keys, cstate_rows, mask_s,
+                       buf, gamma_t):
+        """One group or shard of k = len(mask_s) clients (the reference's
+        ``group_encode``): local SGD of each into ``buf[:k]``, then ONE
+        batched encode. -> (payload stack, new state rows, masked loss
+        sum). Dead (and padding) clients keep their state rows and add no
+        loss."""
+        k = mask_s.shape[0]
+        losses = torch.stack([
+            client_update(spec, params, tree_map(lambda x: x[c], batch_rows),
+                          buf[c], gamma_t)
+            for c in range(k)])
+        with torch.no_grad():
+            enc, new_rows = compressor.encode_batch(keys, buf[:k],
+                                                    spec.n_coords,
+                                                    cstate_rows, mask_s)
+            loss_sum = torch.sum(torch.where(mask_s > 0, losses * mask_s,
+                                             0.0))
+        return enc, new_rows, loss_sum
+
+    def vmap_groups(spec, params, batch, mask, cstate, sub, gamma_t):
+        """The vmap plan: one group (all clients in one batch), or the
+        sequential group scan over G groups of N."""
+        d = spec.n_coords
+        device = gamma_t.device
+        keys = znoise.client_keys(sub, 0, total)
+        buf = new_buffer(N, d, device)
+        if G == 1:
+            rows = (None if cstate is None else
+                    {k: v[0] for k, v in cstate.items()})
+            enc, rows, loss_sum = encode_clients(
+                spec, params, tree_map(lambda x: x[0], batch), keys, rows,
+                mask[0], buf, gamma_t)
+            del buf
+            if rows is not None:
+                cstate = {k: v.unsqueeze(0) for k, v in rows.items()}
+            with torch.no_grad():
+                return compressor.aggregate(enc, mask[0], d), cstate, loss_sum
+        stacked = compressor.stacks_group_payloads()
+        encs, acc = [], None
+        loss_sum = torch.zeros((), dtype=torch.float32, device=device)
+        for g in range(G):
+            rows = (None if cstate is None else
+                    {k: v[g] for k, v in cstate.items()})
+            enc, new_rows, ls = encode_clients(
+                spec, params, tree_map(lambda x: x[g], batch),
+                keys[g * N:(g + 1) * N], rows, mask[g], buf, gamma_t)
+            with torch.no_grad():
+                if rows is not None:
+                    _write_rows(rows, new_rows, N)
+                loss_sum = loss_sum + ls
+                if stacked:
+                    # compressed wire: keep the payload stack, reduce once
+                    encs.append(enc)
+                else:
+                    # dense f32 wire: carry the decoded group sums
+                    s = compressor.aggregate(enc, mask[g], d)
+                    acc = (torch.zeros_like(s) if acc is None else acc) + s
+        del buf
+        with torch.no_grad():
+            if stacked:
+                enc_all = (torch.cat(encs) if isinstance(encs[0],
+                                                         torch.Tensor)
+                           else {k: torch.cat([e[k] for e in encs])
+                                 for k in encs[0]})
+                del encs
+                acc = compressor.aggregate(enc_all, mask.reshape(-1), d)
+        return acc, cstate, loss_sum
+
+    def stream_cohort(spec, params, batch, mask, cstate, sub, gamma_t,
+                      shard: int, host: bool):
+        """The streaming plan: K = ``shard`` clients at a time through one
+        (K, d_pad) buffer, each shard's payloads folded into one running
+        accumulator. ``host``: batch, mask and state rows stay in (pinned)
+        host memory and each shard is copied to the card one shard ahead;
+        the state returned lives on the host."""
+        d = spec.n_coords
+        device = gamma_t.device
+        cuda = device.type == "cuda"
+        if host:
+            def to_host(x):
+                x = x if x.device.type == "cpu" else x.cpu()
+                return x.pin_memory() if cuda and not x.is_pinned() else x
+            batch, mask = tree_map(to_host, batch), to_host(mask)
+            if cstate is not None:
+                cstate = {k: to_host(v) for k, v in cstate.items()}
+        shards = iter_shards(
+            batch, mask, cstate, shard=shard, total=total, pin=host and cuda,
+            before_gather=(torch.cuda.current_stream(device).synchronize
+                           if host and cuda else None))
+        if host:
+            shards = _prefetch(shards, device)
+        flat_state = (None if cstate is None else
+                      {k: v.reshape((total,) + tuple(v.shape[2:]))
+                       for k, v in cstate.items()})
+        buf = new_buffer(shard, d, device)
+        acc = None
+        loss_sum = torch.zeros((), dtype=torch.float32, device=device)
+        for s, batch_s, rows, mask_s in shards:
+            lo = s * shard
+            keys = znoise.client_keys(sub, lo, shard)
+            enc, new_rows, ls = encode_clients(spec, params, batch_s, keys,
+                                               rows, mask_s, buf, gamma_t)
+            with torch.no_grad():
+                if flat_state is not None:
+                    # real rows only: the wrapped padding is never written
+                    real = min(shard, total - lo)
+                    _write_rows({k: v[lo:lo + real]
+                                 for k, v in flat_state.items()},
+                                new_rows, real)
+                if acc is None:
+                    acc = compressor.fold_init(enc)
+                if acc is None:
+                    acc = _zero_acc(enc)
+                acc = compressor.aggregate(enc, mask_s, d, acc=acc)
+                loss_sum = loss_sum + ls
+            del enc, new_rows, rows, batch_s
+        del buf
+        with torch.no_grad():
+            enc_sum = compressor.fold_finalize(acc)
+        if host and cuda:
+            # the state rows' copies back to the host are complete
+            torch.cuda.current_stream(device).synchronize()
+        return enc_sum, cstate, loss_sum
+
     def round_step(state: ServerState, batch, mask):
         params = state.params
         spec = wire.tree_spec(params)
         device = tree_leaves(params)[0].device
         rng, sub = znoise.split(state.rng)
-        resolve_cohort(ctx.cohort, n, spec.n_coords)
-        keys = znoise.client_keys(sub, 0, n)
-        mask_g = torch.as_tensor(mask, dtype=torch.float32,
-                                 device=device).reshape(n)
-        d = spec.n_coords
-        mult = compressor.pad_multiple()
-        d_pad = -(-d // mult) * mult
-        # The cohort buffer: row c receives client c's pseudo-gradient IN
-        # PLACE (the reference stacks the vmapped rows functionally); the
-        # tile padding past d stays zero, as the reference's pad does.
-        buf = torch.empty((n, d_pad), dtype=torch.float32, device=device)
-        if d_pad > d:
-            buf[:, d:].zero_()
+        plan = resolve_cohort(policy, total, spec.n_coords)
+        host = plan.mode == "stream" and plan.feed == "host"
+        mask_all = torch.as_tensor(mask, dtype=torch.float32).reshape(G, N)
+        if not host:
+            mask_all = mask_all.to(device)
         gamma_t = torch.tensor(gamma, dtype=torch.float32, device=device)
-        losses = torch.stack([
-            client_update(spec, params, tree_map(lambda x: x[0, c], batch),
-                          buf[c], gamma_t)
-            for c in range(n)])
+        if plan.mode == "stream":
+            enc_sum, cstate, loss_sum = stream_cohort(
+                spec, params, batch, mask_all, state.comp_state, sub,
+                gamma_t, plan.shard, host)
+        else:
+            enc_sum, cstate, loss_sum = vmap_groups(
+                spec, params, batch, mask_all, state.comp_state, sub,
+                gamma_t)
         with torch.no_grad():
-            # client group 0 of the stacked state: views of its rows
-            cstate = (None if state.comp_state is None else
-                      {k: v[0] for k, v in state.comp_state.items()})
-            enc, cstate = compressor.encode_batch(keys, buf, d, cstate,
-                                                  mask_g)
-            del buf
-            if cstate is not None:
-                cstate = {k: v.unsqueeze(0) for k, v in cstate.items()}
-            enc_sum = compressor.aggregate(enc, mask_g, d)
-            loss_sum = torch.sum(torch.where(mask_g > 0, losses * mask_g,
-                                             0.0))
-            return _finish(state, spec, rng, enc_sum, loss_sum, mask_g,
-                           cstate)
+            return _finish(state, spec, rng, enc_sum, loss_sum,
+                           mask_all.to(device), cstate, plan.shard)
 
-    def _finish(state, spec, rng, enc_sum, loss_sum, mask_g, cstate):
+    def _finish(state, spec, rng, enc_sum, loss_sum, mask_g, cstate,
+                shard_used):
         n_live = torch.clamp_min(torch.sum(mask_g), 1.0)
         g_flat = compressor.decode_sum(enc_sum, n_live)
         # the ONE unflatten: decoded flat estimate -> params-shaped tree
@@ -224,7 +498,8 @@ def build_round_step(loss_fn: Callable, compressor, cfg: FedConfig,
             grad_est_norm=torch.linalg.vector_norm(g_flat[:spec.n_coords]),
             participation=n_live,
             uplink_bits=n_live * float(spec.n_coords
-                                       * compressor.wire_bits_per_coord))
+                                       * compressor.wire_bits_per_coord),
+            shard_clients=torch.tensor(shard_used, dtype=torch.int32))
         new_state = ServerState(params=new_params, opt_state=new_opt,
                                 comp_state=cstate, rng=rng,
                                 round=state.round + 1, sigma=state.sigma,

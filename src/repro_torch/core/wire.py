@@ -12,6 +12,10 @@ Summation order (what makes these bit-exact with the reference and with the
 CUDA ``sign_reduce`` kernel): clients in blocks of SIGN_REDUCE_CLIENT_BLK;
 within a block a left fold in client order that starts from +0.0; block
 partials then added one after another, the first block initialising the sum.
+The streaming plan folds shard after shard into one carry: a flat sum for
+0/1 masks (integer sums, exact in any order), a ``SignFoldAcc`` for f32
+weights (pending rows keep the global 8-client blocks, so the fold is
+bit-identical to one call over all clients for any partition into shards).
 """
 from __future__ import annotations
 
@@ -154,15 +158,17 @@ def _pad_clients(packed: torch.Tensor, weights: torch.Tensor):
 
 
 def unpack_sum(packed: torch.Tensor, weights: torch.Tensor,
-               acc: Optional[torch.Tensor] = None) -> torch.Tensor:
+               acc=None):
     """(n_clients, n_bytes) u8, (n_clients,) f32 -> (8*n_bytes,) weighted
     sum of the +/-1 signs (LUT over bit-transposed planes; clients padded to
-    blocks of 8 with weight 0). ``acc`` continues the left fold from a
-    carried (8*n_bytes,) partial sum."""
-    if acc is not None and not isinstance(acc, torch.Tensor):
-        raise NotImplementedError(
-            "the partition-invariant SignFoldAcc carry belongs to the "
-            "streaming cohort plan, not yet ported (ROADMAP queue 1 item 10)")
+    blocks of 8 with weight 0).
+
+    ``acc`` is the streaming fold hook: an (8*n_bytes,) f32 partial sum
+    continues the left fold ``((acc + b_0) + b_1) + ...`` over this call's
+    blocks; a :class:`SignFoldAcc` takes the shard-partition-invariant
+    fold (``_sign_fold_step``) and returns the updated carry."""
+    if isinstance(acc, SignFoldAcc):
+        return _sign_fold_step(packed, weights, acc)
     n_bytes = packed.shape[1]
     packed, w, n_blocks = _pad_clients(packed, weights)
     planes = _bit_transpose_blocks(packed, n_blocks, n_bytes).long()
@@ -177,6 +183,96 @@ def unpack_sum(packed: torch.Tensor, weights: torch.Tensor,
         a = a + lut[b][planes[b]]
     # a[k, byte] is the weighted sum for coordinate byte*8 + k
     return a.T.reshape(-1)
+
+
+@dataclasses.dataclass(frozen=True)
+class SignFoldAcc:
+    """Shard-partition-invariant carry of the f32-weighted sign fold (port
+    of the reference's ``SignFoldAcc``).
+
+    Clients that do not fill an 8-client block are PARKED as pending wire
+    rows and the block is closed, in global client order, only once 8 rows
+    exist, so a streamed fold replays the exact additions of one call over
+    the concatenated clients, for any partition into shards.
+
+      sums        (8*n_bytes,) f32 closed-block sum in R1's output layout
+                  (coordinate 8i+k at [8i+k]); starts at -0.0, the additive
+                  identity that keeps every bit pattern (the reference's
+                  transposed (8, n_bytes) layout is internal to it)
+      pend_bytes  (SIGN_REDUCE_CLIENT_BLK, n_bytes) u8 pending rows; rows
+                  >= pend_n are zero
+      pend_w      (SIGN_REDUCE_CLIENT_BLK,) f32 their weights (same rule)
+      pend_n      number of pending rows, 0..7 (a Python int: the port's
+                  shard loop is eager)
+
+    The reference adds -0.0 for each absent block; the port skips it, which
+    leaves every bit of the sum as it is. ``sums`` is updated in place by
+    the kernel route (``kernels.zsign.ops.sign_fold_step``)."""
+    sums: torch.Tensor
+    pend_bytes: torch.Tensor
+    pend_w: torch.Tensor
+    pend_n: int
+
+
+def sign_fold_init(n_bytes: int, device=None) -> SignFoldAcc:
+    """Fresh fold carry for (.., n_bytes) wire rows."""
+    blk = SIGN_REDUCE_CLIENT_BLK
+    return SignFoldAcc(
+        sums=torch.full((8 * n_bytes,), -0.0, dtype=torch.float32,
+                        device=device),
+        pend_bytes=torch.zeros((blk, n_bytes), dtype=torch.uint8,
+                               device=device),
+        pend_w=torch.zeros((blk,), dtype=torch.float32, device=device),
+        pend_n=0)
+
+
+def _lut_fold(rows: torch.Tensor, w: torch.Tensor,
+              sums: torch.Tensor) -> torch.Tensor:
+    """Close the complete 8-row blocks of ``rows`` into ``sums``, in
+    order: ((sums + b_0) + b_1) + ..."""
+    return unpack_sum(rows, w, acc=sums)
+
+
+def _sign_fold_step(packed: torch.Tensor, weights: torch.Tensor,
+                    acc: SignFoldAcc, close=_lut_fold) -> SignFoldAcc:
+    """Fold one shard of (k, n_bytes) wire rows into the carry: the 0..7
+    pending rows go in front of the shard's rows, every complete 8-row
+    block is closed into ``sums`` by ``close(rows, w, sums)`` (the LUT fold
+    here, kernel R1 in fold mode on a card), and the remainder becomes the
+    new pending block."""
+    blk = SIGN_REDUCE_CLIENT_BLK
+    k = packed.shape[0]
+    w = weights.to(device=packed.device, dtype=torch.float32)
+    if acc.pend_n:
+        rows = torch.cat([acc.pend_bytes[:acc.pend_n], packed])
+        w = torch.cat([acc.pend_w[:acc.pend_n], w])
+    else:
+        rows = packed
+    total = acc.pend_n + k
+    n_full = (total // blk) * blk
+    sums = acc.sums
+    if n_full:
+        sums = close(rows[:n_full], w[:n_full], sums)
+    rem = total - n_full
+    if rem == 0 and acc.pend_n == 0:
+        # nothing pending before or after: the zero block stays as it is
+        return dataclasses.replace(acc, sums=sums)
+    pend_bytes = torch.zeros_like(acc.pend_bytes)
+    pend_w = torch.zeros_like(acc.pend_w)
+    pend_bytes[:rem] = rows[n_full:]
+    pend_w[:rem] = w[n_full:]
+    return SignFoldAcc(sums=sums, pend_bytes=pend_bytes, pend_w=pend_w,
+                       pend_n=rem)
+
+
+def sign_fold_finalize(acc: SignFoldAcc, close=_lut_fold) -> torch.Tensor:
+    """Close the pending block (zero-weight padding, as the one-shot call
+    pads its last block) and return the (8*n_bytes,) weighted sign sum,
+    bit-identical to one ``unpack_sum`` over the concatenated clients, zero
+    signs included. Without pending rows the sum is returned as it is."""
+    if not acc.pend_n:
+        return acc.sums
+    return close(acc.pend_bytes, acc.pend_w, acc.sums)
 
 
 _POPCOUNT = torch.tensor([bin(i).count("1") for i in range(256)],
@@ -204,4 +300,16 @@ def dense_masked_sum(payload: torch.Tensor, weights: torch.Tensor,
     """Server side of the dense f32 uplink: (n, d) payload, (n,) weights ->
     (d,) weighted sum (float order is torch's, not the reference's)."""
     out = weights.to(torch.float32) @ payload.to(torch.float32)
+    return out if acc is None else acc + out
+
+
+def unpack_sum_dense(packed: torch.Tensor, weights: torch.Tensor,
+                     acc: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The dense-matrix oracle of ``unpack_sum``: the full (n_clients,
+    8*n_bytes) f32 sign matrix, then a weighted sum over clients (torch's
+    float order, so exact for 0/1 weights and within rounding otherwise).
+    No round path calls it unless asked to (agg backend ``dense``)."""
+    n = packed.shape[0]
+    signs = unpack_signs(packed).reshape(n, -1).to(torch.float32)
+    out = torch.einsum("nd,n->d", signs, weights.to(torch.float32))
     return out if acc is None else acc + out

@@ -47,11 +47,13 @@ class StateSlot:
                              f"of {MERGE_RULES}, got {self.merge!r}")
         object.__setattr__(self, "shape", tuple(int(s) for s in self.shape))
 
-    def zeros(self, lead: Tuple[int, ...] = (), device=None) -> torch.Tensor:
+    def zeros(self, lead: Tuple[int, ...] = (), device=None,
+              pin_memory: bool = False) -> torch.Tensor:
         """Zeros of ``lead + shape`` (``lead`` stacks rows, e.g. the
-        (client_groups, n_clients) axes of the engine's state)."""
+        (client_groups, n_clients) axes of the engine's state); in pinned
+        host memory with ``pin_memory``."""
         return torch.zeros(tuple(lead) + self.shape, dtype=self.dtype,
-                           device=device)
+                           device=device, pin_memory=pin_memory)
 
 
 def collect_slots(stages, n_coords: int) -> Tuple[StateSlot, ...]:
@@ -74,11 +76,13 @@ def collect_slots(stages, n_coords: int) -> Tuple[StateSlot, ...]:
     return tuple(slots)
 
 
-def init_tree(slots, scope: str, lead: Tuple[int, ...] = (), device=None):
+def init_tree(slots, scope: str, lead: Tuple[int, ...] = (), device=None,
+              pin_memory: bool = False):
     """Zero-initialised ``{name: buffer}`` dict for one scope (each buffer
     of shape ``lead + slot.shape``), or None when no slot has that scope
     (the engine's "stateless" marker)."""
-    sel = {s.name: s.zeros(lead, device) for s in slots if s.scope == scope}
+    sel = {s.name: s.zeros(lead, device, pin_memory) for s in slots
+           if s.scope == scope}
     return sel or None
 
 

@@ -34,7 +34,7 @@ SIGNATURES = {
     "zsign_encode_launch": [_VOID_P, _VOID_P, _VOID_P, _VOID_P, _INT, _LL,
                             _INT, _VOID_P],
     "sign_reduce_launch": [_VOID_P, _VOID_P, _VOID_P, _VOID_P, _INT, _LL,
-                           _VOID_P],
+                           _INT, _VOID_P],
     "zsign_compress_launch": [_VOID_P, _VOID_P, _VOID_P, _VOID_P, _INT, _LL,
                               _VOID_P],
     "unpack_sum_launch": [_VOID_P, _VOID_P, _INT, _LL, _VOID_P],

@@ -7,7 +7,10 @@ Four kernels (sources in ``csrc/``, built by ``repro_torch.kernels.build``):
                           ``compress_rng_pallas`` and
                           ``compress_rng_pallas_batched``)
   ``sign_reduce``         R1, the weighted sign-reduce over the packed client
-                          stack (replaces K3, ``sign_reduce_pallas``)
+                          stack (replaces K3, ``sign_reduce_pallas``); its
+                          fold mode carries the streaming plan's
+                          partition-invariant f32 fold (``sign_fold_step``,
+                          ``sign_fold_finalize``)
   ``zsign_compress_rows`` C1, the dense-noise sign encode of a stack of
                           clients (replaces K5, ``compress_pallas``)
   ``unpack_sum``          U1, the unweighted sum of signs over the packed
@@ -28,6 +31,7 @@ from typing import Optional
 import torch
 
 from repro_torch.core import noise as znoise
+from repro_torch.core import wire
 from repro_torch.core.wire import SIGN_REDUCE_CLIENT_BLK, pack_bool, pad_to
 from repro_torch.kernels.build import check_cuda, launcher, raise_on
 
@@ -97,7 +101,8 @@ def zsign_encode(x2d: torch.Tensor, keys: torch.Tensor, sigma: torch.Tensor,
     multiple of 8192; keys (n, 2) int64 tensor holding each client's two
     uint32 key words; sigma (n,) f32; z in {Z_INF, 1} or None (noise off).
     -> (n, d_pad/8) uint8, each client's bytes exactly those of its own
-    n = 1 call (tile ids restart at 0 for every client)."""
+    n = 1 call (tile ids restart at 0 for every client). ``launches_n1``
+    counts the launches with n = 1 (the sequential-client group scan)."""
     if x2d.device.type == "cpu":
         return zsign_encode_plain(x2d, keys, sigma, z)
     mode = _mode(z)
@@ -120,10 +125,13 @@ def zsign_encode(x2d: torch.Tensor, keys: torch.Tensor, sigma: torch.Tensor,
                  torch.cuda.current_stream().cuda_stream)
     raise_on(err, "zsign_encode")
     zsign_encode.launches += 1
+    if n == 1:
+        zsign_encode.launches_n1 += 1
     return out
 
 
 zsign_encode.launches = 0
+zsign_encode.launches_n1 = 0
 
 
 def zsign_encode_fused(x: torch.Tensor, key: torch.Tensor, sigma, *, z,
@@ -183,15 +191,19 @@ def erf_rule_flips(x2d: torch.Tensor, keys: torch.Tensor,
 # ---------------------------------------------------------------------------
 
 def sign_reduce_plain(packed: torch.Tensor, weights: torch.Tensor,
-                      acc: Optional[torch.Tensor] = None) -> torch.Tensor:
+                      acc: Optional[torch.Tensor] = None, *,
+                      fold: bool = False) -> torch.Tensor:
     """Plain version of R1, in the kernel's exact order: left fold from +0.0
     over each block of 8 clients, block partials added in order (the first
-    initialising), then ``acc + sum``. Padding clients of the last block
-    would add -0.0, which changes no partial, so they are not visited."""
+    initialising), then ``acc + sum``. With ``fold`` the block partials are
+    added to the carry ``acc`` instead, ((acc + b0) + b1) + ..., as R1's
+    fold mode does (which writes the result over the carry). Padding
+    clients of the last block would add -0.0, which changes no partial, so
+    they are not visited."""
     n, nb = packed.shape
     w = weights.to(device=packed.device, dtype=torch.float32)
     shifts = torch.arange(8, device=packed.device, dtype=torch.uint8)
-    total = None
+    total = acc.reshape(nb, 8) if fold else None
     for b0 in range(0, n, SIGN_REDUCE_CLIENT_BLK):
         part = torch.zeros((nb, 8), dtype=torch.float32, device=packed.device)
         for c in range(b0, min(b0 + SIGN_REDUCE_CLIENT_BLK, n)):
@@ -199,39 +211,86 @@ def sign_reduce_plain(packed: torch.Tensor, weights: torch.Tensor,
             part = part + torch.where(bits, w[c], -w[c])
         total = part if total is None else total + part
     out = total.reshape(-1)
-    return out if acc is None else acc + out
+    return out if acc is None or fold else acc + out
 
 
-def sign_reduce(packed: torch.Tensor, weights: torch.Tensor,
-                acc: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """R1: (n, nb) uint8 payload stack, (n,) f32 weights -> (8*nb,) f32
-    weighted sum of the +/-1 signs (plus ``acc`` when given). Clients are
-    reduced in zero-weight-padded blocks of 8, bit-exact with the reference's
-    ``sign_reduce`` for any f32 weights."""
-    if packed.device.type == "cpu":
-        return sign_reduce_plain(packed, weights, acc)
+def _sign_reduce_launch(packed: torch.Tensor, weights: torch.Tensor,
+                        acc: Optional[torch.Tensor], out: torch.Tensor,
+                        fold: bool) -> None:
+    """Launch R1 on card tensors: add mode (``acc`` or None) into a fresh
+    ``out``, or fold mode into the carry ``out`` in place."""
     n, nb = packed.shape
     w = weights.to(device=packed.device, dtype=torch.float32).contiguous()
     if w.shape != (n,):
         raise ValueError(f"weights {tuple(w.shape)} do not match n={n}")
     packed = packed.contiguous()
+    if packed.data_ptr() % 16:
+        # a row slice of a stack whose rows are not a multiple of 16 bytes
+        # (the round paths' rows are multiples of 1024 bytes)
+        packed = packed.clone()
     check_cuda(packed, "packed", torch.uint8)
-    if acc is not None:
-        check_cuda(acc, "acc", torch.float32)
-        if acc.shape != (8 * nb,):
-            raise ValueError(f"acc {tuple(acc.shape)} != ({8 * nb},)")
-    out = torch.empty(8 * nb, dtype=torch.float32, device=packed.device)
+    for name, t in (("acc", acc), ("out", out)):
+        if t is not None:
+            check_cuda(t, name, torch.float32)
+            if t.shape != (8 * nb,):
+                raise ValueError(f"{name} {tuple(t.shape)} != ({8 * nb},)")
     fn = launcher("zsign/csrc/sign_reduce.cu", "sign_reduce_launch")
     with torch.cuda.device(packed.device):
         err = fn(packed.data_ptr(), w.data_ptr(),
                  None if acc is None else acc.data_ptr(), out.data_ptr(),
-                 n, nb, torch.cuda.current_stream().cuda_stream)
+                 n, nb, int(fold), torch.cuda.current_stream().cuda_stream)
     raise_on(err, "sign_reduce")
     sign_reduce.launches += 1
+    if fold:
+        sign_reduce.fold_launches += 1
+
+
+def sign_reduce(packed: torch.Tensor, weights: torch.Tensor,
+                acc: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """R1: (n, nb) uint8 payload stack, (n,) f32 weights -> (8*nb,) f32
+    weighted sum of the +/-1 signs (plus ``acc`` when given, added last).
+    Clients are reduced in zero-weight-padded blocks of 8, bit-exact with
+    the reference's ``sign_reduce`` for any f32 weights."""
+    if packed.device.type == "cpu":
+        return sign_reduce_plain(packed, weights, acc)
+    out = torch.empty(8 * packed.shape[1], dtype=torch.float32,
+                      device=packed.device)
+    _sign_reduce_launch(packed, weights, acc, out, fold=False)
     return out
 
 
+def _fold_close(rows: torch.Tensor, w: torch.Tensor,
+                sums: torch.Tensor) -> torch.Tensor:
+    """Close complete 8-row blocks into the carry ``sums``: R1 in fold mode
+    (in place) on a card, its plain version on the CPU."""
+    if rows.device.type == "cpu":
+        return sign_reduce_plain(rows, w, sums, fold=True)
+    _sign_reduce_launch(rows, w, None, sums, fold=True)
+    return sums
+
+
+def sign_fold_step(packed: torch.Tensor, weights: torch.Tensor,
+                   acc: wire.SignFoldAcc) -> wire.SignFoldAcc:
+    """The partition-invariant fold of one shard through R1: the 0-7
+    pending rows go in front of the shard's rows, R1 in fold mode closes
+    every complete 8-row block into the carry in place, and the remainder
+    rows and weights become the new pending block. Bit-identical, as int32
+    patterns and zero signs included, to the reference's
+    ``_sign_fold_step`` followed by ``sign_fold_finalize``, for any
+    partition of the clients into shards. One launch when the shard
+    completes a block, none otherwise."""
+    return wire._sign_fold_step(packed, weights, acc, close=_fold_close)
+
+
+def sign_fold_finalize(acc: wire.SignFoldAcc) -> torch.Tensor:
+    """Close the pending block (weight-0 padding) through R1 in fold mode,
+    -> the (8*nb,) f32 sum; no launch when nothing is pending."""
+    return wire.sign_fold_finalize(acc, close=_fold_close)
+
+
 sign_reduce.launches = 0
+#: the subset of R1 launches in fold mode
+sign_reduce.fold_launches = 0
 
 
 # ---------------------------------------------------------------------------

@@ -8,10 +8,19 @@ subset of the main path).
 ``--pipeline`` takes a spec string: ``"ef|zsign(use_kernel=true)"`` is the
 EF-SignSGD round through the fused kernel F1, ``"zsign_packed(z=2,
 sigma=0.01)"`` the finite-z round through the dense-noise kernel C1.
+``--groups G`` runs G sequential client groups of ``--clients`` each (the
+group scan; ``--clients 1 --groups 8`` is the sequential-client mode), and
+``--cohort`` picks the cohort plan: ``auto`` (streams when the round is
+large: qwen2-0.5B at more than 8 clients), ``vmap``, or
+``stream(shard=K|auto[,feed=device|host])``, e.g.
+
+    PYTHONPATH=src python -m repro_torch.launch.train --arch qwen2_0_5b \
+        --reduced --clients 20 --cohort "stream(shard=6)" --device cpu
+
 Runs on ``cuda`` unless ``--device cpu`` is given; asking for CUDA on a
 machine without a card raises. ``run(args)`` is the same driver, callable in
 process, and returns the rounds' metrics. Not ported yet: checkpointing,
-Plateau sigma, adversaries, async rounds and cohort streaming.
+Plateau sigma, adversaries, async rounds and ``stream(devices=D > 1)``.
 """
 from __future__ import annotations
 
@@ -36,6 +45,9 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
                     help="reduced same-family f32 config (CPU-sized)")
     ap.add_argument("--rounds", type=int, default=50)
     ap.add_argument("--clients", type=int, default=4)
+    ap.add_argument("--groups", type=int, default=1,
+                    help="sequential client groups; total clients = "
+                         "groups * clients")
     ap.add_argument("--local-steps", type=int, default=2)
     ap.add_argument("--micro-batch", type=int, default=2)
     ap.add_argument("--seq-len", type=int, default=64)
@@ -55,6 +67,14 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
                     help="client encode backend (auto = CUDA kernel on a "
                          "card, plain PyTorch elsewhere; reference = the "
                          "dense-noise draw)")
+    ap.add_argument("--cohort", default="auto",
+                    help="cohort execution policy: 'auto' (stream only when "
+                         "the round is large), 'vmap', or 'stream(shard=K|"
+                         "auto[,unroll=U][,feed=device|host])': shards of K "
+                         "clients through one buffer, folding each shard "
+                         "into one running wire accumulator; feed=host "
+                         "keeps batch and state rows in pinned host memory "
+                         "and copies one shard ahead")
     ap.add_argument("--z", type=int, default=1, help="1=Gaussian, 0=uniform")
     ap.add_argument("--sigma", type=float, default=0.01,
                     help="z-sign noise scale")
@@ -100,36 +120,43 @@ def run(args: argparse.Namespace,
             "efsign": compression.EFSignCompressor,
             "identity": compression.Compressor,
         }[args.compressor]()
-    cfg = fedavg.FedConfig(n_clients=args.clients,
+    cfg = fedavg.FedConfig(n_clients=args.clients, client_groups=args.groups,
                            local_steps=args.local_steps,
                            client_lr=args.client_lr,
                            server_lr=args.server_lr)
     # the sampler below emits exact 0/1 membership masks
     ctx = fedavg.RoundContext(agg_backend=args.agg_backend,
                               encode_backend=args.encode_backend,
-                              weights_are_mask=True)
+                              weights_are_mask=True, cohort=args.cohort)
     step = fedavg.build_round_step(bundle.loss_fn, comp, cfg, ctx)
+    # stream(feed=host) keeps batch and state rows on the host
+    host = fedavg.CohortPolicy.parse(args.cohort).feed == "host"
     gen = torch.Generator(device=device).manual_seed(0)
     params = bundle.init(gen, device)
     n_params = sum(p.numel() for p in tree_leaves(params))
     state = fedavg.init_server_state(params, cfg, comp, noise.prng_key(1),
-                                     sigma0=args.sigma)
+                                     sigma0=args.sigma, host_state=host)
     stream = TokenStream(vocab=arch.model.vocab)
+    total = args.groups * args.clients
     sampler = ParticipationSampler(
-        total_clients=args.clients,
-        per_round=max(1, int(args.clients * args.participation)),
+        total_clients=total,
+        per_round=max(1, int(total * args.participation)),
         over_provision=args.over_provision, failure_rate=args.failure_rate)
-    layout = (1, args.clients, args.local_steps, args.micro_batch)
+    layout = (args.groups, args.clients, args.local_steps, args.micro_batch)
     wf = comp.wire_format()
+    plan = fedavg.resolve_cohort(args.cohort, total, n_params)
     print(f"# arch={arch.model.name} params={n_params:,} "
           f"compressor={comp.name} wire={wf.layout}/{wf.dtype} "
-          f"({wf.bits_per_coord:g} bits/coord) device={device}")
+          f"({wf.bits_per_coord:g} bits/coord) device={device} "
+          f"cohort={plan.mode}"
+          + (f"(shard={plan.shard},feed={plan.feed})"
+             if plan.mode == "stream" else f" groups={args.groups}"))
     print("round,loss,ghat_norm,live,Mbits_cum,sigma,sec")
     history, bits = [], 0.0
     for t in range(args.rounds):
-        batch = {"tokens": stream.round_batch(t, layout, args.seq_len,
-                                              device)}
-        mask = sampler.mask((1, args.clients))
+        batch = {"tokens": stream.round_batch(
+            t, layout, args.seq_len, "cpu" if host else device)}
+        mask = sampler.mask((args.groups, args.clients))
         t0 = time.time()
         new_state, m = step(state, batch, mask)
         loss = float(m.loss)          # waits for the round's device work

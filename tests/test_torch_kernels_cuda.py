@@ -140,3 +140,71 @@ def test_cuda_unpack_sum_matches_plain(cuda, n):
     assert TO.unpack_sum.launches == before + 1
     want = TO.unpack_sum_plain(p)
     assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shards", [(3, 5, 8, 1, 13), (8, 8), (6, 6, 6),
+                                    (1, 1, 1, 1, 1, 1, 1, 2)])
+def test_cuda_sign_fold_matches_plain(cuda, shards):
+    """R1 in fold mode (sign_fold_step / sign_fold_finalize) against its
+    plain version on the same shard sequence, with and without pending
+    rows at the end; the launches are the complete 8-row blocks plus one
+    to close a pending block."""
+    from repro_torch.core import wire as TW
+    n, nb = sum(shards), 4099
+    gen = torch.Generator(device=cuda).manual_seed(n)
+    p = torch.randint(0, 256, (n, nb), generator=gen, device=cuda,
+                      dtype=torch.uint8)
+    w = torch.randn((n,), generator=gen, device=cuda)
+    w[:8] = -0.0                              # a first block of +-0.0 sums
+    got = TW.sign_fold_init(nb, cuda)
+    want = TW.sign_fold_init(nb, "cpu")
+    before = (TO.sign_reduce.launches, TO.sign_reduce.fold_launches)
+    want_launches, pend, lo = 0, 0, 0
+    for k in shards:
+        got = TO.sign_fold_step(p[lo:lo + k], w[lo:lo + k], got)
+        want = TO.sign_fold_step(p[lo:lo + k].cpu(), w[lo:lo + k].cpu(),
+                                 want)
+        want_launches += (pend + k) // 8 > 0
+        pend = (pend + k) % 8
+        lo += k
+        assert got.pend_n == want.pend_n == pend
+    out = TO.sign_fold_finalize(got)
+    torch.cuda.synchronize()
+    want_launches += pend > 0
+    assert TO.sign_reduce.launches - before[0] == want_launches
+    assert TO.sign_reduce.fold_launches - before[1] == want_launches
+    ref = TO.sign_fold_finalize(want)
+    assert torch.equal(out.cpu().view(torch.int32), ref.view(torch.int32))
+    one_shot = TO.sign_reduce_plain(p.cpu(), w.cpu())
+    assert torch.equal(ref.view(torch.int32), one_shot.view(torch.int32))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("spec", ["efsign", "ef|zsign"])
+def test_cuda_noise_free_ef_encode_launches_e1(cuda, spec):
+    """The noise-free mean-|p| encode (``--compressor efsign``) packs on the
+    card through E1 with z=None: one launch a round, bytes equal to the
+    plain pack."""
+    from repro_torch.core import compression as TC
+    from repro_torch.core import fedavg as TF
+    n, d = 4, 3 * TILE + 11
+    comp = TC.EFSignCompressor() if spec == "efsign" else TC.Pipeline(spec)
+    cfg = TF.FedConfig(n_clients=n, client_lr=0.01)
+    step = TF.build_round_step(
+        lambda p, b: 0.5 * torch.sum((p["x"] - b["y"]) ** 2), comp, cfg)
+    st = TF.init_server_state({"x": torch.zeros(d, device=cuda)}, cfg, comp,
+                              TN.prng_key(2))
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    y = torch.randn((1, n, 1, d), generator=gen, device=cuda)
+    before = TO.zsign_encode.launches
+    for _ in range(2):
+        st, m = step(st, {"y": y}, torch.ones((1, n)))
+    torch.cuda.synchronize()
+    assert TO.zsign_encode.launches - before == 2
+    x2d = torch.zeros((n, 4 * TILE), device=cuda)
+    x2d[:, :d] = torch.randn((n, d), generator=gen, device=cuda)
+    keys = TN.client_keys(TN.prng_key(1), 0, n)
+    payload, _ = comp.codec.encode_with_decode_batch(keys, x2d, d)
+    assert torch.equal(payload["packed"], TO.zsign_encode_plain(
+        x2d, keys, torch.zeros(n, device=cuda), None))

@@ -227,9 +227,11 @@ def test_unported_paths_raise():
         TC.Pipeline("dp(clip=1.0,noise=0.1)|zsign")
     with pytest.raises(NotImplementedError, match="item 12"):
         TC.Pipeline("zsign(agg=vote)")
-    with pytest.raises(NotImplementedError, match="item 10"):
-        TF.resolve_cohort("auto", 64, 494_032_768)
-    assert TF.resolve_cohort("auto", 8, 494_032_768) == "vmap"
-    with pytest.raises(NotImplementedError, match="item 6"):
-        TF.build_round_step(lambda p, b: 0, TC.Pipeline("zsign"),
-                            TF.FedConfig(client_groups=2))
+    with pytest.raises(NotImplementedError, match="item 14"):
+        TF.resolve_cohort("stream(devices=2)", 64, 494_032_768)
+    # the streaming plan and the group scan are ported now
+    assert TF.resolve_cohort("auto", 64, 494_032_768) == TF.CohortPlan(
+        "stream", 8, 1, 1, "device")
+    assert TF.resolve_cohort("auto", 8, 494_032_768) == TF.VMAP_PLAN
+    TF.build_round_step(lambda p, b: 0, TC.Pipeline("zsign"),
+                        TF.FedConfig(client_groups=2))
