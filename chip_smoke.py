@@ -18,9 +18,10 @@ Phases, each of which raises (non-zero exit, no result line) on failure:
    without pending rows); F1 ``ef_sign_rows`` (n in {1, 3, 8}, d not a
    multiple of 8192, one dead client, with and without q, in place); C1
    ``zsign_compress_rows`` (sigma 0 and > 0, elements whose unfused y is
-   exactly 0); U1 ``unpack_sum``. Outputs are compared as int32 bit
-   patterns (bytes for payloads).
-3. six paths at full width through ``repro_torch.launch.train.run``:
+   exactly 0); U1 ``unpack_sum``. E1 also with a sigma vector that differs
+   across clients and holds a 0 (the sto-sign route). Outputs are compared
+   as int32 bit patterns (bytes for payloads).
+3. twelve paths at full width through ``repro_torch.launch.train.run``:
    qwen2-0.5B (24 layers, d = 494,032,768 coordinates, bf16), 2 local steps,
    micro-batch 2, seq 64, 2 rounds each:
      zsign            zsign(z=1, sigma=0.01), 8 clients: E1 + R1 once a round
@@ -35,8 +36,29 @@ Phases, each of which raises (non-zero exit, no result line) on failure:
                       (shard 2 and shard 3 each complete one 8-client block,
                       the finalize closes the 2 pending rows; shard 1's 6
                       rows only pend)
-   Each path: finite loss, params changed, n * d uplink bits per round, the
-   EF residual rows all non-zero after round 1, its peak
+     stosign          --compressor stosign, 8 clients: E1 + R1 once a round;
+                      the (8,) sigma vector E1 gets equals the 8 row norms
+                      recomputed in f64 (relative 1e-6), and its entries
+                      differ
+     dp_zsign         dp(clip=1.0,eps=2.0,steps=200,q=0.3)|zsign_packed, 8
+                      clients: E1 (z=1) + R1 once; the codec's sigma is the
+                      port's calibrate_noise(...) * 1.0, E1 gets it for
+                      every row; each row whose norm before the clip was
+                      above 1 reaches E1 at norm 1 +/- 1e-6, any other
+                      unchanged (norms in f64)
+     sigma_sched      sigma_sched(head=2.0,tail=0.5)|zsign(z=1,sigma=0.01),
+                      8 clients: E1 + R1 once
+     cv_stream        cv|zsign_packed(z=1,sigma=0.01), --clients 16 --cohort
+                      "stream(shard=6)": E1 and R1 (add mode) 3 times, fold
+                      mode never; every cv row and the server variate
+                      non-zero after round 1
+     plateau          zsign with --plateau, 8 clients: the dynamic route
+                      (E1 gets f32 state.sigma), E1 + R1 once
+     dpgauss          --compressor dpgauss, 8 clients, one round: E1 and R1
+                      never (the dense wire), 32 * 8 * d uplink bits
+   Each path: finite loss, params changed, n * d uplink bits per round
+   (32 n d for dpgauss), every client-state row (EF residual, cv) and the
+   server state non-zero after round 1, its peak
    ``torch.cuda.max_memory_allocated``, and every launch counter set to 0
    just before the path and read just after (a wrapper counts only launches
    on CUDA tensors, so this also shows the buffers lived on the card).
@@ -47,13 +69,21 @@ Phases, each of which raises (non-zero exit, no result line) on failure:
    stream(shard=5); (c) 16 EF clients under stream(shard=6),
    stream(shard=8), stream(shard=8,feed=host) and the group scan
    --clients 8 --groups 2 --cohort vmap are one round (at this width
-   --cohort auto streams 16 clients in shards of 8). Each run's plan and
-   launches are checked too.
+   --cohort auto streams 16 clients in shards of 8); (d) the same four plans
+   for 16 cv clients (cv rows by digest, the server variate as int32
+   patterns). Each run's plan and launches are checked too. Then the
+   dynamic sigma: one round with RoundContext(dynamic_sigma=True) from a
+   state whose sigma is set to 0.015 (as launch/train.py does after a
+   Plateau stall) sends the payload bytes of the static zsign(z=1,
+   sigma=0.015) round from the same seeds, and decodes by f32(eta_1) *
+   f32(0.015).
 4. the public op ``zsign_decompress_sum`` (U1, on no round path) on a
    full-width payload stack, checked against R1 with unit weights; then
    times at the paths' shapes (n = 8, d as above) with CUDA events, each
    kernel beside its plain version on the same inputs and its bound (R1 in
-   add and in fold mode).
+   add and in fold mode, E1 also at n = 1); and the plain-torch layers of
+   the new paths (row norms, the clip, the sigma_sched multiply, the cv
+   correction, row update and server update) beside their byte bounds.
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it
 lists each kernel with its check, launches and times.
@@ -91,6 +121,11 @@ COMMON_ARGS = ["--arch", "qwen2_0_5b", "--local-steps", "2",
                "--micro-batch", "2", "--seq-len", "64", "--device", "cuda"]
 ZSIGN = ["--compressor", "zsign", "--z", "1", "--sigma", "0.01"]
 EF = ["--pipeline", "ef|zsign(use_kernel=true)"]
+CV = ["--pipeline", "cv|zsign_packed(z=1,sigma=0.01)"]
+DP_SPEC = "dp(clip=1.0,eps=2.0,steps=200,q=0.3)|zsign_packed"
+#: the accountant's arguments of DP_SPEC, and its clip norm
+DP_ACCOUNT = {"q": 0.3, "steps": 200, "target_eps": 2.0, "delta": 1e-5}
+DP_CLIP = 1.0
 #: the full-width paths: label, train flags, launches per round (kernel
 #: counters; "_n1" and "_fold" are the subsets with n = 1 and in fold mode)
 PATHS = [
@@ -113,11 +148,39 @@ PATHS = [
     ("ef_stream", EF + ["--clients", "16", "--cohort", "stream(shard=6)"],
      {"zsign_encode": 0, "ef_sign": 3, "sign_reduce": 3,
       "sign_reduce_fold": 3}),
+    ("stosign", ["--compressor", "stosign", "--clients", "8"],
+     {"zsign_encode": 1, "sign_reduce": 1, "ef_sign": 0,
+      "zsign_compress": 0, "sign_reduce_fold": 0}),
+    ("dp_zsign", ["--pipeline", DP_SPEC, "--clients", "8"],
+     {"zsign_encode": 1, "sign_reduce": 1, "ef_sign": 0,
+      "zsign_compress": 0, "sign_reduce_fold": 0}),
+    ("sigma_sched", ["--pipeline",
+                     "sigma_sched(head=2.0,tail=0.5)|zsign(z=1,sigma=0.01)",
+                     "--clients", "8"],
+     {"zsign_encode": 1, "sign_reduce": 1, "ef_sign": 0,
+      "zsign_compress": 0, "sign_reduce_fold": 0}),
+    ("cv_stream", CV + ["--clients", "16", "--cohort", "stream(shard=6)"],
+     {"zsign_encode": 3, "sign_reduce": 3, "sign_reduce_fold": 0,
+      "zsign_compress": 0, "ef_sign": 0}),
+    ("plateau", ZSIGN + ["--clients", "8", "--plateau"],
+     {"zsign_encode": 1, "sign_reduce": 1, "ef_sign": 0,
+      "zsign_compress": 0, "sign_reduce_fold": 0}),
+    ("dpgauss", ["--compressor", "dpgauss", "--clients", "8"],
+     {"zsign_encode": 0, "sign_reduce": 0, "ef_sign": 0,
+      "zsign_compress": 0, "unpack_sum": 0}),
 ]
+#: rounds of a path where it is not ROUNDS, and uplink bits per coordinate
+#: where it is not 1
+PATH_ROUNDS = {"dpgauss": 1}
+PATH_BITS = {"dpgauss": 32}
+#: paths whose E1 calls the probe records (see _E1Probe)
+PROBED = ("stosign", "dp_zsign", "plateau")
 #: clients per shard each path must resolve to (0: the vmap plan)
 PATH_SHARD = {"zsign_groups": 0, "zsign_stream": 8, "ef_stream": 6,
               "zsign_16_vmap": 0, "zsign_16_stream5": 5, "ef_16_stream8": 8,
-              "ef_16_stream8_host": 8, "ef_8x2_groups": 0}
+              "ef_16_stream8_host": 8, "ef_8x2_groups": 0, "cv_stream": 6,
+              "cv_16_stream8": 8, "cv_16_stream8_host": 8,
+              "cv_8x2_groups": 0}
 ROUNDS = 2
 #: the plan identities: (name, [(label, flags, launches per round), ...]);
 #: a label naming a path of PATHS reuses that path's first round. 16
@@ -140,6 +203,16 @@ IDENTITIES = [
            ("ef_8x2_groups", EF + ["--clients", "8", "--groups", "2",
                                    "--cohort", "vmap"],
             {"ef_sign": 2, "sign_reduce": 1, "sign_reduce_fold": 0})]),
+    ("d", [("cv_stream", None, None),
+           ("cv_16_stream8", CV + ["--clients", "16", "--cohort",
+                                   "stream(shard=8)"],
+            {"zsign_encode": 2, "sign_reduce": 2, "sign_reduce_fold": 0}),
+           ("cv_16_stream8_host", CV + ["--clients", "16", "--cohort",
+                                        "stream(shard=8,feed=host)"],
+            {"zsign_encode": 2, "sign_reduce": 2, "sign_reduce_fold": 0}),
+           ("cv_8x2_groups", CV + ["--clients", "8", "--groups", "2",
+                                   "--cohort", "vmap"],
+            {"zsign_encode": 2, "sign_reduce": 1, "sign_reduce_fold": 0})]),
 ]
 QWEN2_COORDS = 494_032_768
 
@@ -191,8 +264,12 @@ def _bound(nbytes: float, ops: float):
 
 
 def _same_bits(a, b) -> bool:
-    if a.dtype == torch.float32:
-        return torch.equal(a.view(torch.int32), b.view(torch.int32))
+    """Equal dtypes and equal bit patterns (floats compared as ints)."""
+    if a.dtype != b.dtype:
+        return False
+    if a.is_floating_point():
+        iv = {2: torch.int16, 4: torch.int32}[a.element_size()]
+        return torch.equal(a.view(iv), b.view(iv))
     return torch.equal(a, b)
 
 
@@ -255,8 +332,28 @@ def check_encode_and_reduce(dev):
                             raise AssertionError(
                                 f"E1 client {c}: batched bytes != n=1 bytes")
                     torch.cuda.synchronize()
-    print(f"# E1 checks passed; z=1 bits differing from the plain version: "
-          f"{flips_z1}")
+    # a sigma for each client, one of them 0 (the sto-sign route)
+    for n in (8, 13):
+        x = torch.randn((n, d_pad), generator=gen, device=dev)
+        keys = noise.client_keys(noise.prng_key(6), 0, n)
+        sig = torch.rand((n,), generator=gen, device=dev) * 2.0 + 0.05
+        sig[3] = 0.0
+        for z in (noise.Z_INF, 1):
+            got = ops.zsign_encode(x, keys, sig, z)
+            want = ops.zsign_encode_plain(x, keys, sig, z)
+            torch.cuda.synchronize()
+            nflip, far = ops.erf_rule_flips(x, keys, sig, z, got, want)
+            if z == 1:
+                flips_z1 += nflip
+            free = ops.zsign_encode_plain(x[3:4], keys[3:4], sig[3:4], None)
+            if (far or (z != 1 and nflip)
+                    or not torch.equal(got[3], free[0])):
+                raise AssertionError(f"E1 per-client sigma n={n} z={z}: "
+                                     f"{nflip} bits differ ({far} outside "
+                                     "the erf rule) or the sigma-0 row is "
+                                     "not its noise-free pack")
+    print(f"# E1 checks passed (one sigma and a sigma per client); z=1 bits "
+          f"differing from the plain version: {flips_z1}")
     nb = 5 * 1024 + 7
     for n in (8, 13):
         packed = torch.randint(0, 256, (n, nb), generator=gen, device=dev,
@@ -374,74 +471,153 @@ def check_ef_compress_unpack(dev):
     print("# F1, C1, U1 checks passed (bit patterns equal)")
 
 
+class _E1Probe:
+    """Stands in for the kernel module inside ``core.compression`` while a
+    path runs: each E1 call goes to the real wrapper (whose launch count
+    stays its own) and is recorded with its z, its sigma vector and, for
+    the first call, the f64 L2 norms of the rows it got."""
+
+    def __init__(self, ops, d: int):
+        self._ops, self._d, self.calls = ops, d, []
+
+    def __getattr__(self, name):
+        return getattr(self._ops, name)
+
+    def zsign_encode(self, x2d, keys, sigma, z):
+        out = self._ops.zsign_encode(x2d, keys, sigma, z)
+        call = {"z": z, "sigma": sigma.detach().clone()}
+        if not self.calls:
+            call["norms64"] = _norms64(x2d, self._d)
+        self.calls.append(call)
+        return out
+
+
+class _ClipProbe:
+    """Stands in for ``core.dp`` inside ``core.compression`` on the DP
+    path: the first clip records the f64 L2 norms of the rows before it
+    clips them with the real ``clip_rows_``."""
+
+    def __init__(self, dp):
+        self._dp, self.before64 = dp, None
+
+    def __getattr__(self, name):
+        return getattr(self._dp, name)
+
+    def clip_rows_(self, p2d, n_coords, max_norm, nrms=None):
+        if self.before64 is None:
+            self.before64 = _norms64(p2d, n_coords)
+        return self._dp.clip_rows_(p2d, n_coords, max_norm, nrms)
+
+
+def _norms64(x2d, d: int):
+    return torch.stack([_norm64(x2d[c, :d]) for c in range(x2d.shape[0])])
+
+
+def _norm64(row, chunk=1 << 26):
+    acc = torch.zeros((), dtype=torch.float64, device=row.device)
+    for lo in range(0, row.numel(), chunk):
+        acc += torch.sum(row[lo:lo + chunk].double() ** 2)
+    return torch.sqrt(acc)
+
+
+def _digest(row, chunk=1 << 26):
+    """(sum, position-weighted sum) of a row's int32 pattern, int64
+    arithmetic mod 2^64."""
+    a = b = 0
+    for lo in range(0, row.numel(), chunk):
+        x = row[lo:lo + chunk].to(DEV, non_blocking=True)
+        x = x.view(torch.int32).to(torch.int64)
+        pos = torch.arange(lo + 1, lo + 1 + x.numel(), device=DEV,
+                           dtype=torch.int64) * 2654435761
+        a += int(x.sum())
+        b += int((x * pos).sum())
+    return a, b
+
+
 def _round0_record(after):
-    """A first round's outcome: the params on the host (bit patterns
-    compared later) and, per residual row, a digest of its int32 pattern
-    (sum and position-weighted sum, int64 arithmetic mod 2^64)."""
+    """A first round's outcome: the params and the server state on the
+    host (bit patterns compared later) and, per client-state row of every
+    slot, a digest of its int32 pattern."""
     from repro_torch.core.tree import tree_paths
-    rec = {"params": {p: v.detach().cpu() for p, v in
-                      tree_paths(after.params)}, "ef": None}
+    rec = {"params": {p: v.detach().to("cpu", copy=True) for p, v in
+                      tree_paths(after.params)}, "rows": None,
+           "server": None}
     if after.comp_state is not None:
-        ef = after.comp_state["ef"]
-        ef = ef.reshape(-1, ef.shape[-1])
-        dig = []
-        chunk = 1 << 26
-        for r in range(ef.shape[0]):
-            row = ef[r]
-            a = b = 0
-            for lo in range(0, row.numel(), chunk):
-                x = row[lo:lo + chunk].to(DEV, non_blocking=True)
-                x = x.view(torch.int32).to(torch.int64)
-                pos = torch.arange(lo + 1, lo + 1 + x.numel(), device=DEV,
-                                   dtype=torch.int64) * 2654435761
-                a += int(x.sum())
-                b += int((x * pos).sum())
-            dig.append((a, b))
-        rec["ef"] = dig
+        rec["rows"] = {k: [_digest(r) for r in v.reshape(-1, v.shape[-1])]
+                       for k, v in after.comp_state.items()}
+    if after.comp_server is not None:
+        # a copy: the next round updates the server state in place
+        rec["server"] = {k: v.detach().to("cpu", copy=True)
+                         for k, v in after.comp_server.items()}
     return rec
 
 
+def _state_nonzero(after) -> bool:
+    """Every client-state row of every slot, and every server-state
+    buffer, holds a non-zero entry."""
+    ok = True
+    for v in (after.comp_state or {}).values():
+        rows = v.reshape(-1, v.shape[-1])
+        ok &= all(bool(torch.any(rows[r].to(DEV) != 0))
+                  for r in range(rows.shape[0]))
+    for v in (after.comp_server or {}).values():
+        ok &= bool(torch.any(v != 0))
+    return ok
+
+
 def _same_record(x, y) -> bool:
-    if x["params"].keys() != y["params"].keys() or x["ef"] != y["ef"]:
+    if (x["params"].keys() != y["params"].keys() or x["rows"] != y["rows"]
+            or (x["server"] is None) != (y["server"] is None)):
         return False
-    for k, a in x["params"].items():
-        b = y["params"][k]
-        iv = torch.int16 if a.element_size() == 2 else torch.int32
-        if a.dtype != b.dtype or not torch.equal(a.view(iv), b.view(iv)):
+    for k, a in (x["server"] or {}).items():
+        if not _same_bits(a, y["server"][k]):
             return False
-    return True
+    return all(_same_bits(a, y["params"][k])
+               for k, a in x["params"].items())
 
 
-def phase_path(label, flags, per_round=None, rounds=ROUNDS):
+def phase_path(label, flags, per_round=None, rounds=None):
     """Drive one full-width path through ``train.run`` with every launch
     counter at 0 just before and read just after. -> its summary, with the
     record of its first round."""
-    from repro_torch.core import wire
+    from repro_torch.core import compression, wire
+    from repro_torch.kernels.zsign import ops
     from repro_torch.launch import train
+    rounds = PATH_ROUNDS.get(label, ROUNDS) if rounds is None else rounds
     args = train.parse_args(COMMON_ARGS + flags + ["--rounds", str(rounds)])
     total = args.clients * args.groups
-    per, residual_ok, first = [], [], {}
+    bits_per_coord = PATH_BITS.get(label, 1)
+    per, state_ok, first = [], [], {}
 
     def on_round(t, before, after, m, sec):
         if t == 0:
             first["embed0"] = before.params["embed"][:4].clone()
             first["record"] = _round0_record(after)
-            if after.comp_state is not None:
-                ef = after.comp_state["ef"]
-                residual_ok.append(all(
-                    bool(torch.any(ef[g, c].to(DEV) != 0))
-                    for g in range(ef.shape[0]) for c in range(ef.shape[1])))
+            if after.comp_state is not None or after.comp_server is not None:
+                state_ok.append(_state_nonzero(after))
         per.append({"sec": sec, "loss": float(m.loss),
-                       "bits": float(m.uplink_bits),
-                       "shard": int(m.shard_clients),
-                       "n_coords": wire.tree_spec(after.params).n_coords,
-                       "embed": after.params["embed"][:4].clone()})
+                    "bits": float(m.uplink_bits),
+                    "shard": int(m.shard_clients),
+                    "n_coords": wire.tree_spec(after.params).n_coords,
+                    "sigma": float(after.sigma),
+                    "embed": after.params["embed"][:4].clone()})
 
+    probe = _E1Probe(ops, QWEN2_COORDS) if label in PROBED else None
+    clip = _ClipProbe(compression.dplib) if label == "dp_zsign" else None
     _free()
     torch.cuda.reset_peak_memory_stats()
     _reset_counts()
-    history = train.run(args, on_round=on_round)
-    torch.cuda.synchronize()
+    if probe is not None:
+        compression.K = probe
+    if clip is not None:
+        compression.dplib = clip
+    try:
+        history = train.run(args, on_round=on_round)
+        torch.cuda.synchronize()
+    finally:
+        compression.K = ops
+        if clip is not None:
+            compression.dplib = clip._dp
     launches = _counts()
     peak = torch.cuda.max_memory_allocated()
     if len(history) != args.rounds or len(per) != args.rounds:
@@ -451,22 +627,24 @@ def phase_path(label, flags, per_round=None, rounds=ROUNDS):
             raise AssertionError(f"{label}: non-finite loss {r['loss']}")
         if r["n_coords"] != QWEN2_COORDS:
             raise AssertionError(f"d = {r['n_coords']} != {QWEN2_COORDS}")
-        if r["bits"] != total * QWEN2_COORDS:
+        if r["bits"] != bits_per_coord * total * QWEN2_COORDS:
             raise AssertionError(f"{label}: uplink bits {r['bits']} != "
-                                 f"{total} * {QWEN2_COORDS}")
+                                 f"{bits_per_coord} * {total} * "
+                                 f"{QWEN2_COORDS}")
         if label in PATH_SHARD and r["shard"] != PATH_SHARD[label]:
             raise AssertionError(f"{label}: {r['shard']} clients a shard, "
                                  f"want {PATH_SHARD[label]}")
     if torch.equal(per[-1]["embed"], first["embed0"]):
         raise AssertionError(f"{label}: params did not change")
-    if residual_ok and not residual_ok[0]:
-        raise AssertionError(f"{label}: a residual row is zero after "
-                             "round 1")
+    if state_ok and not state_ok[0]:
+        raise AssertionError(f"{label}: a client-state row or the server "
+                             "state is zero after round 1")
     for name, k in (per_round or {}).items():
         if launches[name] != k * args.rounds:
             raise AssertionError(
                 f"{label}: {name} launched {launches[name]} times in "
                 f"{args.rounds} rounds (want {k} a round)")
+    extra = _probe_checks(label, probe, args, per, clip) if probe else {}
     secs = [r["sec"] for r in per]
     print(json.dumps({"path": label, "flags": flags, "clients": total,
                       "groups": args.groups, "cohort": args.cohort,
@@ -476,12 +654,63 @@ def phase_path(label, flags, per_round=None, rounds=ROUNDS):
                       "loss": [r["loss"] for r in per],
                       "peak_mem_GB": peak / 1e9,
                       "launches": launches,
-                      "residual_nonzero_after_round_1":
-                          residual_ok[0] if residual_ok else None}))
+                      "state_nonzero_after_round_1":
+                          state_ok[0] if state_ok else None, **extra}))
     out = {"launches": launches, "secs": secs, "peak": peak,
-           "record": first["record"]}
-    del per, history, first
+           "record": first["record"], "checks": extra}
+    del per, history, first, probe, clip
     _free()
+    return out
+
+
+def _probe_checks(label, probe, args, per, clip=None):
+    """What the E1 probe saw on a path: sto-sign's per-client sigma
+    vector, DP's calibrated sigma and clipped rows (against their norms
+    before the clip, from the clip probe), the Plateau route's state
+    sigma."""
+    from repro_torch.core import dp, noise
+    calls = probe.calls
+    if len(calls) != args.rounds:
+        raise AssertionError(f"{label}: E1 called {len(calls)} times")
+    c0 = calls[0]
+    out = {"e1_sigma_round1": c0["sigma"].tolist()}
+    if label == "stosign":
+        rel = float(torch.max(torch.abs(c0["sigma"].double() - c0["norms64"])
+                              / c0["norms64"]))
+        if (any(c["z"] != noise.Z_INF for c in calls) or rel > 1e-6
+                or len(set(c0["sigma"].tolist())) != args.clients):
+            raise AssertionError(
+                f"stosign: E1's sigma vector {c0['sigma'].tolist()} is not "
+                f"the rows' f64 norms {c0['norms64'].tolist()} (max rel "
+                f"{rel} > 1e-6) or its entries are not distinct")
+        out.update({"sigma_vs_f64_norms_max_rel": rel})
+    elif label == "dp_zsign":
+        want = dp.calibrate_noise(hi=200.0, **DP_ACCOUNT) * DP_CLIP
+        sig = torch.full_like(c0["sigma"], want)
+        if any(c["z"] != 1 or not _same_bits(c["sigma"], sig)
+               for c in calls):
+            raise AssertionError(
+                f"dp_zsign: E1 sigma {c0['sigma'].tolist()} != {want}")
+        before, after = clip.before64.tolist(), c0["norms64"].tolist()
+        for b, a in zip(before, after):
+            ok = (abs(a - DP_CLIP) <= DP_CLIP * 1e-6 if b > DP_CLIP
+                  else a == b)
+            if not ok:
+                raise AssertionError(
+                    f"dp_zsign: row norms {before} before the clip reach "
+                    f"E1 as {after}, not at {DP_CLIP} +/- 1e-6 (or "
+                    "unchanged where they were under it)")
+        out.update({"calibrated_sigma": want,
+                    "row_norms_before_clip": before,
+                    "clipped_row_norms": after})
+    elif label == "plateau":
+        for t, c in enumerate(calls):
+            want = torch.full_like(c["sigma"], per[t - 1]["sigma"]
+                                   if t else args.sigma)
+            if c["z"] != 1 or not _same_bits(c["sigma"], want):
+                raise AssertionError(f"plateau: E1 sigma in round {t} is "
+                                     f"{c['sigma'].tolist()}")
+        out["state_sigma"] = [r["sigma"] for r in per]
     return out
 
 
@@ -502,11 +731,98 @@ def phase_identities(results):
                                      f"differs from {base_label}")
         print(json.dumps({"identity": name,
                           "runs": [label for label, _ in recs],
-                          "residual_rows_compared":
-                              len(base["ef"]) if base["ef"] else 0,
+                          "state_rows_compared": {
+                              k: len(v) for k, v in (base["rows"] or {})
+                              .items()},
+                          "server_state_compared": sorted(
+                              base["server"] or {}),
                           "equal": True}))
         del recs, base
         _free()
+
+
+def phase_dynamic_sigma(dev):
+    """One full-width round of 8 clients under RoundContext(dynamic_sigma=
+    True) from a state whose sigma is set to 0.015, as ``launch/train.py``
+    sets it after a Plateau stall, against the static zsign(z=1,
+    sigma=0.015) round from the same seeds: the same payload bytes, and the
+    dynamic decode is (sum / n_live) * (f32(eta_1) * f32(0.015))."""
+    from repro_torch.configs.common import get_arch
+    from repro_torch.core import compression, fedavg, noise
+    from repro_torch.data.synthetic import TokenStream
+    from repro_torch.models.api import build_model
+
+    seen = {}
+
+    class Recording(compression.Pipeline):
+        def encode_batch(self, *a, **kw):
+            payload, state = super().encode_batch(*a, **kw)
+            seen["payload"] = payload
+            return payload, state
+
+        def decode_sum(self, enc_sum, n_live, sigma=None, spec=None):
+            out = super().decode_sum(enc_sum, n_live, sigma=sigma, spec=spec)
+            seen.update(enc_sum=enc_sum, n_live=n_live, out=out)
+            return out
+
+    arch = get_arch("qwen2_0_5b")
+    bundle = build_model(arch.model)
+    params = bundle.init(torch.Generator(device=dev).manual_seed(0), dev)
+    batch = {"tokens": TokenStream(vocab=arch.model.vocab).round_batch(
+        0, (1, 8, 2, 2), 64, dev)}
+    mask = torch.ones((1, 8))
+    cfg = fedavg.FedConfig(n_clients=8, local_steps=2, client_lr=0.05,
+                           server_lr=0.5)
+    s = 0.015
+    runs = {}
+    for label, spec, dynamic in (("dynamic", "zsign(z=1,sigma=0.01)", True),
+                                 ("static", f"zsign(z=1,sigma={s})", False)):
+        comp = Recording(spec)
+        step = fedavg.build_round_step(
+            bundle.loss_fn, comp, cfg, fedavg.RoundContext(
+                weights_are_mask=True, dynamic_sigma=dynamic))
+        state = fedavg.init_server_state(params, cfg, comp,
+                                         noise.prng_key(1), sigma0=0.01)
+        if dynamic:
+            state = state._replace(sigma=torch.tensor(
+                s, dtype=torch.float32, device=dev))
+        _free()
+        _reset_counts()
+        t0 = time.time()
+        _, m = step(state, batch, mask)
+        loss = float(m.loss)
+        sec = time.time() - t0
+        launches = _counts()
+        if (launches["zsign_encode"], launches["sign_reduce"]) != (1, 1) \
+                or not math.isfinite(loss):
+            raise AssertionError(f"dynamic sigma ({label}): launches "
+                                 f"{launches}, loss {loss}")
+        runs[label] = dict(seen, sec=sec)
+        seen.clear()
+        del step, state, m
+    dyn, sta = runs["dynamic"], runs["static"]
+    if not torch.equal(dyn["payload"], sta["payload"]):
+        raise AssertionError("dynamic sigma 0.015: payload bytes differ from "
+                             "the static zsign(sigma=0.015) round")
+    eta1 = noise.eta_z(1)
+    f_dyn = torch.tensor(eta1, dtype=torch.float32, device=dev) * \
+        torch.tensor(s, dtype=torch.float32, device=dev)
+    f_sta = torch.tensor(eta1 * s, dtype=torch.float32, device=dev)
+    mean = dyn["enc_sum"] / dyn["n_live"]
+    if not (_same_bits(dyn["out"], mean * f_dyn)
+            and _same_bits(sta["out"], (sta["enc_sum"] / sta["n_live"])
+                           * f_sta)):
+        raise AssertionError("dynamic sigma: the decode factor is not "
+                             "f32(eta_1) * f32(0.015)")
+    out = {"dynamic_sigma": s, "payload_bytes_equal": True,
+           "decode_factor_dynamic": float(f_dyn),
+           "decode_factor_static": float(f_sta),
+           "factors_differ_in_bits": not _same_bits(f_dyn, f_sta),
+           "round_s": {k: v["sec"] for k, v in runs.items()}}
+    print(json.dumps(out))
+    del runs, dyn, sta, params, bundle, batch, mean
+    _free()
+    return out
 
 
 def times_encode_reduce(dev):
@@ -540,11 +856,26 @@ def times_encode_reduce(dev):
     enc_bound, enc_by = _bound(
         nbytes=elems * 4 + elems / 8 + keys.numel() * 8 + n * 4,
         ops=elems / 4 * OPS_PER_COUNTER + elems * (OPS_PER_ELEM + ERF_OPS))
+    # n = 1 (the TPU kernel K1; the sequential-client route): one row of
+    # the same stack
+    one = (x[:1], keys[:1], sig[:1], z)
+    got1 = ops.zsign_encode(*one)
+    torch.cuda.synchronize()
+    if not torch.equal(got1[0], got[0]):
+        raise AssertionError("E1 n = 1 at full width: bytes differ from row "
+                             "0 of the n = 8 launch")
+    n1_ms = _time_ms(lambda: ops.zsign_encode(*one), reps=20, warmup=2)
+    n1_plain_ms = _time_ms(lambda: ops.zsign_encode_plain(*one), reps=1)
+    n1_bound, n1_by = _bound(
+        nbytes=d_pad * 4 + d_pad / 8 + 16 + 4,
+        ops=d_pad / 4 * OPS_PER_COUNTER + d_pad * (OPS_PER_ELEM + ERF_OPS))
     rows["zsign_encode"] = {
         "ms": enc_ms, "plain_ms": enc_plain_ms, "bound_ms": enc_bound,
         "bound_by": enc_by, "bits_differing": nflip,
-        "max_abs_err": 1 if nflip else 0}
-    del x, want
+        "max_abs_err": 1 if nflip else 0, "n1_ms": n1_ms,
+        "n1_plain_ms": n1_plain_ms, "n1_bound_ms": n1_bound,
+        "n1_bound_by": n1_by}
+    del x, want, got1
     _free()
     packed = got
     mask = torch.ones((n,), device=dev)
@@ -619,6 +950,72 @@ def times_encode_reduce(dev):
     del packed, got, u_got, u_plain
     _free()
     return rows
+
+
+def times_plain_layers(dev):
+    """The plain-torch layers the noise controls add, at n = 8 and full
+    width, as the paths run them (one row at a time or in place), each
+    beside its byte bound (inputs read once, outputs written once)."""
+    from repro_torch.configs.common import get_arch
+    from repro_torch.core import compression, dp, noise, wire
+    from repro_torch.models.api import build_model
+    n, d = 8, QWEN2_COORDS
+    d_pad = -(-d // compression.ENCODE_TILE) * compression.ENCODE_TILE
+    gen = torch.Generator(device=dev).manual_seed(17)
+    params = build_model(get_arch("qwen2_0_5b").model).init(
+        torch.Generator(device=dev).manual_seed(0), dev)
+    spec = wire.tree_spec(params)
+    del params
+    _free()
+    x = torch.zeros((n, d_pad), device=dev)
+    cv = torch.empty((n, d), device=dev)
+    for c in range(n):
+        x[c, :d] = torch.randn((d,), generator=gen, device=dev) * 0.01
+        cv[c] = torch.randn((d,), generator=gen, device=dev) * 0.001
+    c_srv = torch.randn((d,), generator=gen, device=dev) * 0.001
+    g = torch.randn((d_pad,), generator=gen, device=dev) * 0.01
+    row = n * d * 4
+    out = {}
+
+    def put(name, ms, nbytes, ops):
+        bound, by = _bound(nbytes=nbytes, ops=ops)
+        out[name] = {"ms": ms, "bound_ms": bound, "bound_by": by,
+                     "share_of_bound": bound / ms}
+
+    nrm = dp.row_norms(x, d)
+    put("row_norms", _time_ms(lambda: dp.row_norms(x, d), reps=5),
+        row + n * 4, 2 * n * d)
+    # factor 1 (max_norm far above every norm): the same traffic, x kept
+    put("clip_given_norms", _time_ms(
+        lambda: dp.clip_rows_(x, d, 1e30, nrms=nrm), reps=5),
+        2 * row + n * 4, n * d)
+    put("clip_with_norms", _time_ms(lambda: dp.clip_rows_(x, d, 1e30),
+                                    reps=5), 2 * row, 3 * n * d)
+    sched = compression.SigmaSchedule(head=2.0, tail=0.5)
+    put("sigma_sched_scale", _time_ms(lambda: sched.scale(x, spec), reps=2),
+        2 * row, n * d)
+    sched.unscale(x, spec)
+    sched.unscale(x, spec)
+    sched.unscale(x, spec)
+    cvt = compression.ControlVariate()
+    state, server = {"cv": cv}, {"cv_server": c_srv}
+    put("cv_correction", _time_ms(
+        lambda: cvt.pre_encode(x, state, server), reps=3),
+        3 * row + d * 4, 2 * n * d)
+    keys = noise.client_keys(noise.prng_key(8), 0, n)
+    codec = compression.SignCodec(z=1, sigma=0.01)
+    packed, local = codec.encode_with_decode_batch(keys, x, d,
+                                                   need_decode=True)
+    put("cv_row_update", _time_ms(
+        lambda: cvt.post_encode(state, x, local, range(n)), reps=3),
+        2 * row + n * d / 8, 3 * n * d)
+    n_live = torch.tensor(float(n), device=dev)
+    put("cv_server_update", _time_ms(
+        lambda: cvt.update_server(server, g, n_live, float(n)), reps=5),
+        3 * d * 4, 2 * d)
+    del x, cv, c_srv, g, packed, local, state, server
+    _free()
+    return out
 
 
 def times_ef(dev):
@@ -721,12 +1118,16 @@ def main() -> int:
     for label, flags, per_round in PATHS:
         results[label] = phase_path(label, flags, per_round)
     phase_identities(results)
+    dynamic = phase_dynamic_sigma(dev)
     times = times_encode_reduce(dev)
     times["ef_sign"] = times_ef(dev)
     times["zsign_compress"] = times_compress(dev)
     for k, r in times.items():
         print(json.dumps({"time": k, "shape": f"n=8 d={QWEN2_COORDS}",
                           **{f: v for f, v in r.items()}}))
+    plain = times_plain_layers(dev)
+    print(json.dumps({"plain_layers": plain,
+                      "shape": f"n=8 d={QWEN2_COORDS}", "card": smi}))
     enc, red = times["zsign_encode"], times["sign_reduce"]
     secs = results["zsign"]["secs"]
     print(json.dumps({"round_split_ms": {
@@ -734,6 +1135,7 @@ def main() -> int:
         "reduce_R1": red["ms"],
         "local_sgd_and_rest": min(secs) * 1e3 - enc["ms"] - red["ms"]},
         "round_s": {k: v["secs"] for k, v in results.items()},
+        "dynamic_sigma_round_s": dynamic["round_s"],
         "peak_mem_GB": {k: v["peak"] / 1e9 for k, v in results.items()},
         "card": smi}))
     total = {k: sum(r["launches"][k] for r in results.values())
@@ -750,7 +1152,17 @@ def main() -> int:
          "launches_n1": total["zsign_encode_n1"],
          "check": f"bit-exact vs plain, z=1 flips {flips_z1} (small) / "
                   f"{enc['bits_differing']} (full width); batched bytes "
-                  "equal to n = 1 launches"},
+                  "equal to n = 1 launches; a sigma per client (one 0) "
+                  "bit-exact vs plain",
+         "per_client_sigma": {
+             "stosign_path_sigma": results["stosign"]["checks"][
+                 "e1_sigma_round1"],
+             "check": "E1's (8,) sigma vector on the stosign path equals "
+                      "the rows' L2 norms in f64 (max rel "
+                      f"{results['stosign']['checks']['sigma_vs_f64_norms_max_rel']:.2e}"
+                      " <= 1e-6), 8 distinct entries"},
+         "n1_ms": enc["n1_ms"], "n1_plain_ms": enc["n1_plain_ms"],
+         "n1_bound_ms": enc["n1_bound_ms"]},
         {"name": "sign_reduce", "route": "cuda",
          "source": src + "zsign/csrc/sign_reduce.cu",
          "replaces": tpu + "zsign/zsign.py:226",

@@ -159,10 +159,13 @@ class CohortPolicy:
 @dataclasses.dataclass(frozen=True)
 class RoundContext:
     """Frozen per-deployment policy for one round step. ``None`` backends
-    keep the pipeline stage's own setting."""
+    keep the pipeline stage's own setting. ``dynamic_sigma`` hands
+    ``ServerState.sigma`` (the Plateau controller's sigma) to the
+    pipeline's one sigma consumer at encode and at decode."""
     agg_backend: Optional[str] = None
     encode_backend: Optional[str] = None
     weights_are_mask: bool = False
+    dynamic_sigma: bool = False
     cohort: str = "auto"
 
     def __post_init__(self):

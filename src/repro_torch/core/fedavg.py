@@ -39,11 +39,16 @@ j)``), so every plan below draws the reference's counter-stream bits.
                     a side stream while shard s computes, and finished
                     state rows return to the host.
 
-Stateful pipelines (``ef``) keep ``ServerState.comp_state`` = ``{slot:
-(G, N, d)}``; a dead client keeps its rows bit-exactly. The fused EF path
-updates those rows in place, and the group scan and the stream plans write
-each group's or shard's new rows back into them in place: at qwen2-0.5B
-width a second state of 16 clients would cost another 31.6 GB.
+Stateful pipelines (``ef``, ``cv``) keep ``ServerState.comp_state`` =
+``{slot: (G, N, d)}``; a dead client keeps its rows bit-exactly. The
+pipeline updates those rows in place, and the group scan and the stream
+plans write each group's or shard's new rows back into them in place: at
+qwen2-0.5B width a second state of 16 clients would cost another 31.6 GB.
+Server-scope state (the ``cv`` server variate) is ``ServerState.comp_server``,
+on the card under every plan, read by every encode and updated once a round
+after the decode. Under ``RoundContext(dynamic_sigma=True)`` every encode and
+the decode take ``ServerState.sigma`` (the Plateau controller's); pipelines
+with a ``sigma_sched`` stage get the round's TreeSpec at both ends.
 """
 from __future__ import annotations
 
@@ -84,7 +89,8 @@ class ServerState(NamedTuple):
     rng: torch.Tensor             # (2,) int64 key words
     round: int
     sigma: torch.Tensor           # f32 scalar, the codec's noise scale
-    #: shared server-scope pipeline state (no ported stage declares one)
+    #: shared server-scope pipeline state {slot: (d,)} (the cv server
+    #: variate), on the card, or None
     comp_server: Any = None
 
 
@@ -121,19 +127,22 @@ def init_server_state(params, cfg: FedConfig, compressor, rng: torch.Tensor,
                       host_state: bool = False) -> ServerState:
     """Fresh server state. ``host_state`` puts the per-client state rows in
     host memory (pinned when the params lie on a card), where the
-    ``stream(feed=host)`` plan keeps them."""
+    ``stream(feed=host)`` plan keeps them; the server-scope state stays
+    with the params."""
     device = tree_leaves(params)[0].device
+    n_coords = wire.tree_spec(params).n_coords
     # one zero state row per client per slot: (groups, n_clients, ...)
     cstate = compressor.init_state(
-        wire.tree_spec(params).n_coords,
-        lead=(cfg.client_groups, cfg.n_clients),
+        n_coords, lead=(cfg.client_groups, cfg.n_clients),
         device="cpu" if host_state else device,
         pin_memory=host_state and device.type == "cuda")
+    cserver = compressor.init_server_state(n_coords, device=device)
     return ServerState(params=params,
                        opt_state=_server_optimizer(cfg).init(params),
                        comp_state=cstate, rng=rng, round=0,
                        sigma=torch.tensor(sigma0, dtype=torch.float32,
-                                          device=device))
+                                          device=device),
+                       comp_server=cserver)
 
 
 def auto_shard_size(n_coords: int) -> int:
@@ -336,12 +345,12 @@ def build_round_step(loss_fn: Callable, compressor, cfg: FedConfig,
         return buf
 
     def encode_clients(spec, params, batch_rows, keys, cstate_rows, mask_s,
-                       buf, gamma_t):
+                       live_rows, buf, gamma_t, extra):
         """One group or shard of k = len(mask_s) clients (the reference's
         ``group_encode``): local SGD of each into ``buf[:k]``, then ONE
         batched encode. -> (payload stack, new state rows, masked loss
         sum). Dead (and padding) clients keep their state rows and add no
-        loss."""
+        loss; ``live_rows`` lists the others as host indices."""
         k = mask_s.shape[0]
         losses = torch.stack([
             client_update(spec, params, tree_map(lambda x: x[c], batch_rows),
@@ -350,12 +359,20 @@ def build_round_step(loss_fn: Callable, compressor, cfg: FedConfig,
         with torch.no_grad():
             enc, new_rows = compressor.encode_batch(keys, buf[:k],
                                                     spec.n_coords,
-                                                    cstate_rows, mask_s)
+                                                    cstate_rows, mask_s,
+                                                    live_rows=live_rows,
+                                                    **extra)
             loss_sum = torch.sum(torch.where(mask_s > 0, losses * mask_s,
                                              0.0))
         return enc, new_rows, loss_sum
 
-    def vmap_groups(spec, params, batch, mask, cstate, sub, gamma_t):
+    def live_among(live, lo: int, k: int):
+        """The live rows among cohort slots lo .. lo+k-1, as indices from 0
+        (a slot past the cohort is the stream's wrapped padding)."""
+        return [c for c in range(k) if lo + c < total and live[lo + c]]
+
+    def vmap_groups(spec, params, batch, mask, live, cstate, sub, gamma_t,
+                    extra):
         """The vmap plan: one group (all clients in one batch), or the
         sequential group scan over G groups of N."""
         d = spec.n_coords
@@ -367,7 +384,7 @@ def build_round_step(loss_fn: Callable, compressor, cfg: FedConfig,
                     {k: v[0] for k, v in cstate.items()})
             enc, rows, loss_sum = encode_clients(
                 spec, params, tree_map(lambda x: x[0], batch), keys, rows,
-                mask[0], buf, gamma_t)
+                mask[0], live_among(live, 0, N), buf, gamma_t, extra)
             del buf
             if rows is not None:
                 cstate = {k: v.unsqueeze(0) for k, v in rows.items()}
@@ -381,7 +398,8 @@ def build_round_step(loss_fn: Callable, compressor, cfg: FedConfig,
                     {k: v[g] for k, v in cstate.items()})
             enc, new_rows, ls = encode_clients(
                 spec, params, tree_map(lambda x: x[g], batch),
-                keys[g * N:(g + 1) * N], rows, mask[g], buf, gamma_t)
+                keys[g * N:(g + 1) * N], rows, mask[g],
+                live_among(live, g * N, N), buf, gamma_t, extra)
             with torch.no_grad():
                 if rows is not None:
                     _write_rows(rows, new_rows, N)
@@ -404,8 +422,8 @@ def build_round_step(loss_fn: Callable, compressor, cfg: FedConfig,
                 acc = compressor.aggregate(enc_all, mask.reshape(-1), d)
         return acc, cstate, loss_sum
 
-    def stream_cohort(spec, params, batch, mask, cstate, sub, gamma_t,
-                      shard: int, host: bool):
+    def stream_cohort(spec, params, batch, mask, live, cstate, sub, gamma_t,
+                      extra, shard: int, host: bool):
         """The streaming plan: K = ``shard`` clients at a time through one
         (K, d_pad) buffer, each shard's payloads folded into one running
         accumulator. ``host``: batch, mask and state rows stay in (pinned)
@@ -437,7 +455,9 @@ def build_round_step(loss_fn: Callable, compressor, cfg: FedConfig,
             lo = s * shard
             keys = znoise.client_keys(sub, lo, shard)
             enc, new_rows, ls = encode_clients(spec, params, batch_s, keys,
-                                               rows, mask_s, buf, gamma_t)
+                                               rows, mask_s,
+                                               live_among(live, lo, shard),
+                                               buf, gamma_t, extra)
             with torch.no_grad():
                 if flat_state is not None:
                     # real rows only: the wrapped padding is never written
@@ -468,17 +488,31 @@ def build_round_step(loss_fn: Callable, compressor, cfg: FedConfig,
         plan = resolve_cohort(policy, total, spec.n_coords)
         host = plan.mode == "stream" and plan.feed == "host"
         mask_all = torch.as_tensor(mask, dtype=torch.float32).reshape(G, N)
+        # the live clients, read once a round from the mask as the caller
+        # gave it (the sampler's, on the host): a stateful stage updates
+        # only their rows, and no group or shard waits on the card for them
+        live = (mask_all.reshape(-1) > 0).tolist()
         if not host:
             mask_all = mask_all.to(device)
         gamma_t = torch.tensor(gamma, dtype=torch.float32, device=device)
+        # what the encodes of the round read besides their rows, passed
+        # only where a stage takes it (as the reference gates them): the
+        # dynamic sigma, the server-scope state and the round's TreeSpec
+        extra = {}
+        if ctx.dynamic_sigma:
+            extra["sigma"] = state.sigma
+        if state.comp_server is not None:
+            extra["server"] = state.comp_server
+        if compressor.needs_tree_spec:
+            extra["spec"] = spec
         if plan.mode == "stream":
             enc_sum, cstate, loss_sum = stream_cohort(
-                spec, params, batch, mask_all, state.comp_state, sub,
-                gamma_t, plan.shard, host)
+                spec, params, batch, mask_all, live, state.comp_state, sub,
+                gamma_t, extra, plan.shard, host)
         else:
             enc_sum, cstate, loss_sum = vmap_groups(
-                spec, params, batch, mask_all, state.comp_state, sub,
-                gamma_t)
+                spec, params, batch, mask_all, live, state.comp_state, sub,
+                gamma_t, extra)
         with torch.no_grad():
             return _finish(state, spec, rng, enc_sum, loss_sum,
                            mask_all.to(device), cstate, plan.shard)
@@ -486,13 +520,18 @@ def build_round_step(loss_fn: Callable, compressor, cfg: FedConfig,
     def _finish(state, spec, rng, enc_sum, loss_sum, mask_g, cstate,
                 shard_used):
         n_live = torch.clamp_min(torch.sum(mask_g), 1.0)
-        g_flat = compressor.decode_sum(enc_sum, n_live)
+        g_flat = compressor.decode_sum(
+            enc_sum, n_live, sigma=state.sigma if ctx.dynamic_sigma else None,
+            **({"spec": spec} if compressor.needs_tree_spec else {}))
         # the ONE unflatten: decoded flat estimate -> params-shaped tree
         g_hat = spec.unflatten(g_flat)
         # Algorithm 1 line 15: x_t = x_{t-1} - eta * gamma * mean(Delta)
         scaled = tree_map(lambda g: gamma * g, g_hat)
         new_params, new_opt = opt.update(scaled, state.opt_state,
                                          state.params)
+        # server-scope state (the cv server variate) folds the decoded mean
+        comp_server = compressor.update_server(state.comp_server, g_flat,
+                                               n_live, float(total))
         metrics = RoundMetrics(
             loss=loss_sum / n_live,
             grad_est_norm=torch.linalg.vector_norm(g_flat[:spec.n_coords]),
@@ -503,7 +542,7 @@ def build_round_step(loss_fn: Callable, compressor, cfg: FedConfig,
         new_state = ServerState(params=new_params, opt_state=new_opt,
                                 comp_state=cstate, rng=rng,
                                 round=state.round + 1, sigma=state.sigma,
-                                comp_server=state.comp_server)
+                                comp_server=comp_server)
         return new_state, metrics
 
     return round_step

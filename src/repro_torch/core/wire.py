@@ -92,10 +92,15 @@ def pack_bool(bits: torch.Tensor) -> torch.Tensor:
     return (b * _bit_weights(bits.device)).sum(-1, dtype=torch.uint8)
 
 
+def unpack_bits(packed: torch.Tensor) -> torch.Tensor:
+    """uint8 bitfield -> bool of len*8 (bit j of byte i at 8i+j)."""
+    return ((packed.reshape(-1, 1) & _bit_weights(packed.device))
+            > 0).reshape(-1)
+
+
 def unpack_signs(packed: torch.Tensor) -> torch.Tensor:
     """uint8 bitfield -> int8 {-1,+1} of len*8 (bit j of byte i at 8i+j)."""
-    bits = (packed.reshape(-1, 1) & _bit_weights(packed.device)) > 0
-    bits = bits.reshape(-1)
+    bits = unpack_bits(packed)
     one = torch.ones((), dtype=torch.int8, device=packed.device)
     return torch.where(bits, one, -one)
 

@@ -7,7 +7,14 @@ subset of the main path).
 
 ``--pipeline`` takes a spec string: ``"ef|zsign(use_kernel=true)"`` is the
 EF-SignSGD round through the fused kernel F1, ``"zsign_packed(z=2,
-sigma=0.01)"`` the finite-z round through the dense-noise kernel C1.
+sigma=0.01)"`` the finite-z round through the dense-noise kernel C1,
+``"dp(clip=1.0,eps=2.0)|zsign_packed"`` DP-SignFedAvg (the calibrated
+Gaussian noise is the codec's sigma), ``"cv|zsign_packed(sigma=0.01)"``
+control variates, ``"sigma_sched(head=2.0,tail=0.5)|zsign(sigma=0.01)"``
+the per-layer sigma schedule. ``--compressor stosign`` is sto-sign (each
+client's sigma is its own ||p||_2) and ``--compressor dpgauss`` the dense
+DP-FedAvg baseline (noise std ``--sigma``). ``--plateau`` adapts sigma with
+the Plateau criterion (kappa = 10 stalled rounds, bound 100 x ``--sigma``).
 ``--groups G`` runs G sequential client groups of ``--clients`` each (the
 group scan; ``--clients 1 --groups 8`` is the sequential-client mode), and
 ``--cohort`` picks the cohort plan: ``auto`` (streams when the round is
@@ -20,7 +27,8 @@ large: qwen2-0.5B at more than 8 clients), ``vmap``, or
 Runs on ``cuda`` unless ``--device cpu`` is given; asking for CUDA on a
 machine without a card raises. ``run(args)`` is the same driver, callable in
 process, and returns the rounds' metrics. Not ported yet: checkpointing,
-Plateau sigma, adversaries, async rounds and ``stream(devices=D > 1)``.
+the qsgd and topk compressors, adversaries, async rounds and
+``stream(devices=D > 1)``.
 """
 from __future__ import annotations
 
@@ -32,6 +40,7 @@ import torch
 
 from repro_torch.configs.common import get_arch
 from repro_torch.core import compression, fedavg, noise
+from repro_torch.core.plateau import PlateauController
 from repro_torch.core.tree import tree_leaves
 from repro_torch.data.synthetic import TokenStream
 from repro_torch.fed.sampling import ParticipationSampler
@@ -77,7 +86,10 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
                          "and copies one shard ahead")
     ap.add_argument("--z", type=int, default=1, help="1=Gaussian, 0=uniform")
     ap.add_argument("--sigma", type=float, default=0.01,
-                    help="z-sign noise scale")
+                    help="z-sign noise scale / dpgauss noise stddev")
+    ap.add_argument("--plateau", action="store_true",
+                    help="adapt sigma with the Plateau criterion (the round "
+                         "takes the state's sigma at encode and decode)")
     ap.add_argument("--client-lr", type=float, default=0.05)
     ap.add_argument("--server-lr", type=float, default=0.5)
     ap.add_argument("--participation", type=float, default=1.0)
@@ -117,7 +129,10 @@ def run(args: argparse.Namespace,
                 z=args.z, sigma=args.sigma),
             "zsign_packed": lambda: compression.PackedZSignCompressor(
                 z=args.z, sigma=args.sigma),
+            "dpgauss": lambda: compression.DPGaussianCompressor(
+                sigma=args.sigma),
             "efsign": compression.EFSignCompressor,
+            "stosign": compression.StoSignCompressor,
             "identity": compression.Compressor,
         }[args.compressor]()
     cfg = fedavg.FedConfig(n_clients=args.clients, client_groups=args.groups,
@@ -127,7 +142,8 @@ def run(args: argparse.Namespace,
     # the sampler below emits exact 0/1 membership masks
     ctx = fedavg.RoundContext(agg_backend=args.agg_backend,
                               encode_backend=args.encode_backend,
-                              weights_are_mask=True, cohort=args.cohort)
+                              weights_are_mask=True,
+                              dynamic_sigma=args.plateau, cohort=args.cohort)
     step = fedavg.build_round_step(bundle.loss_fn, comp, cfg, ctx)
     # stream(feed=host) keeps batch and state rows on the host
     host = fedavg.CohortPolicy.parse(args.cohort).feed == "host"
@@ -142,6 +158,9 @@ def run(args: argparse.Namespace,
         total_clients=total,
         per_round=max(1, int(total * args.participation)),
         over_provision=args.over_provision, failure_rate=args.failure_rate)
+    plateau = (PlateauController(sigma_init=args.sigma,
+                                 sigma_bound=args.sigma * 100, kappa=10)
+               if args.plateau else None)
     layout = (args.groups, args.clients, args.local_steps, args.micro_batch)
     wf = comp.wire_format()
     plan = fedavg.resolve_cohort(args.cohort, total, n_params)
@@ -162,6 +181,9 @@ def run(args: argparse.Namespace,
         loss = float(m.loss)          # waits for the round's device work
         sec = time.time() - t0
         bits += float(m.uplink_bits)
+        if plateau is not None:
+            new_state = new_state._replace(sigma=torch.tensor(
+                plateau.update(loss), dtype=torch.float32, device=device))
         print(f"{t},{loss:.4f},{float(m.grad_est_norm):.3f},"
               f"{int(m.participation)},{bits / 1e6:.2f},"
               f"{float(new_state.sigma):.4f},{sec:.3f}")

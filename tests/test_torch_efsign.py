@@ -130,9 +130,9 @@ class _Recording(TC.Pipeline):
     log = []
 
     def encode_batch(self, keys, flat2d, n_coords=None, state=None,
-                     live=None):
+                     live=None, **kw):
         payload, new = super().encode_batch(keys, flat2d, n_coords, state,
-                                            live)
+                                            live, **kw)
         packed = payload["packed"] if isinstance(payload, dict) else payload
         bits = np.unpackbits(packed.numpy(), axis=1, bitorder="little")
         _Recording.log.append(bits[:, :n_coords].astype(bool))

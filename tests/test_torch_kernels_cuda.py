@@ -7,7 +7,8 @@ card runs them as they are:
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_kernels_cuda.py
 
 E1 must give the plain version's exact bytes (z=1: any differing bit within
-4 ulp of its threshold, the erf rule); C1 exact bytes; R1, U1 and F1 equal
+4 ulp of its threshold, the erf rule), also with a different sigma for each
+client (sto-sign) and a client with sigma 0; C1 exact bytes; R1, U1 and F1 equal
 int32 bit patterns (F1's payload bytes too).
 """
 import pytest
@@ -47,6 +48,35 @@ def test_cuda_encode_matches_plain(cuda, n, z):
             one = TO.zsign_encode(x[c:c + 1].contiguous(), keys[c:c + 1],
                                   sig[c:c + 1], z)
             assert torch.equal(one[0], got[c])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [3, 8, 13])
+@pytest.mark.parametrize("z", [0, 1])
+def test_cuda_encode_per_client_sigma(cuda, n, z):
+    """E1 with a sigma vector that differs across rows (the sto-sign route:
+    each client's own norm), one row with sigma 0 (its noise-free pack):
+    the plain version's bytes, each row those of its own n = 1 launch."""
+    gen = torch.Generator(device=cuda).manual_seed(100 + n)
+    x = torch.randn((n, 3 * TILE), generator=gen, device=cuda) * 0.05
+    keys = TN.client_keys(TN.prng_key(n + 1), 0, n)
+    sig = torch.rand((n,), generator=gen, device=cuda) * 0.2 + 0.01
+    sig[n // 2] = 0.0
+    got = TO.zsign_encode(x, keys, sig, z)
+    want = TO.zsign_encode_plain(x, keys, sig, z)
+    torch.cuda.synchronize()
+    flips, far = TO.erf_rule_flips(x, keys, sig, z, got, want)
+    assert far == 0 and (z == 1 or flips == 0)
+    h = slice(n // 2, n // 2 + 1)
+    noise_free = TO.zsign_encode_plain(x[h], keys[h], sig[h], None)
+    assert torch.equal(got[n // 2], noise_free[0])
+    for c in range(n):
+        one = TO.zsign_encode(x[c:c + 1].contiguous(), keys[c:c + 1],
+                              sig[c:c + 1], z)
+        assert torch.equal(one[0], got[c])
+    # a uniform sigma gives other bytes than the per-client vector
+    flat = TO.zsign_encode(x, keys, torch.full_like(sig, float(sig[0])), z)
+    assert not torch.equal(flat[1:], got[1:])
 
 
 @pytest.mark.cuda

@@ -223,8 +223,10 @@ def test_cuda_device_without_card_raises():
 
 
 def test_unported_paths_raise():
-    with pytest.raises(NotImplementedError, match="item 8"):
-        TC.Pipeline("dp(clip=1.0,noise=0.1)|zsign")
+    with pytest.raises(NotImplementedError, match="item 9"):
+        TC.Pipeline("qsgd(s=4)")
+    # DP-SignFedAvg is ported now: dp noise fuses into the codec's sigma
+    assert TC.Pipeline("dp(clip=1.0,noise=0.1)|zsign").codec.sigma == 0.1
     with pytest.raises(NotImplementedError, match="item 12"):
         TC.Pipeline("zsign(agg=vote)")
     with pytest.raises(NotImplementedError, match="item 14"):
