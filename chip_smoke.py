@@ -21,7 +21,7 @@ Phases, each of which raises (non-zero exit, no result line) on failure:
    exactly 0); U1 ``unpack_sum``. E1 also with a sigma vector that differs
    across clients and holds a 0 (the sto-sign route). Outputs are compared
    as int32 bit patterns (bytes for payloads).
-3. twelve paths at full width through ``repro_torch.launch.train.run``:
+3. eighteen paths at full width through ``repro_torch.launch.train.run``:
    qwen2-0.5B (24 layers, d = 494,032,768 coordinates, bf16), 2 local steps,
    micro-batch 2, seq 64, 2 rounds each:
      zsign            zsign(z=1, sigma=0.01), 8 clients: E1 + R1 once a round
@@ -56,9 +56,25 @@ Phases, each of which raises (non-zero exit, no result line) on failure:
                       (E1 gets f32 state.sigma), E1 + R1 once
      dpgauss          --compressor dpgauss, 8 clients, one round: E1 and R1
                       never (the dense wire), 32 * 8 * d uplink bits
-   Each path: finite loss, params changed, n * d uplink bits per round
-   (32 n d for dpgauss), every client-state row (EF residual, cv) and the
-   server state non-zero after round 1, its peak
+     vote             zsign(z=1,sigma=0.01,agg=vote), 8 clients: E1 + R1
+                      once a round, R1 giving the vote pair's signed count
+     trimmed_stream   zsign_packed(z=1,sigma=0.01,agg=trimmed(f=2)), 16
+                      clients, stream(shard=6): E1 and R1 (add mode) 3
+                      times, the int32 pair carried, the last shard wrapped
+     median_attack    zsign(z=1,sigma=0.01,agg=median) under --adversary
+                      byte_corrupt(f=2,p=0.1), 8 clients: E1 + R1 once
+     ef_topk          --compressor topk (ef|topk(frac=0.01)), 8 clients: no
+                      kernel; 0.64 bits a coordinate
+     topk_coord_stream  topk(frac=0.01,agg=coord), 16 clients,
+                      stream(shard=6): the (2, d) f32 carry, no kernel
+     qsgd             --compressor qsgd --qsgd-s 1, 8 clients: no kernel; 2
+                      bits a coordinate
+   The last six run under a wire probe (``_WireProbe``, which lists what it
+   checks in the first round).
+   Each path: finite loss, some param leaf changed in every round, n * d *
+   bits uplink bits per round (32 on dpgauss, 0.64 on top-k, 2 on QSGD at
+   s = 1; the engine's f32 product), every client-state row (EF residual,
+   cv) and the server state non-zero after round 1, its peak
    ``torch.cuda.max_memory_allocated``, and every launch counter set to 0
    just before the path and read just after (a wrapper counts only launches
    on CUDA tensors, so this also shows the buffers lived on the card).
@@ -71,7 +87,11 @@ Phases, each of which raises (non-zero exit, no result line) on failure:
    --clients 8 --groups 2 --cohort vmap are one round (at this width
    --cohort auto streams 16 clients in shards of 8); (d) the same four plans
    for 16 cv clients (cv rows by digest, the server variate as int32
-   patterns). Each run's plan and launches are checked too. Then the
+   patterns); (e) 16 clients of zsign(z=1,sigma=0.01,agg=trimmed(f=2))
+   under vmap, stream(shard=6) (trimmed_stream), stream(shard=8,feed=host)
+   and --clients 8 --groups 2 --cohort vmap, the int32 vote pairs by
+   digest too; (f) collude(f=2,rotate=true) on agg=vote, 8 clients, vmap =
+   stream(shard=3). Each run's plan and launches are checked too. Then the
    dynamic sigma: one round with RoundContext(dynamic_sigma=True) from a
    state whose sigma is set to 0.015 (as launch/train.py does after a
    Plateau stall) sends the payload bytes of the static zsign(z=1,
@@ -82,8 +102,11 @@ Phases, each of which raises (non-zero exit, no result line) on failure:
    times at the paths' shapes (n = 8, d as above) with CUDA events, each
    kernel beside its plain version on the same inputs and its bound (R1 in
    add and in fold mode, E1 also at n = 1); and the plain-torch layers of
-   the new paths (row norms, the clip, the sigma_sched multiply, the cv
-   correction, row update and server update) beside their byte bounds.
+   the noise controls (row norms, the clip, the sigma_sched multiply, the
+   cv correction, row update and server update) and of the new laws and
+   codecs (``times_wire_layers``: the vote pair on R1's and on the popcount
+   route, the vote decode, the top-k selection, the COO scatter, QSGD's
+   norms and quantize, the adversary) beside their bounds.
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it
 lists each kernel with its check, launches and times.
@@ -116,6 +139,14 @@ ERF_OPS = 20
 #: (multiply, add, compare)
 EF_OPS_PER_ELEM = 4
 COMPRESS_OPS_PER_ELEM = 3
+#: integer ops per threefry2x32-20 counter of jax's key stream (20 rounds
+#: of add, rotate, xor; 5 key injections of 3 ops; the first injection,
+#: ks2 and the final xor), and the f32 ops per QSGD coordinate (uniform,
+#: |p|/nrm*s, floor, clip, compare, level, sign, product)
+KEY_OPS_PER_COUNTER = 20 * 3 + 5 * 3 + 5
+QSGD_OPS_PER_ELEM = 16
+#: f32 ops per coordinate of the trimmed vote decode
+VOTE_DECODE_OPS = 16
 
 COMMON_ARGS = ["--arch", "qwen2_0_5b", "--local-steps", "2",
                "--micro-batch", "2", "--seq-len", "64", "--device", "cuda"]
@@ -126,6 +157,11 @@ DP_SPEC = "dp(clip=1.0,eps=2.0,steps=200,q=0.3)|zsign_packed"
 #: the accountant's arguments of DP_SPEC, and its clip norm
 DP_ACCOUNT = {"q": 0.3, "steps": 200, "target_eps": 2.0, "delta": 1e-5}
 DP_CLIP = 1.0
+VOTE = "zsign(z=1,sigma=0.01,agg=vote)"
+TRIMMED = "zsign(z=1,sigma=0.01,agg=trimmed(f=2))"
+#: counters of a path that launches no kernel
+NO_KERNEL = {"zsign_encode": 0, "sign_reduce": 0, "ef_sign": 0,
+             "zsign_compress": 0, "unpack_sum": 0}
 #: the full-width paths: label, train flags, launches per round (kernel
 #: counters; "_n1" and "_fold" are the subsets with n = 1 and in fold mode)
 PATHS = [
@@ -168,11 +204,31 @@ PATHS = [
     ("dpgauss", ["--compressor", "dpgauss", "--clients", "8"],
      {"zsign_encode": 0, "sign_reduce": 0, "ef_sign": 0,
       "zsign_compress": 0, "unpack_sum": 0}),
+    ("vote", ["--pipeline", VOTE, "--clients", "8"],
+     {"zsign_encode": 1, "sign_reduce": 1, "sign_reduce_fold": 0,
+      "ef_sign": 0, "zsign_compress": 0}),
+    ("trimmed_stream", ["--pipeline",
+                        "zsign_packed(z=1,sigma=0.01,agg=trimmed(f=2))",
+                        "--clients", "16", "--cohort", "stream(shard=6)"],
+     {"zsign_encode": 3, "sign_reduce": 3, "sign_reduce_fold": 0,
+      "ef_sign": 0, "zsign_compress": 0}),
+    ("median_attack", ["--pipeline", "zsign(z=1,sigma=0.01,agg=median)",
+                       "--clients", "8", "--adversary",
+                       "byte_corrupt(f=2,p=0.1)"],
+     {"zsign_encode": 1, "sign_reduce": 1, "sign_reduce_fold": 0,
+      "ef_sign": 0, "zsign_compress": 0}),
+    ("ef_topk", ["--compressor", "topk", "--clients", "8"], NO_KERNEL),
+    ("topk_coord_stream", ["--pipeline", "topk(frac=0.01,agg=coord)",
+                           "--clients", "16", "--cohort", "stream(shard=6)"],
+     NO_KERNEL),
+    ("qsgd", ["--compressor", "qsgd", "--qsgd-s", "1", "--clients", "8"],
+     NO_KERNEL),
 ]
 #: rounds of a path where it is not ROUNDS, and uplink bits per coordinate
 #: where it is not 1
 PATH_ROUNDS = {"dpgauss": 1}
-PATH_BITS = {"dpgauss": 32}
+PATH_BITS = {"dpgauss": 32, "ef_topk": 64 * 0.01,
+             "topk_coord_stream": 64 * 0.01, "qsgd": 2}
 #: paths whose E1 calls the probe records (see _E1Probe)
 PROBED = ("stosign", "dp_zsign", "plateau")
 #: clients per shard each path must resolve to (0: the vmap plan)
@@ -180,7 +236,20 @@ PATH_SHARD = {"zsign_groups": 0, "zsign_stream": 8, "ef_stream": 6,
               "zsign_16_vmap": 0, "zsign_16_stream5": 5, "ef_16_stream8": 8,
               "ef_16_stream8_host": 8, "ef_8x2_groups": 0, "cv_stream": 6,
               "cv_16_stream8": 8, "cv_16_stream8_host": 8,
-              "cv_8x2_groups": 0}
+              "cv_8x2_groups": 0, "vote": 0, "trimmed_stream": 6,
+              "median_attack": 0, "ef_topk": 0, "topk_coord_stream": 6,
+              "qsgd": 0, "trimmed_16_vmap": 0, "trimmed_16_stream8_host": 8,
+              "trimmed_8x2_groups": 0, "collude_vmap": 0,
+              "collude_stream3": 3}
+#: paths whose wire the probe checks (see _WireProbe); the vote-pair
+#: digest of their first round joins the identity record
+WIRE_PROBED = ("vote", "trimmed_stream", "median_attack", "ef_topk",
+               "topk_coord_stream", "qsgd", "trimmed_16_vmap",
+               "trimmed_16_stream8_host", "trimmed_8x2_groups",
+               "collude_vmap", "collude_stream3")
+#: the paths on R1's vote-pair route
+VOTE_ROUTE = ("vote", "trimmed_stream", "median_attack")
+TOPK_K = max(1, int(494_032_768 * 0.01))
 ROUNDS = 2
 #: the plan identities: (name, [(label, flags, launches per round), ...]);
 #: a label naming a path of PATHS reuses that path's first round. 16
@@ -213,6 +282,25 @@ IDENTITIES = [
            ("cv_8x2_groups", CV + ["--clients", "8", "--groups", "2",
                                    "--cohort", "vmap"],
             {"zsign_encode": 2, "sign_reduce": 1, "sign_reduce_fold": 0})]),
+    ("e", [("trimmed_16_vmap", ["--pipeline", TRIMMED, "--clients", "16",
+                                "--cohort", "vmap"],
+            {"zsign_encode": 1, "sign_reduce": 1}),
+           ("trimmed_stream", None, None),
+           ("trimmed_16_stream8_host", ["--pipeline", TRIMMED, "--clients",
+                                        "16", "--cohort",
+                                        "stream(shard=8,feed=host)"],
+            {"zsign_encode": 2, "sign_reduce": 2, "sign_reduce_fold": 0}),
+           ("trimmed_8x2_groups", ["--pipeline", TRIMMED, "--clients", "8",
+                                   "--groups", "2", "--cohort", "vmap"],
+            {"zsign_encode": 2, "sign_reduce": 1, "sign_reduce_fold": 0})]),
+    ("f", [("collude_vmap", ["--pipeline", VOTE, "--clients", "8",
+                             "--adversary", "collude(f=2,rotate=true)",
+                             "--cohort", "vmap"],
+            {"zsign_encode": 1, "sign_reduce": 1}),
+           ("collude_stream3", ["--pipeline", VOTE, "--clients", "8",
+                                "--adversary", "collude(f=2,rotate=true)",
+                                "--cohort", "stream(shard=3)"],
+            {"zsign_encode": 3, "sign_reduce": 3, "sign_reduce_fold": 0})]),
 ]
 QWEN2_COORDS = 494_032_768
 
@@ -509,6 +597,168 @@ class _ClipProbe:
         return self._dp.clip_rows_(p2d, n_coords, max_norm, nrms)
 
 
+class _WireProbe:
+    """Wraps ``Pipeline.encode_batch``, ``aggregate`` and ``decode_sum``
+    while a path of the new codecs and laws runs, and checks what crosses
+    the wire in its first round (the calls before the first decode):
+
+      vote            the pair from R1's route equals the plain popcount
+                      route (``wire.vote_accumulator`` on the same card
+                      tensors) as int32; the decoded update lies in
+                      {-1, 0, +1}
+      trimmed, vote   the carried accumulator is the (2, d_pad) int32 pair;
+      pair routes     n_live (row 1) is the cohort size on every
+                      coordinate, so the wrapped last shard added nothing
+      median_attack   bytes of rows 0-1 differ from their honest encode in
+                      a share of 0.1 * 255/256 (within six standard
+                      deviations), rows 2-7 are untouched
+      ef_topk         exactly k indices per client, unique, in
+                      [0, n_coords), int32
+      topk_coord      the (2, n_coords) f32 carry; the count row is an
+                      integer in [0, clients]
+      qsgd            every q coordinate is 0 or +/- the row's f32 norm
+                      (+1e-12), and that norm is the f64 norm of the row
+                      before the encode to 1e-4 (f32 summation)
+
+    Checks run on the card and read back one bool or a few numbers; the
+    first round's decoded aggregate (the vote pair, where there is one)
+    is digested for the plan identities. Launch counts are untouched: the
+    plain route it compares with launches no kernel."""
+
+    def __init__(self, label, clients):
+        self.label, self.clients = label, clients
+        self.out, self.first, self.digest = {}, True, None
+
+    def install(self, compression):
+        P = compression.Pipeline
+        self._P = P
+        self._orig = (P.encode_batch, P.aggregate, P.decode_sum)
+        enc0, agg0, dec0 = self._orig
+        probe = self
+
+        def encode_batch(pipe, keys, flat2d, n_coords=None, *a, **kw):
+            pre = probe.before_encode(flat2d, n_coords)
+            out = enc0(pipe, keys, flat2d, n_coords, *a, **kw)
+            probe.after_encode(out[0], pre, n_coords)
+            return out
+
+        def aggregate(pipe, payload, mask, n_coords, acc=None):
+            if probe.first:
+                probe.on_aggregate(payload, mask, n_coords, acc)
+            return agg0(pipe, payload, mask, n_coords, acc)
+
+        def decode_sum(pipe, enc_sum, n_live, *a, **kw):
+            out = dec0(pipe, enc_sum, n_live, *a, **kw)
+            if probe.first:
+                probe.on_decode(enc_sum, out)
+                probe.first = False
+            return out
+
+        P.encode_batch, P.aggregate, P.decode_sum = (encode_batch, aggregate,
+                                                     decode_sum)
+
+    def uninstall(self):
+        self._P.encode_batch, self._P.aggregate, self._P.decode_sum = \
+            self._orig
+
+    def _fail(self, what):
+        raise AssertionError(f"{self.label}: {what}")
+
+    def before_encode(self, x2d, d):
+        if not self.first:
+            return None
+        if self.label == "qsgd":
+            from repro_torch.core import dp
+            return _norms64(x2d, d), dp.row_norms(x2d, d) + 1e-12
+        return None
+
+    def after_encode(self, payload, pre, d):
+        if not self.first:
+            return
+        if self.label == "median_attack":
+            self.honest = payload.clone()
+        elif self.label == "qsgd":
+            norms64, nrm = pre
+            rel = []
+            for c in range(payload.shape[0]):
+                row = payload[c, :d]
+                mag = torch.abs(row)
+                if not bool(torch.all((row == 0) | (mag == nrm[c]))):
+                    self._fail(f"q row {c} holds values besides 0 and "
+                               f"+/-{float(nrm[c])}")
+                rel.append(abs(float(nrm[c]) - float(norms64[c]))
+                           / float(norms64[c]))
+            # torch's f32 vector_norm is off the f64 norm by ~4e-6 at 138K
+            # coordinates on the CPU; the reading at full width is kept
+            if max(rel) > 1e-4:
+                self._fail(f"q magnitudes off the f64 row norms by {rel}")
+            self.out["q_levels_vs_f64_norm_max_rel"] = max(rel)
+
+    def on_aggregate(self, payload, mask, d, acc):
+        from repro_torch.core import wire
+        if self.label == "vote":
+            plain = wire.vote_accumulator(payload, mask)
+            self.pending_plain = plain
+        elif self.label == "median_attack":
+            diff = (payload != self.honest).float().mean(1).tolist()
+            want = 0.1 * 255 / 256
+            # six standard deviations of a share of n_bytes draws
+            tol = 6 * math.sqrt(want * (1 - want) / payload.shape[1])
+            if (any(abs(x - want) > tol for x in diff[:2])
+                    or any(diff[2:])):
+                self._fail(f"corrupted byte shares per row {diff}, want "
+                           f"{want:.5f} +/- {tol:.2e} for rows 0-1 and 0 "
+                           "elsewhere")
+            self.out["corrupt_byte_share"] = diff
+            del self.honest
+        elif self.label == "ef_topk":
+            idx = payload["indices"]
+            if idx.dtype != torch.int32 or idx.shape[1] != TOPK_K:
+                self._fail(f"indices {idx.dtype} {tuple(idx.shape)}, want "
+                           f"int32 (n, {TOPK_K})")
+            for c in range(idx.shape[0]):
+                srt = torch.sort(idx[c].long()).values
+                if not (bool(torch.all(srt[1:] > srt[:-1]))
+                        and int(srt[0]) >= 0 and int(srt[-1]) < d):
+                    self._fail(f"client {c}'s indices are not unique in "
+                               f"[0, {d})")
+            self.out["indices_per_client"] = int(idx.shape[1])
+        elif self.label == "topk_coord_stream" and acc is not None:
+            if acc.dtype != torch.float32 or tuple(acc.shape) != (2, d):
+                self._fail(f"carry {acc.dtype} {tuple(acc.shape)}")
+        elif acc is not None and acc.dtype != torch.int32:
+            self._fail(f"carry {acc.dtype}, want the int32 vote pair")
+
+    def on_decode(self, enc_sum, out):
+        if self.label == "topk_coord_stream":
+            cnt = enc_sum[1]
+            if (enc_sum.dtype != torch.float32 or enc_sum.shape[0] != 2
+                    or float(cnt.min()) < 0
+                    or float(cnt.max()) > self.clients
+                    or not bool(torch.all(cnt == torch.round(cnt)))):
+                self._fail("count row not an integer in [0, clients]")
+            self.out["count_row_max"] = float(cnt.max())
+            return
+        if self.label in ("ef_topk", "qsgd"):
+            return
+        if enc_sum.dtype != torch.int32 or enc_sum.shape[0] != 2:
+            self._fail(f"aggregate {enc_sum.dtype} {tuple(enc_sum.shape)} "
+                       "is not the int32 vote pair")
+        if not bool(torch.all(enc_sum[1] == self.clients)):
+            self._fail("n_live row is not the cohort size everywhere")
+        if self.label == "vote":
+            if not torch.equal(enc_sum, self.pending_plain):
+                self._fail("R1's vote pair differs from the popcount route")
+            del self.pending_plain
+            g = out[:QWEN2_COORDS]
+            if not bool(torch.all((g == 0) | (g == 1) | (g == -1))):
+                self._fail("the decoded update leaves {-1, 0, +1}")
+            self.out.update({"pair_equals_popcount_route": True,
+                             "decoded_zero_share": float((g == 0).float()
+                                                         .mean())})
+        self.digest = _digest(enc_sum.reshape(-1).view(torch.int32))
+
+
 def _norms64(x2d, d: int):
     return torch.stack([_norm64(x2d[c, :d]) for c in range(x2d.shape[0])])
 
@@ -567,6 +817,7 @@ def _state_nonzero(after) -> bool:
 
 def _same_record(x, y) -> bool:
     if (x["params"].keys() != y["params"].keys() or x["rows"] != y["rows"]
+            or x.get("enc_sum") != y.get("enc_sum")
             or (x["server"] is None) != (y["server"] is None)):
         return False
     for k, a in (x["server"] or {}).items():
@@ -581,6 +832,7 @@ def phase_path(label, flags, per_round=None, rounds=None):
     counter at 0 just before and read just after. -> its summary, with the
     record of its first round."""
     from repro_torch.core import compression, wire
+    from repro_torch.core.tree import tree_leaves
     from repro_torch.kernels.zsign import ops
     from repro_torch.launch import train
     rounds = PATH_ROUNDS.get(label, ROUNDS) if rounds is None else rounds
@@ -591,7 +843,6 @@ def phase_path(label, flags, per_round=None, rounds=None):
 
     def on_round(t, before, after, m, sec):
         if t == 0:
-            first["embed0"] = before.params["embed"][:4].clone()
             first["record"] = _round0_record(after)
             if after.comp_state is not None or after.comp_server is not None:
                 state_ok.append(_state_nonzero(after))
@@ -600,10 +851,14 @@ def phase_path(label, flags, per_round=None, rounds=None):
                     "shard": int(m.shard_clients),
                     "n_coords": wire.tree_spec(after.params).n_coords,
                     "sigma": float(after.sigma),
-                    "embed": after.params["embed"][:4].clone()})
+                    # some leaf moved (top-k may leave any given slice)
+                    "changed": any(not torch.equal(a, b) for a, b in zip(
+                        tree_leaves(before.params),
+                        tree_leaves(after.params)))})
 
     probe = _E1Probe(ops, QWEN2_COORDS) if label in PROBED else None
     clip = _ClipProbe(compression.dplib) if label == "dp_zsign" else None
+    wprobe = _WireProbe(label, total) if label in WIRE_PROBED else None
     _free()
     torch.cuda.reset_peak_memory_stats()
     _reset_counts()
@@ -611,6 +866,8 @@ def phase_path(label, flags, per_round=None, rounds=None):
         compression.K = probe
     if clip is not None:
         compression.dplib = clip
+    if wprobe is not None:
+        wprobe.install(compression)
     try:
         history = train.run(args, on_round=on_round)
         torch.cuda.synchronize()
@@ -618,6 +875,8 @@ def phase_path(label, flags, per_round=None, rounds=None):
         compression.K = ops
         if clip is not None:
             compression.dplib = clip._dp
+        if wprobe is not None:
+            wprobe.uninstall()
     launches = _counts()
     peak = torch.cuda.max_memory_allocated()
     if len(history) != args.rounds or len(per) != args.rounds:
@@ -627,15 +886,18 @@ def phase_path(label, flags, per_round=None, rounds=None):
             raise AssertionError(f"{label}: non-finite loss {r['loss']}")
         if r["n_coords"] != QWEN2_COORDS:
             raise AssertionError(f"d = {r['n_coords']} != {QWEN2_COORDS}")
-        if r["bits"] != bits_per_coord * total * QWEN2_COORDS:
+        # the engine's f32 product n_live * (d * bits)
+        want_bits = float(torch.tensor(float(total), device=DEV)
+                          * float(QWEN2_COORDS * bits_per_coord))
+        if r["bits"] != want_bits:
             raise AssertionError(f"{label}: uplink bits {r['bits']} != "
                                  f"{bits_per_coord} * {total} * "
                                  f"{QWEN2_COORDS}")
         if label in PATH_SHARD and r["shard"] != PATH_SHARD[label]:
             raise AssertionError(f"{label}: {r['shard']} clients a shard, "
                                  f"want {PATH_SHARD[label]}")
-    if torch.equal(per[-1]["embed"], first["embed0"]):
-        raise AssertionError(f"{label}: params did not change")
+    if not all(r["changed"] for r in per):
+        raise AssertionError(f"{label}: params did not change in a round")
     if state_ok and not state_ok[0]:
         raise AssertionError(f"{label}: a client-state row or the server "
                              "state is zero after round 1")
@@ -645,6 +907,11 @@ def phase_path(label, flags, per_round=None, rounds=None):
                 f"{label}: {name} launched {launches[name]} times in "
                 f"{args.rounds} rounds (want {k} a round)")
     extra = _probe_checks(label, probe, args, per, clip) if probe else {}
+    if wprobe is not None:
+        if wprobe.first:
+            raise AssertionError(f"{label}: the wire probe saw no decode")
+        extra.update(wprobe.out)
+        first["record"]["enc_sum"] = wprobe.digest
     secs = [r["sec"] for r in per]
     print(json.dumps({"path": label, "flags": flags, "clients": total,
                       "groups": args.groups, "cohort": args.cohort,
@@ -736,6 +1003,8 @@ def phase_identities(results):
                               .items()},
                           "server_state_compared": sorted(
                               base["server"] or {}),
+                          "vote_pair_compared": base.get("enc_sum")
+                          is not None,
                           "equal": True}))
         del recs, base
         _free()
@@ -1018,6 +1287,103 @@ def times_plain_layers(dev):
     return out
 
 
+def times_wire_layers(dev):
+    """The plain-torch layers of the new laws and codecs at full width, as
+    the paths run them, each beside its bound (inputs read once, outputs
+    written once; threefry at KEY_OPS_PER_COUNTER): the vote pair on R1's
+    route and on the plain popcount route (n = 8), the trimmed and the
+    vote decode, the top-k selection of one row (and torch.topk alone, the
+    library call inside it), the COO scatter of 8 clients' k pairs, QSGD's
+    row norms (8 rows) and quantize (one row), and the adversary's
+    byte_corrupt and collude on 2 of 8 packed rows."""
+    from repro_torch.core import compression, dp, noise, wire
+    from repro_torch.fed.adversary import parse_adversary
+    n, d = 8, QWEN2_COORDS
+    d_pad = -(-d // compression.ENCODE_TILE) * compression.ENCODE_TILE
+    nb = d_pad // 8
+    k = TOPK_K
+    gen = torch.Generator(device=dev).manual_seed(18)
+    out = {}
+
+    def put(name, ms, nbytes, ops, **kw):
+        bound, by = _bound(nbytes=nbytes, ops=ops)
+        out[name] = {"ms": ms, "bound_ms": bound, "bound_by": by,
+                     "share_of_bound": bound / ms, **kw}
+
+    packed = torch.randint(0, 256, (n, nb), generator=gen, device=dev,
+                           dtype=torch.uint8)
+    mask = torch.ones((n,), device=dev)
+    pair = compression.vote_pair(packed, mask, "cuda")
+    plain = wire.vote_accumulator(packed, mask)
+    torch.cuda.synchronize()
+    if not torch.equal(pair, plain):
+        raise AssertionError("vote pair: R1 route != popcount route")
+    del plain
+    _free()
+    pair_bytes = n * nb + 2 * d_pad * 4 + n * 4
+    put("vote_pair_r1_route", _time_ms(
+        lambda: compression.vote_pair(packed, mask, "cuda"), reps=5),
+        pair_bytes, n * 8 * nb * 2)
+    put("vote_pair_popcount_route", _time_ms(
+        lambda: wire.vote_accumulator(packed, mask), reps=2),
+        pair_bytes, n * 8 * nb * 2)
+    for law, f in (("trimmed", 2), ("vote", 0)):
+        put(f"vote_decode_{law}", _time_ms(
+            lambda: wire.vote_decode(pair, law, f), reps=3),
+            3 * d_pad * 4, d_pad * VOTE_DECODE_OPS)
+    del pair, packed
+    _free()
+    x = torch.zeros((n, d), device=dev)
+    for c in range(n):
+        x[c] = torch.randn((d,), generator=gen, device=dev) * 0.01
+    # gradients of a bf16 model: bf16-rounded, ties at every magnitude
+    x[0] = x[0].to(torch.bfloat16).to(torch.float32)
+    score = torch.abs(x[0])
+    put("topk_select_row", _time_ms(
+        lambda: compression.topk_select(torch.abs(x[0]), k), reps=2),
+        d * 4 + k * 8, 2 * d, library_ms=_time_ms(
+            lambda: torch.topk(score, k, sorted=False), reps=2))
+    del score
+    _free()
+    codec = compression.TopKCodec(frac=0.01)
+    payload, _ = codec.encode_with_decode_batch(None, x, d)
+    put("coo_scatter_8_clients", _time_ms(
+        lambda: wire.scatter_sum_coo(payload["values"], payload["indices"],
+                                     mask, d), reps=3),
+        n * k * 8 + n * 4 + d * 4, 2 * n * k,
+        library_ms=_time_ms(lambda: torch.zeros(
+            (d,), device=dev).index_add_(
+                0, payload["indices"].reshape(-1).long(),
+                (payload["values"] * mask[:, None]).reshape(-1)), reps=3))
+    del payload
+    _free()
+    put("qsgd_row_norms_8", _time_ms(lambda: dp.row_norms(x, d), reps=3),
+        n * d * 4 + n * 4, 2 * n * d)
+    qcodec = compression.QSGDCodec(s=1)
+    key = noise.client_keys(noise.prng_key(10), 0, 1)[0]
+    nrm = dp.row_norms(x[1:2], d)[0] + 1e-12
+    put("qsgd_quantize_row", _time_ms(
+        lambda: qcodec._quantize_row(key, x[1], nrm), reps=2),
+        2 * d * 4, d * (KEY_OPS_PER_COUNTER + QSGD_OPS_PER_ELEM))
+    del x
+    _free()
+    packed = torch.randint(0, 256, (n, nb), generator=gen, device=dev,
+                           dtype=torch.uint8)
+    idx = torch.arange(n)
+    # byte_corrupt: two draws (hit, byte) per byte of 2 rows, read and
+    # written; collude: one pattern draw, written over 2 rows
+    for spec, counters, nbytes in (("byte_corrupt(f=2,p=0.1)", 4 * nb,
+                                    4 * nb),
+                                   ("collude(f=2)", nb, 2 * nb)):
+        adv = parse_adversary(spec).bind(n)
+        put(spec.split("(")[0], _time_ms(
+            lambda: adv.corrupt(packed, idx, 0), reps=2),
+            nbytes, counters * KEY_OPS_PER_COUNTER)
+    del packed
+    _free()
+    return out
+
+
 def times_ef(dev):
     """F1 at n = 8, full width: the encode form (no q) checked against its
     plain version and timed, the form with q timed; and the plain-torch
@@ -1128,6 +1494,10 @@ def main() -> int:
     plain = times_plain_layers(dev)
     print(json.dumps({"plain_layers": plain,
                       "shape": f"n=8 d={QWEN2_COORDS}", "card": smi}))
+    wire_layers = times_wire_layers(dev)
+    print(json.dumps({"wire_layers": wire_layers,
+                      "shape": f"n=8 d={QWEN2_COORDS} k={TOPK_K}",
+                      "card": smi}))
     enc, red = times["zsign_encode"], times["sign_reduce"]
     secs = results["zsign"]["secs"]
     print(json.dumps({"round_split_ms": {
@@ -1168,8 +1538,12 @@ def main() -> int:
          "replaces": tpu + "zsign/zsign.py:226",
          "launches": total["sign_reduce"],
          "launches_fold": total["sign_reduce_fold"],
+         "launches_vote_route": sum(results[p]["launches"]["sign_reduce"]
+                                    for p in VOTE_ROUTE),
          "check": "int32 bit patterns equal to plain, add and fold mode "
-                  "(small shard sequences and full width)"},
+                  "(small shard sequences and full width); as the vote "
+                  "pair's route, int32 equal to the popcount route on the "
+                  "vote path at full width"},
         {"name": "ef_sign", "route": "cuda",
          "source": src + "efsign/csrc/ef_sign.cu",
          "replaces": tpu + "efsign/efsign.py:39",

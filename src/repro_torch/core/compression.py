@@ -1,30 +1,35 @@
 """Compression pipelines over the flat wire buffer (port of
-``repro.core.compression``, the subset the ported paths run).
+``repro.core.compression``).
 
-Ported: the ``SignCodec`` (``zsign`` / ``zsign_packed`` / ``stosign`` with
-agg=mean, sigma_mode fixed or norm, any z, scale none or mean_abs, the
-counter-noise and the dense-noise encodes), the uncompressed ``DenseCodec``,
-every transform stage (``ef`` error feedback, ``dp`` clip + Gaussian noise,
-``cv`` control variates, ``sigma_sched`` per-layer sigma schedule), a
-``Pipeline`` with its client and server state slots, the engine's dynamic
-(Plateau) sigma, the round's TreeSpec and the fused EF kernel path, the spec
-parser and the legacy factories. The codecs that are not ported (``qsgd``,
-``topk``) and the robust ``agg=`` modes raise ``NotImplementedError`` naming
-their ROADMAP item.
+The codecs: the ``SignCodec`` (``zsign`` / ``zsign_packed`` / ``stosign``:
+sigma_mode fixed or norm, any z, scale none or mean_abs, the counter-noise
+and the dense-noise encodes, and the server laws agg=mean and the robust
+agg=vote|trimmed|median over the integer vote pair), the ``QSGDCodec``
+(``qsgd``, the unbiased stochastic quantizer on a dense f32 wire), the
+``TopKCodec`` (``topk``, global top-k on a sparse COO wire, agg=mean or
+coord) and the uncompressed ``DenseCodec``; every transform stage (``ef``
+error feedback, ``dp`` clip + Gaussian noise, ``cv`` control variates,
+``sigma_sched`` per-layer sigma schedule); a ``Pipeline`` with its client
+and server state slots, the engine's dynamic (Plateau) sigma, the round's
+TreeSpec and the fused EF kernel path; the spec parser and the legacy
+factories.
 
 The round engine hands the pipeline a STACK of client buffers at once —
 ``encode_batch(keys, flat2d, n_coords, state, live)`` is the reference's
 vmap of ``encode`` over clients, written out as a batch dimension: one
 encode launch over all rows (kernel E1, C1 or F1 on a card) instead of n.
 ``aggregate`` is one sign-reduce over the (n, n_bytes) payload stack
-(kernel R1 on a card). The plain work around the kernels (per-client norms,
-the clip, the sigma_sched multiply, the cv rows) runs one row at a time or
-in place, so no (n, d) temporary exists beside the cohort buffer.
+(kernel R1 on a card; on the vote routes R1 gives the pair's signed
+count). The plain work around the kernels (per-client norms, the clip, the
+sigma_sched multiply, the cv rows, the QSGD levels, the top-k selection)
+runs one row at a time or in place, so no (n, d) temporary exists beside
+the cohort buffer.
 """
 from __future__ import annotations
 
 import dataclasses
 import math
+import re
 from typing import Optional, Sequence, Tuple
 
 import numpy as np
@@ -42,20 +47,18 @@ from repro_torch.kernels.efsign import ops as EK
 from repro_torch.kernels.zsign import ops as K
 
 __all__ = [
-    "Pipeline", "SignCodec", "DenseCodec", "ErrorFeedback", "DPTransform",
-    "ControlVariate", "SigmaSchedule", "RoundContext", "StateSlot",
-    "Compressor", "ZSignCompressor", "PackedZSignCompressor",
-    "StoSignCompressor", "EFSignCompressor", "DPGaussianCompressor",
-    "available", "sign_reduce", "parse_spec", "AGG_BACKENDS",
+    "Pipeline", "SignCodec", "QSGDCodec", "TopKCodec", "DenseCodec",
+    "ErrorFeedback", "DPTransform", "ControlVariate", "SigmaSchedule",
+    "RoundContext", "StateSlot", "Compressor", "ZSignCompressor",
+    "PackedZSignCompressor", "StoSignCompressor", "EFSignCompressor",
+    "QSGDCompressor", "TopKCompressor", "DPGaussianCompressor",
+    "available", "sign_reduce", "vote_pair", "parse_spec", "AGG_BACKENDS",
     "ENCODE_BACKENDS",
 ]
 
 #: encode tile, in elements (the kernels' tile; payloads are padded to
 #: ceil(d/8192)*1024 bytes)
 ENCODE_TILE = K.TILE
-
-_QUEUE1 = "ROADMAP queue 1"
-
 
 def sign_reduce(packed: torch.Tensor, weights: torch.Tensor,
                 backend: str = "auto", *, weights_are_mask: bool = False,
@@ -82,6 +85,24 @@ def sign_reduce(packed: torch.Tensor, weights: torch.Tensor,
     if weights_are_mask:
         return wire.unpack_sum_mask(packed, weights, acc)
     return wire.unpack_sum(packed, weights, acc)
+
+
+def vote_pair(packed: torch.Tensor, mask: torch.Tensor,
+              backend: str = "auto", acc: Optional[torch.Tensor] = None):
+    """The robust laws' (2, 8*n_bytes) int32 vote pair (signed count,
+    n_live) of stacked payloads under a 0/1 ``mask``, plus the carried pair
+    ``acc``. On the kernel route (``cuda``; ``auto`` on a card) the signed
+    count is R1's weighted sign sum under the mask: an integer below 2^24,
+    exact in f32 in any order, so its int32 cast is ``2*count - n_live``
+    bit for bit. Elsewhere it is the popcount route,
+    ``wire.vote_accumulator``."""
+    if resolve_backend("agg", backend, packed.device.type) != "cuda":
+        return wire.vote_accumulator(packed, mask, acc)
+    s = K.sign_reduce(packed, mask).to(torch.int32)
+    n_live = mask.to(device=s.device, dtype=torch.float32).sum().to(
+        torch.int32)
+    pair = torch.stack([s, n_live.expand_as(s)])
+    return pair if acc is None else acc + pair
 
 
 def sign_fold_finalize(acc: wire.SignFoldAcc,
@@ -188,11 +209,10 @@ class ControlVariate:
     Nothing extra goes on the wire. For a decode linear in the per-client
     local decodes (g_dec = mean of the m_i) the server law is SCAFFOLD's
     bookkeeping c_{t+1} - c_t = (1/N) * sum_i (c_i' - c_i) exactly, which is
-    why the pipeline refuses count-law decodes under ``cv`` (the port has
-    none yet: the robust sign ``agg=`` modes and top-k's ``agg=coord`` are
-    ROADMAP items 12 and 9). The corrections and the row updates run one
-    client row at a time, IN PLACE over the buffer and the state rows; the
-    server variate is updated in place too.
+    why the pipeline refuses count-law decodes under ``cv`` (the robust sign
+    ``agg=`` modes and top-k's ``agg=coord``). The corrections and the row
+    updates run one client row at a time, IN PLACE over the buffer and the
+    state rows; the server variate is updated in place too.
     """
     eta: float = 1.0
     beta: float = 1.0
@@ -389,6 +409,11 @@ class DenseCodec:
         del n_coords
         return wire.dense_masked_sum(payload, mask, acc)
 
+    def zero_acc(self, payload, n_coords: int) -> torch.Tensor:
+        del n_coords
+        return torch.zeros((payload.shape[-1],), dtype=torch.float32,
+                           device=payload.device)
+
     def decode_sum(self, enc_sum, n_live, sigma=None):
         del sigma
         return enc_sum / n_live
@@ -412,6 +437,15 @@ class SignCodec:
                          magnitude (mean |p|) next to the bits, and the
                          aggregation weights become mask * scale.
 
+    ``agg`` is the server law over the +/-1 votes: ``mean`` (every route
+    above), ``vote`` (coordinate majority, 0 at a tie), ``trimmed`` (drop
+    ``trim_f`` votes at each end; ``agg=trimmed(f=2)`` is the spec sugar)
+    and ``median``. The robust laws aggregate the integer vote pair
+    (``vote_pair``: R1 gives its signed count on a card), fold additively
+    across stream shards, and need the static 0/1 ``weights_are_mask``
+    guarantee and ``scale="none"``. ``debug_wire`` asks the engine to
+    check the 0/1 mask once a round (``wire.check_mask_membership``).
+
     The engine's dynamic (Plateau) sigma arrives as the ``sigma=`` override
     of the encode and the decode (an f32 scalar tensor); ``_noise_gate`` is
     the one place the gate is decided.
@@ -434,6 +468,8 @@ class SignCodec:
     dense_kernel: bool = False
     use_kernel: bool = False
     agg: str = "mean"
+    trim_f: int = 0
+    debug_wire: bool = False
     spec_name = "zsign"
     randomized = True
 
@@ -445,10 +481,36 @@ class SignCodec:
         if self.scale not in ("none", "mean_abs"):
             raise ValueError(f"scale must be 'none' or 'mean_abs', "
                              f"got {self.scale!r}")
-        if self.agg != "mean":
-            raise NotImplementedError(
-                f"agg={self.agg!r} (robust vote aggregation) is not yet "
-                f"ported ({_QUEUE1} item 12)")
+        # "trimmed(f=2)" spec sugar -> agg="trimmed", trim_f=2
+        agg = self.agg
+        if isinstance(agg, str) and agg.startswith("trimmed("):
+            m = re.fullmatch(r"trimmed\(\s*f\s*=\s*(\d+)\s*\)", agg)
+            if not m:
+                raise ValueError(f"malformed trimmed agg spec {agg!r}; "
+                                 f"expected trimmed(f=<int>)")
+            f = int(m.group(1))
+            if self.trim_f not in (0, f):
+                raise ValueError(f"conflicting trim levels: agg={agg!r} vs "
+                                 f"trim_f={self.trim_f}")
+            object.__setattr__(self, "agg", "trimmed")
+            object.__setattr__(self, "trim_f", f)
+        if self.agg not in wire.VOTE_AGG_MODES:
+            raise ValueError(f"unknown agg mode {self.agg!r}; expected one "
+                             f"of {wire.VOTE_AGG_MODES} (trimmed also as "
+                             f"'trimmed(f=<int>)')")
+        if self.agg == "trimmed" and self.trim_f < 1:
+            raise ValueError("agg=trimmed needs trim_f >= 1 — say "
+                             "agg=trimmed(f=2) or trim_f=2; trimmed(f=0) is "
+                             "exactly agg=mean")
+        if self.agg != "trimmed" and self.trim_f != 0:
+            raise ValueError(f"trim_f={self.trim_f} only applies to "
+                             f"agg=trimmed, not agg={self.agg!r}")
+        if self.agg != "mean" and self.scale != "none":
+            raise ValueError(
+                f"agg={self.agg!r} requires scale='none': scale="
+                f"{self.scale!r} aggregation weights clients by fractional "
+                f"magnitudes, which have no integer vote-count semantics "
+                f"(robust modes count +/-1 votes under a 0/1 mask)")
         for kind, b in (("agg", self.agg_backend),
                         ("encode", self.encode_backend)):
             resolve_backend(kind, b)
@@ -575,17 +637,41 @@ class SignCodec:
             # the scale-weighted sum straight from the packed bytes
             return sign_reduce(payload["packed"], mask * payload["scale"],
                                self.agg_backend, acc=acc)
+        if self.agg != "mean":
+            if not self.weights_are_mask:
+                raise ValueError(
+                    f"agg={self.agg!r} requires the static weights_are_mask "
+                    f"guarantee (0/1 participation masks): robust sign "
+                    f"aggregation counts +/-1 votes, and fractional weights "
+                    f"(importance/arrival sampler tiers, data-size weights) "
+                    f"have no vote-count semantics. Run under "
+                    f"RoundContext(weights_are_mask=True) with a uniform "
+                    f"0/1 sampler, or use agg=mean.")
+            return vote_pair(payload, mask, self.agg_backend, acc)
         return sign_reduce(payload, mask, self.agg_backend,
                            weights_are_mask=self.weights_are_mask, acc=acc)
 
+    def zero_acc(self, payload, n_coords: int) -> torch.Tensor:
+        """The zero accumulator of ``aggregate`` for one shard's payload
+        stack: the (2, 8*n_bytes) int32 vote pair on the robust laws, the
+        flat (8*n_bytes,) f32 sum otherwise."""
+        del n_coords
+        p = payload["packed"] if isinstance(payload, dict) else payload
+        n = 8 * p.shape[-1]
+        if self.agg != "mean":
+            return torch.zeros((2, n), dtype=torch.int32, device=p.device)
+        return torch.zeros((n,), dtype=torch.float32, device=p.device)
+
     def fold_init(self, payload):
-        """The streaming fold's carry for this codec, or None where a flat
+        """The streaming fold's carry for this codec, or None where the
         zero accumulator is exact already. The f32-weighted routes
         (``scale="mean_abs"``, and agg=mean without the 0/1-mask guarantee)
         are order-sensitive, so they get a ``wire.SignFoldAcc`` sized from
-        one shard's payload; 0/1-mask sums are integers, exact under any
-        association."""
-        if not (self.scale == "mean_abs" or not self.weights_are_mask):
+        one shard's payload; 0/1-mask sums and vote pairs are integers,
+        exact under any association."""
+        weighted = (self.scale == "mean_abs"
+                    or (self.agg == "mean" and not self.weights_are_mask))
+        if not weighted:
             return None
         packed = payload["packed"] if isinstance(payload, dict) else payload
         return wire.sign_fold_init(packed.shape[-1], packed.device)
@@ -605,7 +691,188 @@ class SignCodec:
         return flat_mean * scale
 
     def decode_sum(self, enc_sum, n_live, sigma=None):
-        return self.decode_mean(enc_sum / n_live, sigma=sigma)
+        """Server estimate from ``aggregate``'s output and the live count:
+        agg=mean is ``decode_mean(sum / n_live)``; the robust laws decode
+        the vote pair (``wire.vote_decode``), trimmed then debiased by
+        eta_z * sigma as the mean is, vote and median returned raw in
+        {-1, 0, +1}."""
+        if self.agg == "mean":
+            return self.decode_mean(enc_sum / n_live, sigma=sigma)
+        est = wire.vote_decode(enc_sum, self.agg, self.trim_f)
+        if self.agg == "trimmed":
+            return self.decode_mean(est, sigma=sigma)
+        return est
+
+
+@dataclasses.dataclass(frozen=True)
+class QSGDCodec:
+    """The unbiased stochastic quantizer of Alistarh et al. (paper
+    Definition 2; FedPAQ with local steps), ``s`` levels: each coordinate
+    becomes ``||p|| * sign(p) * (floor(r) + b) / s`` with ``r = |p| / ||p||
+    * s`` and ``b ~ Bernoulli(r - floor(r))``. The wire counts
+    ceil(log2(2s+1)) bits a coordinate and carries the dense f32 values.
+
+    ``b`` is the reference's draw bit for bit: ``jax.random.bernoulli(key,
+    q, (d,))`` is ``u < q`` with ``u = f32((bits >> 9) | 0x3F800000) - 1``
+    and ``bits[i] = y0 ^ y1`` of threefry2x32 (20 rounds) on the counter
+    (0, i). The port draws them in slices of ``noise.BITS_CHUNK`` and
+    writes q over the consumed rows in place. The norm comes from
+    ``dp.row_norms``, whose summation order differs from the reference's:
+    given the reference's norm, q is bit-identical."""
+    s: int = 1
+    spec_name = "qsgd"
+    randomized = True
+
+    def wire_format(self) -> WireFormat:
+        return WireFormat("float32",
+                          float(math.ceil(math.log2(2 * self.s + 1))),
+                          "dense")
+
+    def pad_multiple(self) -> int:
+        return 1
+
+    def _quantize_row(self, key, row: torch.Tensor, nrm: torch.Tensor):
+        """q over ``row`` in place (``nrm`` already has the 1e-12 floor)."""
+        for lo in range(0, row.shape[0], znoise.BITS_CHUNK):
+            x = row[lo:lo + znoise.BITS_CHUNK]
+            u = znoise.bits_to_uniform(znoise.random_bits(
+                key, lo, lo + x.shape[0], row.device))
+            r = torch.abs(x) / nrm * self.s
+            low = torch.floor(r)
+            up = u < torch.clip(r - low, 0.0, 1.0)
+            lvl = (low + up.to(torch.float32)) / self.s
+            # jnp.sign keeps the sign of a zero; torch.sign gives +0
+            sgn = torch.copysign((x != 0).to(torch.float32), x)
+            x.copy_(nrm * sgn * lvl)
+
+    def encode_with_decode_batch(self, keys, p2d, n_coords: int,
+                                 need_decode: bool = False, sigma=None):
+        """(n, d) rows -> the (n, d) f32 q stack, written over the rows;
+        the local decode of client c is its q row."""
+        del sigma
+        nrms = dplib.row_norms(p2d, n_coords) + 1e-12
+        for c in range(p2d.shape[0]):
+            self._quantize_row(keys[c], p2d[c, :n_coords], nrms[c])
+        local = (lambda c: p2d[c, :n_coords]) if need_decode else None
+        return p2d, local
+
+    aggregate = DenseCodec.aggregate
+    zero_acc = DenseCodec.zero_acc
+    decode_sum = DenseCodec.decode_sum
+
+
+def topk_select(score: torch.Tensor, k: int) -> torch.Tensor:
+    """Indices of the k largest entries of a non-negative f32 ``score``,
+    as ``lax.top_k`` gives them: ties at the k-th value keep the LOWEST
+    indices, and the result is ordered by (score descending, index
+    ascending). ``torch.topk`` fixes neither on a card, but the VALUE of
+    its smallest kept entry is the k-th largest score t whichever tied
+    entries it kept; the selection is then every entry above t, the first
+    k - count(> t) entries equal to t, and a stable descending sort of the
+    kept scores (taken in index order). -> (k,) int64."""
+    t = torch.topk(score, k, sorted=False).values.min()
+    above = score > t
+    need = k - int(above.sum())
+    eq = score == t
+    keep = above | (eq & (torch.cumsum(eq, 0, dtype=torch.int32) <= need))
+    del above, eq
+    idx = torch.nonzero(keep).reshape(-1)
+    del keep
+    order = torch.sort(score[idx], descending=True, stable=True).indices
+    return idx[order]
+
+
+@dataclasses.dataclass(frozen=True)
+class TopKCodec:
+    """Global top-k sparsifier: keep the ``frac`` largest-magnitude
+    coordinates of the flat buffer, k = max(1, int(n_coords * frac)), on a
+    COO wire of (f32 value, int32 index) pairs, 64 * frac bits a
+    coordinate. Stateless: ``ef|topk`` is the error-corrected form (the
+    legacy ``topk`` compressor).
+
+    The selection is ``topk_select`` over the first n_coords entries of
+    each row: exactly ``lax.top_k``'s set and order, ties at the k-th
+    magnitude to the lowest index. ``chunk`` is the reference's two-stage
+    candidate width (0: ``_resolve_chunk``); its selection is the same for
+    every chunk, so the port parses and keeps it and selects in one stage.
+
+    ``agg="coord"`` scatter-adds a per-coordinate reporter count beside
+    the values, a (2, n_coords) accumulator, and decodes each coordinate
+    by its own count (0 where nobody reported it); ``agg="mean"`` divides
+    the scatter-sum by n_live."""
+    frac: float = 0.01
+    chunk: int = 0
+    agg: str = "mean"
+    spec_name = "topk"
+    randomized = False
+
+    def __post_init__(self):
+        if self.agg not in ("mean", "coord"):
+            raise ValueError(f"topk agg must be 'mean' or 'coord', "
+                             f"got {self.agg!r}")
+        if self.chunk < 0:
+            raise ValueError(f"topk chunk must be 0 (auto) or positive, "
+                             f"got {self.chunk}")
+
+    def wire_format(self) -> WireFormat:
+        return WireFormat("float32", 64.0 * self.frac, "sparse_coo")
+
+    def pad_multiple(self) -> int:
+        return 1
+
+    @staticmethod
+    def _resolve_chunk(d: int, k: int) -> int:
+        """The reference's auto chunk: sqrt(d * k) rounded up to a power of
+        two, clamped to [4096, 2^20]."""
+        c = max(1, int(math.sqrt(d * max(1, k))))
+        return min(1 << 20, max(4096, 1 << (c - 1).bit_length()))
+
+    def encode_with_decode_batch(self, keys, p2d, n_coords: int,
+                                 need_decode: bool = False, sigma=None):
+        """(n, d) rows -> ({"values": (n, k) f32, "indices": (n, k)
+        int32}, local decode). The local decode of client c is its row with
+        only the kept values, so an ``ef`` residual is the row with the
+        kept coordinates zeroed."""
+        del keys, sigma
+        n = p2d.shape[0]
+        k = max(1, int(n_coords * self.frac))
+        idx = torch.empty((n, k), dtype=torch.int64, device=p2d.device)
+        for c in range(n):
+            row = p2d[c, :n_coords]
+            idx[c] = topk_select(torch.abs(row), k)
+        vals = torch.gather(p2d, 1, idx)
+        payload = {"values": vals, "indices": idx.to(torch.int32)}
+        if not need_decode:
+            return payload, None
+
+        def local(c):
+            out = torch.zeros((n_coords,), dtype=torch.float32,
+                              device=p2d.device)
+            return out.index_put_((idx[c],), vals[c])
+        return payload, local
+
+    def aggregate(self, payload, mask, n_coords: int, acc=None):
+        vals, idx = payload["values"], payload["indices"]
+        if self.agg == "coord":
+            if acc is None:
+                acc = self.zero_acc(payload, n_coords)
+            wire.scatter_sum_coo(vals, idx, mask, n_coords, acc[0])
+            wire.scatter_sum_coo(torch.ones_like(vals), idx, mask, n_coords,
+                                 acc[1])
+            return acc
+        return wire.scatter_sum_coo(vals, idx, mask, n_coords, acc)
+
+    def zero_acc(self, payload, n_coords: int) -> torch.Tensor:
+        shape = (2, n_coords) if self.agg == "coord" else (n_coords,)
+        return torch.zeros(shape, dtype=torch.float32,
+                           device=payload["values"].device)
+
+    def decode_sum(self, enc_sum, n_live, sigma=None):
+        del sigma
+        if self.agg == "coord":
+            # the value row is exactly 0 wherever the count row is 0
+            return enc_sum[0] / torch.clamp_min(enc_sum[1], 1.0)
+        return enc_sum / n_live
 
 
 # ---------------------------------------------------------------------------
@@ -614,10 +881,6 @@ class SignCodec:
 
 _TRANSFORM_SPECS = {"ef": ErrorFeedback, "dp": DPTransform,
                     "cv": ControlVariate, "sigma_sched": SigmaSchedule}
-#: transform stages of the reference not yet ported, with their ROADMAP item
-#: (every one is ported)
-_TRANSFORMS_UNPORTED = {}
-_CODECS_UNPORTED = {"qsgd": "item 9", "topk": "item 9"}
 
 
 def _sign_spec(**defaults):
@@ -633,6 +896,8 @@ _CODEC_SPECS = {
     # tensors)
     "zsign_packed": _sign_spec(encode_backend="cuda", dense_kernel=True),
     "stosign": _sign_spec(z=znoise.Z_INF, sigma_mode="norm"),
+    "qsgd": QSGDCodec,
+    "topk": TopKCodec,
     "dense": DenseCodec,
     "identity": DenseCodec,
 }
@@ -650,6 +915,28 @@ def _parse_value(v: str):
     return v
 
 
+def _split_args(args: str, tok: str):
+    """Split a stage's arguments on TOP-LEVEL commas only, so a nested
+    value (``agg=trimmed(f=2)``) stays one argument."""
+    parts, cur, depth = [], [], 0
+    for ch in args:
+        if ch == "(":
+            depth += 1
+        elif ch == ")":
+            depth -= 1
+            if depth < 0:
+                raise ValueError(f"unbalanced parentheses in {tok!r}")
+        if ch == "," and depth == 0:
+            parts.append("".join(cur))
+            cur = []
+        else:
+            cur.append(ch)
+    if depth != 0:
+        raise ValueError(f"unbalanced parentheses in {tok!r}")
+    parts.append("".join(cur))
+    return parts
+
+
 def _parse_stage(tok: str) -> Tuple[str, dict]:
     tok = tok.strip()
     if "(" not in tok:
@@ -658,7 +945,7 @@ def _parse_stage(tok: str) -> Tuple[str, dict]:
         raise ValueError(f"malformed stage spec {tok!r}")
     name, args = tok[:-1].split("(", 1)
     kw = {}
-    for part in filter(None, (p.strip() for p in args.split(","))):
+    for part in filter(None, (p.strip() for p in _split_args(args, tok))):
         if "=" not in part:
             raise ValueError(f"stage argument {part!r} in {tok!r} must be "
                              f"key=value")
@@ -671,29 +958,25 @@ def parse_spec(spec: str):
     """Spec string -> (transforms tuple, codec). Grammar:
     ``stage ("|" stage)*``, ``stage := name | name(k=v, ...)``; every stage
     but the last is a transform (``ef``, ``dp``, ``cv``, ``sigma_sched``),
-    the last is the codec. An ``ef`` transform in front of a noise-free
-    fixed-sigma mean sign codec sets ``scale="mean_abs"`` unless given
-    explicitly: ``"ef|zsign"`` IS EF-SignSGD (noisy z-sign and sto-sign keep
-    their own decode laws)."""
+    the last is the codec (``zsign``, ``zsign_packed``, ``stosign``,
+    ``qsgd``, ``topk``, ``dense``/``identity``). An ``ef`` transform in
+    front of a noise-free fixed-sigma mean sign codec sets
+    ``scale="mean_abs"`` unless given explicitly: ``"ef|zsign"`` IS
+    EF-SignSGD (noisy z-sign and sto-sign keep their own decode laws, and
+    the robust agg= laws need scale="none": ``"ef|zsign(agg=vote)"`` is EF
+    over the raw-sign wire with the majority-vote decode)."""
     toks = [t for t in (p.strip() for p in spec.split("|")) if t]
     if not toks:
         raise ValueError("empty pipeline spec")
     transforms = []
     for tok in toks[:-1]:
         name, kw = _parse_stage(tok)
-        if name in _TRANSFORMS_UNPORTED:
-            raise NotImplementedError(
-                f"transform stage {name!r} is not yet ported ({_QUEUE1} "
-                f"{_TRANSFORMS_UNPORTED[name]})")
         if name not in _TRANSFORM_SPECS:
             raise ValueError(
                 f"unknown transform stage {name!r} in {spec!r}; transforms: "
                 f"{sorted(_TRANSFORM_SPECS)} (codecs must come last)")
         transforms.append(_TRANSFORM_SPECS[name](**kw))
     name, kw = _parse_stage(toks[-1])
-    if name in _CODECS_UNPORTED:
-        raise NotImplementedError(f"codec {name!r} is not yet ported "
-                                  f"({_QUEUE1} {_CODECS_UNPORTED[name]})")
     if name not in _CODEC_SPECS:
         raise ValueError(f"unknown codec stage {name!r} in {spec!r}; "
                          f"codecs: {sorted(_CODEC_SPECS)}")
@@ -792,19 +1075,23 @@ class Pipeline:
         object.__setattr__(self, "_has_server_state",
                            any(s.scope == "server" for s in slots0))
         # control variates need a decode linear in the per-client local
-        # decodes. The count laws that break it (robust sign agg=, top-k
-        # agg=coord) are not ported yet (ROADMAP items 12 and 9); the check
-        # stands for them.
+        # decodes: the count laws (robust sign agg=, top-k agg=coord) are
+        # refused at build
         linear_needers = [t for t in transforms
                           if getattr(t, "needs_linear_decode", False)]
-        if (linear_needers and isinstance(codec, SignCodec)
-                and codec.agg != "mean"):
-            raise ValueError(
-                f"{linear_needers[0].spec_name} control variates require a "
-                f"server decode LINEAR in the per-client local decodes (the "
-                f"variate update is exact only for mean-law codecs), but the "
-                f"sign codec's agg={codec.agg!r} vote law decodes through a "
-                f"nonlinear count — use agg=mean or drop the cv stage")
+        if linear_needers:
+            bad = None
+            if isinstance(codec, SignCodec) and codec.agg != "mean":
+                bad = f"the sign codec's agg={codec.agg!r} vote law"
+            elif isinstance(codec, TopKCodec) and codec.agg != "mean":
+                bad = "topk's agg='coord' per-coordinate count law"
+            if bad is not None:
+                raise ValueError(
+                    f"{linear_needers[0].spec_name} control variates "
+                    f"require a server decode LINEAR in the per-client "
+                    f"local decodes (the variate update is exact only for "
+                    f"mean-law codecs), but {bad} decodes through a "
+                    f"nonlinear count — use agg=mean or drop the cv stage")
         # the dynamic (Plateau) sigma's one consumer: the sign codec (none on
         # the noise-free EF-SignSGD wire), else the last noise-bearing dp
         if isinstance(codec, SignCodec):
@@ -830,7 +1117,8 @@ class Pipeline:
     def with_context(self, ctx: RoundContext) -> "Pipeline":
         """Rebind the deployment's backend policy onto the sign codec.
         ``weights_are_mask`` applies to pure-mask aggregation only: the
-        scale-weighted (EF) reduce keeps the general LUT path. A dynamic
+        scale-weighted (EF) reduce keeps the general LUT path;
+        ``debug_wire`` is switched on, never off. A dynamic
         sigma is refused over an (eps, delta)-CALIBRATED ``dp`` stage: the
         Plateau override would void the guarantee (a hand-set
         ``dp(noise=...)`` promises none, and the dynamic sigma overrides
@@ -852,6 +1140,8 @@ class Pipeline:
                 kw["encode_backend"] = ctx.encode_backend
             if ctx.weights_are_mask and codec.scale == "none":
                 kw["weights_are_mask"] = True
+            if ctx.debug_wire and not codec.debug_wire:
+                kw["debug_wire"] = True
             if kw:
                 codec = dataclasses.replace(codec, **kw)
         if codec is self.codec:
@@ -1005,10 +1295,17 @@ class Pipeline:
     def aggregate(self, payload, mask, n_coords: int, acc=None):
         return self.codec.aggregate(payload, mask, n_coords, acc)
 
+    def zero_acc(self, payload, n_coords: int) -> torch.Tensor:
+        """The zero accumulator of ``aggregate``'s output for one shard's
+        payload stack (the reference takes it from ``eval_shape`` of
+        ``aggregate``): the flat f32 sum, the (2, d_pad) int32 vote pair,
+        or top-k's (n_coords,) or (2, n_coords) f32 scatter sums."""
+        return self.codec.zero_acc(payload, n_coords)
+
     def fold_init(self, payload):
         """The codec's structured streaming carry (a ``wire.SignFoldAcc`` on
         the f32-weighted sign routes), or None: the driver then starts from
-        a flat zero accumulator."""
+        ``zero_acc``."""
         init = getattr(self.codec, "fold_init", None)
         return None if init is None else init(payload)
 
@@ -1075,6 +1372,16 @@ def EFSignCompressor(name: str = "efsign", use_kernel: bool = False,
                     name=name)
 
 
+def QSGDCompressor(name: str = "qsgd", s: int = 1) -> Pipeline:
+    return Pipeline((), QSGDCodec(s=s), name=name)
+
+
+def TopKCompressor(name: str = "topk", frac: float = 0.01,
+                   chunk: int = 65536) -> Pipeline:
+    return Pipeline((ErrorFeedback(),), TopKCodec(frac=frac, chunk=chunk),
+                    name=name)
+
+
 def DPGaussianCompressor(name: str = "dpgauss",
                          sigma: float = 1.0) -> Pipeline:
     return Pipeline((DPTransform(noise=sigma),), DenseCodec(), name=name)
@@ -1086,11 +1393,12 @@ _REGISTRY = {
     "zsign_packed": PackedZSignCompressor,
     "stosign": StoSignCompressor,
     "efsign": EFSignCompressor,
+    "qsgd": QSGDCompressor,
+    "topk": TopKCompressor,
     "dpgauss": DPGaussianCompressor,
 }
 
 
 def available() -> Tuple[str, ...]:
-    """Compressor names the port builds: the reference's, less ``qsgd`` and
-    ``topk`` (ROADMAP item 9)."""
+    """Compressor names the port builds (the reference's)."""
     return tuple(sorted(_REGISTRY))

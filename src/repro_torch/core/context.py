@@ -12,6 +12,7 @@ aggregate ``dense``, the dense sign-matrix oracle (``wire.unpack_sum_dense``).
 from __future__ import annotations
 
 import dataclasses
+import os
 from typing import Optional
 
 #: server sign-reduce backends
@@ -161,12 +162,21 @@ class RoundContext:
     """Frozen per-deployment policy for one round step. ``None`` backends
     keep the pipeline stage's own setting. ``dynamic_sigma`` hands
     ``ServerState.sigma`` (the Plateau controller's sigma) to the
-    pipeline's one sigma consumer at encode and at decode."""
+    pipeline's one sigma consumer at encode and at decode. ``debug_wire``
+    (default from ``REPRO_DEBUG_WIRE`` = 1/true/yes) checks once a round
+    that the host mask is exactly 0/1 (``wire.check_mask_membership``).
+    ``adversary`` is a ``fed.adversary`` spec string, validated here."""
     agg_backend: Optional[str] = None
     encode_backend: Optional[str] = None
     weights_are_mask: bool = False
     dynamic_sigma: bool = False
     cohort: str = "auto"
+    debug_wire: bool = dataclasses.field(
+        default_factory=lambda: os.environ.get(
+            "REPRO_DEBUG_WIRE", "").lower() in ("1", "true", "yes"))
+    #: "none" | "sign_flip(f=4)" | "byte_corrupt(f=2,p=0.1)" |
+    #: "collude(f=4)" | "dropout(f=8)" (+ every=/start=/rotate=/seed=)
+    adversary: str = "none"
 
     def __post_init__(self):
         for kind, backend in (("agg", self.agg_backend),
@@ -174,3 +184,7 @@ class RoundContext:
             if backend is not None:
                 resolve_backend(kind, backend)
         CohortPolicy.parse(self.cohort)
+        if self.adversary != "none":
+            # imported here: the fed layer is not a load-time dependency
+            from repro_torch.fed.adversary import parse_adversary
+            parse_adversary(self.adversary)

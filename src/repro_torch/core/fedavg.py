@@ -24,20 +24,29 @@ j)``), so every plan below draws the reference's counter-stream bits.
                     another through the same (N, d_pad) buffer. Compressed
                     wires keep each group's payload stack and reduce ONCE
                     over the (G*N, n_bytes) stack; the dense f32 wire
-                    carries the decoded group sums. N == 1 is the
+                    folds each group into one carried sum. N == 1 is the
                     sequential-client mode (E1 with n = 1).
   stream(shard=K)   the flat cohort of G*N clients in K-client shards
                     through one (K, d_pad) buffer; each shard's payloads
-                    fold into ONE running accumulator (a flat sum, or the
-                    ``wire.SignFoldAcc`` of ``Pipeline.fold_init`` on the
-                    f32-weighted routes), closed by ``fold_finalize`` before
-                    decode. The last shard wraps to the cohort's first rows
-                    under a zero mask; their state rows are never written
-                    back. Bit-identical to the vmap plan at any K.
+                    fold into ONE running accumulator (``Pipeline.zero_acc``:
+                    a flat sum, the int32 vote pair of the robust sign laws
+                    or top-k's scatter sums; or the ``wire.SignFoldAcc`` of
+                    ``Pipeline.fold_init`` on the f32-weighted routes),
+                    closed by ``fold_finalize`` before decode. The last
+                    shard wraps to the cohort's first rows under a zero
+                    mask; their state rows are never written back.
+                    Bit-identical to the vmap plan at any K.
   stream(feed=host) the same shards, with batch, mask and state rows in
                     pinned host memory: shard s+1 is copied to the card on
                     a side stream while shard s computes, and finished
                     state rows return to the host.
+
+A ``RoundContext.adversary`` (``fed.adversary``) drops scheduled clients
+from the round's host mask before anything reads it, and corrupts each
+group's or shard's encoded payload stack after the encode (so EF residuals
+stay honest) and before the aggregate, by global client index and round
+counter: every plan sees the same attack. ``RoundContext.debug_wire`` checks
+once a round that the host mask is exactly 0/1.
 
 Stateful pipelines (``ef``, ``cv``) keep ``ServerState.comp_state`` =
 ``{slot: (G, N, d)}``; a dead client keeps its rows bit-exactly. The
@@ -67,6 +76,7 @@ from repro_torch.core.context import (COHORT_DEVICES_AUTO,
                                       CohortPolicy, RoundContext)
 from repro_torch.core.tree import (tree_leaves, tree_map, tree_paths,
                                    tree_set)
+from repro_torch.fed.adversary import parse_adversary
 from repro_torch.optim.optimizers import Optimizer, make_optimizer
 
 
@@ -267,14 +277,6 @@ def _prefetch(shards, device: torch.device):
     yield use(cur)
 
 
-def _zero_acc(payload) -> torch.Tensor:
-    """The flat zero accumulator of ``aggregate``'s output for one shard's
-    payload stack: 8 coordinates per packed byte, or the f32 row length."""
-    p = payload["packed"] if isinstance(payload, dict) else payload
-    n = p.shape[-1] * 8 if p.dtype == torch.uint8 else p.shape[-1]
-    return torch.zeros((n,), dtype=torch.float32, device=p.device)
-
-
 def _write_rows(dst, src, n: int) -> None:
     """State rows back into the caller's rows: the first ``n`` rows of each
     ``src`` buffer into ``dst`` (no copy where they are the same memory)."""
@@ -298,6 +300,11 @@ def build_round_step(loss_fn: Callable, compressor, cfg: FedConfig,
     gamma = cfg.client_lr
     G, N = cfg.client_groups, cfg.n_clients
     total = G * N
+    adversary = parse_adversary(ctx.adversary)
+    if adversary is not None:
+        adversary = adversary.bind(total)
+    debug_wire = ctx.debug_wire or getattr(compressor.codec, "debug_wire",
+                                           False)
 
     def client_update(spec, params0, client_batch, row, gamma_t):
         """One client: local SGD, then its pseudo-gradient written into
@@ -345,12 +352,14 @@ def build_round_step(loss_fn: Callable, compressor, cfg: FedConfig,
         return buf
 
     def encode_clients(spec, params, batch_rows, keys, cstate_rows, mask_s,
-                       live_rows, buf, gamma_t, extra):
+                       live_rows, buf, gamma_t, extra, lo, round_idx):
         """One group or shard of k = len(mask_s) clients (the reference's
         ``group_encode``): local SGD of each into ``buf[:k]``, then ONE
-        batched encode. -> (payload stack, new state rows, masked loss
-        sum). Dead (and padding) clients keep their state rows and add no
-        loss; ``live_rows`` lists the others as host indices."""
+        batched encode, then the adversary's payload attack on clients lo
+        .. lo+k-1 (global indices). -> (payload stack, new state rows,
+        masked loss sum). Dead (and padding) clients keep their state rows
+        and add no loss; ``live_rows`` lists the others as host
+        indices."""
         k = mask_s.shape[0]
         losses = torch.stack([
             client_update(spec, params, tree_map(lambda x: x[c], batch_rows),
@@ -362,6 +371,9 @@ def build_round_step(loss_fn: Callable, compressor, cfg: FedConfig,
                                                     cstate_rows, mask_s,
                                                     live_rows=live_rows,
                                                     **extra)
+            if adversary is not None:
+                enc = adversary.corrupt(enc, torch.arange(lo, lo + k),
+                                        round_idx)
             loss_sum = torch.sum(torch.where(mask_s > 0, losses * mask_s,
                                              0.0))
         return enc, new_rows, loss_sum
@@ -372,7 +384,7 @@ def build_round_step(loss_fn: Callable, compressor, cfg: FedConfig,
         return [c for c in range(k) if lo + c < total and live[lo + c]]
 
     def vmap_groups(spec, params, batch, mask, live, cstate, sub, gamma_t,
-                    extra):
+                    extra, round_idx):
         """The vmap plan: one group (all clients in one batch), or the
         sequential group scan over G groups of N."""
         d = spec.n_coords
@@ -384,7 +396,8 @@ def build_round_step(loss_fn: Callable, compressor, cfg: FedConfig,
                     {k: v[0] for k, v in cstate.items()})
             enc, rows, loss_sum = encode_clients(
                 spec, params, tree_map(lambda x: x[0], batch), keys, rows,
-                mask[0], live_among(live, 0, N), buf, gamma_t, extra)
+                mask[0], live_among(live, 0, N), buf, gamma_t, extra, 0,
+                round_idx)
             del buf
             if rows is not None:
                 cstate = {k: v.unsqueeze(0) for k, v in rows.items()}
@@ -399,7 +412,8 @@ def build_round_step(loss_fn: Callable, compressor, cfg: FedConfig,
             enc, new_rows, ls = encode_clients(
                 spec, params, tree_map(lambda x: x[g], batch),
                 keys[g * N:(g + 1) * N], rows, mask[g],
-                live_among(live, g * N, N), buf, gamma_t, extra)
+                live_among(live, g * N, N), buf, gamma_t, extra, g * N,
+                round_idx)
             with torch.no_grad():
                 if rows is not None:
                     _write_rows(rows, new_rows, N)
@@ -408,9 +422,9 @@ def build_round_step(loss_fn: Callable, compressor, cfg: FedConfig,
                     # compressed wire: keep the payload stack, reduce once
                     encs.append(enc)
                 else:
-                    # dense f32 wire: carry the decoded group sums
-                    s = compressor.aggregate(enc, mask[g], d)
-                    acc = (torch.zeros_like(s) if acc is None else acc) + s
+                    # dense f32 wire: fold each group into the carried sum
+                    # (the client-order fold of one call over all groups)
+                    acc = compressor.aggregate(enc, mask[g], d, acc=acc)
         del buf
         with torch.no_grad():
             if stacked:
@@ -423,7 +437,7 @@ def build_round_step(loss_fn: Callable, compressor, cfg: FedConfig,
         return acc, cstate, loss_sum
 
     def stream_cohort(spec, params, batch, mask, live, cstate, sub, gamma_t,
-                      extra, shard: int, host: bool):
+                      extra, round_idx, shard: int, host: bool):
         """The streaming plan: K = ``shard`` clients at a time through one
         (K, d_pad) buffer, each shard's payloads folded into one running
         accumulator. ``host``: batch, mask and state rows stay in (pinned)
@@ -457,7 +471,8 @@ def build_round_step(loss_fn: Callable, compressor, cfg: FedConfig,
             enc, new_rows, ls = encode_clients(spec, params, batch_s, keys,
                                                rows, mask_s,
                                                live_among(live, lo, shard),
-                                               buf, gamma_t, extra)
+                                               buf, gamma_t, extra, lo,
+                                               round_idx)
             with torch.no_grad():
                 if flat_state is not None:
                     # real rows only: the wrapped padding is never written
@@ -468,7 +483,7 @@ def build_round_step(loss_fn: Callable, compressor, cfg: FedConfig,
                 if acc is None:
                     acc = compressor.fold_init(enc)
                 if acc is None:
-                    acc = _zero_acc(enc)
+                    acc = compressor.zero_acc(enc, d)
                 acc = compressor.aggregate(enc, mask_s, d, acc=acc)
                 loss_sum = loss_sum + ls
             del enc, new_rows, rows, batch_s
@@ -488,6 +503,12 @@ def build_round_step(loss_fn: Callable, compressor, cfg: FedConfig,
         plan = resolve_cohort(policy, total, spec.n_coords)
         host = plan.mode == "stream" and plan.feed == "host"
         mask_all = torch.as_tensor(mask, dtype=torch.float32).reshape(G, N)
+        if adversary is not None:
+            # mid-round dropout fires on the full mask before anything
+            # reads it, so n_live, the loss and the state masking agree
+            mask_all = adversary.drop_mask(mask_all, state.round)
+        if debug_wire:
+            wire.check_mask_membership(mask_all)
         # the live clients, read once a round from the mask as the caller
         # gave it (the sampler's, on the host): a stateful stage updates
         # only their rows, and no group or shard waits on the card for them
@@ -508,11 +529,11 @@ def build_round_step(loss_fn: Callable, compressor, cfg: FedConfig,
         if plan.mode == "stream":
             enc_sum, cstate, loss_sum = stream_cohort(
                 spec, params, batch, mask_all, live, state.comp_state, sub,
-                gamma_t, extra, plan.shard, host)
+                gamma_t, extra, state.round, plan.shard, host)
         else:
             enc_sum, cstate, loss_sum = vmap_groups(
                 spec, params, batch, mask_all, live, state.comp_state, sub,
-                gamma_t, extra)
+                gamma_t, extra, state.round)
         with torch.no_grad():
             return _finish(state, spec, rng, enc_sum, loss_sum,
                            mask_all.to(device), cstate, plan.shard)

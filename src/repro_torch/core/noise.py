@@ -105,6 +105,28 @@ def split(key: torch.Tensor, num: int = 2) -> torch.Tensor:
     return fold_in(key, torch.arange(num, dtype=torch.int64))
 
 
+#: counters per slice where a caller walks a long ``random_bits`` stream
+BITS_CHUNK = 1 << 24
+
+
+def random_bits(key: torch.Tensor, lo: int, hi: int,
+                device=None) -> torch.Tensor:
+    """Words lo .. hi-1 of ``jax.random.bits(key, (n,))`` (uint32 words in
+    int64): word i is ``y0 ^ y1`` of threefry2x32 (20 rounds) on the counter
+    (0, i). Any slice can be drawn on its own."""
+    k0, k1 = (w.to(device) for w in key_words(key))
+    i = torch.arange(lo, hi, dtype=torch.int64, device=device)
+    y0, y1 = threefry2x32(k0, k1, torch.zeros_like(i), i, KEY_ROUNDS)
+    return y0 ^ y1
+
+
+def bits_to_uniform(bits: torch.Tensor) -> torch.Tensor:
+    """uint32 words (int64) -> ``jax.random.uniform``'s f32 in [0, 1):
+    ``f32((bits >> 9) | 0x3F800000) - 1``."""
+    return (((bits >> 9) | 0x3F800000).to(torch.int32)
+            .view(torch.float32) - 1.0)
+
+
 def client_keys(key: torch.Tensor, start: int, n: int) -> torch.Tensor:
     """Per-client keys by GLOBAL client index: key_j = fold_in(key, j) for
     j in [start, start + n) -> (n, 2). Counter-derived, so client j's key

@@ -8,6 +8,11 @@ sums the +/-1 signs straight from the packed bytes (``unpack_sum``: 8x8 bit
 transpose, then a per-block 256-entry weighted LUT; ``unpack_sum_mask``:
 popcount for 0/1 masks) without a dense (n_clients, d) sign matrix.
 
+The robust sign laws (``agg=vote|trimmed|median``) reduce to the integer
+VOTE PAIR (signed count, n_live) of ``vote_accumulator`` and decode through
+the closed forms of ``vote_decode``; the sparse COO wire of top-k is summed
+by ``scatter_sum_coo``, one client at a time.
+
 Summation order (what makes these bit-exact with the reference and with the
 CUDA ``sign_reduce`` kernel): clients in blocks of SIGN_REDUCE_CLIENT_BLK;
 within a block a left fold in client order that starts from +0.0; block
@@ -283,6 +288,24 @@ def sign_fold_finalize(acc: SignFoldAcc, close=_lut_fold) -> torch.Tensor:
 _POPCOUNT = torch.tensor([bin(i).count("1") for i in range(256)],
                          dtype=torch.int32)
 
+#: the reference's debug-wire message (``check_mask_membership``)
+MASK_MEMBERSHIP_MSG = (
+    "debug_wire: mask violates the 0/1 membership contract required by the "
+    "popcount/vote paths (weights_are_mask) — found fractional or negative "
+    "weights. Use weights_are_mask=False (LUT path) for weighted "
+    "aggregation.")
+
+
+def check_mask_membership(mask) -> None:
+    """Runtime assertion of the 0/1 membership contract (debug-wire mode):
+    every entry of ``mask`` is exactly 0.0 or 1.0, else ``ValueError`` with
+    the reference's message. The reference inserts a checkify check into
+    the traced round; the port checks the host mask once a round (a mask
+    on the card is read back, which waits for it)."""
+    m = torch.as_tensor(mask, dtype=torch.float32)
+    if not bool(torch.all((m == 0.0) | (m == 1.0))):
+        raise ValueError(MASK_MEMBERSHIP_MSG)
+
 
 def unpack_sum_mask(packed: torch.Tensor, mask: torch.Tensor,
                     acc: Optional[torch.Tensor] = None) -> torch.Tensor:
@@ -290,22 +313,130 @@ def unpack_sum_mask(packed: torch.Tensor, mask: torch.Tensor,
     masked sign sum, as ``2*count - sum(mask)`` of set bits over live
     clients (popcount of the bit-transposed planes). Exact integers, so
     bit-identical to ``unpack_sum`` for any 0/1 mask."""
+    bitsum = _mask_bit_count(packed, mask).to(torch.float32)
+    out = 2.0 * bitsum - mask.to(torch.float32).sum()
+    return out if acc is None else acc + out
+
+
+def _mask_bit_count(packed: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+    """(n_clients, n_bytes) u8 + (n_clients,) 0/1 mask -> (8*n_bytes,)
+    per-coordinate count of set bits over the live clients: dead rows
+    zeroed, clients padded to blocks of 8, each block bit-transposed, then
+    a popcount per plane byte summed over blocks. The cross-block sum is
+    uint8 while every settable bit fits, i.e. ``n + (-n) % 8 <= 255``,
+    int32 otherwise (the reference's rule)."""
     n, n_bytes = packed.shape
     pm = packed * (mask > 0).to(torch.uint8)[:, None]
     pm, _, n_blocks = _pad_clients(pm, mask)
     planes = _bit_transpose_blocks(pm, n_blocks, n_bytes)
-    cnt = _POPCOUNT.to(packed.device)[planes.long()].sum(0)   # (8, n_bytes)
-    bitsum = cnt.T.reshape(-1).to(torch.float32)
-    out = 2.0 * bitsum - mask.to(torch.float32).sum()
-    return out if acc is None else acc + out
+    cnt = _POPCOUNT.to(torch.uint8).to(packed.device)[planes.long()]
+    acc_dtype = torch.uint8 if n_blocks * 8 <= 255 else torch.int32
+    c = cnt.sum(0, dtype=acc_dtype) if n_blocks > 1 else cnt[0]
+    # c[k, byte] counts set bit k over live clients; coordinate byte*8 + k
+    return c.T.reshape(-1)
+
+
+#: robust sign-aggregation laws decodable from the vote pair
+VOTE_AGG_MODES = ("mean", "vote", "trimmed", "median")
+
+
+def vote_accumulator(packed: torch.Tensor, mask: torch.Tensor,
+                     acc: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """(n_clients, n_bytes) u8 + (n_clients,) 0/1 mask -> (2, 8*n_bytes)
+    int32 VOTE PAIR: row 0 the signed count ``sum_live sign_i = 2*count -
+    n_live``, row 1 ``n_live`` on every coordinate. Both rows are integer
+    sums over clients, so ``acc`` (a carried pair) folds shards exactly
+    for any partition. The popcount route; ``compression.vote_pair`` takes
+    row 0 from the kernel R1 on a card. The 0/1 contract is the caller's
+    (the engine checks it under ``debug_wire``)."""
+    bitsum = _mask_bit_count(packed, mask).to(torch.int32)
+    n_live = mask.sum().to(torch.int32)
+    pair = torch.stack([2 * bitsum - n_live, n_live.expand_as(bitsum)])
+    return pair if acc is None else acc + pair
+
+
+#: elements per slice of ``vote_decode`` (bounds its temporaries)
+VOTE_DECODE_CHUNK = 1 << 24
+
+
+def _vote_decode_slice(s: torch.Tensor, n: torch.Tensor, agg: str,
+                       trim_f: int) -> torch.Tensor:
+    if agg == "mean":
+        return s / torch.clamp_min(n, 1.0)
+    if agg == "vote":
+        return torch.sign(s)
+    f_max = torch.floor((torch.clamp_min(n, 1.0) - 1.0) / 2.0)
+    f = (f_max if agg == "median"
+         else torch.clamp_max(f_max, float(trim_f)))
+    c = (s + n) * 0.5
+    m = torch.clamp_min(n - 2.0 * f, 1.0)
+    plus = torch.minimum(torch.clamp_min(c - f, 0.0), m)
+    return torch.where(n > 0, (2.0 * plus - m) / m, 0.0)
+
+
+def vote_decode(pair: torch.Tensor, agg: str, trim_f: int = 0) -> torch.Tensor:
+    """(2, d) int32 vote pair -> (d,) f32 robust aggregate in [-1, 1], the
+    reference's closed forms over s = pair[0], n = pair[1], c = (s + n)/2:
+
+      mean        s / max(n, 1)
+      vote        sign(s) (0 at a tie)
+      trimmed(f)  the mean of the m = n - 2f middle votes, (2*plus - m)/m
+                  with plus = clip(c - f, 0, m); an over-trimmed round
+                  (n <= 2f) trims f_eff = (n - 1) // 2, the median
+      median      trimmed with f = (n - 1) // 2
+
+    All-dead coordinates (n = 0) decode to 0. Every step is an integer
+    until the one division, so any f32 evaluation gives the same bits. Runs
+    in slices of VOTE_DECODE_CHUNK coordinates."""
+    if agg not in VOTE_AGG_MODES:
+        raise ValueError(f"unknown vote agg mode {agg!r}; expected one of "
+                         f"{VOTE_AGG_MODES}")
+    d = pair.shape[1]
+    out = torch.empty((d,), dtype=torch.float32, device=pair.device)
+    for lo in range(0, d, VOTE_DECODE_CHUNK):
+        hi = min(lo + VOTE_DECODE_CHUNK, d)
+        out[lo:hi] = _vote_decode_slice(pair[0, lo:hi].to(torch.float32),
+                                        pair[1, lo:hi].to(torch.float32),
+                                        agg, trim_f)
+    return out
 
 
 def dense_masked_sum(payload: torch.Tensor, weights: torch.Tensor,
                      acc: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Server side of the dense f32 uplink: (n, d) payload, (n,) weights ->
-    (d,) weighted sum (float order is torch's, not the reference's)."""
-    out = weights.to(torch.float32) @ payload.to(torch.float32)
-    return out if acc is None else acc + out
+    (d,) weighted sum, a left fold in client order from ``acc`` (or +0.0):
+    ((acc + w_0 p_0) + w_1 p_1) + ... . Every plan (one batch, the group
+    scan, stream shards) therefore adds the same terms in the same order;
+    the reference's einsum order differs (agreement to f32 rounding)."""
+    w = weights.to(device=payload.device, dtype=torch.float32)
+    out = (torch.zeros(payload.shape[1:], dtype=torch.float32,
+                       device=payload.device) if acc is None else acc.clone())
+    for c in range(payload.shape[0]):
+        out += payload[c].to(torch.float32) * w[c]
+    return out
+
+
+def scatter_sum_coo(values: torch.Tensor, indices: torch.Tensor,
+                    weights: torch.Tensor, n_coords: int,
+                    acc: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Server side of the sparse COO uplink: (n, k) f32 values, (n, k)
+    int32 indices, (n,) weights -> (n_coords,) f32 weighted scatter-sum.
+    Duplicate indices across clients accumulate; dead clients (weight 0)
+    add exactly +/-0. ``acc`` is a carried partial sum, updated IN PLACE
+    and returned.
+
+    Clients are scattered one after another: within one client the indices
+    are unique, so each ``index_add_`` is free of conflicts and
+    deterministic on any device, and every coordinate sums ((base + v_0) +
+    v_1) + ... in client order, the update order of the reference's
+    ``.at[idx].add`` on the CPU."""
+    vals = values * weights.to(device=values.device,
+                               dtype=values.dtype)[:, None]
+    base = (torch.zeros((n_coords,), dtype=torch.float32,
+                        device=values.device) if acc is None else acc)
+    for c in range(vals.shape[0]):
+        base.index_add_(0, indices[c], vals[c])
+    return base
 
 
 def unpack_sum_dense(packed: torch.Tensor, weights: torch.Tensor,

@@ -11,9 +11,16 @@ sigma=0.01)"`` the finite-z round through the dense-noise kernel C1,
 ``"dp(clip=1.0,eps=2.0)|zsign_packed"`` DP-SignFedAvg (the calibrated
 Gaussian noise is the codec's sigma), ``"cv|zsign_packed(sigma=0.01)"``
 control variates, ``"sigma_sched(head=2.0,tail=0.5)|zsign(sigma=0.01)"``
-the per-layer sigma schedule. ``--compressor stosign`` is sto-sign (each
-client's sigma is its own ||p||_2) and ``--compressor dpgauss`` the dense
-DP-FedAvg baseline (noise std ``--sigma``). ``--plateau`` adapts sigma with
+the per-layer sigma schedule, ``"zsign(z=1,sigma=0.01,agg=vote)"`` the
+majority vote (also ``agg=trimmed(f=2)`` and ``agg=median``),
+``"topk(frac=0.01,agg=coord)"`` top-k with per-coordinate counts.
+``--compressor stosign`` is sto-sign (each client's sigma is its own
+||p||_2), ``--compressor dpgauss`` the dense DP-FedAvg baseline (noise std
+``--sigma``), ``--compressor qsgd`` QSGD with ``--qsgd-s`` levels and
+``--compressor topk`` EF top-k keeping ``--topk-frac`` of the
+coordinates. ``--adversary "byte_corrupt(f=2,p=0.1)"`` (or ``sign_flip``,
+``collude``, ``dropout``) attacks the wire; ``--debug-wire`` checks the 0/1
+mask every round. ``--plateau`` adapts sigma with
 the Plateau criterion (kappa = 10 stalled rounds, bound 100 x ``--sigma``).
 ``--groups G`` runs G sequential client groups of ``--clients`` each (the
 group scan; ``--clients 1 --groups 8`` is the sequential-client mode), and
@@ -27,8 +34,7 @@ large: qwen2-0.5B at more than 8 clients), ``vmap``, or
 Runs on ``cuda`` unless ``--device cpu`` is given; asking for CUDA on a
 machine without a card raises. ``run(args)`` is the same driver, callable in
 process, and returns the rounds' metrics. Not ported yet: checkpointing,
-the qsgd and topk compressors, adversaries, async rounds and
-``stream(devices=D > 1)``.
+async rounds and ``stream(devices=D > 1)``.
 """
 from __future__ import annotations
 
@@ -84,9 +90,23 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
                          "into one running wire accumulator; feed=host "
                          "keeps batch and state rows in pinned host memory "
                          "and copies one shard ahead")
+    ap.add_argument("--adversary", default="none", metavar="SPEC",
+                    help="wire-level fault injection: 'none', "
+                         "'sign_flip(f=4)', 'byte_corrupt(f=2,p=0.1)', "
+                         "'collude(f=4,rotate=true)', 'dropout(f=8)', with "
+                         "optional every=/start= scheduling, applied to the "
+                         "encoded payload stack (or the participation "
+                         "mask) under every cohort plan")
+    ap.add_argument("--debug-wire", action="store_true",
+                    help="check every round that the participation mask "
+                         "is exactly 0/1 (also via REPRO_DEBUG_WIRE=1)")
     ap.add_argument("--z", type=int, default=1, help="1=Gaussian, 0=uniform")
     ap.add_argument("--sigma", type=float, default=0.01,
                     help="z-sign noise scale / dpgauss noise stddev")
+    ap.add_argument("--qsgd-s", type=int, default=1,
+                    help="QSGD quantization levels")
+    ap.add_argument("--topk-frac", type=float, default=0.01,
+                    help="top-k kept fraction")
     ap.add_argument("--plateau", action="store_true",
                     help="adapt sigma with the Plateau criterion (the round "
                          "takes the state's sigma at encode and decode)")
@@ -132,6 +152,8 @@ def run(args: argparse.Namespace,
             "dpgauss": lambda: compression.DPGaussianCompressor(
                 sigma=args.sigma),
             "efsign": compression.EFSignCompressor,
+            "qsgd": lambda: compression.QSGDCompressor(s=args.qsgd_s),
+            "topk": lambda: compression.TopKCompressor(frac=args.topk_frac),
             "stosign": compression.StoSignCompressor,
             "identity": compression.Compressor,
         }[args.compressor]()
@@ -140,10 +162,13 @@ def run(args: argparse.Namespace,
                            client_lr=args.client_lr,
                            server_lr=args.server_lr)
     # the sampler below emits exact 0/1 membership masks
-    ctx = fedavg.RoundContext(agg_backend=args.agg_backend,
-                              encode_backend=args.encode_backend,
-                              weights_are_mask=True,
-                              dynamic_sigma=args.plateau, cohort=args.cohort)
+    ctx_kw = dict(agg_backend=args.agg_backend,
+                  encode_backend=args.encode_backend, weights_are_mask=True,
+                  dynamic_sigma=args.plateau, cohort=args.cohort,
+                  adversary=args.adversary)
+    if args.debug_wire:  # else the REPRO_DEBUG_WIRE default
+        ctx_kw["debug_wire"] = True
+    ctx = fedavg.RoundContext(**ctx_kw)
     step = fedavg.build_round_step(bundle.loss_fn, comp, cfg, ctx)
     # stream(feed=host) keeps batch and state rows on the host
     host = fedavg.CohortPolicy.parse(args.cohort).feed == "host"

@@ -9,7 +9,8 @@ card runs them as they are:
 E1 must give the plain version's exact bytes (z=1: any differing bit within
 4 ulp of its threshold, the erf rule), also with a different sigma for each
 client (sto-sign) and a client with sigma 0; C1 exact bytes; R1, U1 and F1 equal
-int32 bit patterns (F1's payload bytes too).
+int32 bit patterns (F1's payload bytes too); R1 as the robust laws' vote
+pair route equal int32 to the popcount route.
 """
 import pytest
 import torch
@@ -238,3 +239,28 @@ def test_cuda_noise_free_ef_encode_launches_e1(cuda, spec):
     payload, _ = comp.codec.encode_with_decode_batch(keys, x2d, d)
     assert torch.equal(payload["packed"], TO.zsign_encode_plain(
         x2d, keys, torch.zeros(n, device=cuda), None))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [5, 13])
+def test_cuda_vote_pair_r1_route_matches_popcount(cuda, n):
+    """The robust laws' vote pair on the kernel route (R1's masked sign
+    sum cast to int32) against the plain popcount route, n not a multiple
+    of 8, a dead client, with and without a carried pair: equal int32."""
+    from repro_torch.core import compression as TC
+    from repro_torch.core import wire as TW
+    gen = torch.Generator(device=cuda).manual_seed(200 + n)
+    packed = torch.randint(0, 256, (n, 5 * 1024 + 7), generator=gen,
+                           device=cuda, dtype=torch.uint8)
+    mask = torch.ones((n,), device=cuda)
+    mask[2] = 0.0
+    before = TO.sign_reduce.launches
+    got = TC.vote_pair(packed, mask, "cuda")
+    torch.cuda.synchronize()
+    assert TO.sign_reduce.launches == before + 1
+    want = TW.vote_accumulator(packed, mask)
+    assert got.dtype == want.dtype == torch.int32
+    assert torch.equal(got, want)
+    assert torch.equal(TC.vote_pair(packed, mask, "cuda", got),
+                       TW.vote_accumulator(packed, mask, want))
+    assert int(got[1, 0]) == n - 1

@@ -279,11 +279,10 @@ def test_sigma_sched_build_rules():
         assert TC.Pipeline(ok).needs_tree_spec
         assert TC.Pipeline(ok).spec == JC.Pipeline(ok).spec.replace(
             "encode_backend=pallas", "encode_backend=cuda")
-    # the codecs of ROADMAP item 9 are refused by name
+    # the qsgd and topk codecs build under sigma_sched as in the reference
     for later in ("sigma_sched|topk(frac=0.2)", "sigma_sched|qsgd"):
-        JC.Pipeline(later)
-        with pytest.raises(NotImplementedError, match="item 9"):
-            TC.Pipeline(later)
+        assert TC.Pipeline(later).spec == JC.Pipeline(later).spec
+        assert TC.Pipeline(later).needs_tree_spec
     assert not TC.Pipeline("ef|zsign").needs_tree_spec
     assert (TC.Pipeline("sigma_sched|zsign_packed").wire_bits_per_coord
             == TC.Pipeline("zsign_packed").wire_bits_per_coord == 1.0)
@@ -393,15 +392,14 @@ def test_cv_refusals_and_compositions():
         comp.encode_batch(TN.client_keys(TN.prng_key(0), 0, 1),
                           torch.ones((1, TILE)), 64, comp.init_state(
                               64, lead=(1,)))
-    # the count-law decodes cv refuses are not ported yet: the port names
-    # their ROADMAP items (the reference refuses them under cv)
-    for later, item in (("cv|zsign(agg=vote)", "item 12"),
-                        ("cv|zsign_packed(agg=median)", "item 12"),
-                        ("cv|topk(frac=0.1,agg=coord)", "item 9")):
-        with pytest.raises(ValueError, match="control variates"):
+    # the count-law decodes are refused under cv with the reference's text
+    for later in ("cv|zsign(agg=vote)", "cv|zsign_packed(agg=median)",
+                  "cv|topk(frac=0.1,agg=coord)"):
+        with pytest.raises(ValueError, match="control variates") as jerr:
             JC.Pipeline(later)
-        with pytest.raises(NotImplementedError, match=item):
+        with pytest.raises(ValueError, match="control variates") as terr:
             TC.Pipeline(later)
+        assert str(terr.value) == str(jerr.value)
     for ok in ["cv|zsign", "cv|zsign_packed", "cv|dense",
                "ef|cv|zsign_packed", "dp(clip=1.0,noise=0.0)|cv|zsign"]:
         assert TC.Pipeline(ok).spec == JC.Pipeline(ok).spec.replace(
@@ -704,9 +702,8 @@ def test_train_run_cpu_noise_controls(flags, capsys):
 
 
 def test_available_is_reference_less_item_9():
-    assert set(TC.available()) == set(JC.available()) - {"qsgd", "topk"}
-    assert not TC._TRANSFORMS_UNPORTED
-    assert "stosign" not in TC._CODECS_UNPORTED
+    # item 9 (qsgd, topk) is ported: the port builds every reference name
+    assert TC.available() == JC.available()
     parser_choices = TT.parse_args(["--arch", "x"]).compressor
     assert parser_choices == "zsign"
 
@@ -748,17 +745,13 @@ REFERENCE_SPECS = [
 @pytest.mark.parametrize("spec", REFERENCE_SPECS)
 def test_reference_spec_builds_or_raises_the_same(spec):
     """The port builds what the reference builds (the same canonical
-    spec), raises the reference's ValueError text where it raises, and
-    names the ROADMAP item of what it has not ported (qsgd and topk:
-    item 9; the robust agg= modes: item 12)."""
+    spec) and raises the reference's ValueError text where it raises
+    (qsgd, topk and the robust agg= modes included)."""
     try:
         jp, jerr = JC.Pipeline(spec), None
     except ValueError as e:
         jp, jerr = None, e
-    if "qsgd" in spec or "topk" in spec or "agg=" in spec:
-        with pytest.raises(NotImplementedError, match="item 9|item 12"):
-            TC.Pipeline(spec)
-    elif jerr is not None:
+    if jerr is not None:
         with pytest.raises(ValueError) as terr:
             TC.Pipeline(spec)
         assert str(terr.value) == str(jerr)

@@ -223,12 +223,12 @@ def test_cuda_device_without_card_raises():
 
 
 def test_unported_paths_raise():
-    with pytest.raises(NotImplementedError, match="item 9"):
-        TC.Pipeline("qsgd(s=4)")
+    # qsgd (item 9) and the robust agg= laws (item 12) are ported now: the
+    # same canonical spec as the reference
+    for spec in ("qsgd(s=4)", "zsign(agg=vote)"):
+        assert TC.Pipeline(spec).spec == JC.Pipeline(spec).spec
     # DP-SignFedAvg is ported now: dp noise fuses into the codec's sigma
     assert TC.Pipeline("dp(clip=1.0,noise=0.1)|zsign").codec.sigma == 0.1
-    with pytest.raises(NotImplementedError, match="item 12"):
-        TC.Pipeline("zsign(agg=vote)")
     with pytest.raises(NotImplementedError, match="item 14"):
         TF.resolve_cohort("stream(devices=2)", 64, 494_032_768)
     # the streaming plan and the group scan are ported now
