@@ -12,8 +12,8 @@ Phases, each of which raises (non-zero exit, no result line) on failure:
    shapes: E1 ``zsign_encode`` bit-exact (z=1: bit-exact or every differing
    bit within 4 f32 ulp of its threshold, the erf rule) and each client's
    bytes in a batched launch equal to its own n = 1 launch; R1
-   ``sign_reduce`` with f32 weights and a 0/1 mask, with and without a
-   carried sum, and in fold mode (``sign_fold_step``: shard sequences such
+   ``sign_reduce`` (n in {1, 8, 13}) with f32 weights and a 0/1 mask, with
+   and without a carried sum, and in fold mode (``sign_fold_step``: shard sequences such
    as (3, 5, 8, 1, 13) whose pending rows carry over, finalized with and
    without pending rows); F1 ``ef_sign_rows`` (n in {1, 3, 8}, d not a
    multiple of 8192, one dead client, with and without q, in place); C1
@@ -21,9 +21,9 @@ Phases, each of which raises (non-zero exit, no result line) on failure:
    exactly 0); U1 ``unpack_sum``. E1 also with a sigma vector that differs
    across clients and holds a 0 (the sto-sign route). Outputs are compared
    as int32 bit patterns (bytes for payloads).
-3. eighteen paths at full width through ``repro_torch.launch.train.run``:
+3. twenty paths at full width through ``repro_torch.launch.train.run``:
    qwen2-0.5B (24 layers, d = 494,032,768 coordinates, bf16), 2 local steps,
-   micro-batch 2, seq 64, 2 rounds each:
+   micro-batch 2, seq 64, 2 rounds each (the async paths 3):
      zsign            zsign(z=1, sigma=0.01), 8 clients: E1 + R1 once a round
      ef               ef|zsign(use_kernel=true), 8 clients: F1 + R1 once
      zsign_packed_z2  zsign_packed(z=2, sigma=0.01), 8 clients: C1 + R1 once
@@ -69,6 +69,21 @@ Phases, each of which raises (non-zero exit, no result line) on failure:
                       stream(shard=6): the (2, d) f32 carry, no kernel
      qsgd             --compressor qsgd --qsgd-s 1, 8 clients: no kernel; 2
                       bits a coordinate
+     async_zsign      zsign, 16 clients, stream(shard=8,feed=host),
+                      --round-mode "async(deadline=1.0,staleness=cutoff(2))"
+                      --latency "linear(base=0.0,step=0.25)": clients 0-4
+                      on time, 5-8 one round late, 9-12 two, 13-15 dropped;
+                      participation 5, 9, 13; E1 2 a round, R1 (add mode)
+                      2, 6, 10 (each stale row a one-row fold into the
+                      carried sum, the first held against the plain
+                      version by ``_StaleFoldProbe``); the host queue holds
+                      the late rows (61,754,368 bytes each) between rounds
+     async_ef_poly    ef|zsign(use_kernel=true), the same cohort and latency,
+                      async(deadline=1.0,staleness=poly(0.5)): every late
+                      client computes; participation 5, 5 + 4 * 2^-0.5,
+                      5 + 4 * 2^-0.5 + 4 * 3^-0.5 (to 1e-6 relative, as the
+                      port's partition_round and the driver's f32 sum give
+                      it); F1 2 a round, R1 in fold mode every round
    The last six run under a wire probe (``_WireProbe``, which lists what it
    checks in the first round).
    Each path: finite loss, some param leaf changed in every round, n * d *
@@ -91,7 +106,12 @@ Phases, each of which raises (non-zero exit, no result line) on failure:
    under vmap, stream(shard=6) (trimmed_stream), stream(shard=8,feed=host)
    and --clients 8 --groups 2 --cohort vmap, the int32 vote pairs by
    digest too; (f) collude(f=2,rotate=true) on agg=vote, 8 clients, vmap =
-   stream(shard=3). Each run's plan and launches are checked too. Then the
+   stream(shard=3); (g) 16 EF clients under async(deadline=1.0) with zero
+   latency equal the stream(shard=8,feed=host) run of (c), loss,
+   participation, uplink bits and shard size included. Each run's plan and
+   launches are checked too. Then one round of the paper's non-iid MLP task
+   (10 clients, dim 64, width 64) under zsign(z=1,sigma=0.05): E1 and R1
+   once each, their outputs equal to their plain versions. Then the
    dynamic sigma: one round with RoundContext(dynamic_sigma=True) from a
    state whose sigma is set to 0.015 (as launch/train.py does after a
    Plateau stall) sends the payload bytes of the static zsign(z=1,
@@ -158,6 +178,13 @@ DP_SPEC = "dp(clip=1.0,eps=2.0,steps=200,q=0.3)|zsign_packed"
 DP_ACCOUNT = {"q": 0.3, "steps": 200, "target_eps": 2.0, "delta": 1e-5}
 DP_CLIP = 1.0
 VOTE = "zsign(z=1,sigma=0.01,agg=vote)"
+#: the async paths' cohort: 16 clients host-fed in shards of 8, client i
+#: taking 0.25 * i round windows (on time: 0-4; 1 round late: 5-8; 2: 9-12;
+#: 3: 13-15, which cutoff(2) drops)
+ASYNC_LATENCY = "linear(base=0.0,step=0.25)"
+ASYNC_COHORT = ["--clients", "16", "--cohort", "stream(shard=8,feed=host)",
+                "--latency", ASYNC_LATENCY]
+ASYNC_PATHS = ("async_zsign", "async_ef_poly")
 TRIMMED = "zsign(z=1,sigma=0.01,agg=trimmed(f=2))"
 #: counters of a path that launches no kernel
 NO_KERNEL = {"zsign_encode": 0, "sign_reduce": 0, "ef_sign": 0,
@@ -223,10 +250,18 @@ PATHS = [
      NO_KERNEL),
     ("qsgd", ["--compressor", "qsgd", "--qsgd-s", "1", "--clients", "8"],
      NO_KERNEL),
+    # async rounds: a list gives the launches of each round
+    ("async_zsign", ZSIGN + ASYNC_COHORT + [
+        "--round-mode", "async(deadline=1.0,staleness=cutoff(2))"],
+     {"zsign_encode": [2, 2, 2], "sign_reduce": [2, 6, 10],
+      "sign_reduce_fold": [0, 0, 0], "ef_sign": 0, "zsign_compress": 0}),
+    ("async_ef_poly", EF + ASYNC_COHORT + [
+        "--round-mode", "async(deadline=1.0,staleness=poly(0.5))"],
+     {"zsign_encode": 0, "ef_sign": [2, 2, 2], "zsign_compress": 0}),
 ]
 #: rounds of a path where it is not ROUNDS, and uplink bits per coordinate
 #: where it is not 1
-PATH_ROUNDS = {"dpgauss": 1}
+PATH_ROUNDS = {"dpgauss": 1, "async_zsign": 3, "async_ef_poly": 3}
 PATH_BITS = {"dpgauss": 32, "ef_topk": 64 * 0.01,
              "topk_coord_stream": 64 * 0.01, "qsgd": 2}
 #: paths whose E1 calls the probe records (see _E1Probe)
@@ -240,7 +275,8 @@ PATH_SHARD = {"zsign_groups": 0, "zsign_stream": 8, "ef_stream": 6,
               "median_attack": 0, "ef_topk": 0, "topk_coord_stream": 6,
               "qsgd": 0, "trimmed_16_vmap": 0, "trimmed_16_stream8_host": 8,
               "trimmed_8x2_groups": 0, "collude_vmap": 0,
-              "collude_stream3": 3}
+              "collude_stream3": 3, "async_zsign": 8, "async_ef_poly": 8,
+              "async_ef_zero": 8}
 #: paths whose wire the probe checks (see _WireProbe); the vote-pair
 #: digest of their first round joins the identity record
 WIRE_PROBED = ("vote", "trimmed_stream", "median_attack", "ef_topk",
@@ -301,6 +337,12 @@ IDENTITIES = [
                                 "--adversary", "collude(f=2,rotate=true)",
                                 "--cohort", "stream(shard=3)"],
             {"zsign_encode": 3, "sign_reduce": 3, "sign_reduce_fold": 0})]),
+    # zero latency: the async round is the sync host-fed round, metrics too
+    ("g", [("ef_16_stream8_host", None, None),
+           ("async_ef_zero", EF + ["--clients", "16", "--cohort",
+                                   "stream(shard=8,feed=host)",
+                                   "--round-mode", "async(deadline=1.0)"],
+            {"ef_sign": 2, "sign_reduce": 2, "sign_reduce_fold": 2})]),
 ]
 QWEN2_COORDS = 494_032_768
 
@@ -443,7 +485,7 @@ def check_encode_and_reduce(dev):
     print(f"# E1 checks passed (one sigma and a sigma per client); z=1 bits "
           f"differing from the plain version: {flips_z1}")
     nb = 5 * 1024 + 7
-    for n in (8, 13):
+    for n in (1, 8, 13):
         packed = torch.randint(0, 256, (n, nb), generator=gen, device=dev,
                                dtype=torch.uint8)
         weights = {"f32": torch.randn((n,), generator=gen, device=dev),
@@ -578,6 +620,34 @@ class _E1Probe:
             call["norms64"] = _norms64(x2d, self._d)
         self.calls.append(call)
         return out
+
+
+class _StaleFoldProbe:
+    """Stands in for the kernel module inside ``core.compression`` on the
+    async zsign path: the first one-row R1 add-mode call with a carried
+    ``acc`` (a stale payload folded into the round's sum) is held against
+    the plain version on the same acc, row and weight, as int32 patterns.
+    The plain call is not counted; the real one counts as ever."""
+
+    def __init__(self, ops):
+        self._ops, self.seen = ops, None
+
+    def __getattr__(self, name):
+        return getattr(self._ops, name)
+
+    def sign_reduce(self, packed, weights, acc=None):
+        if self.seen is None and packed.shape[0] == 1 and acc is not None:
+            want = self._ops.sign_reduce_plain(packed, weights, acc)
+            got = self._ops.sign_reduce(packed, weights, acc)
+            torch.cuda.synchronize()
+            if not _same_bits(got, want):
+                raise AssertionError("R1 one-row stale fold: bits differ "
+                                     "from the plain version")
+            self.seen = {"n": 1, "n_bytes": int(packed.shape[1]),
+                         "weight": float(weights[0]), "equal": True}
+            del want
+            return got
+        return self._ops.sign_reduce(packed, weights, acc)
 
 
 class _ClipProbe:
@@ -827,27 +897,92 @@ def _same_record(x, y) -> bool:
                for k, a in x["params"].items())
 
 
+def _async_plan(args):
+    """What the port's ``partition_round`` says an async run does, round by
+    round: the participation (on-time mask weights plus the stale weights
+    that arrive, added in f32 as the driver adds them) and the payload rows
+    still queued after the round."""
+    import numpy as np
+    from repro_torch.core.context import RoundModePolicy
+    from repro_torch.fed.async_server import parse_latency, partition_round
+    total = args.clients * args.groups
+    pol = RoundModePolicy.parse(args.round_mode)
+    lat = parse_latency(args.latency)
+    queue, part, queued = {}, [], []
+    for r in range(args.rounds):
+        on_time, s, w, _ = partition_round(pol, lat.sample(r, total),
+                                           np.ones(total, bool))
+        for c in np.nonzero((w > 0.0) & ~on_time)[0]:
+            queue.setdefault(r + int(s[c]), []).append((r, int(c),
+                                                        float(w[c])))
+        stale = 0.0
+        for *_, wc in sorted(queue.pop(r, [])):
+            stale += wc
+        eff = on_time.astype(np.float32)
+        eff[0] += np.float32(stale)
+        part.append(float(np.sum(eff, dtype=np.float32)))
+        queued.append(sum(len(v) for v in queue.values()))
+    return part, queued
+
+
+#: the async paths' participation in closed form, rounds 0-2
+ASYNC_CLOSED_FORM = {
+    "async_zsign": [5.0, 9.0, 13.0],
+    "async_ef_poly": [5.0, 5.0 + 4 * 2 ** -0.5,
+                      5.0 + 4 * 2 ** -0.5 + 4 * 3 ** -0.5]}
+
+
+def _async_checks(label, args, per, queue_rows):
+    """Participation against the partition (and its closed form) to 1e-6
+    relative, and the host queue's bytes after each round."""
+    want, queued = _async_plan(args)
+    closed = ASYNC_CLOSED_FORM[label]
+    # a zsign payload row (the tile-padded bytes), plus the f32 EF scale
+    row_bytes = -(-QWEN2_COORDS // 8192) * 1024 + (
+        4 if (args.pipeline or "").startswith("ef|") else 0)
+    got = [r["part"] for r in per]
+    for g, w, c in zip(got, want, closed):
+        if abs(g - w) > 1e-6 * w or abs(w - c) > 1e-6 * c:
+            raise AssertionError(f"{label}: participation {got}, partition "
+                                 f"{want}, closed form {closed}")
+    want_bytes = [q * row_bytes for q in queued]
+    if queue_rows != want_bytes:
+        raise AssertionError(f"{label}: host queue bytes {queue_rows} != "
+                             f"{want_bytes} ({queued} rows of {row_bytes})")
+    return {"participation": got, "participation_partition": want,
+            "host_queue_bytes": queue_rows, "host_queue_rows": queued}
+
+
 def phase_path(label, flags, per_round=None, rounds=None):
     """Drive one full-width path through ``train.run`` with every launch
     counter at 0 just before and read just after. -> its summary, with the
-    record of its first round."""
+    record of its first round. A list in ``per_round`` gives each round's
+    launches (the counters are read after every round)."""
     from repro_torch.core import compression, wire
     from repro_torch.core.tree import tree_leaves
+    from repro_torch.fed.async_server import queue_bytes
     from repro_torch.kernels.zsign import ops
     from repro_torch.launch import train
     rounds = PATH_ROUNDS.get(label, ROUNDS) if rounds is None else rounds
     args = train.parse_args(COMMON_ARGS + flags + ["--rounds", str(rounds)])
     total = args.clients * args.groups
     bits_per_coord = PATH_BITS.get(label, 1)
-    per, state_ok, first = [], [], {}
+    per, state_ok, first, steps, queue = [], [], {}, [], []
+    is_async = args.round_mode != "sync"
 
     def on_round(t, before, after, m, sec):
         if t == 0:
             first["record"] = _round0_record(after)
+            first["metrics"] = (float(m.loss), float(m.participation),
+                                float(m.uplink_bits), int(m.shard_clients))
             if after.comp_state is not None or after.comp_server is not None:
                 state_ok.append(_state_nonzero(after))
+        if is_async:
+            queue.append(queue_bytes(steps[0].pending))
         per.append({"sec": sec, "loss": float(m.loss),
                     "bits": float(m.uplink_bits),
+                    "part": float(m.participation),
+                    "counts": _counts(),
                     "shard": int(m.shard_clients),
                     "n_coords": wire.tree_spec(after.params).n_coords,
                     "sigma": float(after.sigma),
@@ -859,17 +994,21 @@ def phase_path(label, flags, per_round=None, rounds=None):
     probe = _E1Probe(ops, QWEN2_COORDS) if label in PROBED else None
     clip = _ClipProbe(compression.dplib) if label == "dp_zsign" else None
     wprobe = _WireProbe(label, total) if label in WIRE_PROBED else None
+    fold = _StaleFoldProbe(ops) if label == "async_zsign" else None
     _free()
     torch.cuda.reset_peak_memory_stats()
     _reset_counts()
     if probe is not None:
         compression.K = probe
+    if fold is not None:
+        compression.K = fold
     if clip is not None:
         compression.dplib = clip
     if wprobe is not None:
         wprobe.install(compression)
     try:
-        history = train.run(args, on_round=on_round)
+        # the async step's late-payload queue, read after each round
+        history = train.run(args, on_round=on_round, on_build=steps.append)
         torch.cuda.synchronize()
     finally:
         compression.K = ops
@@ -886,12 +1025,17 @@ def phase_path(label, flags, per_round=None, rounds=None):
             raise AssertionError(f"{label}: non-finite loss {r['loss']}")
         if r["n_coords"] != QWEN2_COORDS:
             raise AssertionError(f"d = {r['n_coords']} != {QWEN2_COORDS}")
-        # the engine's f32 product n_live * (d * bits)
-        want_bits = float(torch.tensor(float(total), device=DEV)
+        # every client live (the async paths with latency: the folded
+        # weight, checked below); the engine's f32 product n_live * (d *
+        # bits)
+        if label not in ASYNC_CLOSED_FORM and r["part"] != float(total):
+            raise AssertionError(f"{label}: participation {r['part']} != "
+                                 f"{total}")
+        want_bits = float(torch.tensor(r["part"], device=DEV)
                           * float(QWEN2_COORDS * bits_per_coord))
         if r["bits"] != want_bits:
             raise AssertionError(f"{label}: uplink bits {r['bits']} != "
-                                 f"{bits_per_coord} * {total} * "
+                                 f"{bits_per_coord} * {r['part']} * "
                                  f"{QWEN2_COORDS}")
         if label in PATH_SHARD and r["shard"] != PATH_SHARD[label]:
             raise AssertionError(f"{label}: {r['shard']} clients a shard, "
@@ -901,12 +1045,28 @@ def phase_path(label, flags, per_round=None, rounds=None):
     if state_ok and not state_ok[0]:
         raise AssertionError(f"{label}: a client-state row or the server "
                              "state is zero after round 1")
+    by_round = {name: [r["counts"][name] - (per[t - 1]["counts"][name]
+                                            if t else 0)
+                       for t, r in enumerate(per)] for name in launches}
     for name, k in (per_round or {}).items():
-        if launches[name] != k * args.rounds:
+        want = k if isinstance(k, list) else [k] * args.rounds
+        if by_round[name] != want:
             raise AssertionError(
-                f"{label}: {name} launched {launches[name]} times in "
-                f"{args.rounds} rounds (want {k} a round)")
+                f"{label}: {name} launched {by_round[name]} times in its "
+                f"{args.rounds} rounds (want {want})")
     extra = _probe_checks(label, probe, args, per, clip) if probe else {}
+    if label in ASYNC_CLOSED_FORM:
+        extra.update(_async_checks(label, args, per, queue))
+        extra["launches_by_round"] = by_round
+    elif any(queue):
+        raise AssertionError(f"{label}: zero latency queued {queue} bytes")
+    if fold is not None:
+        if fold.seen is None:
+            raise AssertionError(f"{label}: no one-row stale fold ran")
+        extra["stale_fold_vs_plain"] = fold.seen
+    if label == "async_ef_poly" and not all(by_round["sign_reduce_fold"]):
+        raise AssertionError(f"{label}: R1 fold mode launched "
+                             f"{by_round['sign_reduce_fold']} a round")
     if wprobe is not None:
         if wprobe.first:
             raise AssertionError(f"{label}: the wire probe saw no decode")
@@ -924,7 +1084,8 @@ def phase_path(label, flags, per_round=None, rounds=None):
                       "state_nonzero_after_round_1":
                           state_ok[0] if state_ok else None, **extra}))
     out = {"launches": launches, "secs": secs, "peak": peak,
-           "record": first["record"], "checks": extra}
+           "record": first["record"], "metrics": first["metrics"],
+           "checks": extra}
     del per, history, first, probe, clip
     _free()
     return out
@@ -982,18 +1143,28 @@ def _probe_checks(label, probe, args, per, clip=None):
 
 
 def phase_identities(results):
-    """The plan identities: each group of runs must give one first round."""
+    """The plan identities: each group of runs must give one first round
+    (identity g also its loss, participation, uplink bits and shard size).
+    A run that a later identity names is kept until then."""
+    reused = {label for _, runs in IDENTITIES for label, flags, _ in runs
+              if flags is None}
+    kept = {}
     for name, runs in IDENTITIES:
         recs = []
         for label, flags, per_round in runs:
             if flags is None:
-                recs.append((label, results[label]["record"]))
+                out = results[label] if label in results else kept[label]
             else:
-                recs.append((label, phase_path(label, flags, per_round,
-                                               rounds=1)["record"]))
+                out = phase_path(label, flags, per_round, rounds=1)
+                if label in reused:
+                    kept[label] = out
+            recs.append((label, {**out["record"],
+                                 "metrics": out["metrics"]}))
+            del out
         base_label, base = recs[0]
         for label, rec in recs[1:]:
-            if not _same_record(base, rec):
+            if not _same_record(base, rec) or (
+                    name == "g" and rec["metrics"] != base["metrics"]):
                 raise AssertionError(f"plan identity ({name}): {label} "
                                      f"differs from {base_label}")
         print(json.dumps({"identity": name,
@@ -1005,9 +1176,86 @@ def phase_identities(results):
                               base["server"] or {}),
                           "vote_pair_compared": base.get("enc_sum")
                           is not None,
+                          "metrics_compared": name == "g",
                           "equal": True}))
         del recs, base
         _free()
+
+
+def phase_mlp(dev):
+    """One round of the paper's non-iid MLP task (10 clients, one label
+    each, dim 64, width 64) under zsign(z=1,sigma=0.05) on the card: E1 and
+    R1 launched once each, E1's payload bytes equal to its plain version on
+    the same buffer and keys, R1's sum equal to its plain version (int32
+    patterns), a finite loss and moved params."""
+    from repro_torch.core import compression, fedavg, noise
+    from repro_torch.data import synthetic
+    from repro_torch.kernels.zsign import ops
+    from repro_torch.models.mlp import mlp_loss_builder
+    n, sigma = 10, 0.05
+    seen = {}
+
+    class Recording(compression.Pipeline):
+        def encode_batch(self, keys, flat2d, *a, **kw):
+            seen.update(keys=keys.clone(), rows=flat2d.clone())
+            payload, state = super().encode_batch(keys, flat2d, *a, **kw)
+            seen["payload"] = payload
+            return payload, state
+
+        def decode_sum(self, enc_sum, n_live, sigma=None, spec=None):
+            seen["enc_sum"] = enc_sum.clone()
+            return super().decode_sum(enc_sum, n_live, sigma=sigma,
+                                      spec=spec)
+
+    x, y = synthetic.gaussian_mixture_task(n_classes=10, dim=64,
+                                           n_per_class=200)
+    parts = synthetic.label_partition(y, n)
+    init, loss_fn, acc_fn = mlp_loss_builder(64, 10)
+    comp = Recording(f"zsign(z=1,sigma={sigma})")
+    cfg = fedavg.FedConfig(n_clients=n, client_lr=0.05, server_lr=0.5)
+    step = fedavg.build_round_step(loss_fn, comp, cfg, fedavg.RoundContext(
+        weights_are_mask=True))
+    state = fedavg.init_server_state(
+        init(torch.Generator().manual_seed(0), dev), cfg, comp,
+        noise.prng_key(1))
+    batch = synthetic.client_batches(x, y, parts, (1, n, 1, 32), seed=1,
+                                     round_idx=0, device=dev)
+    mask = torch.ones((1, n))
+    _reset_counts()
+    t0 = time.time()
+    after, m = step(state, batch, mask)
+    loss = float(m.loss)
+    sec = time.time() - t0
+    launches = _counts()
+    if launches["zsign_encode"] != 1 or launches["sign_reduce"] != 1:
+        raise AssertionError(f"mlp: launches {launches}")
+    if seen["payload"].device != dev or not math.isfinite(loss):
+        raise AssertionError(f"mlp: payload on {seen['payload'].device}, "
+                             f"loss {loss}")
+    plain = ops.zsign_encode_plain(
+        seen["rows"], seen["keys"],
+        torch.full((n,), sigma, dtype=torch.float32, device=dev), 1)
+    if not torch.equal(seen["payload"], plain):
+        raise AssertionError("mlp: E1's payload bytes differ from its "
+                             "plain version")
+    plain_sum = ops.sign_reduce_plain(seen["payload"],
+                                      mask.reshape(-1).to(dev))
+    if not _same_bits(seen["enc_sum"], plain_sum):
+        raise AssertionError("mlp: R1's sum differs from its plain version")
+    if all(torch.equal(a, b) for a, b in zip(state.params.values(),
+                                             after.params.values())):
+        raise AssertionError("mlp: params did not change")
+    out = {"mlp": {"clients": n, "d_pad": seen["rows"].shape[1],
+                   "n_coords": sum(v.numel() for v in state.params.values()),
+                   "launches": {k: launches[k] for k in
+                                ("zsign_encode", "sign_reduce")},
+                   "payload_bytes_equal_plain": True,
+                   "r1_sum_equal_plain": True, "loss": loss,
+                   "participation": float(m.participation), "round_s": sec}}
+    print(json.dumps(out))
+    del seen, state, after, batch
+    _free()
+    return out
 
 
 def phase_dynamic_sigma(dev):
@@ -1476,6 +1724,7 @@ def main() -> int:
     dev = DEV
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    t_start = time.time()
     name, smi = phase_device_and_build()
     flips_z1 = check_encode_and_reduce(dev)
     check_fold(dev)
@@ -1484,6 +1733,7 @@ def main() -> int:
     for label, flags, per_round in PATHS:
         results[label] = phase_path(label, flags, per_round)
     phase_identities(results)
+    phase_mlp(dev)
     dynamic = phase_dynamic_sigma(dev)
     times = times_encode_reduce(dev)
     times["ef_sign"] = times_ef(dev)
@@ -1570,6 +1820,7 @@ def main() -> int:
             k["launches_by_path"] = by_path[k["name"]]
     kernels[1].update({f: times["sign_reduce"][f] for f in (
         "fold_ms", "fold_plain_ms", "fold_bound_ms", "fold_max_abs_err")})
+    print(f"# chip_smoke ran {time.time() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

@@ -39,8 +39,10 @@ from repro_torch.core import dp as dplib
 from repro_torch.core import noise as znoise
 from repro_torch.core import wire
 from repro_torch.core.context import (AGG_BACKENDS, ENCODE_BACKENDS,
-                                      RoundContext, resolve_backend)
-from repro_torch.core.wire import WireFormat
+                                      RoundContext, resolve_backend,
+                                      split_top)
+from repro_torch.core.tree import tree_leaves
+from repro_torch.core.wire import WireFormat, pack_signs, unpack_signs
 from repro_torch.fed import client_state as cstate_lib
 from repro_torch.fed.client_state import StateSlot
 from repro_torch.kernels.efsign import ops as EK
@@ -52,8 +54,8 @@ __all__ = [
     "RoundContext", "StateSlot", "Compressor", "ZSignCompressor",
     "PackedZSignCompressor", "StoSignCompressor", "EFSignCompressor",
     "QSGDCompressor", "TopKCompressor", "DPGaussianCompressor",
-    "available", "sign_reduce", "vote_pair", "parse_spec", "AGG_BACKENDS",
-    "ENCODE_BACKENDS",
+    "available", "global_norm", "pack_signs", "unpack_signs", "sign_reduce",
+    "vote_pair", "parse_spec", "AGG_BACKENDS", "ENCODE_BACKENDS",
 ]
 
 #: encode tile, in elements (the kernels' tile; payloads are padded to
@@ -112,6 +114,13 @@ def sign_fold_finalize(acc: wire.SignFoldAcc,
     if resolve_backend("agg", backend, acc.sums.device.type) == "cuda":
         return K.sign_fold_finalize(acc)
     return wire.sign_fold_finalize(acc)
+
+
+def global_norm(tree) -> torch.Tensor:
+    """The f32 L2 norm of a whole tree, leaf sums of squares added in leaf
+    order (the reference's expression)."""
+    return torch.sqrt(sum(torch.sum(torch.square(x.to(torch.float32)))
+                          for x in tree_leaves(tree)))
 
 
 def _norm_z(z) -> int:
@@ -915,28 +924,6 @@ def _parse_value(v: str):
     return v
 
 
-def _split_args(args: str, tok: str):
-    """Split a stage's arguments on TOP-LEVEL commas only, so a nested
-    value (``agg=trimmed(f=2)``) stays one argument."""
-    parts, cur, depth = [], [], 0
-    for ch in args:
-        if ch == "(":
-            depth += 1
-        elif ch == ")":
-            depth -= 1
-            if depth < 0:
-                raise ValueError(f"unbalanced parentheses in {tok!r}")
-        if ch == "," and depth == 0:
-            parts.append("".join(cur))
-            cur = []
-        else:
-            cur.append(ch)
-    if depth != 0:
-        raise ValueError(f"unbalanced parentheses in {tok!r}")
-    parts.append("".join(cur))
-    return parts
-
-
 def _parse_stage(tok: str) -> Tuple[str, dict]:
     tok = tok.strip()
     if "(" not in tok:
@@ -945,7 +932,7 @@ def _parse_stage(tok: str) -> Tuple[str, dict]:
         raise ValueError(f"malformed stage spec {tok!r}")
     name, args = tok[:-1].split("(", 1)
     kw = {}
-    for part in filter(None, (p.strip() for p in _split_args(args, tok))):
+    for part in split_top(args, tok):
         if "=" not in part:
             raise ValueError(f"stage argument {part!r} in {tok!r} must be "
                              f"key=value")

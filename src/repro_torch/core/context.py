@@ -38,6 +38,35 @@ COHORT_DEVICES_AUTO = 0
 STREAM_SHARD_BUDGET_BYTES = 256 << 20
 STREAM_SHARD_MIN = 8
 STREAM_SHARD_MAX = 512
+#: round execution modes: the synchronous barrier or the async deadline
+#: round (see RoundModePolicy)
+ROUND_MODES = ("sync", "async")
+#: buffered-staleness laws of async rounds: "none" drops late payloads,
+#: "poly" weighs a payload arriving s rounds late by (1+s)^-a, "cutoff"
+#: keeps full weight up to s_max rounds late, then drops
+STALENESS_LAWS = ("none", "poly", "cutoff")
+
+
+def split_top(args: str, what: Optional[str] = None) -> list:
+    """Split a spec argument list on top-level commas only, so nested
+    values such as ``staleness=poly(0.5)`` or ``agg=trimmed(f=2)`` stay
+    whole; -> the stripped, non-empty parts. ``what`` is the text an
+    unbalanced-parentheses error names (``args`` itself by default)."""
+    what = args if what is None else what
+    parts, cur, depth = [], [], 0
+    for ch in args:
+        if ch == "," and depth == 0:
+            parts.append("".join(cur))
+            cur = []
+            continue
+        depth += (ch == "(") - (ch == ")")
+        if depth < 0:
+            raise ValueError(f"unbalanced parentheses in {what!r}")
+        cur.append(ch)
+    if depth != 0:
+        raise ValueError(f"unbalanced parentheses in {what!r}")
+    parts.append("".join(cur))
+    return [p.strip() for p in parts if p.strip()]
 
 
 def resolve_backend(kind: str, backend: str, device_type: str = "cpu") -> str:
@@ -158,14 +187,113 @@ class CohortPolicy:
 
 
 @dataclasses.dataclass(frozen=True)
+class RoundModePolicy:
+    """Parsed ``RoundContext.round_mode``: when a round closes (the
+    reference's grammar and errors).
+
+      mode="sync"    the barrier: the round folds every live client's
+                     payload.
+      mode="async"   the deadline round (``fed/async_server.py``): payloads
+                     fold as they arrive and the round closes at
+                     ``deadline`` simulated time units; a late payload
+                     folds s rounds later at weight ``stale_weight(s)``,
+                     a client that never reports is dead.
+
+    ``min_clients`` extends the close past the deadline until that many
+    live payloads have arrived (0: never). ``staleness``: ``none`` drops a
+    late payload, ``poly(a)`` folds it at (1 + s)^-a, ``cutoff(s)`` at full
+    weight while s <= s_max and drops it beyond.
+
+    Zero latency and a deadline covering every client make the async round
+    bit-identical to the sync ``stream(feed=host)`` round.
+    """
+    mode: str = "sync"
+    deadline: float = 0.0
+    min_clients: int = 0
+    staleness: str = "none"
+    staleness_arg: float = 0.0
+
+    def __post_init__(self):
+        if self.mode not in ROUND_MODES:
+            raise ValueError(f"unknown round mode {self.mode!r}; expected "
+                             f"one of {ROUND_MODES}")
+        if self.staleness not in STALENESS_LAWS:
+            raise ValueError(f"unknown staleness law {self.staleness!r}; "
+                             f"expected one of {STALENESS_LAWS}")
+        if self.mode == "sync":
+            if (self.deadline, self.min_clients, self.staleness) != \
+                    (0.0, 0, "none"):
+                raise ValueError("deadline=/min_clients=/staleness= only "
+                                 "apply to round mode 'async'")
+        else:
+            if not self.deadline > 0.0:
+                raise ValueError("async round mode needs deadline > 0, got "
+                                 f"deadline={self.deadline!r}")
+        if self.min_clients < 0 or self.staleness_arg < 0.0:
+            raise ValueError("min_clients and the staleness argument must "
+                             "be non-negative")
+
+    def stale_weight(self, s: int) -> float:
+        """Fold weight of a payload arriving ``s`` rounds after it was
+        computed (s == 0 is on time)."""
+        if s <= 0:
+            return 1.0
+        if self.staleness == "poly":
+            return float((1.0 + s) ** (-self.staleness_arg))
+        if self.staleness == "cutoff":
+            return 1.0 if s <= self.staleness_arg else 0.0
+        return 0.0
+
+    @classmethod
+    def parse(cls, spec: "str | RoundModePolicy") -> "RoundModePolicy":
+        """``sync | async(deadline=T[,min_clients=M]
+        [,staleness=none|poly(a)|cutoff(s)])`` -> policy."""
+        if isinstance(spec, cls):
+            return spec
+        s = spec.strip()
+        if "(" not in s:
+            return cls(mode=s)
+        if not s.endswith(")"):
+            raise ValueError(f"malformed round_mode spec {spec!r}")
+        mode, args = s[:-1].split("(", 1)
+        kw = {}
+        for part in split_top(args):
+            if "=" not in part:
+                raise ValueError(f"round_mode argument {part!r} in {spec!r} "
+                                 f"must be key=value")
+            k, v = (t.strip() for t in part.split("=", 1))
+            if k == "deadline":
+                kw["deadline"] = float(v)
+            elif k == "min_clients":
+                kw["min_clients"] = int(v)
+            elif k == "staleness":
+                if "(" in v:
+                    if not v.endswith(")"):
+                        raise ValueError(f"malformed staleness law {v!r} in "
+                                         f"{spec!r}")
+                    law, arg = v[:-1].split("(", 1)
+                    kw["staleness"] = law.strip()
+                    kw["staleness_arg"] = float(arg)
+                else:
+                    kw["staleness"] = v
+            else:
+                raise ValueError(f"unknown round_mode argument {k!r} in "
+                                 f"{spec!r}; expected deadline=, "
+                                 f"min_clients= or staleness=")
+        return cls(mode=mode.strip(), **kw)
+
+
+@dataclasses.dataclass(frozen=True)
 class RoundContext:
     """Frozen per-deployment policy for one round step. ``None`` backends
     keep the pipeline stage's own setting. ``dynamic_sigma`` hands
     ``ServerState.sigma`` (the Plateau controller's sigma) to the
     pipeline's one sigma consumer at encode and at decode. ``debug_wire``
     (default from ``REPRO_DEBUG_WIRE`` = 1/true/yes) checks once a round
-    that the host mask is exactly 0/1 (``wire.check_mask_membership``).
-    ``adversary`` is a ``fed.adversary`` spec string, validated here."""
+    that the host mask is exactly 0/1 (``wire.check_mask_membership``). ``adversary`` is a ``fed.adversary``
+    spec string, ``round_mode`` a ``RoundModePolicy`` spec and ``latency``
+    a ``fed.async_server`` latency spec (async rounds only), each
+    validated here."""
     agg_backend: Optional[str] = None
     encode_backend: Optional[str] = None
     weights_are_mask: bool = False
@@ -177,6 +305,13 @@ class RoundContext:
     #: "none" | "sign_flip(f=4)" | "byte_corrupt(f=2,p=0.1)" |
     #: "collude(f=4)" | "dropout(f=8)" (+ every=/start=/rotate=/seed=)
     adversary: str = "none"
+    #: "sync" | "async(deadline=T[,min_clients=M][,staleness=none|poly(a)|
+    #: cutoff(s)])": async rounds are driven by fed/async_server.py
+    round_mode: str = "sync"
+    #: simulated client latency of async rounds: "zero" | "const(t=T)" |
+    #: "linear(base=B,step=S)" | "lognormal(median=M,sigma=S)" |
+    #: "pareto(xm=X,alpha=A)" (+ fail=P, seed=N)
+    latency: str = "zero"
 
     def __post_init__(self):
         for kind, backend in (("agg", self.agg_backend),
@@ -184,7 +319,15 @@ class RoundContext:
             if backend is not None:
                 resolve_backend(kind, backend)
         CohortPolicy.parse(self.cohort)
-        if self.adversary != "none":
+        mode = RoundModePolicy.parse(self.round_mode)
+        if self.latency != "zero":
+            if mode.mode != "async":
+                raise ValueError("latency= is a simulation knob of async "
+                                 "rounds; set round_mode='async(...)' or "
+                                 "leave latency='zero'")
             # imported here: the fed layer is not a load-time dependency
+            from repro_torch.fed.async_server import parse_latency
+            parse_latency(self.latency)
+        if self.adversary != "none":
             from repro_torch.fed.adversary import parse_adversary
             parse_adversary(self.adversary)

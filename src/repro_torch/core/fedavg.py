@@ -46,7 +46,10 @@ from the round's host mask before anything reads it, and corrupts each
 group's or shard's encoded payload stack after the encode (so EF residuals
 stay honest) and before the aggregate, by global client index and round
 counter: every plan sees the same attack. ``RoundContext.debug_wire`` checks
-once a round that the host mask is exactly 0/1.
+once a round that the host mask is exactly 0/1. ``RoundContext.round_mode
+= "async(...)"`` hands the round to ``fed.async_server``, which runs the
+stream pass below with a fold-weight vector apart from the compute mask and
+queues late payload rows for a later round.
 
 Stateful pipelines (``ef``, ``cv``) keep ``ServerState.comp_state`` =
 ``{slot: (G, N, d)}``; a dead client keeps its rows bit-exactly. The
@@ -73,7 +76,8 @@ from repro_torch.core.context import (COHORT_DEVICES_AUTO,
                                       STREAM_DEFAULT_SHARD, STREAM_SHARD_AUTO,
                                       STREAM_SHARD_BUDGET_BYTES,
                                       STREAM_SHARD_MAX, STREAM_SHARD_MIN,
-                                      CohortPolicy, RoundContext)
+                                      CohortPolicy, RoundContext,
+                                      RoundModePolicy)
 from repro_torch.core.tree import (tree_leaves, tree_map, tree_paths,
                                    tree_set)
 from repro_torch.fed.adversary import parse_adversary
@@ -112,6 +116,24 @@ class RoundMetrics(NamedTuple):
     #: clients per stream shard this round (0 on the vmap plan), an int32
     #: scalar as in the reference
     shard_clients: torch.Tensor = torch.zeros((), dtype=torch.int32)
+
+
+class RoundInputs(NamedTuple):
+    """What every driver of a round reads once from the state and the mask
+    (``build_round_step``'s ``round_inputs``)."""
+    spec: Any                     # the params' wire.TreeSpec
+    params: Any
+    device: torch.device
+    rng: torch.Tensor             # the next round's key
+    sub: torch.Tensor             # this round's client key root
+    plan: "CohortPlan"
+    #: the (G, N) f32 mask after the adversary's dropout, where the caller
+    #: gave it (the sampler's, on the host)
+    mask: torch.Tensor
+    gamma_t: torch.Tensor         # client lr, f32 on the device
+    #: what the encodes read besides their rows (dynamic sigma, server
+    #: state, the TreeSpec), passed only where a stage takes it
+    extra: dict
 
 
 class CohortPlan(NamedTuple):
@@ -383,10 +405,11 @@ def build_round_step(loss_fn: Callable, compressor, cfg: FedConfig,
         (a slot past the cohort is the stream's wrapped padding)."""
         return [c for c in range(k) if lo + c < total and live[lo + c]]
 
-    def vmap_groups(spec, params, batch, mask, live, cstate, sub, gamma_t,
-                    extra, round_idx):
+    def vmap_groups(inp: RoundInputs, batch, mask, live, cstate, round_idx):
         """The vmap plan: one group (all clients in one batch), or the
         sequential group scan over G groups of N."""
+        spec, params, sub = inp.spec, inp.params, inp.sub
+        gamma_t, extra = inp.gamma_t, inp.extra
         d = spec.n_coords
         device = gamma_t.device
         keys = znoise.client_keys(sub, 0, total)
@@ -436,13 +459,20 @@ def build_round_step(loss_fn: Callable, compressor, cfg: FedConfig,
                 acc = compressor.aggregate(enc_all, mask.reshape(-1), d)
         return acc, cstate, loss_sum
 
-    def stream_cohort(spec, params, batch, mask, live, cstate, sub, gamma_t,
-                      extra, round_idx, shard: int, host: bool):
+    def stream_cohort(inp: RoundInputs, batch, mask, live, cstate, round_idx,
+                      shard: int, host: bool, fold_w=None, on_shard=None):
         """The streaming plan: K = ``shard`` clients at a time through one
         (K, d_pad) buffer, each shard's payloads folded into one running
-        accumulator. ``host``: batch, mask and state rows stay in (pinned)
-        host memory and each shard is copied to the card one shard ahead;
-        the state returned lives on the host."""
+        accumulator, returned open (``fold_finalize`` closes it).
+        ``host``: batch, mask and state rows stay in (pinned) host memory
+        and each shard is copied to the card one shard ahead; the state
+        returned lives on the host. ``mask`` gates local SGD, the loss and
+        the state rows; ``fold_w`` (padded to whole shards, on the device)
+        weighs the fold instead of it where given, and ``on_shard(lo,
+        enc)`` sees each shard's payload stack before the next shard runs
+        (the async driver's two hooks)."""
+        spec, params, sub = inp.spec, inp.params, inp.sub
+        gamma_t, extra = inp.gamma_t, inp.extra
         d = spec.n_coords
         device = gamma_t.device
         cuda = device.type == "cuda"
@@ -484,24 +514,24 @@ def build_round_step(loss_fn: Callable, compressor, cfg: FedConfig,
                     acc = compressor.fold_init(enc)
                 if acc is None:
                     acc = compressor.zero_acc(enc, d)
-                acc = compressor.aggregate(enc, mask_s, d, acc=acc)
+                acc = compressor.aggregate(
+                    enc, mask_s if fold_w is None
+                    else fold_w[lo:lo + shard], d, acc=acc)
                 loss_sum = loss_sum + ls
+                if on_shard is not None:
+                    on_shard(lo, enc)
             del enc, new_rows, rows, batch_s
         del buf
-        with torch.no_grad():
-            enc_sum = compressor.fold_finalize(acc)
         if host and cuda:
             # the state rows' copies back to the host are complete
             torch.cuda.current_stream(device).synchronize()
-        return enc_sum, cstate, loss_sum
+        return acc, cstate, loss_sum
 
-    def round_step(state: ServerState, batch, mask):
+    def round_inputs(state: ServerState, mask) -> RoundInputs:
         params = state.params
         spec = wire.tree_spec(params)
         device = tree_leaves(params)[0].device
         rng, sub = znoise.split(state.rng)
-        plan = resolve_cohort(policy, total, spec.n_coords)
-        host = plan.mode == "stream" and plan.feed == "host"
         mask_all = torch.as_tensor(mask, dtype=torch.float32).reshape(G, N)
         if adversary is not None:
             # mid-round dropout fires on the full mask before anything
@@ -509,12 +539,6 @@ def build_round_step(loss_fn: Callable, compressor, cfg: FedConfig,
             mask_all = adversary.drop_mask(mask_all, state.round)
         if debug_wire:
             wire.check_mask_membership(mask_all)
-        # the live clients, read once a round from the mask as the caller
-        # gave it (the sampler's, on the host): a stateful stage updates
-        # only their rows, and no group or shard waits on the card for them
-        live = (mask_all.reshape(-1) > 0).tolist()
-        if not host:
-            mask_all = mask_all.to(device)
         gamma_t = torch.tensor(gamma, dtype=torch.float32, device=device)
         # what the encodes of the round read besides their rows, passed
         # only where a stage takes it (as the reference gates them): the
@@ -526,17 +550,31 @@ def build_round_step(loss_fn: Callable, compressor, cfg: FedConfig,
             extra["server"] = state.comp_server
         if compressor.needs_tree_spec:
             extra["spec"] = spec
+        return RoundInputs(spec, params, device, rng, sub,
+                           resolve_cohort(policy, total, spec.n_coords),
+                           mask_all, gamma_t, extra)
+
+    def round_step(state: ServerState, batch, mask):
+        inp = round_inputs(state, mask)
+        plan = inp.plan
+        host = plan.mode == "stream" and plan.feed == "host"
+        # the live clients, read once a round from the mask as the caller
+        # gave it (the sampler's, on the host): a stateful stage updates
+        # only their rows, and no group or shard waits on the card for them
+        live = (inp.mask.reshape(-1) > 0).tolist()
+        mask_all = inp.mask if host else inp.mask.to(inp.device)
         if plan.mode == "stream":
-            enc_sum, cstate, loss_sum = stream_cohort(
-                spec, params, batch, mask_all, live, state.comp_state, sub,
-                gamma_t, extra, state.round, plan.shard, host)
+            acc, cstate, loss_sum = stream_cohort(
+                inp, batch, mask_all, live, state.comp_state, state.round,
+                plan.shard, host)
+            with torch.no_grad():
+                enc_sum = compressor.fold_finalize(acc)
         else:
             enc_sum, cstate, loss_sum = vmap_groups(
-                spec, params, batch, mask_all, live, state.comp_state, sub,
-                gamma_t, extra, state.round)
+                inp, batch, mask_all, live, state.comp_state, state.round)
         with torch.no_grad():
-            return _finish(state, spec, rng, enc_sum, loss_sum,
-                           mask_all.to(device), cstate, plan.shard)
+            return _finish(state, inp.spec, inp.rng, enc_sum, loss_sum,
+                           mask_all.to(inp.device), cstate, plan.shard)
 
     def _finish(state, spec, rng, enc_sum, loss_sum, mask_g, cstate,
                 shard_used):
@@ -566,5 +604,14 @@ def build_round_step(loss_fn: Callable, compressor, cfg: FedConfig,
                                 comp_server=comp_server)
         return new_state, metrics
 
+    mode = RoundModePolicy.parse(ctx.round_mode)
+    if mode.mode == "async":
+        # the async driver runs this builder's own stream pass, decode and
+        # server step, so zero latency is the sync host-fed round
+        from repro_torch.fed.async_server import build_async_round_step
+        return build_async_round_step(
+            policy=mode, latency_spec=ctx.latency, compressor=compressor,
+            round_inputs=round_inputs, stream=stream_cohort, finish=_finish,
+            total=total)
     return round_step
 

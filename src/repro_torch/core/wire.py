@@ -103,6 +103,11 @@ def unpack_bits(packed: torch.Tensor) -> torch.Tensor:
             > 0).reshape(-1)
 
 
+def pack_signs(signs_i8: torch.Tensor) -> torch.Tensor:
+    """int8 {-1,+1} (len % 8 == 0) -> uint8 bitfield of len/8."""
+    return pack_bool(signs_i8 > 0)
+
+
 def unpack_signs(packed: torch.Tensor) -> torch.Tensor:
     """uint8 bitfield -> int8 {-1,+1} of len*8 (bit j of byte i at 8i+j)."""
     bits = unpack_bits(packed)

@@ -31,10 +31,17 @@ large: qwen2-0.5B at more than 8 clients), ``vmap``, or
     PYTHONPATH=src python -m repro_torch.launch.train --arch qwen2_0_5b \
         --reduced --clients 20 --cohort "stream(shard=6)" --device cpu
 
+``--round-mode "async(deadline=1.0,staleness=cutoff(2))"`` closes each round
+at a deadline under the simulated client latency ``--latency`` (e.g.
+``"linear(base=0.0,step=0.25)"``): late payloads fold in a later round at
+the staleness weight (``fed/async_server.py``). ``staleness=poly(a)`` needs
+a scale-weighted pipeline such as ``ef|zsign``: this driver sets the 0/1
+``weights_are_mask`` guarantee, which fractional weights would break.
+
 Runs on ``cuda`` unless ``--device cpu`` is given; asking for CUDA on a
 machine without a card raises. ``run(args)`` is the same driver, callable in
-process, and returns the rounds' metrics. Not ported yet: checkpointing,
-async rounds and ``stream(devices=D > 1)``.
+process, and returns the rounds' metrics. Not ported yet: checkpointing and
+``stream(devices=D > 1)``.
 """
 from __future__ import annotations
 
@@ -97,6 +104,18 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
                          "optional every=/start= scheduling, applied to the "
                          "encoded payload stack (or the participation "
                          "mask) under every cohort plan")
+    ap.add_argument("--round-mode", default="sync", metavar="SPEC",
+                    help="round execution mode: 'sync' (barrier round) or "
+                         "'async(deadline=T[,min_clients=M][,staleness="
+                         "none|poly(a)|cutoff(s)])': on-time payloads fold "
+                         "now, late ones s rounds later at the staleness "
+                         "weight, failures are dead clients")
+    ap.add_argument("--latency", default="zero", metavar="SPEC",
+                    help="simulated client latency of async rounds: "
+                         "'zero', 'const(t=T)', 'linear(base=B,step=S)', "
+                         "'lognormal(median=M,sigma=S)', "
+                         "'pareto(xm=X,alpha=A)', each with optional "
+                         "fail=P / seed=N")
     ap.add_argument("--debug-wire", action="store_true",
                     help="check every round that the participation mask "
                          "is exactly 0/1 (also via REPRO_DEBUG_WIRE=1)")
@@ -119,7 +138,9 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
     return ap.parse_args(argv)
 
 
-def _device(name: str) -> torch.device:
+def resolve_device(name: str) -> torch.device:
+    """``cuda`` (raises without a card; f32 matmuls stay full f32, no TF32,
+    as in the reference) or ``cpu`` -> the torch device."""
     if name == "cuda":
         if not torch.cuda.is_available():
             raise RuntimeError("--device cuda was asked for but no CUDA card "
@@ -132,10 +153,13 @@ def _device(name: str) -> torch.device:
 
 
 def run(args: argparse.Namespace,
-        on_round: Optional[Callable] = None) -> List[fedavg.RoundMetrics]:
+        on_round: Optional[Callable] = None,
+        on_build: Optional[Callable] = None) -> List[fedavg.RoundMetrics]:
     """Train ``args.rounds`` rounds; -> their metrics. ``on_round(t,
-    state_before, state_after, metrics, seconds)`` is called after each."""
-    device = _device(args.device)
+    state_before, state_after, metrics, seconds)`` is called after each;
+    ``on_build(step)`` once with the round step this run built (an async
+    step holds its late-payload queue in ``step.pending``)."""
+    device = resolve_device(args.device)
     arch = get_arch(args.arch)
     if args.reduced:
         arch = arch.reduced()
@@ -165,11 +189,14 @@ def run(args: argparse.Namespace,
     ctx_kw = dict(agg_backend=args.agg_backend,
                   encode_backend=args.encode_backend, weights_are_mask=True,
                   dynamic_sigma=args.plateau, cohort=args.cohort,
-                  adversary=args.adversary)
+                  adversary=args.adversary, round_mode=args.round_mode,
+                  latency=args.latency)
     if args.debug_wire:  # else the REPRO_DEBUG_WIRE default
         ctx_kw["debug_wire"] = True
     ctx = fedavg.RoundContext(**ctx_kw)
     step = fedavg.build_round_step(bundle.loss_fn, comp, cfg, ctx)
+    if on_build is not None:
+        on_build(step)
     # stream(feed=host) keeps batch and state rows on the host
     host = fedavg.CohortPolicy.parse(args.cohort).feed == "host"
     gen = torch.Generator(device=device).manual_seed(0)
@@ -194,7 +221,9 @@ def run(args: argparse.Namespace,
           f"({wf.bits_per_coord:g} bits/coord) device={device} "
           f"cohort={plan.mode}"
           + (f"(shard={plan.shard},feed={plan.feed})"
-             if plan.mode == "stream" else f" groups={args.groups}"))
+             if plan.mode == "stream" else f" groups={args.groups}")
+          + (f" round_mode={args.round_mode} latency={args.latency}"
+             if args.round_mode != "sync" else ""))
     print("round,loss,ghat_norm,live,Mbits_cum,sigma,sec")
     history, bits = [], 0.0
     for t in range(args.rounds):

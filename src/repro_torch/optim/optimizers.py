@@ -7,7 +7,9 @@
 
 Functional like the reference: ``update`` returns new tensors and leaves its
 inputs untouched. The f32 order follows the reference: ``p - lr * g`` with
-``g`` cast to the parameter's dtype first.
+``g`` cast to the parameter's dtype first; Adam's bias corrections ``1 - b **
+t`` are f32 tensors on the params' device, ``t`` an f32 step count, as the
+reference computes them.
 """
 from __future__ import annotations
 
@@ -15,7 +17,7 @@ from typing import Any, Callable, NamedTuple
 
 import torch
 
-from repro_torch.core.tree import tree_map
+from repro_torch.core.tree import tree_leaves, tree_map
 
 
 class Optimizer(NamedTuple):
@@ -62,13 +64,17 @@ def adam(lr: float, b1: float = 0.9, b2: float = 0.999,
 
     def update(grads, state, params):
         t = state["t"] + 1
+        device = tree_leaves(params)[0].device
+        t32 = torch.tensor(t, dtype=torch.float32, device=device)
         m = tree_map(lambda m, g: b1 * m + (1 - b1) * g.to(torch.float32),
                      state["m"], grads)
         v = tree_map(lambda v, g: b2 * v
                      + (1 - b2) * torch.square(g.to(torch.float32)),
                      state["v"], grads)
-        bc1 = 1 - b1 ** t
-        bc2 = 1 - b2 ** t
+        bc1 = 1 - torch.pow(torch.tensor(b1, dtype=torch.float32,
+                                         device=device), t32)
+        bc2 = 1 - torch.pow(torch.tensor(b2, dtype=torch.float32,
+                                         device=device), t32)
         new_p = tree_map(
             lambda p, m_, v_: p - (lr * (m_ / bc1)
                                    / (torch.sqrt(v_ / bc2) + eps)).to(p.dtype),

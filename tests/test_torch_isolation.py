@@ -1,6 +1,6 @@
 """The port stands alone: nothing under src/repro_torch/ (nor chip_smoke.py,
-nor the card's kernel tests) imports jax or the reference package
-``repro``."""
+nor the card's kernel tests, nor the port's examples/torch_*.py) imports
+jax or the reference package ``repro``."""
 import ast
 import os
 import subprocess
@@ -10,10 +10,11 @@ from pathlib import Path
 import pytest
 
 ROOT = Path(__file__).resolve().parents[1]
-#: the port, the card's smoke test, and the card's kernel tests (which run
-#: on a machine that has no jax)
+#: the port, the card's smoke test, the card's kernel tests and the port's
+#: examples (which run on a machine that has no jax)
 PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
-    ROOT / "chip_smoke.py", ROOT / "tests" / "test_torch_kernels_cuda.py"]
+    ROOT / "chip_smoke.py", ROOT / "tests" / "test_torch_kernels_cuda.py"] \
+    + sorted((ROOT / "examples").glob("torch_*.py"))
 
 
 def _imported_modules(path: Path):
