@@ -117,7 +117,34 @@ Phases, each of which raises (non-zero exit, no result line) on failure:
    Plateau stall) sends the payload bytes of the static zsign(z=1,
    sigma=0.015) round from the same seeds, and decodes by f32(eta_1) *
    f32(0.015).
-4. the public op ``zsign_decompress_sum`` (U1, on no round path) on a
+4. serving, the MoE family and checkpoints, at full width:
+     serve_qwen2      qwen2-0.5B (bf16, seed-0 weights): 16 requests of one
+                      start token, 256 greedy steps through the bundle's
+                      decode_step against init_cache(16, 4096) (805,306,368
+                      cache bytes); ms a step (CUDA events after a warm-up
+                      step), tokens/s, peak memory; every token in range, the
+                      cache non-zero exactly at positions < 256
+     decode_vs_forward  the same model in f32, batch 2, 16 positions:
+                      forward logits against 16 decode steps, max |delta| <
+                      2e-2; in bf16 printed (max |delta|, top-1 agreement)
+     moe_round        granite-moe-1b-a400m (24 layers, d_model 1024, 32
+                      experts of d_ff 512, top-8, vocab 49,155, bf16, router
+                      f32; d = 1,334,628,352), zsign at 4 clients under vmap,
+                      2 rounds: E1 + R1 once a round, round 0's launches
+                      held against their plain versions (``_PlainCheckProbe``);
+                      layer 0 of the final params on a (2, 64, 1024) f32
+                      input: top-k equal to the CPU's on settled tokens,
+                      capacity cells equal to a numpy recount, output and aux
+                      within 1e-4 of an f64 per-expert loop; the aux of the
+                      final params finite (printed); then 64 greedy steps of
+                      16 requests against init_cache(16, 512)
+     ckpt_replay      qwen2-0.5B, ef|zsign(use_kernel=true) at 2 clients: 2
+                      rounds straight; 1 round under --ckpt-dir, then a
+                      rerun to 2 that restores and runs round 2; params and
+                      EF residuals bit-identical to the straight run; the
+                      checkpoint's bytes and its save and restore times; a
+                      host-fed state's pinned rows restore pinned
+5. the public op ``zsign_decompress_sum`` (U1, on no round path) on a
    full-width payload stack, checked against R1 with unit weights; then
    times at the paths' shapes (n = 8, d as above) with CUDA events, each
    kernel beside its plain version on the same inputs and its bound (R1 in
@@ -276,7 +303,7 @@ PATH_SHARD = {"zsign_groups": 0, "zsign_stream": 8, "ef_stream": 6,
               "qsgd": 0, "trimmed_16_vmap": 0, "trimmed_16_stream8_host": 8,
               "trimmed_8x2_groups": 0, "collude_vmap": 0,
               "collude_stream3": 3, "async_zsign": 8, "async_ef_poly": 8,
-              "async_ef_zero": 8}
+              "async_ef_zero": 8, "moe_round": 0}
 #: paths whose wire the probe checks (see _WireProbe); the vote-pair
 #: digest of their first round joins the identity record
 WIRE_PROBED = ("vote", "trimmed_stream", "median_attack", "ef_topk",
@@ -345,6 +372,26 @@ IDENTITIES = [
             {"ef_sign": 2, "sign_reduce": 2, "sign_reduce_fold": 2})]),
 ]
 QWEN2_COORDS = 494_032_768
+#: granite-moe-1b-a400m at full width (24 layers, d_model 1024, 32 experts
+#: of d_ff 512, top-8, vocab 49,155, bf16 with the router f32)
+MOE_COMMON = ["--arch", "granite_moe_1b_a400m", "--local-steps", "2",
+              "--micro-batch", "2", "--seq-len", "64", "--device", "cuda"]
+MOE_COORDS = 1_334_628_352
+MOE_FLAGS = ZSIGN + ["--clients", "4", "--cohort", "vmap"]
+MOE_LAUNCHES = {"zsign_encode": 1, "sign_reduce": 1, "sign_reduce_fold": 0,
+                "ef_sign": 0, "zsign_compress": 0}
+#: paths whose round-0 E1 and R1 are held against their plain versions
+PLAIN_CHECKED = ("moe_round",)
+#: serving: requests, greedy steps, cache length (qwen2-0.5B full width);
+#: the MoE decode after its round
+SERVE = {"batch": 16, "steps": 256, "max_len": 4096}
+MOE_SERVE = {"batch": 16, "steps": 64, "max_len": 512}
+#: the MoE layer check: a top-k counts as settled where every gap of the
+#: k + 1 largest gates exceeds MOE_GAP (the CPU tests' rule); output and aux
+#: against the f64 loop within MOE_RTOL (relative to max |out|, and to aux)
+MOE_GAP, MOE_RTOL = 1e-5, 1e-4
+#: the checkpoint replay: EF at 2 clients (3.95 GB of residuals)
+CKPT_FLAGS = EF + ["--clients", "2", "--save-every", "20"]
 
 
 def _wrappers():
@@ -650,6 +697,47 @@ class _StaleFoldProbe:
         return self._ops.sign_reduce(packed, weights, acc)
 
 
+class _PlainCheckProbe:
+    """Stands in for the kernel module inside ``core.compression`` on a
+    path whose round-0 E1 and R1 launches are held against their plain
+    versions on the same buffer, keys and weights: E1 by the erf rule
+    (bit-exact, or every differing bit within 4 f32 ulp of its
+    threshold), R1 as int32 patterns. The plain calls are not counted."""
+
+    def __init__(self, ops):
+        self._ops, self.seen = ops, {}
+
+    def __getattr__(self, name):
+        return getattr(self._ops, name)
+
+    def zsign_encode(self, x2d, keys, sigma, z):
+        got = self._ops.zsign_encode(x2d, keys, sigma, z)
+        if "zsign_encode" not in self.seen:
+            want = self._ops.zsign_encode_plain(x2d, keys, sigma, z)
+            nflip, far = self._ops.erf_rule_flips(x2d, keys, sigma, z, got,
+                                                  want)
+            if far:
+                raise AssertionError(f"E1: {far} bits differ from the plain "
+                                     "version outside the erf rule")
+            self.seen["zsign_encode"] = {
+                "shape": list(x2d.shape), "bits_differing": nflip,
+                "max_abs_err": 1 if nflip else 0}
+            del want
+        return got
+
+    def sign_reduce(self, packed, weights, acc=None):
+        got = self._ops.sign_reduce(packed, weights, acc)
+        if "sign_reduce" not in self.seen:
+            want = self._ops.sign_reduce_plain(packed, weights, acc)
+            if not _same_bits(got, want):
+                raise AssertionError("R1: bits differ from the plain "
+                                     "version")
+            self.seen["sign_reduce"] = {"shape": list(packed.shape),
+                                        "max_abs_err": 0.0}
+            del want
+        return got
+
+
 class _ClipProbe:
     """Stands in for ``core.dp`` inside ``core.compression`` on the DP
     path: the first clip records the f64 L2 norms of the rows before it
@@ -953,24 +1041,29 @@ def _async_checks(label, args, per, queue_rows):
             "host_queue_bytes": queue_rows, "host_queue_rows": queued}
 
 
-def phase_path(label, flags, per_round=None, rounds=None):
+def phase_path(label, flags, per_round=None, rounds=None,
+               common=COMMON_ARGS, coords=QWEN2_COORDS, keep_final=False):
     """Drive one full-width path through ``train.run`` with every launch
     counter at 0 just before and read just after. -> its summary, with the
-    record of its first round. A list in ``per_round`` gives each round's
-    launches (the counters are read after every round)."""
+    record of its first round (and, with ``keep_final``, the last round's
+    state). A list in ``per_round`` gives each round's launches (the
+    counters are read after every round). ``common`` and ``coords`` are the
+    model's flags and its wire coordinates (qwen2-0.5B unless given)."""
     from repro_torch.core import compression, wire
     from repro_torch.core.tree import tree_leaves
     from repro_torch.fed.async_server import queue_bytes
     from repro_torch.kernels.zsign import ops
     from repro_torch.launch import train
     rounds = PATH_ROUNDS.get(label, ROUNDS) if rounds is None else rounds
-    args = train.parse_args(COMMON_ARGS + flags + ["--rounds", str(rounds)])
+    args = train.parse_args(common + flags + ["--rounds", str(rounds)])
     total = args.clients * args.groups
     bits_per_coord = PATH_BITS.get(label, 1)
     per, state_ok, first, steps, queue = [], [], {}, [], []
     is_async = args.round_mode != "sync"
 
     def on_round(t, before, after, m, sec):
+        if keep_final and t == args.rounds - 1:
+            first["final"] = after
         if t == 0:
             first["record"] = _round0_record(after)
             first["metrics"] = (float(m.loss), float(m.participation),
@@ -995,6 +1088,7 @@ def phase_path(label, flags, per_round=None, rounds=None):
     clip = _ClipProbe(compression.dplib) if label == "dp_zsign" else None
     wprobe = _WireProbe(label, total) if label in WIRE_PROBED else None
     fold = _StaleFoldProbe(ops) if label == "async_zsign" else None
+    plain = _PlainCheckProbe(ops) if label in PLAIN_CHECKED else None
     _free()
     torch.cuda.reset_peak_memory_stats()
     _reset_counts()
@@ -1002,6 +1096,8 @@ def phase_path(label, flags, per_round=None, rounds=None):
         compression.K = probe
     if fold is not None:
         compression.K = fold
+    if plain is not None:
+        compression.K = plain
     if clip is not None:
         compression.dplib = clip
     if wprobe is not None:
@@ -1023,8 +1119,8 @@ def phase_path(label, flags, per_round=None, rounds=None):
     for r in per:
         if not math.isfinite(r["loss"]):
             raise AssertionError(f"{label}: non-finite loss {r['loss']}")
-        if r["n_coords"] != QWEN2_COORDS:
-            raise AssertionError(f"d = {r['n_coords']} != {QWEN2_COORDS}")
+        if r["n_coords"] != coords:
+            raise AssertionError(f"d = {r['n_coords']} != {coords}")
         # every client live (the async paths with latency: the folded
         # weight, checked below); the engine's f32 product n_live * (d *
         # bits)
@@ -1032,11 +1128,11 @@ def phase_path(label, flags, per_round=None, rounds=None):
             raise AssertionError(f"{label}: participation {r['part']} != "
                                  f"{total}")
         want_bits = float(torch.tensor(r["part"], device=DEV)
-                          * float(QWEN2_COORDS * bits_per_coord))
+                          * float(coords * bits_per_coord))
         if r["bits"] != want_bits:
             raise AssertionError(f"{label}: uplink bits {r['bits']} != "
                                  f"{bits_per_coord} * {r['part']} * "
-                                 f"{QWEN2_COORDS}")
+                                 f"{coords}")
         if label in PATH_SHARD and r["shard"] != PATH_SHARD[label]:
             raise AssertionError(f"{label}: {r['shard']} clients a shard, "
                                  f"want {PATH_SHARD[label]}")
@@ -1060,6 +1156,11 @@ def phase_path(label, flags, per_round=None, rounds=None):
         extra["launches_by_round"] = by_round
     elif any(queue):
         raise AssertionError(f"{label}: zero latency queued {queue} bytes")
+    if plain is not None:
+        if set(plain.seen) != {"zsign_encode", "sign_reduce"}:
+            raise AssertionError(f"{label}: E1/R1 not held against their "
+                                 f"plain versions ({sorted(plain.seen)})")
+        extra["kernels_vs_plain_round0"] = plain.seen
     if fold is not None:
         if fold.seen is None:
             raise AssertionError(f"{label}: no one-row stale fold ran")
@@ -1085,8 +1186,8 @@ def phase_path(label, flags, per_round=None, rounds=None):
                           state_ok[0] if state_ok else None, **extra}))
     out = {"launches": launches, "secs": secs, "peak": peak,
            "record": first["record"], "metrics": first["metrics"],
-           "checks": extra}
-    del per, history, first, probe, clip
+           "checks": extra, "final": first.get("final")}
+    del per, history, first, probe, clip, plain
     _free()
     return out
 
@@ -1340,6 +1441,343 @@ def phase_dynamic_sigma(dev):
     del runs, dyn, sta, params, bundle, batch, mean
     _free()
     return out
+
+
+def _greedy(bundle, params, cache, tokens, steps):
+    """``steps`` greedy decode steps from ``tokens`` (B, 1) at positions
+    0.. through the bundle's decode_step; the first step is the warm-up and
+    the rest are timed with CUDA events. -> (tokens (B, steps + 1), ms per
+    timed step, warm-up ms)."""
+    out = [tokens]
+    t0 = time.time()
+    logits, cache = bundle.decode_step(params, cache, tokens, 0)
+    tokens = torch.argmax(logits[:, -1:], dim=-1)
+    out.append(tokens)
+    torch.cuda.synchronize()
+    warm_ms = (time.time() - t0) * 1e3
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for pos in range(1, steps):
+        logits, cache = bundle.decode_step(params, cache, tokens, pos)
+        tokens = torch.argmax(logits[:, -1:], dim=-1)
+        out.append(tokens)
+    stop.record()
+    torch.cuda.synchronize()
+    return torch.cat(out, dim=1), start.elapsed_time(stop) / (steps - 1), \
+        warm_ms
+
+
+def _serve_checks(label, seqs, cache, vocab, steps):
+    """Every token in range; the cache holds non-zero K and V exactly at
+    positions < steps."""
+    if not bool(torch.all((seqs >= 0) & (seqs < vocab))):
+        raise AssertionError(f"{label}: a decoded token is out of range")
+    for name in ("k", "v"):
+        nz = (cache[name] != 0).any(dim=4).any(dim=3).any(dim=1).any(dim=0)
+        if not (bool(nz[:steps].all()) and not bool(nz[steps:].any())):
+            raise AssertionError(f"{label}: cache {name} is not non-zero "
+                                 f"exactly at positions < {steps}")
+
+
+def phase_serve(dev, smi):
+    """serve_qwen2: qwen2-0.5B at full width (bf16, seed-0 weights), 16
+    requests of one start token, 256 greedy decode steps against
+    init_cache(16, 4096), through the bundle's decode_step."""
+    from repro_torch.configs.common import get_arch
+    from repro_torch.models.api import build_model
+    cfg = get_arch("qwen2_0_5b").model
+    bundle = build_model(cfg)
+    params = bundle.init(torch.Generator(device=dev).manual_seed(0), dev)
+    B, steps, max_len = SERVE["batch"], SERVE["steps"], SERVE["max_len"]
+    _free()
+    torch.cuda.reset_peak_memory_stats()
+    cache = bundle.init_cache(B, max_len, dev)
+    cache_bytes = sum(v.numel() * v.element_size() for v in cache.values())
+    want_bytes = cfg.n_layers * B * max_len * cfg.n_kv_heads * cfg.d_head \
+        * 2 * torch.finfo(cfg.dtype).bits // 8
+    if cache_bytes != want_bytes:
+        raise AssertionError(f"serve: cache {cache_bytes} bytes != "
+                             f"{want_bytes}")
+    start = torch.randint(0, cfg.vocab, (B, 1), device=dev,
+                          generator=torch.Generator(device=dev)
+                          .manual_seed(1))
+    seqs, ms, warm_ms = _greedy(bundle, params, cache, start, steps)
+    peak = torch.cuda.max_memory_allocated()
+    _serve_checks("serve_qwen2", seqs, cache, cfg.vocab, steps)
+    out = {"phase": "serve_qwen2", "arch": cfg.name, "layers":
+           cfg.n_layers, "batch": B, "steps": steps, "max_len": max_len,
+           "ms_per_step": ms, "warmup_step_ms": warm_ms,
+           "tokens_per_s": B * 1e3 / ms, "cache_bytes": cache_bytes,
+           "peak_mem_GB": peak / 1e9, "sample": seqs[0, :12].tolist(),
+           "card": smi}
+    print(json.dumps(out))
+    del cache, seqs
+    _free()
+    return out, params
+
+
+def phase_decode_vs_forward(dev, smi, params_bf16):
+    """decode_vs_forward: the serve model cast to f32, batch 2, 16
+    positions: teacher-forced forward logits against 16 decode_steps, max
+    |delta| < 2e-2 (the reference's bound); in bf16 the same comparison is
+    printed (max |delta|, top-1 agreement), not gated."""
+    import dataclasses
+    from repro_torch.configs.common import get_arch
+    from repro_torch.core.tree import tree_map
+    from repro_torch.models import transformer as T
+    from repro_torch.models.api import build_model
+    S = 16
+    toks = torch.randint(0, get_arch("qwen2_0_5b").model.vocab, (2, S),
+                         device=dev,
+                         generator=torch.Generator(device=dev).manual_seed(3))
+    res = {}
+    for tag, dtype in (("f32", torch.float32), ("bf16", torch.bfloat16)):
+        cfg = dataclasses.replace(get_arch("qwen2_0_5b").model, dtype=dtype)
+        bundle = build_model(cfg)
+        params = tree_map(lambda w: w.to(dtype), params_bf16)
+        with torch.no_grad():
+            full, _ = T.forward(params, toks, cfg)
+        cache = bundle.init_cache(2, S, dev)
+        outs = []
+        for t in range(S):
+            lg, cache = bundle.decode_step(params, cache, toks[:, t:t + 1], t)
+            outs.append(lg[:, 0])
+        dec = torch.stack(outs, dim=1)
+        res[tag] = {"max_abs_delta": float((dec - full).abs().max()),
+                    "top1_agree": float((dec.argmax(-1) == full.argmax(-1))
+                                        .float().mean())}
+        del params, full, dec, cache, outs
+        _free()
+    if not res["f32"]["max_abs_delta"] < 2e-2:
+        raise AssertionError(f"decode_vs_forward (f32): max |delta| "
+                             f"{res['f32']['max_abs_delta']} >= 2e-2")
+    out = {"phase": "decode_vs_forward", "batch": 2, "positions": S,
+           **res, "bound_f32": 2e-2, "card": smi}
+    print(json.dumps(out))
+    return out
+
+
+def _moe_layer_check(dev, params, cfg, smi):
+    """Layer 0's MoE of the final params, in f32 on a seeded (2, 64, 1024)
+    input: the card's routing against the CPU's where the rule of the CPU
+    tests holds (equal top-k where every gap of the k + 1 largest gates
+    exceeds MOE_GAP; at least 90 % of tokens), the card's capacity cells
+    against positions recounted in numpy from its top-k, and the card's
+    output and aux against an f64 per-expert loop on the CPU that takes the
+    card's top-k (max |delta| <= MOE_RTOL * max |out|; aux within MOE_RTOL
+    relative)."""
+    import numpy as np
+    import torch.nn.functional as F
+    from repro_torch.models import layers as L
+    E, k = cfg.moe_experts, cfg.moe_topk
+    lp = {n: v[0].to(torch.float32) for n, v in params["moe"].items()}
+    gen = torch.Generator(device=dev).manual_seed(17)
+    x = torch.randn((2, 64, cfg.d_model), generator=gen, device=dev)
+    with torch.no_grad():
+        r = L.moe_route(x, lp["router"], E, k)
+        y, aux = L.moe_apply(x, lp, E, k)
+        torch.cuda.synchronize()
+        lp_c = {n: v.cpu() for n, v in lp.items()}
+        r_cpu = L.moe_route(x.cpu(), lp_c["router"], E, k)
+    gate_cpu = r_cpu.gate_all.numpy()
+    top = -np.sort(-gate_cpu, axis=-1)[..., :k + 1]
+    stable = np.all(-np.diff(top, axis=-1) > MOE_GAP, axis=-1)
+    idx = r.idx.cpu().numpy()
+    if stable.mean() < 0.9 or not np.array_equal(
+            idx[stable], r_cpu.idx.numpy()[stable]):
+        raise AssertionError(
+            f"moe layer: card top-k differs from the CPU's on stable tokens "
+            f"(stable share {stable.mean():.3f})")
+    B, S = idx.shape[:2]
+    C = r.capacity
+    pos = np.zeros((B, S * k), np.int64)
+    for b in range(B):
+        count = np.zeros(E, np.int64)
+        for j, e in enumerate(idx[b].reshape(-1)):
+            pos[b, j], count[e] = count[e], count[e] + 1
+    keep = pos < C
+    flat = idx.reshape(B, S * k)
+    if not (np.array_equal(r.keep.cpu().numpy(), keep)
+            and np.array_equal(r.e_idx.cpu().numpy(),
+                               np.where(keep, flat, E - 1))
+            and np.array_equal(r.p_idx.cpu().numpy(),
+                               np.where(keep, pos, C - 1))):
+        raise AssertionError("moe layer: capacity cells differ from the "
+                             "recount of the card's top-k")
+    x64 = x.cpu().double().reshape(B * S, -1)
+    w = {n: v.double() for n, v in lp_c.items()}
+    ga = r.gate_all.cpu().double().reshape(B * S, E)
+    it = torch.from_numpy(idx.reshape(B * S, k))
+    g = torch.gather(ga, 1, it)
+    g = g / g.sum(-1, keepdim=True)
+    kt = torch.from_numpy(keep.reshape(B * S, k))
+    ref = torch.zeros_like(x64)
+    for e in range(E):
+        tok, j = torch.nonzero((it == e) & kt, as_tuple=True)
+        xs = x64[tok]
+        ye = (F.silu(xs @ w["w1"][e]) * (xs @ w["w3"][e])) @ w["w2"][e]
+        ref.index_add_(0, tok, ye * g[tok, j, None])
+    delta = float((y.cpu().double().reshape(B * S, -1) - ref).abs().max())
+    scale = float(ref.abs().max())
+    frac = F.one_hot(it[:, 0], E).double().mean(0)
+    aux_ref = float(E * torch.sum(frac * ga.mean(0)))
+    res = {"phase": "moe_layer_check", "layer": 0, "shape": [B, S,
+           cfg.d_model], "stable_share": float(stable.mean()),
+           "kept_slots": int(keep.sum()), "slots": int(keep.size),
+           "capacity": C, "max_abs_delta": delta, "max_abs_out": scale,
+           "aux": float(aux), "aux_f64": aux_ref, "rtol": MOE_RTOL,
+           "card": smi}
+    print(json.dumps(res))
+    if delta > MOE_RTOL * scale:
+        raise AssertionError(f"moe layer: output max |delta| {delta} > "
+                             f"{MOE_RTOL} * {scale}")
+    if abs(float(aux) - aux_ref) > MOE_RTOL * aux_ref:
+        raise AssertionError(f"moe layer: aux {float(aux)} against f64 "
+                             f"{aux_ref}")
+    return res
+
+
+def phase_moe(dev, smi):
+    """moe_round: granite-moe-1b-a400m at full width, zsign at 4 clients
+    (vmap: a (4, d_pad) f32 cohort buffer of 21.4 GB), 2 rounds through
+    launch.train.run: E1 and R1 once a round and equal to their plain
+    versions on round 0's buffer; then one full-width MoE layer of the
+    final params held to its routing rule and a plain dispatch
+    (``_moe_layer_check``), the aux of the final params on one micro-batch
+    (finite; printed, not bounded) and 64 greedy decode steps of 16
+    requests against init_cache(16, 512)."""
+    from repro_torch.configs.common import get_arch
+    from repro_torch.data.synthetic import TokenStream
+    from repro_torch.models import transformer as T
+    from repro_torch.models.api import build_model
+    out = phase_path("moe_round", MOE_FLAGS, MOE_LAUNCHES, common=MOE_COMMON,
+                     coords=MOE_COORDS, keep_final=True)
+    cfg = get_arch("granite_moe_1b_a400m").model
+    params = out.pop("final").params
+    if params["moe"]["router"].dtype != torch.float32:
+        raise AssertionError("moe_round: the router is not f32")
+    toks = TokenStream(vocab=cfg.vocab).round_batch(0, (1, 1, 1, 2), 64,
+                                                    dev)[0, 0, 0]
+    with torch.no_grad():
+        _, aux = T.forward_hidden(params, toks, cfg)
+    aux = float(aux)
+    if not math.isfinite(aux):
+        raise AssertionError(f"moe_round: aux {aux} is not finite")
+    out["layer_check"] = _moe_layer_check(dev, params, cfg, smi)
+    bundle = build_model(cfg)
+    B, steps, max_len = (MOE_SERVE["batch"], MOE_SERVE["steps"],
+                         MOE_SERVE["max_len"])
+    cache = bundle.init_cache(B, max_len, dev)
+    start = toks[:1, :1].expand(B, 1).contiguous()
+    seqs, ms, warm_ms = _greedy(bundle, params, cache, start, steps)
+    _serve_checks("moe decode", seqs, cache, cfg.vocab, steps)
+    dec = {"phase": "moe_decode", "batch": B, "steps": steps,
+           "max_len": max_len, "ms_per_step": ms, "warmup_step_ms": warm_ms,
+           "tokens_per_s": B * 1e3 / ms, "aux_final_params": aux,
+           "aux_at_least_1": aux >= 1.0, "card": smi}
+    print(json.dumps(dec))
+    out["decode"] = dec
+    del params, cache, seqs
+    _free()
+    return out
+
+
+def _pinned_restore_check(dev):
+    """A stream(feed=host) state (params on the card, client rows in
+    pinned host memory) saved and restored: the rows come back pinned, bit
+    for bit."""
+    import tempfile
+    from repro_torch.checkpoint.manager import CheckpointManager
+    from repro_torch.core import compression, fedavg, noise
+    comp = compression.Pipeline("ef|zsign")
+    cfg = fedavg.FedConfig(n_clients=4)
+    params = {"x": torch.zeros(10_000, device=dev)}
+    st = fedavg.init_server_state(params, cfg, comp, noise.prng_key(2),
+                                  host_state=True)
+    rows = st.comp_state["ef"]
+    rows.copy_(torch.randn(rows.shape))
+    with tempfile.TemporaryDirectory() as d:
+        mgr = CheckpointManager(d)
+        mgr.save(1, st._asdict())
+        tmpl = fedavg.init_server_state(params, cfg, comp, noise.prng_key(2),
+                                        host_state=True)
+        _, got = mgr.restore_latest(tmpl._asdict())
+    back = got["comp_state"]["ef"]
+    if not (rows.is_pinned() and back.is_pinned()
+            and back.device.type == "cpu" and _same_bits(back, rows)
+            and got["params"]["x"].device == dev):
+        raise AssertionError("checkpoint: host-fed rows did not restore "
+                             "pinned and bit-equal")
+    return True
+
+
+def phase_ckpt_replay(dev, smi):
+    """ckpt_replay: qwen2-0.5B at full width, ef|zsign(use_kernel=true) at
+    2 clients (bf16 params, 3.95 GB of f32 residuals). 2 rounds straight
+    through; then 1 round under --ckpt-dir (saved at its end), the state
+    dropped, and a rerun to 2 rounds that restores into a fresh template
+    and runs round 2. Its params and EF residuals must equal the straight
+    run's bit for bit. Prints the checkpoint's bytes and the times to save
+    (to host, write, hash) and restore (hash, load)."""
+    import tempfile
+    from repro_torch.launch import train
+    recs, events, runs = {}, [], {}
+    args = COMMON_ARGS + CKPT_FLAGS
+
+    def keep(tag, last):
+        def on_round(t, before, after, m, sec):
+            if t == last:
+                recs[tag] = _round0_record(after)
+                recs[tag + "_loss"] = float(m.loss)
+        return on_round
+
+    _free()
+    torch.cuda.reset_peak_memory_stats()
+    _reset_counts()
+    train.run(train.parse_args(args + ["--rounds", "2"]),
+              on_round=keep("straight", 1))
+    _free()
+    with tempfile.TemporaryDirectory() as d:
+        ck = ["--ckpt-dir", d]
+        t0 = time.time()
+        train.run(train.parse_args(args + ck + ["--rounds", "1"]),
+                  on_ckpt=lambda e, st: events.append((e, st)))
+        runs["first_s"] = time.time() - t0
+        _free()
+        _reset_counts()
+        t0 = time.time()
+        hist = train.run(train.parse_args(args + ck + ["--rounds", "2"]),
+                         on_round=keep("resumed", 1),
+                         on_ckpt=lambda e, st: events.append((e, st)))
+        runs["resumed_s"] = time.time() - t0
+        launches = _counts()
+    peak = torch.cuda.max_memory_allocated()
+    if len(hist) != 1 or [e for e, _ in events] != ["save", "restore",
+                                                     "save"]:
+        raise AssertionError(f"ckpt_replay: {len(hist)} rounds after the "
+                             f"resume, events {[e for e, _ in events]}")
+    if not _same_record(recs["straight"], recs["resumed"]):
+        raise AssertionError("ckpt_replay: params or EF residuals after the "
+                             "restart differ from the straight run")
+    want = {"ef_sign": 1, "sign_reduce": 1, "zsign_encode": 0}
+    if any(launches[k] != v for k, v in want.items()):
+        raise AssertionError(f"ckpt_replay: launches {launches}")
+    pinned = _pinned_restore_check(dev)
+    save, restore = events[0][1], events[1][1]
+    out = {"phase": "ckpt_replay", "clients": 2,
+           "bit_identical": True, "residual_rows_compared":
+           len(recs["straight"]["rows"]["ef"]),
+           "loss_round2": [recs["straight_loss"], recs["resumed_loss"]],
+           "checkpoint_bytes": save["bytes"], "save_s": save,
+           "restore_s": restore, "launches_resumed_round": launches,
+           "peak_mem_GB": peak / 1e9, "pinned_rows_restored": pinned,
+           "run_s": runs, "card": smi}
+    print(json.dumps(out))
+    del recs
+    _free()
+    return {"launches": launches, "secs": [runs["resumed_s"]], "peak": peak,
+            "checks": out}
 
 
 def times_encode_reduce(dev):
@@ -1735,6 +2173,15 @@ def main() -> int:
     phase_identities(results)
     phase_mlp(dev)
     dynamic = phase_dynamic_sigma(dev)
+    t_new = time.time()
+    params = phase_serve(dev, smi)[1]
+    phase_decode_vs_forward(dev, smi, params)
+    del params
+    _free()
+    results["moe_round"] = phase_moe(dev, smi)
+    results["ckpt_replay"] = phase_ckpt_replay(dev, smi)
+    print(f"# serve, decode, MoE and checkpoint phases ran "
+          f"{time.time() - t_new:.1f} s")
     times = times_encode_reduce(dev)
     times["ef_sign"] = times_ef(dev)
     times["zsign_compress"] = times_compress(dev)
@@ -1820,6 +2267,10 @@ def main() -> int:
             k["launches_by_path"] = by_path[k["name"]]
     kernels[1].update({f: times["sign_reduce"][f] for f in (
         "fold_ms", "fold_plain_ms", "fold_bound_ms", "fold_max_abs_err")})
+    kernels[0]["moe_round_vs_plain"] = results["moe_round"]["checks"][
+        "kernels_vs_plain_round0"]["zsign_encode"]
+    kernels[1]["moe_round_vs_plain"] = results["moe_round"]["checks"][
+        "kernels_vs_plain_round0"]["sign_reduce"]
     print(f"# chip_smoke ran {time.time() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

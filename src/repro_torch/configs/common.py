@@ -1,5 +1,6 @@
-"""Architecture registry (port of ``repro.configs.common``). The port builds
-the dense transformer only; the other archs of the reference raise."""
+"""Architecture registry (port of ``repro.configs.common``). The port
+builds the transformer archs (dense, moe, vlm); the hybrid, xlstm and encdec
+archs of the reference raise."""
 from __future__ import annotations
 
 import dataclasses
@@ -25,18 +26,22 @@ class ArchConfig:
         red = dataclasses.replace(
             m, n_layers=2, d_model=64, n_heads=4, n_kv_heads=n_kv,
             d_ff=0 if m.d_ff == 0 else 128, vocab=min(m.vocab, 997),
+            moe_experts=min(m.moe_experts, 4) if m.moe_experts else 0,
+            moe_topk=min(m.moe_topk, 2) if m.moe_topk else 0,
             sliding_window=min(m.sliding_window, 8) if m.sliding_window else 0,
+            n_img_tokens=4 if m.n_img_tokens else 0,
             dtype=torch.float32)
         return dataclasses.replace(self, model=red)
 
 
-#: every arch of the reference's registry, and whether the port has it
+#: every arch of the reference's registry, and the ones the port has
 _ARCH_IDS = [
     "granite_moe_1b_a400m", "llama4_scout_17b_a16e", "granite_3_8b",
     "qwen2_0_5b", "h2o_danube_3_4b", "qwen2_5_32b", "jamba_1_5_large_398b",
     "xlstm_350m", "internvl2_1b", "seamless_m4t_large_v2",
 ]
-_PORTED = ("qwen2_0_5b",)
+_PORTED = ("granite_moe_1b_a400m", "llama4_scout_17b_a16e", "granite_3_8b",
+           "qwen2_0_5b", "h2o_danube_3_4b", "qwen2_5_32b", "internvl2_1b")
 
 
 def list_archs():
@@ -49,6 +54,7 @@ def get_arch(arch_id: str) -> ArchConfig:
         raise KeyError(f"unknown arch {arch_id!r}; known: {_ARCH_IDS}")
     if arch_id not in _PORTED:
         raise NotImplementedError(
-            f"arch {arch_id!r} is not yet ported (ROADMAP queue 1 item 16); "
-            f"ported: {list(_PORTED)}")
+            f"arch {arch_id!r} is not yet ported (ROADMAP queue 1 item 16: "
+            f"the hybrid, xlstm and encdec families); ported: "
+            f"{list(_PORTED)}")
     return importlib.import_module(f"repro_torch.configs.{arch_id}").ARCH

@@ -127,6 +127,26 @@ def bits_to_uniform(bits: torch.Tensor) -> torch.Tensor:
             .view(torch.float32) - 1.0)
 
 
+#: jax.random.normal's uniform range (lo, 1) in f32: lo is the float after
+#: -1 toward 0, and f32(1 - lo) rounds to 2
+_NORMAL_LO = -0.99999994039535522
+_NORMAL_SCALE = 2.0
+_SQRT2_F32 = 1.41421353816986084
+
+
+def normal(key: torch.Tensor, shape, device=None) -> torch.Tensor:
+    """``jax.random.normal(key, shape)`` in f32 (fewer than 2^32 values):
+    the key's ``random_bits`` over the flat index, ``uniform`` on (lo, 1)
+    as jax computes it (``max(lo, u01 * f32(1 - lo) + lo)``), then
+    ``sqrt(2) * erfinv``. erfinv and the multiply-add may differ from XLA's
+    in the last ulp."""
+    shape = tuple(shape)
+    n = math.prod(shape)
+    u = bits_to_uniform(random_bits(key, 0, n, device))
+    u = torch.clamp_min(u * _NORMAL_SCALE + _NORMAL_LO, _NORMAL_LO)
+    return (torch.erfinv(u) * _SQRT2_F32).reshape(shape)
+
+
 def client_keys(key: torch.Tensor, start: int, n: int) -> torch.Tensor:
     """Per-client keys by GLOBAL client index: key_j = fold_in(key, j) for
     j in [start, start + n) -> (n, 2). Counter-derived, so client j's key

@@ -38,9 +38,18 @@ the staleness weight (``fed/async_server.py``). ``staleness=poly(a)`` needs
 a scale-weighted pipeline such as ``ef|zsign``: this driver sets the 0/1
 ``weights_are_mask`` guarantee, which fractional weights would break.
 
+``--ckpt-dir DIR`` checkpoints the server state every ``--save-every``
+rounds and at the end (``checkpoint/manager.py``), and a rerun resumes from
+the newest valid checkpoint (``# resumed from checkpoint at round N``),
+then runs rounds N .. ``--rounds``-1. As in the reference, the Plateau
+controller, the participation sampler and an async run's late-payload
+queue start afresh on resume. ``--arch`` takes the transformer archs
+(dense, moe, vlm); a vlm arch's image embeds are drawn per round as jax's
+``normal`` draws them from ``fold_in(PRNGKey(7), round)``.
+
 Runs on ``cuda`` unless ``--device cpu`` is given; asking for CUDA on a
 machine without a card raises. ``run(args)`` is the same driver, callable in
-process, and returns the rounds' metrics. Not ported yet: checkpointing and
+process, and returns the metrics of the rounds it ran. Not ported yet:
 ``stream(devices=D > 1)``.
 """
 from __future__ import annotations
@@ -51,6 +60,7 @@ from typing import Callable, List, Optional
 
 import torch
 
+from repro_torch.checkpoint.manager import CheckpointManager
 from repro_torch.configs.common import get_arch
 from repro_torch.core import compression, fedavg, noise
 from repro_torch.core.plateau import PlateauController
@@ -134,6 +144,11 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
     ap.add_argument("--participation", type=float, default=1.0)
     ap.add_argument("--over-provision", type=float, default=1.0)
     ap.add_argument("--failure-rate", type=float, default=0.0)
+    ap.add_argument("--ckpt-dir", default=None,
+                    help="checkpoint directory: resume from its newest valid "
+                         "checkpoint, save every --save-every rounds and at "
+                         "the end")
+    ap.add_argument("--save-every", type=int, default=20)
     ap.add_argument("--device", default="cuda", choices=("cuda", "cpu"))
     return ap.parse_args(argv)
 
@@ -152,13 +167,27 @@ def resolve_device(name: str) -> torch.device:
     return torch.device(name)
 
 
+def extra_leaves(per_step, layout, round_idx: int, device) -> dict:
+    """The round's non-token batch leaves of ``train_batch_spec`` (image
+    embeds): f32 ``layout + shape[1:]``, drawn as the reference's launcher
+    draws them, jax's ``normal`` on ``fold_in(PRNGKey(7), round)``."""
+    key = noise.fold_in(noise.prng_key(7), round_idx)
+    return {name: noise.normal(key, tuple(layout) + tuple(leaf.shape[1:]),
+                               device)
+            for name, leaf in per_step.items() if name != "tokens"}
+
+
 def run(args: argparse.Namespace,
         on_round: Optional[Callable] = None,
-        on_build: Optional[Callable] = None) -> List[fedavg.RoundMetrics]:
-    """Train ``args.rounds`` rounds; -> their metrics. ``on_round(t,
+        on_build: Optional[Callable] = None,
+        on_ckpt: Optional[Callable] = None) -> List[fedavg.RoundMetrics]:
+    """Train up to ``args.rounds`` rounds (from a checkpoint's round under
+    ``--ckpt-dir``); -> the metrics of the rounds run. ``on_round(t,
     state_before, state_after, metrics, seconds)`` is called after each;
     ``on_build(step)`` once with the round step this run built (an async
-    step holds its late-payload queue in ``step.pending``)."""
+    step holds its late-payload queue in ``step.pending``);
+    ``on_ckpt(event, stats)`` after each checkpoint save or restore
+    (``event`` "save" or "restore", ``stats`` the manager's timings)."""
     device = resolve_device(args.device)
     arch = get_arch(args.arch)
     if args.reduced:
@@ -204,6 +233,14 @@ def run(args: argparse.Namespace,
     n_params = sum(p.numel() for p in tree_leaves(params))
     state = fedavg.init_server_state(params, cfg, comp, noise.prng_key(1),
                                      sigma0=args.sigma, host_state=host)
+    start = 0
+    mgr = CheckpointManager(args.ckpt_dir) if args.ckpt_dir else None
+    if mgr is not None:
+        r, restored = mgr.restore_latest(state._asdict())
+        if restored is not None:
+            state, start = fedavg.ServerState(**restored), r
+            print(f"# resumed from checkpoint at round {r}")
+            _ckpt_line("restored", mgr.last_restore, on_ckpt)
     stream = TokenStream(vocab=arch.model.vocab)
     total = args.groups * args.clients
     sampler = ParticipationSampler(
@@ -214,6 +251,7 @@ def run(args: argparse.Namespace,
                                  sigma_bound=args.sigma * 100, kappa=10)
                if args.plateau else None)
     layout = (args.groups, args.clients, args.local_steps, args.micro_batch)
+    per_step = bundle.train_batch_spec(args.micro_batch, args.seq_len)
     wf = comp.wire_format()
     plan = fedavg.resolve_cohort(args.cohort, total, n_params)
     print(f"# arch={arch.model.name} params={n_params:,} "
@@ -225,10 +263,15 @@ def run(args: argparse.Namespace,
           + (f" round_mode={args.round_mode} latency={args.latency}"
              if args.round_mode != "sync" else ""))
     print("round,loss,ghat_norm,live,Mbits_cum,sigma,sec")
-    history, bits = [], 0.0
-    for t in range(args.rounds):
-        batch = {"tokens": stream.round_batch(
-            t, layout, args.seq_len, "cpu" if host else device)}
+    history, bits, saved = [], 0.0, None
+    feed = "cpu" if host else device
+    for t in range(start, args.rounds):
+        tokens = stream.round_batch(t, layout, args.seq_len, feed)
+        batch = {"tokens": tokens,
+                 **extra_leaves(per_step, layout, t, feed)}
+        if "img_embeds" in per_step:
+            # the text tokens after the image prefix
+            batch["tokens"] = tokens[..., :per_step["tokens"].shape[-1]]
         mask = sampler.mask((args.groups, args.clients))
         t0 = time.time()
         new_state, m = step(state, batch, mask)
@@ -245,9 +288,25 @@ def run(args: argparse.Namespace,
             on_round(t, state, new_state, m, sec)
         state = new_state
         history.append(m)
+        if mgr is not None and (t + 1) % args.save_every == 0:
+            mgr.save(t + 1, state._asdict())
+            saved = t + 1
+            _ckpt_line("saved", mgr.last_save, on_ckpt)
+    if mgr is not None and saved != args.rounds:
+        mgr.save(args.rounds, state._asdict())
+        _ckpt_line("saved", mgr.last_save, on_ckpt)
     print(f"# done: {args.rounds} rounds, {bits / 1e6:.1f} Mbit uplink "
           f"({32.0 / comp.wire_bits_per_coord:.0f}x less than fp32)")
     return history
+
+
+def _ckpt_line(what: str, stats: dict, on_ckpt) -> None:
+    print(f"# checkpoint {what}: round {stats['round']}, "
+          f"{stats['bytes']:,} bytes; "
+          + ", ".join(f"{k[:-2]} {v:.3f} s" for k, v in stats.items()
+                      if k.endswith("_s")))
+    if on_ckpt is not None:
+        on_ckpt("save" if what == "saved" else "restore", dict(stats))
 
 
 def main(argv: Optional[List[str]] = None) -> None:

@@ -1,10 +1,10 @@
 """Model API (port of ``repro.models.api``): ModelCfg + build_model ->
-ModelBundle, for the dense family, and ``params_from_numpy`` to carry the
-reference's weights across."""
+ModelBundle for the transformer families (dense, moe, vlm), and
+``params_from_numpy`` to carry the reference's weights across."""
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Callable
+from typing import Any, Callable, NamedTuple
 
 import numpy as np
 import torch
@@ -16,18 +16,22 @@ from repro_torch.models import layers as L
 @dataclasses.dataclass(frozen=True)
 class ModelCfg:
     name: str
-    family: str                 # dense (the one family ported so far)
+    family: str                 # dense | moe | vlm (hybrid | xlstm | encdec
+    #                             are not yet ported)
     n_layers: int
     d_model: int
     n_heads: int
     n_kv_heads: int
     d_ff: int
     vocab: int
+    moe_experts: int = 0
+    moe_topk: int = 0
     qkv_bias: bool = False
     sliding_window: int = 0
     tie_embeddings: bool = True
     rope_theta: float = 1e4
     dtype: Any = torch.float32
+    n_img_tokens: int = 0       # vlm stub prefix length
     q_chunk: int = 512
 
     @property
@@ -42,23 +46,69 @@ class ModelCfg:
                          rope_theta=self.rope_theta, q_chunk=self.q_chunk)
 
 
+class BatchLeaf(NamedTuple):
+    """Shape and dtype of one leaf of a per-step training batch (the
+    reference's ``jax.ShapeDtypeStruct``)."""
+    shape: tuple
+    dtype: torch.dtype
+
+
 @dataclasses.dataclass(frozen=True)
 class ModelBundle:
     cfg: ModelCfg
     init: Callable                # (generator, device) -> params
-    loss_fn: Callable             # (params, {"tokens": (B, S)}) -> scalar
+    loss_fn: Callable             # (params, batch) -> scalar
+    decode_step: Callable         # (params, cache, tokens, position)
+    #                               -> (logits, cache)
+    init_cache: Callable          # (batch, max_len, device) -> cache
+    train_batch_spec: Callable    # (micro_batch, seq_len) -> {name: BatchLeaf}
+
+
+def _lm_specs(cfg: ModelCfg):
+    def spec(micro, seq):
+        return {"tokens": BatchLeaf((micro, seq), torch.int32)}
+    return spec
 
 
 def build_model(cfg: ModelCfg) -> ModelBundle:
-    if cfg.family != "dense":
+    if cfg.family not in ("dense", "moe", "vlm"):
         raise NotImplementedError(
             f"model family {cfg.family!r} is not yet ported (ROADMAP queue "
-            f"1 item 16); the port has the dense transformer")
+            f"1 item 16: mamba, xlstm, hybrid, encdec); the port has the "
+            f"dense, moe and vlm transformers")
     from repro_torch.models import transformer as T
-    return ModelBundle(
+    common = dict(
         cfg=cfg,
         init=lambda gen, device="cpu": T.init_params(gen, cfg, device),
-        loss_fn=lambda p, b: T.loss_fn(p, b, cfg))
+        decode_step=lambda p, c, t, pos: T.decode_step(p, c, t, pos, cfg),
+        init_cache=lambda b, m, device="cpu": T.init_cache(cfg, b, m,
+                                                           device))
+    if cfg.family in ("dense", "moe"):
+        return ModelBundle(loss_fn=lambda p, b: T.loss_fn(p, b, cfg),
+                           train_batch_spec=_lm_specs(cfg), **common)
+
+    def vlm_loss(p, b):
+        img = b["img_embeds"].to(cfg.dtype)                # (B, P, D)
+        txt = p["embed"][b["tokens"]]                      # (B, S-P, D)
+        embeds = torch.cat([img, txt], dim=1)
+        B, P, S = img.shape[0], img.shape[1], embeds.shape[1]
+        dev = embeds.device
+        mask = torch.cat([torch.zeros((B, P), device=dev),
+                          torch.ones((B, S - P), device=dev)], dim=1)
+        # the image prefix's tokens are a pad id (0), loss-masked out
+        full_tokens = torch.cat([torch.zeros((B, P), dtype=b["tokens"].dtype,
+                                             device=dev), b["tokens"]], dim=1)
+        return T.loss_fn(p, {"tokens": full_tokens, "embeds": embeds,
+                             "loss_mask": mask}, cfg)
+
+    def vlm_spec(micro, seq):
+        P = cfg.n_img_tokens
+        return {"img_embeds": BatchLeaf((micro, P, cfg.d_model),
+                                        torch.float32),
+                "tokens": BatchLeaf((micro, seq - P), torch.int32)}
+
+    return ModelBundle(loss_fn=vlm_loss, train_batch_spec=vlm_spec,
+                       **common)
 
 
 _NP_TO_TORCH = {"float32": torch.float32, "float16": torch.float16,
@@ -68,7 +118,8 @@ _NP_TO_TORCH = {"float32": torch.float32, "float16": torch.float16,
 def params_from_numpy(tree, cfg: ModelCfg, device="cpu") -> dict:
     """The reference's parameters (a nested dict of numpy arrays, as
     ``jax.tree.map(np.asarray, params)`` gives them) -> the port's tree with
-    the same names, shapes and dtypes. Raises on a missing, extra or
+    the same names, shapes and dtypes (each leaf keeps its own: the MoE
+    router is f32 in a bf16 model). Raises on a missing, extra or
     mis-shaped leaf."""
     from repro_torch.models.transformer import param_shapes
     want = dict(tree_paths(param_shapes(cfg)))

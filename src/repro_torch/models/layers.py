@@ -1,5 +1,6 @@
-"""Shared layers, dense subset (port of ``repro.models.layers``): RMSNorm,
-RoPE, GQA attention (single-block and KV-chunked flash), SwiGLU MLP and the
+"""Shared layers (port of ``repro.models.layers``): RMSNorm, RoPE, GQA
+attention (single-block and KV-chunked flash for training, one-token decode
+against a KV cache), SwiGLU MLP, the capacity-based top-k MoE and the
 sequence-chunked cross entropy.
 
 Layer parameters are stacked over depth (leading dim L) with the reference's
@@ -11,6 +12,7 @@ on one card and are left out. Matmuls whose reference asks for an f32 result
 from __future__ import annotations
 
 import dataclasses
+from typing import NamedTuple
 
 import torch
 import torch.nn.functional as F
@@ -168,8 +170,38 @@ def attention(x, lp, cfg: AttnCfg, positions):
     return y @ lp["wo"]
 
 
+def attention_decode(x, lp, cfg: AttnCfg, cache_k, cache_v, position: int):
+    """One-token decode against a KV cache. x: (B, 1, D); cache_k/v: (B,
+    S_cache, K, hd), written IN PLACE at ``position`` with the new token's
+    K/V (the reference returns updated copies). -> (y, cache_k, cache_v).
+
+    The reference's ``dynamic_update_slice`` clamps a position past the
+    cache into its last slot; the port raises instead."""
+    S = cache_k.shape[1]
+    if not 0 <= position < S:
+        raise ValueError(f"decode position {position} is outside the "
+                         f"cache's {S} slots")
+    B = x.shape[0]
+    pos = torch.full((1,), position, dtype=torch.long, device=x.device)
+    q, k_new, v_new = _qkv(x, lp, cfg, pos)
+    cache_k[:, position] = k_new[:, 0].to(cache_k.dtype)
+    cache_v[:, position] = v_new[:, 0].to(cache_v.dtype)
+    k_pos = torch.arange(S, device=x.device)
+    valid = k_pos <= position
+    if cfg.sliding_window > 0:
+        valid &= (position - k_pos) < cfg.sliding_window
+    K, rep = cfg.n_kv_heads, cfg.n_heads // cfg.n_kv_heads
+    q5 = q.reshape(B, 1, K, rep, cfg.d_head)
+    scores = torch.einsum("bcgrd,bsgd->bgrcs", q5.to(torch.float32),
+                          cache_k.to(torch.float32)) / (cfg.d_head ** 0.5)
+    scores = torch.where(valid, scores, -1e30)
+    probs = torch.softmax(scores, dim=-1).to(x.dtype)
+    y = torch.einsum("bgrcs,bsgd->bcgrd", probs, cache_v).reshape(B, 1, -1)
+    return y @ lp["wo"], cache_k, cache_v
+
+
 # ---------------------------------------------------------------------------
-# MLP / loss
+# MLP / MoE / loss
 # ---------------------------------------------------------------------------
 
 def mlp_init(gen, d_model, d_ff, n_layers, dtype, device="cpu"):
@@ -183,6 +215,98 @@ def mlp_init(gen, d_model, d_ff, n_layers, dtype, device="cpu"):
 
 def swiglu(x, lp):
     return (F.silu(x @ lp["w1"]) * (x @ lp["w3"])) @ lp["w2"]
+
+
+def moe_init(gen, d_model, d_ff, n_experts, n_layers, dtype, device="cpu"):
+    """Stacked expert weights; the router stays f32 in any model dtype."""
+    return {"router": _init(gen, (n_layers, d_model, n_experts),
+                            dtype=torch.float32, device=device),
+            "w1": _init(gen, (n_layers, n_experts, d_model, d_ff),
+                        dtype=dtype, device=device),
+            "w3": _init(gen, (n_layers, n_experts, d_model, d_ff),
+                        dtype=dtype, device=device),
+            "w2": _init(gen, (n_layers, n_experts, d_ff, d_model),
+                        dtype=dtype, device=device)}
+
+
+def _topk_iterative(scores: torch.Tensor, k: int):
+    """top-k by k rounds of argmax, each subtracting one_hot * 1e9 from the
+    chosen entry, as the reference does. Ties go to the first index (as
+    ``jnp.argmax`` sends them), which ``torch.topk`` does not promise.
+    -> (values, indices), each (..., k)."""
+    vals, idxs = [], []
+    s = scores
+    for _ in range(k):
+        i = torch.argmax(s, dim=-1)
+        vals.append(torch.amax(s, dim=-1))
+        idxs.append(i)
+        s = s - F.one_hot(i, scores.shape[-1]).to(s.dtype) * 1e9
+    return torch.stack(vals, dim=-1), torch.stack(idxs, dim=-1)
+
+
+class MoERoute(NamedTuple):
+    """One MoE layer's routing of (B, S) tokens to k of E experts."""
+    gate_all: torch.Tensor     # (B, S, E) f32 softmax of the router logits
+    gates: torch.Tensor        # (B, S, k) renormalised over the k chosen
+    idx: torch.Tensor          # (B, S, k) chosen experts, best first
+    keep: torch.Tensor         # (B, S*k) slot within its expert's capacity
+    e_idx: torch.Tensor        # (B, S*k) buffer cell (expert, position);
+    p_idx: torch.Tensor        #   dropped slots go to (E-1, C-1)
+    capacity: int
+
+
+def moe_route(x, router, n_experts: int, top_k: int,
+              capacity_factor: float = 1.25) -> MoERoute:
+    """The reference's routing with one sequence shard (off a mesh its
+    shard count is 1): f32 router logits, softmax, the iterative top-k,
+    gates renormalised; capacity C = max(1, int(S*k/E*1.25)) per batch
+    row; a token's k slots take positions in token-major, then k, order
+    from the running count of each expert; a slot past C is dropped."""
+    B, S, _ = x.shape
+    E, k = n_experts, top_k
+    C = max(1, int(S * k / E * capacity_factor))
+    gate_all = torch.softmax(x.to(torch.float32) @ router, dim=-1)
+    gates, idx = _topk_iterative(gate_all, k)
+    gates = gates / torch.clamp_min(gates.sum(-1, keepdim=True), 1e-9)
+    flat_e = idx.reshape(B, S * k)
+    oh = F.one_hot(flat_e, E)                                  # (B, S*k, E)
+    pos = ((torch.cumsum(oh, dim=1) - oh) * oh).sum(-1)        # (B, S*k)
+    keep = pos < C
+    return MoERoute(gate_all, gates, idx, keep,
+                    torch.where(keep, flat_e, E - 1),
+                    torch.where(keep, pos, C - 1), C)
+
+
+def moe_apply(x, lp, n_experts: int, top_k: int,
+              capacity_factor: float = 1.25):
+    """Capacity-based top-k MoE, x: (B, S, D) -> (out (B, S, D), aux).
+
+    Routing as ``moe_route``; a dropped slot carries a zero value into
+    cell (E-1, C-1); the output is summed over k in x.dtype; aux = E *
+    sum(frac * prob) with frac from the top-1 choice. Kept slots map one to
+    one onto buffer cells, so the scatter-add and the gather are each
+    other's transposes, which autograd gives without the reference's
+    custom_vjp. The reference's expert-parallel branch (``ep=True``,
+    one-hot einsums) is the same function and takes this dispatch too."""
+    B, S, D = x.shape
+    E, k = n_experts, top_k
+    r = moe_route(x, lp["router"], E, k, capacity_factor)
+    b_idx = torch.arange(B, device=x.device)[:, None].expand(B, S * k)
+    vals = x[:, :, None, :].expand(B, S, k, D).reshape(B, S * k, D)
+    vals = torch.where(r.keep[..., None], vals, 0).to(x.dtype)
+    buf = torch.zeros((B, E, r.capacity, D), dtype=x.dtype, device=x.device)
+    buf = buf.index_put((b_idx, r.e_idx, r.p_idx), vals, accumulate=True)
+    h = torch.einsum("becd,edf->becf", buf, lp["w1"])
+    g3 = torch.einsum("becd,edf->becf", buf, lp["w3"])
+    y = torch.einsum("becf,efd->becd", F.silu(h) * g3, lp["w2"])
+    out_slots = y.to(x.dtype)[b_idx, r.e_idx, r.p_idx]         # (B, S*k, D)
+    out_slots = torch.where(r.keep[..., None], out_slots, 0) \
+        * r.gates.reshape(B, S * k)[..., None].to(x.dtype)
+    out = out_slots.reshape(B, S, k, D).sum(dim=2)
+    frac = torch.mean(F.one_hot(r.idx[..., 0], E).to(torch.float32),
+                      dim=(0, 1))
+    prob = torch.mean(r.gate_all, dim=(0, 1))
+    return out, E * torch.sum(frac * prob)
 
 
 def chunked_ce(x, head, targets, mask=None, chunk: int = 512):
