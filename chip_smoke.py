@@ -117,7 +117,8 @@ Phases, each of which raises (non-zero exit, no result line) on failure:
    Plateau stall) sends the payload bytes of the static zsign(z=1,
    sigma=0.015) round from the same seeds, and decodes by f32(eta_1) *
    f32(0.015).
-4. serving, the MoE family and checkpoints, at full width:
+4. serving, the MoE, xLSTM, enc-dec and hybrid families and checkpoints, at
+   full width (the hybrid reduced):
      serve_qwen2      qwen2-0.5B (bf16, seed-0 weights): 16 requests of one
                       start token, 256 greedy steps through the bundle's
                       decode_step against init_cache(16, 4096) (805,306,368
@@ -144,6 +145,30 @@ Phases, each of which raises (non-zero exit, no result line) on failure:
                       EF residuals bit-identical to the straight run; the
                       checkpoint's bytes and its save and restore times; a
                       host-fed state's pinned rows restore pinned
+     xlstm_round      xlstm-350m (24 blocks: 18 mLSTM + 6 sLSTM, d_model
+                      1024, bf16; d = 164,979,856), zsign(z=1,sigma=0.05) at
+                      4 clients under vmap, seq 512 (two mLSTM key chunks,
+                      two sLSTM scan chunks), 2 rounds: E1 + R1 once a
+                      round, round 0's held against their plain versions
+     xlstm_serve      its trained params: 16 requests x 256 greedy steps,
+                      the recurrent cache's bytes equal after step 1 and
+                      step 256; then in f32, batch 2, 64 positions, the
+                      one-token recurrence against the teacher-forced
+                      parallel form, max |delta| < 2e-2
+     encdec_round     seamless-m4t-large-v2 (24 + 24 layers, d_model 1024,
+                      d_ff 8192, vocab 256,206, bf16; d = 1,772,429,312),
+                      zsign at 4 clients under vmap, seq 64 (32 source
+                      frames + 32 tokens), 2 rounds, E1/R1 as moe_round
+     encdec_serve     prefill_cache over 16 requests of 2048 seeded f32
+                      frames (timed after a warm-up call), 64 greedy steps
+     mamba_jamba_width  one mamba sublayer at Jamba's width (d_model 8192,
+                      f32 weights, 1.68 GB): mamba_block on (2, 512, 8192)
+                      against 512 mamba_decode_step calls, max |delta| <=
+                      1e-4 of max |out|; both timed
+     hybrid_reduced   jamba-1.5-large-398b's reduced config (one
+                      super-block, d_model 64; the full model does not fit
+                      the card), zsign at 4 clients, 2 rounds (E1 + R1 once
+                      a round), then 16 greedy decode steps
 5. the public op ``zsign_decompress_sum`` (U1, on no round path) on a
    full-width payload stack, checked against R1 with unit weights; then
    times at the paths' shapes (n = 8, d as above) with CUDA events, each
@@ -378,10 +403,41 @@ MOE_COMMON = ["--arch", "granite_moe_1b_a400m", "--local-steps", "2",
               "--micro-batch", "2", "--seq-len", "64", "--device", "cuda"]
 MOE_COORDS = 1_334_628_352
 MOE_FLAGS = ZSIGN + ["--clients", "4", "--cohort", "vmap"]
-MOE_LAUNCHES = {"zsign_encode": 1, "sign_reduce": 1, "sign_reduce_fold": 0,
+E1_R1_ONCE = {"zsign_encode": 1, "sign_reduce": 1, "sign_reduce_fold": 0,
                 "ef_sign": 0, "zsign_compress": 0}
+#: xlstm-350m at full width (24 blocks: 18 mLSTM + 6 sLSTM, d_model 1024,
+#: 4 heads, vocab 50,304, bf16 with wr, bif, b f32; d = 164,979,856); seq 512
+#: gives the mLSTM two key chunks and the sLSTM two scan chunks
+XLSTM_COMMON = ["--arch", "xlstm_350m", "--local-steps", "2",
+                "--micro-batch", "2", "--seq-len", "512", "--device", "cuda"]
+XLSTM_COORDS = 164_979_856
+XLSTM_FLAGS = ["--pipeline", "zsign(z=1,sigma=0.05)", "--sigma", "0.05",
+               "--clients", "4", "--cohort", "vmap"]
+#: seamless-m4t-large-v2 at full width (24 encoder + 24 decoder layers,
+#: d_model 1024, 16 heads, d_ff 8192, vocab 256,206, bf16; d =
+#: 1,772,429,312); seq 64 = 32 source frames + 32 tokens
+ENCDEC_COMMON = ["--arch", "seamless_m4t_large_v2", "--local-steps", "2",
+                 "--micro-batch", "2", "--seq-len", "64", "--device", "cuda"]
+ENCDEC_COORDS = 1_772_429_312
+#: the hybrid family at jamba-1.5-large-398b's reduced config (8 sublayers,
+#: d_model 64, 4 experts top-2, f32): the full model does not fit the card
+HYBRID_COMMON = ["--arch", "jamba_1_5_large_398b", "--reduced",
+                 "--local-steps", "2", "--micro-batch", "2", "--seq-len",
+                 "64", "--device", "cuda"]
 #: paths whose round-0 E1 and R1 are held against their plain versions
-PLAIN_CHECKED = ("moe_round",)
+PLAIN_CHECKED = ("moe_round", "xlstm_round", "encdec_round")
+#: serving of the new families: xLSTM 16 requests x 256 greedy steps (an
+#: O(1) recurrent cache), its f32 decode against the parallel forward over
+#: 64 positions; enc-dec 16 requests of 2048 source frames, 64 steps; the
+#: reduced hybrid 16 steps of 4 requests
+XLSTM_SERVE = {"batch": 16, "steps": 256, "dvf_positions": 64}
+ENCDEC_SERVE = {"batch": 16, "steps": 64, "max_len": 128}
+HYBRID_DECODE = {"batch": 4, "steps": 16, "max_len": 32}
+#: one mamba sublayer at Jamba's width (d_model 8192, d_inner 16384, dt_rank
+#: 512, f32): mamba_block over B x T against T calls of mamba_decode_step,
+#: max |delta| <= MAMBA_REL * max |out| (stated before the first run)
+JAMBA_MAMBA = {"d_model": 8192, "batch": 2, "seq": 512}
+MAMBA_REL = 1e-4
 #: serving: requests, greedy steps, cache length (qwen2-0.5B full width);
 #: the MoE decode after its round
 SERVE = {"batch": 16, "steps": 256, "max_len": 4096}
@@ -1443,11 +1499,12 @@ def phase_dynamic_sigma(dev):
     return out
 
 
-def _greedy(bundle, params, cache, tokens, steps):
+def _greedy(bundle, params, cache, tokens, steps, after_first=None):
     """``steps`` greedy decode steps from ``tokens`` (B, 1) at positions
     0.. through the bundle's decode_step; the first step is the warm-up and
-    the rest are timed with CUDA events. -> (tokens (B, steps + 1), ms per
-    timed step, warm-up ms)."""
+    the rest are timed with CUDA events (``after_first(cache)`` is called
+    between them, untimed). -> (tokens (B, steps + 1), ms per timed step,
+    warm-up ms)."""
     out = [tokens]
     t0 = time.time()
     logits, cache = bundle.decode_step(params, cache, tokens, 0)
@@ -1455,6 +1512,8 @@ def _greedy(bundle, params, cache, tokens, steps):
     out.append(tokens)
     torch.cuda.synchronize()
     warm_ms = (time.time() - t0) * 1e3
+    if after_first is not None:
+        after_first(cache)
     start = torch.cuda.Event(enable_timing=True)
     stop = torch.cuda.Event(enable_timing=True)
     start.record()
@@ -1651,7 +1710,7 @@ def phase_moe(dev, smi):
     from repro_torch.data.synthetic import TokenStream
     from repro_torch.models import transformer as T
     from repro_torch.models.api import build_model
-    out = phase_path("moe_round", MOE_FLAGS, MOE_LAUNCHES, common=MOE_COMMON,
+    out = phase_path("moe_round", MOE_FLAGS, E1_R1_ONCE, common=MOE_COMMON,
                      coords=MOE_COORDS, keep_final=True)
     cfg = get_arch("granite_moe_1b_a400m").model
     params = out.pop("final").params
@@ -1678,6 +1737,243 @@ def phase_moe(dev, smi):
            "aux_at_least_1": aux >= 1.0, "card": smi}
     print(json.dumps(dec))
     out["decode"] = dec
+    del params, cache, seqs
+    _free()
+    return out
+
+
+def _nbytes(tree) -> int:
+    from repro_torch.core.tree import tree_leaves
+    return sum(v.numel() * v.element_size() for v in tree_leaves(tree))
+
+
+def _decode_vs_forward(bundle, params, toks, forward):
+    """Teacher-forced ``forward(params, toks)`` logits against one decode
+    step a position from a fresh cache. -> max |delta|, top-1 agreement."""
+    S = toks.shape[1]
+    with torch.no_grad():
+        full = forward(params, toks)
+    cache = bundle.init_cache(toks.shape[0], S, toks.device)
+    outs = []
+    for t in range(S):
+        lg, cache = bundle.decode_step(params, cache, toks[:, t:t + 1], t)
+        outs.append(lg[:, 0])
+    dec = torch.stack(outs, dim=1)
+    return (float((dec - full).abs().max()),
+            float((dec.argmax(-1) == full.argmax(-1)).float().mean()))
+
+
+def phase_xlstm(dev, smi):
+    """xlstm_round: xlstm-350m at full width, zsign(z=1,sigma=0.05) at 4
+    clients under vmap, E = 2, micro-batch 2, seq 512, 2 rounds through
+    launch.train.run: E1 and R1 once a round and equal to their plain
+    versions on round 0. xlstm_serve: the trained params serve 16 requests
+    x 256 greedy steps; the recurrent cache has the same bytes after step 1
+    and step 256 and its state moved; then the params cast to f32, batch 2,
+    64 positions: the one-token recurrence against the teacher-forced
+    parallel form, max |delta| < 2e-2."""
+    import dataclasses
+    from repro_torch.configs.common import get_arch
+    from repro_torch.core.tree import tree_leaves, tree_map
+    from repro_torch.models import xlstm as X
+    from repro_torch.models.api import build_model
+    out = phase_path("xlstm_round", XLSTM_FLAGS, E1_R1_ONCE,
+                     common=XLSTM_COMMON, coords=XLSTM_COORDS,
+                     keep_final=True)
+    params = out.pop("final").params
+    cfg = get_arch("xlstm_350m").model
+    if params["slstm"]["wr"].dtype != torch.float32:
+        raise AssertionError("xlstm_round: sLSTM wr is not f32")
+    bundle = build_model(cfg)
+    B, steps = XLSTM_SERVE["batch"], XLSTM_SERVE["steps"]
+    _free()
+    torch.cuda.reset_peak_memory_stats()
+    cache = bundle.init_cache(B, steps, dev)
+    first = {}
+    start = torch.randint(0, cfg.vocab, (B, 1), device=dev,
+                          generator=torch.Generator(device=dev)
+                          .manual_seed(1))
+    seqs, ms, warm_ms = _greedy(
+        bundle, params, cache, start, steps,
+        after_first=lambda c: first.update(bytes=_nbytes(c)))
+    peak = torch.cuda.max_memory_allocated()
+    if not bool(torch.all((seqs >= 0) & (seqs < cfg.vocab))):
+        raise AssertionError("xlstm_serve: a decoded token is out of range")
+    if first["bytes"] != _nbytes(cache):
+        raise AssertionError("xlstm_serve: the recurrent cache grew")
+    if not all(bool(torch.isfinite(v).all()) for v in tree_leaves(cache)) \
+            or not bool((cache["m"]["C"] != 0).any()) \
+            or not bool((cache["s"]["h"] != 0).any()):
+        raise AssertionError("xlstm_serve: the recurrent state did not move "
+                             "or is not finite")
+    S = XLSTM_SERVE["dvf_positions"]
+    cfg32 = dataclasses.replace(cfg, dtype=torch.float32)
+    p32 = tree_map(lambda w: w.to(torch.float32), params)
+    toks = torch.randint(0, cfg.vocab, (2, S), device=dev,
+                         generator=torch.Generator(device=dev).manual_seed(3))
+    delta, top1 = _decode_vs_forward(build_model(cfg32), p32, toks,
+                                     lambda p, t: X.forward(p, t, cfg32))
+    res = {"phase": "xlstm_serve", "arch": cfg.name, "batch": B,
+           "steps": steps, "ms_per_step": ms, "warmup_step_ms": warm_ms,
+           "tokens_per_s": B * 1e3 / ms, "cache_bytes_step1": first["bytes"],
+           f"cache_bytes_step{steps}": _nbytes(cache),
+           "peak_mem_GB": peak / 1e9,
+           "sample": seqs[0, :12].tolist(),
+           "decode_vs_forward_f32": {"batch": 2, "positions": S,
+                                     "max_abs_delta": delta,
+                                     "top1_agree": top1, "bound": 2e-2},
+           "card": smi}
+    print(json.dumps(res))
+    if not delta < 2e-2:
+        raise AssertionError(f"xlstm decode_vs_forward (f32): max |delta| "
+                             f"{delta} >= 2e-2")
+    out["serve"] = res
+    del params, p32, cache, seqs
+    _free()
+    return out
+
+
+def phase_encdec(dev, smi):
+    """encdec_round: seamless-m4t-large-v2 at full width, zsign at 4 clients
+    under vmap, E = 2, micro-batch 2, seq 64 (32 source frames + 32
+    tokens), 2 rounds: E1 and R1 once a round and equal to their plain
+    versions on round 0 (a (4, d_pad) f32 buffer of 28.4 GB).
+    encdec_serve: prefill_cache over 16 requests of 2048 seeded f32 frames
+    (the bundle's src_len: the cross-attention is unmasked), then 64 greedy
+    steps."""
+    from repro_torch.configs.common import get_arch
+    from repro_torch.models import encdec as E
+    from repro_torch.models.api import build_model
+    out = phase_path("encdec_round", ZSIGN + ["--clients", "4", "--cohort",
+                                              "vmap"], E1_R1_ONCE,
+                     common=ENCDEC_COMMON, coords=ENCDEC_COORDS,
+                     keep_final=True)
+    params = out.pop("final").params
+    cfg = get_arch("seamless_m4t_large_v2").model
+    bundle = build_model(cfg)
+    B, steps, max_len = (ENCDEC_SERVE["batch"], ENCDEC_SERVE["steps"],
+                         ENCDEC_SERVE["max_len"])
+    _free()
+    torch.cuda.reset_peak_memory_stats()
+    cache = bundle.init_cache(B, max_len, dev)
+    src_len = cache["mem_k"].shape[2]
+    frames = torch.randn((B, src_len, cfg.d_model), device=dev,
+                         generator=torch.Generator(device=dev).manual_seed(5))
+    prefill_ms = []
+    for _ in range(2):          # the first call warms up
+        t0 = time.time()
+        E.prefill_cache(params, cache, frames, cfg)
+        torch.cuda.synchronize()
+        prefill_ms.append((time.time() - t0) * 1e3)
+    if not bool((cache["mem_k"] != 0).any(dim=4).any(dim=3).all()):
+        raise AssertionError("encdec_serve: a memory slot stayed zero")
+    start = torch.randint(0, cfg.vocab, (B, 1), device=dev,
+                          generator=torch.Generator(device=dev)
+                          .manual_seed(1))
+    seqs, ms, warm_ms = _greedy(bundle, params, cache, start, steps)
+    peak = torch.cuda.max_memory_allocated()
+    _serve_checks("encdec_serve", seqs, cache, cfg.vocab, steps)
+    res = {"phase": "encdec_serve", "arch": cfg.name, "batch": B,
+           "src_len": src_len, "steps": steps, "max_len": max_len,
+           "prefill_ms": prefill_ms[1], "prefill_warmup_ms": prefill_ms[0],
+           "ms_per_step": ms, "warmup_step_ms": warm_ms,
+           "tokens_per_s": B * 1e3 / ms, "cache_bytes": _nbytes(cache),
+           "peak_mem_GB": peak / 1e9, "sample": seqs[0, :12].tolist(),
+           "card": smi}
+    print(json.dumps(res))
+    out["serve"] = res
+    del params, cache, frames, seqs
+    _free()
+    return out
+
+
+def phase_mamba_jamba_width(dev, smi):
+    """mamba_jamba_width: one mamba sublayer at Jamba's full width (d_model
+    8192, d_inner 16384, dt_rank 512, f32 weights of 1.68 GB, seed 0): B = 2,
+    T = 512 (two scan chunks) through mamba_block and through 512 calls of
+    mamba_decode_step from the zero cache; max |delta| <= MAMBA_REL * max
+    |out|. Both timed after a warm-up call (CUDA events)."""
+    from repro_torch.models import mamba as M
+    D, B, T = (JAMBA_MAMBA["d_model"], JAMBA_MAMBA["batch"],
+               JAMBA_MAMBA["seq"])
+    _free()
+    torch.cuda.reset_peak_memory_stats()
+    gen = torch.Generator(device=dev).manual_seed(0)
+    lp = {k: v[0] for k, v in M.mamba_init(gen, D, 1, torch.float32,
+                                           dev).items()}
+    n_w = sum(v.numel() for v in lp.values())
+    x = torch.randn((B, T, D), generator=gen, device=dev)
+
+    def recurrence():
+        c = M.mamba_cache_init(B, D, 1, dev)
+        h, conv, ys = c["h"][0], c["conv"][0], []
+        for t in range(T):
+            y, h, conv = M.mamba_decode_step(x[:, t:t + 1], lp, h, conv,
+                                             d_model=D)
+            ys.append(y)
+        return torch.cat(ys, dim=1)
+
+    with torch.no_grad():
+        block = M.mamba_block(x, lp, d_model=D)
+        block_ms = _time_ms(lambda: M.mamba_block(x, lp, d_model=D), 1, 0)
+        rec = recurrence()
+        rec_ms = _time_ms(recurrence, 1, 0)
+    peak = torch.cuda.max_memory_allocated()
+    delta = float((rec - block).abs().max())
+    scale = float(block.abs().max())
+    res = {"phase": "mamba_jamba_width", "d_model": D, "d_inner": 2 * D,
+           "dt_rank": D // 16, "weights": n_w, "weight_bytes": n_w * 4,
+           "batch": B, "seq": T, "block_ms": block_ms,
+           "recurrence_ms": rec_ms, "recurrence_ms_per_step": rec_ms / T,
+           "max_abs_delta": delta, "max_abs_out": scale,
+           "rel": delta / scale, "bound_rel": MAMBA_REL,
+           "finite": bool(torch.isfinite(block).all()),
+           "peak_mem_GB": peak / 1e9, "card": smi}
+    print(json.dumps(res))
+    if not (res["finite"] and delta <= MAMBA_REL * scale):
+        raise AssertionError(f"mamba_jamba_width: block vs recurrence max "
+                             f"|delta| {delta} > {MAMBA_REL} * {scale}")
+    del lp, x, block, rec
+    _free()
+    return res
+
+
+def phase_hybrid_reduced(dev, smi):
+    """hybrid_reduced: jamba-1.5-large-398b's REDUCED config (one
+    super-block: attention, 7 mamba sublayers, 4 MoE of 4 experts top-2, 4
+    SwiGLU; d_model 64, f32), zsign at 4 clients under vmap, 2 rounds
+    through launch.train.run (E1 + R1 once a round), then 16 greedy decode
+    steps of 4 requests: attention, mamba, MoE and both caches on CUDA."""
+    import numpy as np
+    from repro_torch.configs.common import get_arch
+    from repro_torch.core.tree import tree_leaves
+    from repro_torch.models import hybrid as Hy
+    from repro_torch.models.api import build_model
+    cfg = get_arch("jamba_1_5_large_398b").reduced().model
+    coords = sum(int(np.prod(s)) for s in tree_leaves(Hy.param_shapes(cfg)))
+    out = phase_path("hybrid_reduced", ZSIGN + ["--clients", "4", "--cohort",
+                                                "vmap"], E1_R1_ONCE,
+                     common=HYBRID_COMMON, coords=coords, keep_final=True)
+    params = out.pop("final").params
+    bundle = build_model(cfg)
+    B, steps, max_len = (HYBRID_DECODE["batch"], HYBRID_DECODE["steps"],
+                         HYBRID_DECODE["max_len"])
+    cache = bundle.init_cache(B, max_len, dev)
+    start = torch.randint(0, cfg.vocab, (B, 1), device=dev,
+                          generator=torch.Generator(device=dev)
+                          .manual_seed(1))
+    seqs, ms, warm_ms = _greedy(bundle, params, cache, start, steps)
+    _serve_checks("hybrid_reduced decode", seqs, cache, cfg.vocab, steps)
+    if not (bool((cache["h"] != 0).any()) and bool((cache["conv"] != 0)
+                                                    .any())):
+        raise AssertionError("hybrid_reduced: the mamba caches did not move")
+    res = {"phase": "hybrid_reduced_decode", "reduced": True,
+           "arch": cfg.name + " (reduced)", "layers": cfg.n_layers,
+           "d_model": cfg.d_model, "coords": coords, "batch": B,
+           "steps": steps, "ms_per_step": ms, "warmup_step_ms": warm_ms,
+           "tokens_per_s": B * 1e3 / ms, "card": smi}
+    print(json.dumps(res))
+    out["decode"] = res
     del params, cache, seqs
     _free()
     return out
@@ -2182,6 +2478,13 @@ def main() -> int:
     results["ckpt_replay"] = phase_ckpt_replay(dev, smi)
     print(f"# serve, decode, MoE and checkpoint phases ran "
           f"{time.time() - t_new:.1f} s")
+    t_new = time.time()
+    results["xlstm_round"] = phase_xlstm(dev, smi)
+    results["encdec_round"] = phase_encdec(dev, smi)
+    mamba = phase_mamba_jamba_width(dev, smi)
+    results["hybrid_reduced"] = phase_hybrid_reduced(dev, smi)
+    print(f"# xLSTM, enc-dec, mamba and hybrid phases ran "
+          f"{time.time() - t_new:.1f} s")
     times = times_encode_reduce(dev)
     times["ef_sign"] = times_ef(dev)
     times["zsign_compress"] = times_compress(dev)
@@ -2203,6 +2506,8 @@ def main() -> int:
         "local_sgd_and_rest": min(secs) * 1e3 - enc["ms"] - red["ms"]},
         "round_s": {k: v["secs"] for k, v in results.items()},
         "dynamic_sigma_round_s": dynamic["round_s"],
+        "mamba_jamba_width_ms": {"block": mamba["block_ms"],
+                                 "recurrence": mamba["recurrence_ms"]},
         "peak_mem_GB": {k: v["peak"] / 1e9 for k, v in results.items()},
         "card": smi}))
     total = {k: sum(r["launches"][k] for r in results.values())
@@ -2267,10 +2572,10 @@ def main() -> int:
             k["launches_by_path"] = by_path[k["name"]]
     kernels[1].update({f: times["sign_reduce"][f] for f in (
         "fold_ms", "fold_plain_ms", "fold_bound_ms", "fold_max_abs_err")})
-    kernels[0]["moe_round_vs_plain"] = results["moe_round"]["checks"][
-        "kernels_vs_plain_round0"]["zsign_encode"]
-    kernels[1]["moe_round_vs_plain"] = results["moe_round"]["checks"][
-        "kernels_vs_plain_round0"]["sign_reduce"]
+    for path in PLAIN_CHECKED:
+        seen = results[path]["checks"]["kernels_vs_plain_round0"]
+        kernels[0][path + "_vs_plain"] = seen["zsign_encode"]
+        kernels[1][path + "_vs_plain"] = seen["sign_reduce"]
     print(f"# chip_smoke ran {time.time() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

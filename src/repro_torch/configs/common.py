@@ -1,6 +1,5 @@
-"""Architecture registry (port of ``repro.configs.common``). The port
-builds the transformer archs (dense, moe, vlm); the hybrid, xlstm and encdec
-archs of the reference raise."""
+"""Architecture registry (port of ``repro.configs.common``): the ten archs
+of the reference, every family."""
 from __future__ import annotations
 
 import dataclasses
@@ -20,11 +19,13 @@ class ArchConfig:
 
     def reduced(self) -> "ArchConfig":
         """Tiny same-family f32 config for CPU tests (the reference's
-        shrink rule)."""
+        shrink rule: one hybrid super-block of 8 sublayers, one xLSTM group
+        of 4 blocks, 2 layers elsewhere)."""
         m = self.model
         n_kv = max(1, min(m.n_kv_heads, 2)) if m.n_kv_heads < m.n_heads else 4
+        layers = {"hybrid": 8, "xlstm": 4}.get(m.family, 2)
         red = dataclasses.replace(
-            m, n_layers=2, d_model=64, n_heads=4, n_kv_heads=n_kv,
+            m, n_layers=layers, d_model=64, n_heads=4, n_kv_heads=n_kv,
             d_ff=0 if m.d_ff == 0 else 128, vocab=min(m.vocab, 997),
             moe_experts=min(m.moe_experts, 4) if m.moe_experts else 0,
             moe_topk=min(m.moe_topk, 2) if m.moe_topk else 0,
@@ -34,27 +35,20 @@ class ArchConfig:
         return dataclasses.replace(self, model=red)
 
 
-#: every arch of the reference's registry, and the ones the port has
+#: every arch of the reference's registry
 _ARCH_IDS = [
     "granite_moe_1b_a400m", "llama4_scout_17b_a16e", "granite_3_8b",
     "qwen2_0_5b", "h2o_danube_3_4b", "qwen2_5_32b", "jamba_1_5_large_398b",
     "xlstm_350m", "internvl2_1b", "seamless_m4t_large_v2",
 ]
-_PORTED = ("granite_moe_1b_a400m", "llama4_scout_17b_a16e", "granite_3_8b",
-           "qwen2_0_5b", "h2o_danube_3_4b", "qwen2_5_32b", "internvl2_1b")
 
 
 def list_archs():
-    return list(_PORTED)
+    return list(_ARCH_IDS)
 
 
 def get_arch(arch_id: str) -> ArchConfig:
     arch_id = arch_id.replace("-", "_").replace(".", "_")
     if arch_id not in _ARCH_IDS:
         raise KeyError(f"unknown arch {arch_id!r}; known: {_ARCH_IDS}")
-    if arch_id not in _PORTED:
-        raise NotImplementedError(
-            f"arch {arch_id!r} is not yet ported (ROADMAP queue 1 item 16: "
-            f"the hybrid, xlstm and encdec families); ported: "
-            f"{list(_PORTED)}")
     return importlib.import_module(f"repro_torch.configs.{arch_id}").ARCH

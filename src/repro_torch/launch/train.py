@@ -43,9 +43,12 @@ rounds and at the end (``checkpoint/manager.py``), and a rerun resumes from
 the newest valid checkpoint (``# resumed from checkpoint at round N``),
 then runs rounds N .. ``--rounds``-1. As in the reference, the Plateau
 controller, the participation sampler and an async run's late-payload
-queue start afresh on resume. ``--arch`` takes the transformer archs
-(dense, moe, vlm); a vlm arch's image embeds are drawn per round as jax's
-``normal`` draws them from ``fold_in(PRNGKey(7), round)``.
+queue start afresh on resume. ``--arch`` takes every arch of the registry
+(dense, moe, vlm, and the hybrid ``jamba_1_5_large_398b``, the xLSTM
+``xlstm_350m`` and the encoder-decoder ``seamless_m4t_large_v2``); a vlm
+arch's image embeds and an encdec arch's source frames are drawn per round
+as jax's ``normal`` draws them from ``fold_in(PRNGKey(7), round)``, and the
+tokens are cut to the text length.
 
 Runs on ``cuda`` unless ``--device cpu`` is given; asking for CUDA on a
 machine without a card raises. ``run(args)`` is the same driver, callable in
@@ -67,7 +70,7 @@ from repro_torch.core.plateau import PlateauController
 from repro_torch.core.tree import tree_leaves
 from repro_torch.data.synthetic import TokenStream
 from repro_torch.fed.sampling import ParticipationSampler
-from repro_torch.models.api import build_model
+from repro_torch.models.api import build_model, check_device
 
 
 def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
@@ -156,21 +159,19 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
 def resolve_device(name: str) -> torch.device:
     """``cuda`` (raises without a card; f32 matmuls stay full f32, no TF32,
     as in the reference) or ``cpu`` -> the torch device."""
-    if name == "cuda":
-        if not torch.cuda.is_available():
-            raise RuntimeError("--device cuda was asked for but no CUDA card "
-                               "is visible (pass --device cpu to run on the "
-                               "CPU)")
+    device = check_device(name)
+    if device.type == "cuda":
         # f32 matmuls stay full f32 (no TF32), as in the reference
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
-    return torch.device(name)
+    return device
 
 
 def extra_leaves(per_step, layout, round_idx: int, device) -> dict:
     """The round's non-token batch leaves of ``train_batch_spec`` (image
-    embeds): f32 ``layout + shape[1:]``, drawn as the reference's launcher
-    draws them, jax's ``normal`` on ``fold_in(PRNGKey(7), round)``."""
+    embeds, source frames): f32 ``layout + shape[1:]``, drawn as the
+    reference's launcher draws them, jax's ``normal`` on
+    ``fold_in(PRNGKey(7), round)``."""
     key = noise.fold_in(noise.prng_key(7), round_idx)
     return {name: noise.normal(key, tuple(layout) + tuple(leaf.shape[1:]),
                                device)
@@ -269,8 +270,8 @@ def run(args: argparse.Namespace,
         tokens = stream.round_batch(t, layout, args.seq_len, feed)
         batch = {"tokens": tokens,
                  **extra_leaves(per_step, layout, t, feed)}
-        if "img_embeds" in per_step:
-            # the text tokens after the image prefix
+        if "embeds" in per_step or "img_embeds" in per_step:
+            # the text tokens after the image prefix or the source frames
             batch["tokens"] = tokens[..., :per_step["tokens"].shape[-1]]
         mask = sampler.mask((args.groups, args.clients))
         t0 = time.time()

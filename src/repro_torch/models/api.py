@@ -1,9 +1,12 @@
 """Model API (port of ``repro.models.api``): ModelCfg + build_model ->
-ModelBundle for the transformer families (dense, moe, vlm), and
-``params_from_numpy`` to carry the reference's weights across."""
+ModelBundle for every family of the reference (dense, moe, vlm, hybrid,
+xlstm, encdec), and ``params_from_numpy`` to carry the reference's weights
+across. Entry points put what they make on ``cuda`` unless the caller
+passes ``device="cpu"``; ``cuda`` without a card raises."""
 from __future__ import annotations
 
 import dataclasses
+import importlib
 from typing import Any, Callable, NamedTuple
 
 import numpy as np
@@ -16,8 +19,7 @@ from repro_torch.models import layers as L
 @dataclasses.dataclass(frozen=True)
 class ModelCfg:
     name: str
-    family: str                 # dense | moe | vlm (hybrid | xlstm | encdec
-    #                             are not yet ported)
+    family: str                 # dense | moe | hybrid | xlstm | encdec | vlm
     n_layers: int
     d_model: int
     n_heads: int
@@ -32,6 +34,7 @@ class ModelCfg:
     rope_theta: float = 1e4
     dtype: Any = torch.float32
     n_img_tokens: int = 0       # vlm stub prefix length
+    src_frac: float = 0.5       # encdec: fraction of seq_len used as source
     q_chunk: int = 512
 
     @property
@@ -44,6 +47,10 @@ class ModelCfg:
                          qkv_bias=self.qkv_bias,
                          sliding_window=self.sliding_window,
                          rope_theta=self.rope_theta, q_chunk=self.q_chunk)
+
+    def attn_cfg_bidir(self) -> L.AttnCfg:
+        return dataclasses.replace(self.attn_cfg(), causal=False,
+                                   sliding_window=0)
 
 
 class BatchLeaf(NamedTuple):
@@ -64,6 +71,32 @@ class ModelBundle:
     train_batch_spec: Callable    # (micro_batch, seq_len) -> {name: BatchLeaf}
 
 
+def check_device(device) -> torch.device:
+    """``device`` as a torch device; ``cuda`` with no card visible raises
+    (an entry point never falls back to the CPU)."""
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(f"device {device} was asked for but no CUDA card "
+                           f"is visible (pass the device cpu, --device cpu "
+                           f"on the command line, to run on the CPU)")
+    return device
+
+
+#: the module of each family (the reference's ``build_model`` branches)
+_FAMILY_MODULE = {"dense": "transformer", "moe": "transformer",
+                  "vlm": "transformer", "hybrid": "hybrid",
+                  "xlstm": "xlstm", "encdec": "encdec"}
+#: encdec's cross-attention memory length in the serving cache
+ENCDEC_SRC_LEN = 2048
+
+
+def family_module(cfg: ModelCfg):
+    if cfg.family not in _FAMILY_MODULE:
+        raise ValueError(f"unknown family {cfg.family!r}")
+    return importlib.import_module(
+        f"repro_torch.models.{_FAMILY_MODULE[cfg.family]}")
+
+
 def _lm_specs(cfg: ModelCfg):
     def spec(micro, seq):
         return {"tokens": BatchLeaf((micro, seq), torch.int32)}
@@ -71,20 +104,28 @@ def _lm_specs(cfg: ModelCfg):
 
 
 def build_model(cfg: ModelCfg) -> ModelBundle:
-    if cfg.family not in ("dense", "moe", "vlm"):
-        raise NotImplementedError(
-            f"model family {cfg.family!r} is not yet ported (ROADMAP queue "
-            f"1 item 16: mamba, xlstm, hybrid, encdec); the port has the "
-            f"dense, moe and vlm transformers")
-    from repro_torch.models import transformer as T
+    M = family_module(cfg)
+    extra = {"src_len": ENCDEC_SRC_LEN} if cfg.family == "encdec" else {}
+
+    def init(gen, device="cuda"):
+        return M.init_params(gen, cfg, device=check_device(device))
+
+    def init_cache(b, m, device="cuda"):
+        return M.init_cache(cfg, b, m, device=check_device(device), **extra)
+
     common = dict(
-        cfg=cfg,
-        init=lambda gen, device="cpu": T.init_params(gen, cfg, device),
-        decode_step=lambda p, c, t, pos: T.decode_step(p, c, t, pos, cfg),
-        init_cache=lambda b, m, device="cpu": T.init_cache(cfg, b, m,
-                                                           device))
-    if cfg.family in ("dense", "moe"):
-        return ModelBundle(loss_fn=lambda p, b: T.loss_fn(p, b, cfg),
+        cfg=cfg, init=init, init_cache=init_cache,
+        decode_step=lambda p, c, t, pos: M.decode_step(p, c, t, pos, cfg))
+    if cfg.family == "encdec":
+        def encdec_spec(micro, seq):
+            s_src = int(seq * cfg.src_frac)
+            return {"embeds": BatchLeaf((micro, s_src, cfg.d_model),
+                                        torch.float32),
+                    "tokens": BatchLeaf((micro, seq - s_src), torch.int32)}
+        return ModelBundle(loss_fn=lambda p, b: M.loss_fn(p, b, cfg),
+                           train_batch_spec=encdec_spec, **common)
+    if cfg.family != "vlm":
+        return ModelBundle(loss_fn=lambda p, b: M.loss_fn(p, b, cfg),
                            train_batch_spec=_lm_specs(cfg), **common)
 
     def vlm_loss(p, b):
@@ -98,7 +139,7 @@ def build_model(cfg: ModelCfg) -> ModelBundle:
         # the image prefix's tokens are a pad id (0), loss-masked out
         full_tokens = torch.cat([torch.zeros((B, P), dtype=b["tokens"].dtype,
                                              device=dev), b["tokens"]], dim=1)
-        return T.loss_fn(p, {"tokens": full_tokens, "embeds": embeds,
+        return M.loss_fn(p, {"tokens": full_tokens, "embeds": embeds,
                              "loss_mask": mask}, cfg)
 
     def vlm_spec(micro, seq):
@@ -115,14 +156,14 @@ _NP_TO_TORCH = {"float32": torch.float32, "float16": torch.float16,
                 "bfloat16": torch.bfloat16}
 
 
-def params_from_numpy(tree, cfg: ModelCfg, device="cpu") -> dict:
+def params_from_numpy(tree, cfg: ModelCfg, device="cuda") -> dict:
     """The reference's parameters (a nested dict of numpy arrays, as
     ``jax.tree.map(np.asarray, params)`` gives them) -> the port's tree with
     the same names, shapes and dtypes (each leaf keeps its own: the MoE
     router is f32 in a bf16 model). Raises on a missing, extra or
     mis-shaped leaf."""
-    from repro_torch.models.transformer import param_shapes
-    want = dict(tree_paths(param_shapes(cfg)))
+    device = check_device(device)
+    want = dict(tree_paths(family_module(cfg).param_shapes(cfg)))
     got = dict(tree_paths(tree))
     missing, extra = sorted(set(want) - set(got)), sorted(set(got) - set(want))
     if missing or extra:

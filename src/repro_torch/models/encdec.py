@@ -1,0 +1,172 @@
+"""Encoder-decoder transformer (port of ``repro.models.encdec``,
+seamless-m4t style): a speech encoder stub and a text decoder with
+cross-attention.
+
+The modality frontend is a stub: the batch's ``embeds`` are precomputed
+frame embeddings (B, S_src, D); the encoder is the bidirectional stack on
+top of them. Both stacks walk their layers in a Python loop (the
+reference's ``lax.scan``; its remat has no numerical effect); the sharding
+hints (``seq_shard``, ``fsdp_params``) have no counterpart on one card.
+
+Cross-attention has no source mask, as in the reference: every slot of the
+memory takes softmax weight, zero slots included. A serving cache of
+``src_len`` slots must therefore be filled over exactly ``src_len`` frames
+(``prefill_cache`` checks it).
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.models import layers as L
+
+_ENC = ("enc_attn", "enc_mlp", "enc_ln1", "enc_ln2")
+_DEC = ("dec_attn", "x_attn", "dec_mlp", "dec_ln1", "dec_ln2", "dec_ln3")
+
+
+def init_params(gen, cfg, device):
+    nl, D, V, dtype = cfg.n_layers, cfg.d_model, cfg.vocab, cfg.dtype
+
+    def ones(*shape):
+        return torch.ones(shape, dtype=dtype, device=device)
+
+    p = {
+        "embed": L._init(gen, (V, D), scale=0.02, dtype=dtype, device=device),
+        # encoder (bidirectional self-attention)
+        "enc_attn": L.attn_init(gen, cfg.attn_cfg(), nl, dtype, device),
+        "enc_mlp": L.mlp_init(gen, D, cfg.d_ff, nl, dtype, device),
+        "enc_ln1": ones(nl, D), "enc_ln2": ones(nl, D), "enc_lnf": ones(D),
+        # decoder (causal self-attention + cross-attention)
+        "dec_attn": L.attn_init(gen, cfg.attn_cfg(), nl, dtype, device),
+        "x_attn": L.attn_init(gen, cfg.attn_cfg(), nl, dtype, device),
+        "dec_mlp": L.mlp_init(gen, D, cfg.d_ff, nl, dtype, device),
+        "dec_ln1": ones(nl, D), "dec_ln2": ones(nl, D),
+        "dec_ln3": ones(nl, D), "dec_lnf": ones(D),
+    }
+    if not cfg.tie_embeddings:
+        p["lm_head"] = L._init(gen, (D, V), scale=0.02, dtype=dtype,
+                               device=device)
+    return p
+
+
+def param_shapes(cfg):
+    return L.meta_shapes(init_params, cfg)
+
+
+def _cross_attention(x, mem_k, mem_v, lp, cfg):
+    """x: (B, S_tgt, D) queries over fixed encoder memory K/V (B, S_src, K,
+    hd), unmasked."""
+    B, S, _ = x.shape
+    H, hd = cfg.n_heads, cfg.d_head
+    q = (x @ lp["wq"]).reshape(B, S, H, hd)
+    rep = H // cfg.n_kv_heads
+    k_r = mem_k.repeat_interleave(rep, dim=2)
+    v_r = mem_v.repeat_interleave(rep, dim=2)
+    scores = torch.einsum("bchd,bshd->bhcs", q.float(),
+                          k_r.float()) / (hd ** 0.5)
+    probs = torch.softmax(scores, dim=-1).to(x.dtype)
+    y = torch.einsum("bhcs,bshd->bchd", probs, v_r).reshape(B, S, H * hd)
+    return y @ lp["wo"]
+
+
+def _mem_kv(mem, lp, cfg):
+    B, S, _ = mem.shape
+    K, hd = cfg.n_kv_heads, cfg.d_head
+    return ((mem @ lp["wk"]).reshape(B, S, K, hd),
+            (mem @ lp["wv"]).reshape(B, S, K, hd))
+
+
+def encode(params, embeds, cfg):
+    """embeds: (B, S_src, D) stub frame embeddings -> encoder memory."""
+    x = embeds.to(cfg.dtype)
+    positions = torch.arange(x.shape[1], device=x.device)
+    bidir = cfg.attn_cfg_bidir()
+    for lp in L.unstack({k: params[k] for k in _ENC}, cfg.n_layers):
+        h = x + L.attention(L.rms_norm(x, lp["enc_ln1"]), lp["enc_attn"],
+                            bidir, positions)
+        x = h + L.swiglu(L.rms_norm(h, lp["enc_ln2"]), lp["enc_mlp"])
+    return L.rms_norm(x, params["enc_lnf"])
+
+
+def decode_train(params, mem, tokens, cfg):
+    """mem: (B, S_src, D); tokens: (B, S_tgt) -> final-norm hidden."""
+    x = params["embed"][tokens]
+    positions = torch.arange(x.shape[1], device=x.device)
+    for lp in L.unstack({k: params[k] for k in _DEC}, cfg.n_layers):
+        h = x + L.attention(L.rms_norm(x, lp["dec_ln1"]), lp["dec_attn"],
+                            cfg.attn_cfg(), positions)
+        mk, mv = _mem_kv(mem, lp["x_attn"], cfg)
+        h = h + _cross_attention(L.rms_norm(h, lp["dec_ln2"]), mk, mv,
+                                 lp["x_attn"], cfg)
+        x = h + L.swiglu(L.rms_norm(h, lp["dec_ln3"]), lp["dec_mlp"])
+    return L.rms_norm(x, params["dec_lnf"])
+
+
+def _head(params, cfg):
+    return params["embed"].T if cfg.tie_embeddings else params["lm_head"]
+
+
+def loss_fn(params, batch, cfg):
+    """batch: {embeds (B, S_src, D), tokens (B, S_tgt)}."""
+    mem = encode(params, batch["embeds"], cfg)
+    x = decode_train(params, mem, batch["tokens"], cfg)
+    return L.chunked_ce(x[:, :-1], _head(params, cfg), batch["tokens"][:, 1:],
+                        chunk=cfg.q_chunk)
+
+
+def init_cache(cfg, batch_size: int, max_len: int, src_len: int, device):
+    """Zero caches in cfg.dtype: self-attention K/V (nl, B, max_len, K, hd)
+    and the cross-attention memory K/V (nl, B, src_len, K, hd)."""
+    nl, K, hd = cfg.n_layers, cfg.n_kv_heads, cfg.d_head
+    z = dict(dtype=cfg.dtype, device=device)
+    return {"k": torch.zeros((nl, batch_size, max_len, K, hd), **z),
+            "v": torch.zeros((nl, batch_size, max_len, K, hd), **z),
+            "mem_k": torch.zeros((nl, batch_size, src_len, K, hd), **z),
+            "mem_v": torch.zeros((nl, batch_size, src_len, K, hd), **z)}
+
+
+@torch.no_grad()
+def prefill_memory(params, embeds, cfg):
+    """Run the encoder once and project each layer's cross K/V. -> (ks, vs),
+    each (nl, B, S_src, K, hd)."""
+    mem = encode(params, embeds, cfg)
+    kv = [_mem_kv(mem, {"wk": wk, "wv": wv}, cfg) for wk, wv in
+          zip(params["x_attn"]["wk"].unbind(0),
+              params["x_attn"]["wv"].unbind(0))]
+    return (torch.stack([k for k, _ in kv]),
+            torch.stack([v for _, v in kv]))
+
+
+def prefill_cache(params, cache, embeds, cfg):
+    """Fill ``cache``'s memory K/V from ``prefill_memory`` over ``embeds``,
+    which must hold exactly the cache's ``src_len`` frames: the
+    cross-attention is unmasked, so unfilled zero slots would take softmax
+    weight. -> cache (written in place)."""
+    src_len = cache["mem_k"].shape[2]
+    if embeds.shape[1] != src_len:
+        raise ValueError(f"{embeds.shape[1]} source frames for a cache of "
+                         f"{src_len} memory slots (cross-attention has no "
+                         f"source mask)")
+    ks, vs = prefill_memory(params, embeds, cfg)
+    cache["mem_k"].copy_(ks)
+    cache["mem_v"].copy_(vs)
+    return cache
+
+
+@torch.no_grad()
+def decode_step(params, cache, tokens, position: int, cfg):
+    """One decode step: tokens (B, 1) at ``position`` against the filled
+    memory -> (f32 logits (B, 1, V), cache). The self-attention cache is
+    written in place and returned."""
+    x = params["embed"][tokens]
+    for i, lp in enumerate(L.unstack({k: params[k] for k in _DEC},
+                                     cfg.n_layers)):
+        y, _, _ = L.attention_decode(L.rms_norm(x, lp["dec_ln1"]),
+                                     lp["dec_attn"], cfg.attn_cfg(),
+                                     cache["k"][i], cache["v"][i], position)
+        h = x + y
+        h = h + _cross_attention(L.rms_norm(h, lp["dec_ln2"]),
+                                 cache["mem_k"][i], cache["mem_v"][i],
+                                 lp["x_attn"], cfg)
+        x = h + L.swiglu(L.rms_norm(h, lp["dec_ln3"]), lp["dec_mlp"])
+    x = L.rms_norm(x, params["dec_lnf"])
+    return (x @ _head(params, cfg)).to(torch.float32), cache

@@ -1,0 +1,150 @@
+"""Jamba-style hybrid (port of ``repro.models.hybrid``): super-blocks of 8
+sublayers, attention at sublayer 0 and mamba at 1..7; the FFN alternates
+the MoE (even sublayers) and SwiGLU (odd), 4 of each a super-block.
+
+Parameters are the reference's tree, stacked over super-blocks
+(``n_layers // 8``): ``mamba`` (nb, 7, ...), ``moe`` and ``mlp`` (nb, 4,
+...), ``ln_mix`` / ``ln_ffn`` (nb, 8, D). The forward walks the super-blocks
+in a Python loop (the reference's ``lax.scan``; its remat has no numerical
+effect); the sharding hints (``seq_shard``, ``fsdp_params``) have no
+counterpart on one card. The reference's ``moe_ep=True`` branch is the same
+function as the port's one MoE dispatch (``layers.moe_apply``).
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.models import layers as L
+from repro_torch.models import mamba as M
+
+SUB = 8  # sublayers per super-block: 1 attn + 7 mamba
+_STACK = ("attn", "mamba", "moe", "mlp", "ln_mix", "ln_ffn")
+
+
+def init_params(gen, cfg, device):
+    nb = cfg.n_layers // SUB
+    D, V, dtype = cfg.d_model, cfg.vocab, cfg.dtype
+    n_moe, n_mlp = SUB // 2, SUB - SUB // 2
+    p = {
+        "embed": L._init(gen, (V, D), scale=0.02, dtype=dtype, device=device),
+        "attn": L.attn_init(gen, cfg.attn_cfg(), nb, dtype, device),
+        "mamba": M.mamba_init(gen, D, nb * (SUB - 1), dtype, device),
+        "moe": L.moe_init(gen, D, cfg.d_ff, cfg.moe_experts, nb * n_moe,
+                          dtype, device),
+        "mlp": L.mlp_init(gen, D, cfg.d_ff, nb * n_mlp, dtype, device),
+        "ln_mix": torch.ones((nb, SUB, D), dtype=dtype, device=device),
+        "ln_ffn": torch.ones((nb, SUB, D), dtype=dtype, device=device),
+        "lnf": torch.ones((D,), dtype=dtype, device=device),
+    }
+    # restack per super-block: mamba (nb, 7, ...), moe / mlp (nb, 4, ...)
+    for name, per in (("mamba", SUB - 1), ("moe", n_moe), ("mlp", n_mlp)):
+        p[name] = {k: w.reshape(nb, per, *w.shape[1:])
+                   for k, w in p[name].items()}
+    if not cfg.tie_embeddings:
+        p["lm_head"] = L._init(gen, (D, V), scale=0.02, dtype=dtype,
+                               device=device)
+    return p
+
+
+def param_shapes(cfg):
+    return L.meta_shapes(init_params, cfg)
+
+
+def _sublayers(bp):
+    """A super-block's stacked sublayer weights split per sublayer."""
+    return (L.unstack(bp["mamba"], SUB - 1), L.unstack(bp["moe"], SUB // 2),
+            L.unstack(bp["mlp"], SUB - SUB // 2))
+
+
+def _ffn(cfg, s, hn, moe, mlp):
+    """Sublayer s's FFN: the (s//2)-th MoE on even s, the (s//2)-th SwiGLU on
+    odd s. -> (y, aux or None)."""
+    if s % 2 == 0:
+        return L.moe_apply(hn, moe[s // 2], cfg.moe_experts, cfg.moe_topk)
+    return L.swiglu(hn, mlp[s // 2]), None
+
+
+def _super_block(cfg, x, bp, positions):
+    """8 sublayers: [attn, mamba x7]; FFN alternates MoE (even) / MLP (odd)."""
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    mamba, moe, mlp = _sublayers(bp)
+    for s in range(SUB):
+        xn = L.rms_norm(x, bp["ln_mix"][s])
+        if s == 0:
+            mix = L.attention(xn, bp["attn"], cfg.attn_cfg(), positions)
+        else:
+            mix = M.mamba_block(xn, mamba[s - 1], d_model=cfg.d_model)
+        x = x + mix
+        y, a = _ffn(cfg, s, L.rms_norm(x, bp["ln_ffn"][s]), moe, mlp)
+        if a is not None:
+            aux = aux + a
+        x = x + y
+    return x, aux
+
+
+def forward_hidden(params, tokens, cfg):
+    """-> (final-norm hidden (B, S, D), aux / (n_layers // 2))."""
+    x = params["embed"][tokens]
+    positions = torch.arange(x.shape[1], device=x.device)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    for bp in L.unstack({k: params[k] for k in _STACK},
+                        cfg.n_layers // SUB):
+        x, a = _super_block(cfg, x, bp, positions)
+        aux = aux + a
+    return L.rms_norm(x, params["lnf"]), aux / (cfg.n_layers // 2)
+
+
+def _head(params, cfg):
+    return params["embed"].T if cfg.tie_embeddings else params["lm_head"]
+
+
+def forward(params, tokens, cfg):
+    x, aux = forward_hidden(params, tokens, cfg)
+    return (x @ _head(params, cfg)).to(torch.float32), aux
+
+
+def loss_fn(params, batch, cfg):
+    x, aux = forward_hidden(params, batch["tokens"], cfg)
+    ce = L.chunked_ce(x[:, :-1], _head(params, cfg), batch["tokens"][:, 1:],
+                      chunk=cfg.q_chunk)
+    return ce + 0.01 * aux
+
+
+def init_cache(cfg, batch_size: int, max_len: int, device):
+    """Zero caches: attention K/V (nb, B, max_len, K, hd) in cfg.dtype,
+    mamba state h (nb, 7, B, d_in, N) and conv tail (nb, 7, B, 3, d_in),
+    f32."""
+    nb = cfg.n_layers // SUB
+    shape = (nb, batch_size, max_len, cfg.n_kv_heads, cfg.d_head)
+    mc = M.mamba_cache_init(batch_size, cfg.d_model, nb * (SUB - 1), device)
+    return {"k": torch.zeros(shape, dtype=cfg.dtype, device=device),
+            "v": torch.zeros(shape, dtype=cfg.dtype, device=device),
+            "h": mc["h"].reshape(nb, SUB - 1, *mc["h"].shape[1:]),
+            "conv": mc["conv"].reshape(nb, SUB - 1, *mc["conv"].shape[1:])}
+
+
+@torch.no_grad()
+def decode_step(params, cache, tokens, position: int, cfg):
+    """One decode step: tokens (B, 1) at ``position`` -> (f32 logits (B, 1,
+    V), cache). The cache is written in place and returned."""
+    x = params["embed"][tokens]
+    for b, bp in enumerate(L.unstack({k: params[k] for k in _STACK},
+                                     cfg.n_layers // SUB)):
+        mamba, moe, mlp = _sublayers(bp)
+        for s in range(SUB):
+            xn = L.rms_norm(x, bp["ln_mix"][s])
+            if s == 0:
+                mix, _, _ = L.attention_decode(xn, bp["attn"], cfg.attn_cfg(),
+                                               cache["k"][b], cache["v"][b],
+                                               position)
+            else:
+                mix, h, conv = M.mamba_decode_step(
+                    xn, mamba[s - 1], cache["h"][b, s - 1],
+                    cache["conv"][b, s - 1], d_model=cfg.d_model)
+                cache["h"][b, s - 1] = h
+                cache["conv"][b, s - 1] = conv
+            x = x + mix
+            y, _ = _ffn(cfg, s, L.rms_norm(x, bp["ln_ffn"][s]), moe, mlp)
+            x = x + y
+    x = L.rms_norm(x, params["lnf"])
+    return (x @ _head(params, cfg)).to(torch.float32), cache

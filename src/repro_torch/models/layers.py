@@ -17,14 +17,39 @@ from typing import NamedTuple
 import torch
 import torch.nn.functional as F
 
+from repro_torch.core.tree import tree_map
+
 
 def _init(gen: torch.Generator, shape, scale=None, dtype=torch.float32,
           device="cpu") -> torch.Tensor:
+    """N(0, scale^2) weights drawn from ``gen`` in f32, cast to ``dtype`` on
+    ``device``; on the ``meta`` device an empty tensor of that shape and
+    dtype (``gen`` unused), so a tree's shapes need no allocation."""
+    if torch.device(device).type == "meta":
+        return torch.empty(shape, dtype=dtype, device="meta")
     scale = scale if scale is not None else (
         1.0 / (shape[-2] ** 0.5) if len(shape) >= 2 else 1.0)
     w = torch.randn(shape, generator=gen, dtype=torch.float32,
                     device=gen.device)
     return (w * scale).to(device=device, dtype=dtype)
+
+
+def meta_shapes(init_params, cfg) -> dict:
+    """The shapes of ``init_params(gen, cfg, device)``'s tree, from a
+    ``meta``-device build: nothing is allocated at any width."""
+    return tree_map(lambda t: tuple(t.shape),
+                    init_params(None, cfg, device="meta"))
+
+
+def unstack(tree, n: int) -> list:
+    """A tree of depth-stacked tensors -> ``n`` per-index trees, one
+    ``unbind`` per leaf: its backward is a single stack, where indexing
+    each layer would zero-fill and add into the whole stack once a
+    layer."""
+    if isinstance(tree, dict):
+        subs = {k: unstack(v, n) for k, v in tree.items()}
+        return [{k: subs[k][i] for k in tree} for i in range(n)]
+    return list(tree.unbind(0))
 
 
 # ---------------------------------------------------------------------------

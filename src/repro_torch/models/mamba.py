@@ -1,0 +1,144 @@
+"""Selective SSM (Mamba-1 style) block (port of ``repro.models.mamba``):
+the chunked selective scan for training and the O(1) one-token recurrence
+for decode.
+
+The scan carries the (B, d_inner, d_state) f32 state through a Python loop
+over the time steps of each chunk; each chunk's decay and input terms are
+computed at once, elementwise as the reference's step computes them. The
+reference's per-chunk remat has no numerical effect and is left out, as are
+its sharding hints (``gather_seq``, ``shard_dim``, ``opt_barrier``,
+``seq_shard``), which have no counterpart on one card. Every tensor made
+here lies on the device of the inputs.
+"""
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.models.layers import _init
+
+D_STATE = 16
+D_CONV = 4
+CHUNK = 256
+#: f32 bit patterns of log(1..D_STATE) as the reference computes them (XLA's
+#: f32 log): its log(7) lies one ulp above the correctly rounded value that
+#: torch's CPU log gives, so a table, not a device's log, keeps a_log equal
+#: to the bit in both packages on any device
+_A_LOG_BITS = (0, 1060205080, 1066180436, 1068593688, 1070465552, 1071994976,
+               1073288086, 1074075026, 1074569044, 1075010958, 1075410718,
+               1075775670, 1076111393, 1076422225, 1076711602, 1076982296)
+
+
+def mamba_init(gen, d_model: int, n_layers: int, dtype, device,
+               expand: int = 2):
+    d_in = expand * d_model
+    dt_rank = max(1, d_model // 16)
+    a = torch.tensor(_A_LOG_BITS, dtype=torch.int32).view(torch.float32)
+    a = a.to(device)
+    return {
+        "in_proj": _init(gen, (n_layers, d_model, 2 * d_in), dtype=dtype,
+                         device=device),
+        "conv_w": _init(gen, (n_layers, D_CONV, d_in), scale=0.5,
+                        dtype=dtype, device=device),
+        "x_proj": _init(gen, (n_layers, d_in, dt_rank + 2 * D_STATE),
+                        dtype=dtype, device=device),
+        "dt_proj": _init(gen, (n_layers, dt_rank, d_in),
+                         scale=dt_rank ** -0.5, dtype=dtype, device=device),
+        "dt_bias": torch.zeros((n_layers, d_in), dtype=dtype, device=device),
+        "a_log": a.expand(n_layers, d_in, D_STATE).contiguous(),
+        "d_skip": torch.ones((n_layers, d_in), dtype=torch.float32,
+                             device=device),
+        "out_proj": _init(gen, (n_layers, d_in, d_model), dtype=dtype,
+                          device=device),
+    }
+
+
+def _ssm_params(x_in, lp, dt_rank):
+    """x_in: (B, T, d_in) -> dt (B, T, d_in), B_ / C_ (B, T, d_state), f32."""
+    proj = x_in @ lp["x_proj"]
+    dt_low, B_, C_ = torch.split(proj, [dt_rank, D_STATE, D_STATE], dim=-1)
+    dt = F.softplus(dt_low @ lp["dt_proj"] + lp["dt_bias"])
+    return dt.float(), B_.float(), C_.float()
+
+
+def _scan_chunked(dt, B_, C_, x, a_log, h0):
+    """Selective scan. dt / x: (B, T, d_in); B_ / C_: (B, T, N); h0: (B, d_in,
+    N) f32. -> y (B, T, d_in) f32, h_T. Step t: h = exp(dt_t A) h + (dt_t
+    x_t) B_t; y_t = sum_n h C_t. The steps run in the reference's chunks
+    of c = T // max(1, T // 256) (with a shorter last chunk where they do
+    not tile T, a length the reference's reshape refuses)."""
+    T = x.shape[1]
+    c = T // max(1, T // CHUNK)
+    A = -torch.exp(a_log)                                      # (d_in, N)
+    x = x.float()
+    h, ys = h0, []
+    for c0 in range(0, T, c):
+        sl = slice(c0, c0 + c)
+        da = torch.exp(dt[:, sl, :, None] * A)            # (B, c, d_in, N)
+        dbx = (dt[:, sl] * x[:, sl])[..., None] * B_[:, sl, None, :]
+        hs = []
+        for t in range(da.shape[1]):
+            h = da[:, t] * h + dbx[:, t]
+            hs.append(h)
+        ys.append(torch.einsum("btdn,btn->btd", torch.stack(hs, dim=1),
+                               C_[:, sl]))
+    return torch.cat(ys, dim=1), h
+
+
+def _causal_conv(x, w):
+    """Depthwise causal conv, x: (B, T, d_in); w: (K, d_in): the taps summed
+    by Python's ``sum`` (from 0, tap 0 first) in x's dtype, as the
+    reference writes it."""
+    T = x.shape[1]
+    xp = F.pad(x, (0, 0, D_CONV - 1, 0))
+    return sum(xp[:, i:i + T, :] * w[i] for i in range(D_CONV))
+
+
+def mamba_block(x, lp, *, d_model: int):
+    """x: (B, T, D) -> (B, T, D). Training forward."""
+    del d_model
+    d_in = lp["in_proj"].shape[-1] // 2
+    dt_rank = lp["dt_proj"].shape[0]
+    xz = x @ lp["in_proj"]
+    x_in, z = torch.split(xz, d_in, dim=-1)
+    x_in = F.silu(_causal_conv(x_in, lp["conv_w"]))
+    dt, B_, C_ = _ssm_params(x_in, lp, dt_rank)
+    h0 = torch.zeros((x.shape[0], d_in, D_STATE), dtype=torch.float32,
+                     device=x.device)
+    y, _ = _scan_chunked(dt, B_, C_, x_in, lp["a_log"], h0)
+    y = y + x_in.float() * lp["d_skip"]
+    y = y.to(x.dtype) * F.silu(z)
+    return y @ lp["out_proj"]
+
+
+def mamba_cache_init(batch: int, d_model: int, n_layers: int, device,
+                     expand: int = 2):
+    d_in = expand * d_model
+    return {"h": torch.zeros((n_layers, batch, d_in, D_STATE),
+                             dtype=torch.float32, device=device),
+            "conv": torch.zeros((n_layers, batch, D_CONV - 1, d_in),
+                                dtype=torch.float32, device=device)}
+
+
+def mamba_decode_step(x, lp, h, conv_tail, *, d_model: int):
+    """One-token recurrence. x: (B, 1, D); h: (B, d_in, N); conv_tail: (B,
+    D_CONV-1, d_in). -> (y, h, conv_tail). Its conv is an f32 einsum over
+    an f32 window (the training conv sums in x's dtype), as the
+    reference's."""
+    del d_model
+    d_in = lp["in_proj"].shape[-1] // 2
+    dt_rank = lp["dt_proj"].shape[0]
+    xz = x @ lp["in_proj"]
+    x_in, z = torch.split(xz, d_in, dim=-1)                    # (B, 1, d_in)
+    window = torch.cat([conv_tail, x_in.float()], dim=1)
+    conv_out = torch.einsum("bkd,kd->bd", window, lp["conv_w"].float())
+    x_c = F.silu(conv_out)[:, None, :]                         # (B, 1, d_in)
+    dt, B_, C_ = _ssm_params(x_c.to(x.dtype), lp, dt_rank)
+    A = -torch.exp(lp["a_log"])
+    da = torch.exp(dt[:, 0, :, None] * A)
+    h = da * h + (dt[:, 0] * x_c[:, 0].float())[..., None] \
+        * B_[:, 0, None, :]
+    y = torch.einsum("bdn,bn->bd", h, C_[:, 0])
+    y = y + x_c[:, 0].float() * lp["d_skip"]
+    y = y[:, None, :].to(x.dtype) * F.silu(z)
+    return y @ lp["out_proj"], h, window[:, 1:]

@@ -7,10 +7,12 @@ import math
 import numpy as np
 import torch
 
+from repro_torch.models.api import check_device
+
 
 def mlp_loss_builder(dim: int, n_classes: int, width: int = 64):
     """-> ``(init, loss_fn, acc_fn)`` of a 3-layer ReLU MLP on ``{x, y}``
-    batches. ``init(gen, device="cpu")`` draws the weights from the
+    batches. ``init(gen, device="cuda")`` draws the weights from the
     ``torch.Generator`` ``gen`` (N(0, 1/fan_in), zero biases: the reference's
     law, not its values); ``loss_fn(p, batch)`` is the mean cross-entropy
     (log_softmax against one-hot labels); ``acc_fn(p, x, y)`` the
@@ -18,7 +20,8 @@ def mlp_loss_builder(dim: int, n_classes: int, width: int = 64):
     shapes = {"w1": (dim, width), "b1": (width,), "w2": (width, width),
               "b2": (width,), "w3": (width, n_classes), "b3": (n_classes,)}
 
-    def init(gen: torch.Generator, device="cpu"):
+    def init(gen: torch.Generator, device="cuda"):
+        device = check_device(device)
         p = {}
         for k, shape in shapes.items():
             if k.startswith("w"):
@@ -47,8 +50,9 @@ def mlp_loss_builder(dim: int, n_classes: int, width: int = 64):
     return init, loss_fn, acc_fn
 
 
-def params_from_numpy(tree, device="cpu") -> dict:
+def params_from_numpy(tree, device="cuda") -> dict:
     """An MLP params dict of numpy arrays (the reference's params, say) ->
     f32 tensors on ``device``."""
+    device = check_device(device)
     return {k: torch.from_numpy(np.array(v, dtype=np.float32)).to(device)
             for k, v in tree.items()}

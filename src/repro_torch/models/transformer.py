@@ -24,23 +24,7 @@ def _ffn_key(cfg) -> str:
 
 def param_shapes(cfg) -> Dict[str, Any]:
     """The parameter tree's shapes, without allocating it."""
-    D, V, nl = cfg.d_model, cfg.vocab, cfg.n_layers
-    H, K, hd, Fd = cfg.n_heads, cfg.n_kv_heads, cfg.d_head, cfg.d_ff
-    attn = {"wq": (nl, D, H * hd), "wk": (nl, D, K * hd),
-            "wv": (nl, D, K * hd), "wo": (nl, H * hd, D)}
-    if cfg.qkv_bias:
-        attn.update(bq=(nl, H * hd), bk=(nl, K * hd), bv=(nl, K * hd))
-    p = {"embed": (V, D), "attn": attn, "ln1": (nl, D), "ln2": (nl, D),
-         "lnf": (D,)}
-    if cfg.moe_experts > 0:
-        E = cfg.moe_experts
-        p["moe"] = {"router": (nl, D, E), "w1": (nl, E, D, Fd),
-                    "w3": (nl, E, D, Fd), "w2": (nl, E, Fd, D)}
-    else:
-        p["mlp"] = {"w1": (nl, D, Fd), "w3": (nl, D, Fd), "w2": (nl, Fd, D)}
-    if not cfg.tie_embeddings:
-        p["lm_head"] = (D, V)
-    return p
+    return L.meta_shapes(init_params, cfg)
 
 
 def init_params(gen: torch.Generator, cfg, device="cpu") -> Dict[str, Any]:
@@ -80,16 +64,9 @@ def _layer(cfg, x, lp, positions):
 
 
 def _layer_params(params, cfg):
-    """The stacked layer weights split per layer: one unbind per stacked
-    weight (its backward is a single stack); an index per layer would cost
-    a whole-weight zero-fill + add per layer."""
-    ffn = _ffn_key(cfg)
-    attn = {k: v.unbind(0) for k, v in params["attn"].items()}
-    mlp = {k: v.unbind(0) for k, v in params[ffn].items()}
-    ln1, ln2 = params["ln1"].unbind(0), params["ln2"].unbind(0)
-    return [{"attn": {k: v[i] for k, v in attn.items()},
-             ffn: {k: v[i] for k, v in mlp.items()},
-             "ln1": ln1[i], "ln2": ln2[i]} for i in range(cfg.n_layers)]
+    """The stacked layer weights split per layer."""
+    return L.unstack({k: params[k] for k in ("attn", _ffn_key(cfg), "ln1",
+                                             "ln2")}, cfg.n_layers)
 
 
 def forward_hidden(params, tokens, cfg, *, embeds=None):

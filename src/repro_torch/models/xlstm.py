@@ -1,0 +1,310 @@
+"""xLSTM blocks (port of ``repro.models.xlstm``, arXiv:2405.04517): mLSTM
+(matrix memory) in its parallel training form and sLSTM (scalar memory),
+strictly recurrent, and the LM of groups of 3 mLSTM + 1 sLSTM blocks.
+
+mLSTM trains by the stabilised log-gate decay matrix, chunked over the KEY
+axis with an online running max, in the reference's chunking and order of
+f32 updates; decode is the O(1) matrix-memory recurrence. sLSTM steps
+through the sequence in a Python loop (no parallel form exists); the
+reference's chunking of that scan is remat only and has no numerical
+effect. The sharding hints (``gather_seq``, ``opt_barrier``, ``seq_shard``,
+``fsdp_params``) have no counterpart on one card. The assigned xlstm-350m
+has d_ff = 0: the blocks carry their own projections. Every tensor made
+here lies on the device of the inputs.
+"""
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.models.layers import _init, chunked_ce, meta_shapes, \
+    rms_norm, unstack
+
+CHUNK = 256
+GROUP = 4  # 3 mLSTM + 1 sLSTM per group
+_STACK = ("mlstm", "slstm", "ln")
+
+
+# ---------------------------------------------------------------------------
+# mLSTM
+# ---------------------------------------------------------------------------
+
+def mlstm_init(gen, d_model: int, n_heads: int, n_layers: int, dtype,
+               device):
+    return {
+        "wqkv": _init(gen, (n_layers, d_model, 3 * d_model), dtype=dtype,
+                      device=device),
+        "wif": _init(gen, (n_layers, d_model, 2 * n_heads), scale=0.02,
+                     dtype=dtype, device=device),
+        "bif": torch.zeros((n_layers, 2 * n_heads), dtype=torch.float32,
+                           device=device),
+        "wo": _init(gen, (n_layers, d_model, d_model), dtype=dtype,
+                    device=device),
+        "ln_sk": torch.ones((n_layers, d_model), dtype=dtype, device=device),
+    }
+
+
+def _mlstm_gates(x, lp):
+    """-> (input-gate pre-activation, log sigmoid(forget)), each (B, T, H)
+    f32."""
+    gif = x.float() @ lp["wif"].float() + lp["bif"]
+    i_pre, f_pre = torch.chunk(gif, 2, dim=-1)
+    return i_pre, -F.softplus(-f_pre)
+
+
+def mlstm_block(x, lp, *, n_heads: int):
+    """Parallel (chunk-quadratic) mLSTM forward. x: (B, T, D). Keys are
+    chunked by kc = min(256, T) (kc = T when it does not divide T); row t
+    keeps the running max m (floored at -1e30), numerator and denominator
+    of sum_s exp(F_t - F_s + i_s - m) (q_t . k_s) over s <= t; masked
+    exponents are -inf, so they weigh exactly 0."""
+    B, T, D = x.shape
+    H, hd = n_heads, D // n_heads
+    q, k, v = torch.chunk(x @ lp["wqkv"], 3, dim=-1)
+    q = q.reshape(B, T, H, hd).transpose(1, 2)            # (B, H, T, hd)
+    k = k.reshape(B, T, H, hd).transpose(1, 2) / (hd ** 0.5)
+    v = v.reshape(B, T, H, hd).transpose(1, 2)
+    i_pre, log_f = _mlstm_gates(x, lp)
+    i_pre = i_pre.transpose(1, 2)                         # (B, H, T)
+    Fc = torch.cumsum(log_f.transpose(1, 2), dim=-1)      # log prod f
+    kc = min(CHUNK, T)
+    if T % kc != 0:
+        kc = T
+    qf = q.float()
+    t_pos = torch.arange(T, device=x.device)
+    m = torch.full((B, H, T), -1e30, dtype=torch.float32, device=x.device)
+    num = torch.zeros((B, H, T, hd), dtype=torch.float32, device=x.device)
+    den = torch.zeros((B, H, T), dtype=torch.float32, device=x.device)
+    for c0 in range(0, T, kc):
+        sl = slice(c0, c0 + kc)
+        expo = Fc[..., :, None] - Fc[..., None, sl] + i_pre[..., None, sl]
+        mask = t_pos[:, None] >= t_pos[None, sl]
+        expo = torch.where(mask, expo, float("-inf"))      # (B, H, T, kc)
+        m_new = torch.maximum(torch.maximum(m, expo.amax(dim=-1)),
+                              m.new_tensor(-1e30))
+        w = torch.exp(expo - m_new[..., None])
+        qk = torch.einsum("bhtd,bhsd->bhts", qf, k[:, :, sl].float())
+        sc = qk * w
+        scale = torch.exp(m - m_new)
+        num = num * scale[..., None] + torch.einsum(
+            "bhts,bhsd->bhtd", sc, v[:, :, sl].float())
+        den = den * scale + sc.sum(dim=-1)
+        m = m_new
+    y = num / torch.maximum(den.abs(), torch.exp(-m))[..., None]
+    y = y.transpose(1, 2).reshape(B, T, D).to(x.dtype)
+    return rms_norm(y, lp["ln_sk"]) @ lp["wo"]
+
+
+def mlstm_cache_init(batch, d_model, n_heads, n_layers, device):
+    hd = d_model // n_heads
+    return {"C": torch.zeros((n_layers, batch, n_heads, hd, hd),
+                             dtype=torch.float32, device=device),
+            "n": torch.zeros((n_layers, batch, n_heads, hd),
+                             dtype=torch.float32, device=device),
+            "m": torch.full((n_layers, batch, n_heads), -1e30,
+                            dtype=torch.float32, device=device)}
+
+
+def mlstm_decode_step(x, lp, C, n, m, *, n_heads: int):
+    """O(1) recurrent step. x: (B, 1, D) -> (y, C, n, m)."""
+    B, _, D = x.shape
+    H, hd = n_heads, D // n_heads
+    q, k, v = torch.chunk(x @ lp["wqkv"], 3, dim=-1)
+    q = q.reshape(B, H, hd).float()
+    k = (k.reshape(B, H, hd) / (hd ** 0.5)).float()
+    v = v.reshape(B, H, hd).float()
+    i_pre, log_f = _mlstm_gates(x, lp)
+    i_pre, log_f = i_pre[:, 0], log_f[:, 0]               # (B, H)
+    lfm = log_f + m
+    m_new = torch.maximum(lfm, i_pre)
+    dec = torch.exp(lfm - m_new)[..., None]
+    inp = torch.exp(i_pre - m_new)[..., None]
+    C = dec[..., None] * C + (inp * k)[..., :, None] * v[..., None, :]
+    n = dec * n + inp * k
+    num = torch.einsum("bhd,bhde->bhe", q, C)
+    den = torch.maximum(torch.einsum("bhd,bhd->bh", q, n).abs(),
+                        torch.exp(-m_new))[..., None]
+    y = (num / den).reshape(B, 1, D).to(x.dtype)
+    return rms_norm(y, lp["ln_sk"]) @ lp["wo"], C, n, m_new
+
+
+# ---------------------------------------------------------------------------
+# sLSTM
+# ---------------------------------------------------------------------------
+
+def slstm_init(gen, d_model: int, n_heads: int, n_layers: int, dtype,
+               device):
+    hd = d_model // n_heads
+    return {
+        "wx": _init(gen, (n_layers, d_model, 4 * d_model), dtype=dtype,
+                    device=device),
+        # block-diagonal recurrent weights, one (hd, 4*hd) block per head,
+        # f32 in any model dtype
+        "wr": _init(gen, (n_layers, n_heads, hd, 4 * hd), scale=hd ** -0.5,
+                    dtype=torch.float32, device=device),
+        "b": torch.zeros((n_layers, 4 * d_model), dtype=torch.float32,
+                         device=device),
+        "wo": _init(gen, (n_layers, d_model, d_model), dtype=dtype,
+                    device=device),
+        "ln_sk": torch.ones((n_layers, d_model), dtype=dtype, device=device),
+    }
+
+
+def _slstm_step(carry, x_t, wr, n_heads):
+    """carry (h, c, n, m), each (B, D) f32; x_t: (B, 4D) input
+    pre-activation. -> (carry, h)."""
+    h, c, n, m = carry
+    B, D = h.shape
+    rec = torch.einsum("bkh,khf->bkf", h.reshape(B, n_heads, D // n_heads),
+                       wr).reshape(B, 4 * D)
+    z_pre, i_pre, f_pre, o_pre = torch.chunk(x_t + rec, 4, dim=-1)
+    z = torch.tanh(z_pre)
+    o = torch.sigmoid(o_pre)
+    lfm = -F.softplus(-f_pre) + m
+    m_new = torch.maximum(lfm, i_pre)
+    i = torch.exp(i_pre - m_new)
+    f = torch.exp(lfm - m_new)
+    c = f * c + i * z
+    n = torch.maximum(f * n + i, torch.exp(-m_new))
+    h_new = o * (c / n)
+    return (h_new, c, n, m_new), h_new
+
+
+def _slstm_carry0(batch, d_model, device):
+    """h = c = 0, n = 1e-6, m = -1e30 (four tensors: decode writes them in
+    place)."""
+    z = dict(dtype=torch.float32, device=device)
+    return (torch.zeros((batch, d_model), **z),
+            torch.zeros((batch, d_model), **z),
+            torch.full((batch, d_model), 1e-6, **z),
+            torch.full((batch, d_model), -1e30, **z))
+
+
+def slstm_block(x, lp, *, n_heads: int):
+    """Sequential sLSTM, x: (B, T, D): one step a position."""
+    B, T, D = x.shape
+    x_pre = (x @ lp["wx"]).float() + lp["b"]                  # (B, T, 4D)
+    carry = _slstm_carry0(B, D, x.device)
+    wr = lp["wr"].float()
+    hs = []
+    for t in range(T):
+        carry, h = _slstm_step(carry, x_pre[:, t], wr, n_heads)
+        hs.append(h)
+    h = torch.stack(hs, dim=1).to(x.dtype)
+    return rms_norm(h, lp["ln_sk"]) @ lp["wo"]
+
+
+def slstm_cache_init(batch, d_model, n_layers, device):
+    return dict(zip("hcnm", (torch.stack([t] * n_layers) for t in
+                             _slstm_carry0(batch, d_model, device))))
+
+
+def slstm_decode_step(x, lp, h, c, n, m, *, n_heads: int):
+    x_pre = (x[:, 0] @ lp["wx"]).float() + lp["b"]
+    (h, c, n, m), h_out = _slstm_step((h, c, n, m), x_pre, lp["wr"].float(),
+                                      n_heads)
+    y = rms_norm(h_out[:, None, :].to(x.dtype), lp["ln_sk"])
+    return y @ lp["wo"], h, c, n, m
+
+
+# ---------------------------------------------------------------------------
+# the xLSTM LM: groups of 4 (3 mLSTM + 1 sLSTM) over depth
+# ---------------------------------------------------------------------------
+
+def init_params(gen, cfg, device):
+    ng = cfg.n_layers // GROUP
+    D, V, H, dtype = cfg.d_model, cfg.vocab, cfg.n_heads, cfg.dtype
+    p = {
+        "embed": _init(gen, (V, D), scale=0.02, dtype=dtype, device=device),
+        "mlstm": mlstm_init(gen, D, H, ng * (GROUP - 1), dtype, device),
+        "slstm": slstm_init(gen, D, H, ng, dtype, device),
+        "ln": torch.ones((ng, GROUP, D), dtype=dtype, device=device),
+        "lnf": torch.ones((D,), dtype=dtype, device=device),
+    }
+    p["mlstm"] = {k: w.reshape(ng, GROUP - 1, *w.shape[1:])
+                  for k, w in p["mlstm"].items()}
+    if not cfg.tie_embeddings:
+        p["lm_head"] = _init(gen, (D, V), scale=0.02, dtype=dtype,
+                             device=device)
+    return p
+
+
+def param_shapes(cfg):
+    return meta_shapes(init_params, cfg)
+
+
+def _group_fwd(cfg, x, gp):
+    mlstm = unstack(gp["mlstm"], GROUP - 1)
+    for s in range(GROUP):
+        xn = rms_norm(x, gp["ln"][s])
+        if s < GROUP - 1:
+            x = x + mlstm_block(xn, mlstm[s], n_heads=cfg.n_heads)
+        else:
+            x = x + slstm_block(xn, gp["slstm"], n_heads=cfg.n_heads)
+    return x
+
+
+def forward_hidden(params, tokens, cfg):
+    x = params["embed"][tokens]
+    for gp in unstack({k: params[k] for k in _STACK},
+                      cfg.n_layers // GROUP):
+        x = _group_fwd(cfg, x, gp)
+    return rms_norm(x, params["lnf"])
+
+
+def _head(params, cfg):
+    return params["embed"].T if cfg.tie_embeddings else params["lm_head"]
+
+
+def forward(params, tokens, cfg):
+    return (forward_hidden(params, tokens, cfg) @ _head(params, cfg)).to(
+        torch.float32)
+
+
+def loss_fn(params, batch, cfg):
+    x = forward_hidden(params, batch["tokens"], cfg)
+    return chunked_ce(x[:, :-1], _head(params, cfg), batch["tokens"][:, 1:],
+                      chunk=cfg.q_chunk)
+
+
+def init_cache(cfg, batch_size: int, max_len: int, device):
+    """The O(1) recurrent state, whatever ``max_len``: mLSTM C (ng, 3, B, H,
+    hd, hd), n (ng, 3, B, H, hd), m (ng, 3, B, H); sLSTM h, c, n, m (ng,
+    B, D); all f32."""
+    del max_len
+    ng = cfg.n_layers // GROUP
+    mc = mlstm_cache_init(batch_size, cfg.d_model, cfg.n_heads,
+                          ng * (GROUP - 1), device)
+    mc = {k: w.reshape(ng, GROUP - 1, *w.shape[1:]) for k, w in mc.items()}
+    return {"m": mc, "s": slstm_cache_init(batch_size, cfg.d_model, ng,
+                                           device)}
+
+
+@torch.no_grad()
+def decode_step(params, cache, tokens, position: int, cfg):
+    """One decode step: tokens (B, 1) -> (f32 logits (B, 1, V), cache); the
+    recurrent state is written in place and returned (``position`` is not
+    needed)."""
+    del position
+    x = params["embed"][tokens]
+    mc, sc = cache["m"], cache["s"]
+    for g, gp in enumerate(unstack({k: params[k] for k in _STACK},
+                                   cfg.n_layers // GROUP)):
+        mlstm = unstack(gp["mlstm"], GROUP - 1)
+        for s in range(GROUP):
+            xn = rms_norm(x, gp["ln"][s])
+            if s < GROUP - 1:
+                y, *state = mlstm_decode_step(
+                    xn, mlstm[s], mc["C"][g, s], mc["n"][g, s],
+                    mc["m"][g, s], n_heads=cfg.n_heads)
+                for name, new in zip("Cnm", state):
+                    mc[name][g, s] = new
+            else:
+                y, *state = slstm_decode_step(
+                    xn, gp["slstm"], *(sc[name][g] for name in "hcnm"),
+                    n_heads=cfg.n_heads)
+                for name, new in zip("hcnm", state):
+                    sc[name][g] = new
+            x = x + y
+    x = rms_norm(x, params["lnf"])
+    return (x @ _head(params, cfg)).to(torch.float32), cache

@@ -1,13 +1,14 @@
-"""The port's architecture registry against the reference's: the seven
-transformer archs (dense, moe, vlm) build, take a train step and a decode
-step at their reduced sizes (the reference's
-``tests/test_archs_smoke.py``), and each full config equals the
+"""The port's architecture registry against the reference's: all ten
+archs (dense, moe, vlm, hybrid, xlstm, encdec) build, take a train step and
+a decode step at their reduced sizes (the reference's
+``tests/test_archs_smoke.py``), and each full and reduced config equals the
 reference's on every field the port has (dtypes mapped); the reference's
-other fields are the known set that no port code reads yet; the three
-archs of other
-families raise, naming ROADMAP item 16. The launcher's extra batch leaves
-(the vlm's image embeds) follow jax's ``normal`` draw, and the MoE and VLM
-archs run through every cohort plan of ``launch.train``."""
+other fields are the known set that no port code reads yet. The launcher's
+extra batch leaves (the vlm's image embeds, the encdec's source frames)
+follow jax's ``normal`` draw, its tokens are cut to the text length, and
+the MoE and VLM archs run through every cohort plan of ``launch.train``.
+Every public entry point that makes tensors defaults to ``cuda`` and
+raises without a card rather than running on the CPU."""
 import dataclasses
 
 import jax
@@ -19,43 +20,57 @@ import torch
 from repro.configs import common as JCommon
 from repro_torch.configs import common as TCommon
 from repro_torch.core import noise as TN
-from repro_torch.core.tree import tree_leaves
+from repro.models.api import build_model as JBuild
+from repro_torch.core.tree import tree_leaves, tree_paths
 from repro_torch.launch import train as TT
-from repro_torch.models.api import build_model
+from repro_torch.models import mlp as TM
+from repro_torch.models.api import build_model, family_module
+from repro_torch.models.api import params_from_numpy
 
 torch.set_num_threads(1)
 
 TRANSFORMERS = ["granite_moe_1b_a400m", "llama4_scout_17b_a16e",
                 "granite_3_8b", "qwen2_0_5b", "h2o_danube_3_4b",
                 "qwen2_5_32b", "internvl2_1b"]
-UNPORTED = ["jamba_1_5_large_398b", "xlstm_350m", "seamless_m4t_large_v2"]
+RECURRENT_ENCDEC = ["jamba_1_5_large_398b", "xlstm_350m",
+                    "seamless_m4t_large_v2"]
+ARCHS = TRANSFORMERS + RECURRENT_ENCDEC
 _DTYPES = {jnp.float32: torch.float32, jnp.bfloat16: torch.bfloat16}
 
 
 #: the reference's config fields that the port leaves out until code of its
 #: own reads them (ROADMAP queue 3): the dry-run's training knobs and
-#: shape grid, the expert-parallel and remat layouts, encdec's source share
+#: shape grid, the expert-parallel and remat layouts
 OMITTED_ARCH = {"big", "seq_client_groups", "local_steps", "client_lr",
                 "server_lr", "zsign_z", "zsign_sigma"}
-OMITTED_MODEL = {"moe_ep", "src_frac", "remat_save_weights"}
+OMITTED_MODEL = {"moe_ep", "remat_save_weights"}
 
 
 def test_registry_lists_the_transformer_archs():
-    assert sorted(TCommon.list_archs()) == sorted(TRANSFORMERS)
-    assert sorted(TRANSFORMERS + UNPORTED) == sorted(JCommon.list_archs())
+    """The registry lists every arch of the reference's, the transformers
+    and the other families alike."""
+    assert TCommon.list_archs() == JCommon.list_archs()
+    assert sorted(ARCHS) == sorted(JCommon.list_archs())
 
 
-@pytest.mark.parametrize("arch_id", UNPORTED)
-def test_unported_archs_raise_naming_item_16(arch_id):
-    with pytest.raises(NotImplementedError, match="item 16"):
-        TCommon.get_arch(arch_id)
+@pytest.mark.parametrize("arch_id", ARCHS)
+def test_build_model_takes_every_family(arch_id):
+    """The bundle of each arch at full width builds without allocating; its
+    family module's parameter tree has the reference's coordinate count."""
+    cfg = TCommon.get_arch(arch_id).model
+    bundle = build_model(cfg)
+    jb = JBuild(JCommon.get_arch(arch_id).model)
+    want = sum(int(np.prod(s.shape)) for s in jax.tree_util.tree_leaves(
+        jax.eval_shape(jb.init, jax.random.PRNGKey(0))))
+    got = sum(int(np.prod(s)) for _, s in
+              tree_paths(family_module(bundle.cfg).param_shapes(bundle.cfg)))
+    assert got == want
 
 
-@pytest.mark.parametrize("family", ["hybrid", "xlstm", "encdec"])
-def test_unported_families_raise_naming_item_16(family):
+def test_unknown_family_raises():
     cfg = dataclasses.replace(TCommon.get_arch("qwen2_0_5b").reduced().model,
-                              family=family)
-    with pytest.raises(NotImplementedError, match="item 16"):
+                              family="rnn")
+    with pytest.raises(ValueError, match="unknown family"):
         build_model(cfg)
 
 
@@ -68,7 +83,7 @@ def _fields(arch, omit_arch=(), omit_model=()):
 
 
 @pytest.mark.parametrize("reduced", [False, True])
-@pytest.mark.parametrize("arch_id", TRANSFORMERS)
+@pytest.mark.parametrize("arch_id", ARCHS)
 def test_config_equals_reference_field_for_field(arch_id, reduced):
     ja, ta = JCommon.get_arch(arch_id), TCommon.get_arch(arch_id)
     if reduced:
@@ -88,11 +103,11 @@ def _batch(spec, vocab, seed):
             for n, s in spec.items()}
 
 
-@pytest.mark.parametrize("arch_id", TRANSFORMERS)
+@pytest.mark.parametrize("arch_id", ARCHS)
 def test_reduced_config_train_step(arch_id):
     arch = TCommon.get_arch(arch_id).reduced()
     bundle = build_model(arch.model)
-    params = bundle.init(torch.Generator().manual_seed(0))
+    params = bundle.init(torch.Generator().manual_seed(0), device="cpu")
     batch = _batch(bundle.train_batch_spec(2, 32), arch.model.vocab, 0)
     leaves = [p.requires_grad_(True) for p in tree_leaves(params)]
     loss = bundle.loss_fn(params, batch)
@@ -101,19 +116,19 @@ def test_reduced_config_train_step(arch_id):
     assert all(bool(torch.all(torch.isfinite(g))) for g in grads)
 
 
-@pytest.mark.parametrize("arch_id", TRANSFORMERS)
+@pytest.mark.parametrize("arch_id", ARCHS)
 def test_reduced_config_decode_step(arch_id):
     arch = TCommon.get_arch(arch_id).reduced()
     bundle = build_model(arch.model)
-    params = bundle.init(torch.Generator().manual_seed(1))
-    cache = bundle.init_cache(2, 64)
+    params = bundle.init(torch.Generator().manual_seed(1), device="cpu")
+    cache = bundle.init_cache(2, 64, device="cpu")
+    shapes = [tuple(v.shape) for v in tree_leaves(cache)]
     logits, cache2 = bundle.decode_step(params, cache,
                                         torch.zeros((2, 1), dtype=torch.long),
                                         5)
     assert logits.shape == (2, 1, arch.model.vocab)
     assert bool(torch.all(torch.isfinite(logits)))
-    assert cache2.keys() == cache.keys()
-    assert all(cache2[k].shape == cache[k].shape for k in cache)
+    assert [tuple(v.shape) for v in tree_leaves(cache2)] == shapes
 
 
 def test_extra_leaves_follow_jax_normal():
@@ -135,6 +150,70 @@ def test_extra_leaves_follow_jax_normal():
     assert TN._NORMAL_LO == float(lo)
     assert TN._NORMAL_SCALE == float(np.float32(1) - lo)
     assert TN._SQRT2_F32 == float(np.float32(np.sqrt(2)))
+
+
+def test_launcher_draws_encdec_frames_and_cuts_tokens(monkeypatch):
+    """One round of seamless-m4t (reduced) through launch.train.run: the
+    batch's ``embeds`` are jax's ``normal`` on fold_in(PRNGKey(7), 0) over
+    layout + (8, 64) (seq 16 at src_frac 0.5), and its tokens are the first
+    8 of the stream's 16 (the reference's launcher cut)."""
+    from repro_torch.core import fedavg as TF
+    from repro_torch.data.synthetic import TokenStream
+    seen = []
+    build = TF.build_round_step
+
+    def spy(*a, **k):
+        step = build(*a, **k)
+
+        def run_step(state, batch, mask):
+            seen.append(batch)
+            return step(state, batch, mask)
+        return run_step
+
+    monkeypatch.setattr(TF, "build_round_step", spy)
+    arch = TCommon.get_arch("seamless_m4t_large_v2").reduced()
+    hist = TT.run(TT.parse_args(
+        ["--arch", "seamless_m4t_large_v2", "--reduced", "--rounds", "1",
+         "--clients", "2", "--local-steps", "1", "--seq-len", "16",
+         "--device", "cpu"]))
+    assert torch.isfinite(hist[0].loss)
+    (batch,) = seen
+    layout = (1, 2, 1, 2)
+    assert sorted(batch) == ["embeds", "tokens"]
+    want = jax.random.normal(jax.random.fold_in(jax.random.PRNGKey(7), 0),
+                             layout + (8, 64), jnp.float32)
+    np.testing.assert_allclose(batch["embeds"].numpy(), np.asarray(want),
+                               rtol=1e-5, atol=1e-6)
+    toks = TokenStream(vocab=arch.model.vocab).round_batch(0, layout, 16)
+    assert torch.equal(batch["tokens"], toks[..., :8])
+
+
+def _entry_points():
+    cfg = TCommon.get_arch("qwen2_0_5b").reduced().model
+    bundle = build_model(cfg)
+    tree = {"w1": np.zeros((4, 8), np.float32)}
+    init, _, _ = TM.mlp_loss_builder(4, 2, width=8)
+    ref = JBuild(JCommon.get_arch("qwen2_0_5b").reduced().model).init
+    return {
+        "bundle.init": lambda: bundle.init(torch.Generator()),
+        "bundle.init_cache": lambda: bundle.init_cache(2, 8),
+        "params_from_numpy": lambda: params_from_numpy(
+            jax.tree.map(np.asarray, ref(jax.random.PRNGKey(0))), cfg),
+        "mlp.init": lambda: init(torch.Generator()),
+        "mlp.params_from_numpy": lambda: TM.params_from_numpy(tree),
+    }
+
+
+@pytest.mark.parametrize("name", ["bundle.init", "bundle.init_cache",
+                                  "params_from_numpy", "mlp.init",
+                                  "mlp.params_from_numpy"])
+def test_entry_points_default_to_cuda_and_raise_without_a_card(name):
+    """Called with no device, each public entry point asks for ``cuda``;
+    with no card visible it raises instead of running on the CPU."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present")
+    with pytest.raises(RuntimeError, match="no CUDA card"):
+        _entry_points()[name]()
 
 
 PLANS = [["--clients", "4", "--cohort", "vmap"],

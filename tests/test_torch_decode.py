@@ -81,7 +81,7 @@ def _pair(arch_id):
 def _carry(jb, tb, seed=0):
     jparams = jb.init(jax.random.PRNGKey(seed))
     return jparams, params_from_numpy(jax.tree.map(np.asarray, jparams),
-                                      tb.cfg)
+                                      tb.cfg, "cpu")
 
 
 @pytest.mark.parametrize("arch_id", ["qwen2_0_5b", "h2o_danube_3_4b",
@@ -93,7 +93,7 @@ def test_decode_step_matches_reference(arch_id):
     jb, tb = _pair(arch_id)
     jparams, tparams = _carry(jb, tb)
     toks = np.random.RandomState(3).randint(0, tb.cfg.vocab, (2, 12))
-    jcache, tcache = jb.init_cache(2, 16), tb.init_cache(2, 16)
+    jcache, tcache = jb.init_cache(2, 16), tb.init_cache(2, 16, "cpu")
     jstep = jax.jit(jb.decode_step)
     for t in range(12):
         jl, jcache = jstep(jparams, jcache,
@@ -127,7 +127,7 @@ def test_decode_matches_forward(arch_id):
     np.testing.assert_allclose(full.numpy(), np.asarray(jfull), rtol=RTOL,
                                atol=ATOL)
     np.testing.assert_allclose(float(aux), float(jaux), rtol=RTOL, atol=ATOL)
-    cache = tb.init_cache(2, 8)
+    cache = tb.init_cache(2, 8, "cpu")
     outs = []
     for t in range(8):
         lg, cache = tb.decode_step(tparams, cache,
@@ -148,7 +148,7 @@ def test_out_of_range_position_raises_where_reference_clamps():
     _, jc2 = jb.decode_step(jparams, jcache, jnp.asarray(tok), jnp.int32(4))
     k = np.asarray(jc2["k"])
     assert np.any(k[:, :, 3] != 0) and not np.any(k[:, :, :3])
-    tcache = tb.init_cache(2, 4)
+    tcache = tb.init_cache(2, 4, "cpu")
     for bad in (4, 9, -1):
         with pytest.raises(ValueError, match="outside the cache"):
             tb.decode_step(tparams, tcache, torch.from_numpy(tok), bad)

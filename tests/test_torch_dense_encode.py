@@ -234,7 +234,7 @@ def test_train_run_cpu_zsign_packed_z2(capsys):
                           "--pipeline", "zsign_packed(z=2,sigma=0.01)"])
     history = TT.run(args)
     d = TW.tree_spec(t_build(t_get_arch("qwen2_0_5b").reduced().model)
-                     .init(torch.Generator().manual_seed(0))).n_coords
+                     .init(torch.Generator().manual_seed(0), "cpu")).n_coords
     assert len(history) == 2
     for m in history:
         assert float(m.uplink_bits) == 3 * d

@@ -293,7 +293,7 @@ def test_train_run_cpu_ef(flags, capsys):
     history = TT.run(args)
     assert len(history) == 2
     d = TW.tree_spec(t_build(t_get_arch("qwen2_0_5b").reduced().model)
-                     .init(torch.Generator().manual_seed(0))).n_coords
+                     .init(torch.Generator().manual_seed(0), "cpu")).n_coords
     for m in history:
         assert float(m.participation) == 2
         assert float(m.uplink_bits) == 2 * d

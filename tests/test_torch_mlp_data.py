@@ -58,7 +58,7 @@ def _task():
 def test_mlp_loss_and_grads_match_reference():
     x, y, batch, jloss, jparams = _task()
     _, tloss, tacc = TM.mlp_loss_builder(DIM, CLASSES)
-    tparams = TM.params_from_numpy(jax.tree.map(np.asarray, jparams))
+    tparams = TM.params_from_numpy(jax.tree.map(np.asarray, jparams), "cpu")
     for c in range(3):
         jb = {"x": batch["x"][0, c, 0], "y": batch["y"][0, c, 0]}
         tb = {"x": torch.from_numpy(np.array(jb["x"])),
@@ -80,8 +80,8 @@ def test_mlp_loss_and_grads_match_reference():
 
 def test_mlp_init_law():
     init, _, _ = TM.mlp_loss_builder(DIM, CLASSES, width=32)
-    a = init(torch.Generator().manual_seed(0))
-    b = init(torch.Generator().manual_seed(0))
+    a = init(torch.Generator().manual_seed(0), "cpu")
+    b = init(torch.Generator().manual_seed(0), "cpu")
     shapes = {k: tuple(v.shape) for k, v in
               JM.mlp_loss_builder(DIM, CLASSES, width=32)[0](
                   jax.random.PRNGKey(0)).items()}
@@ -163,7 +163,8 @@ def test_mlp_round_matches_reference(pipe, slr):
     tstep = TF.build_round_step(tloss, tcomp, tcfg)
     js = JF.init_server_state(jparams, jcfg, jcomp, jax.random.PRNGKey(1))
     ts = TF.init_server_state(
-        TM.params_from_numpy(jax.tree.map(np.asarray, jparams)), tcfg, tcomp,
+        TM.params_from_numpy(jax.tree.map(np.asarray, jparams), "cpu"), tcfg,
+        tcomp,
         TN.prng_key(1))
     mask = np.ones((1, N), np.float32)
     mask[0, [2, 5]] = 0.0

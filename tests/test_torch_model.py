@@ -44,7 +44,8 @@ def _loss_and_grad(jb, tb, tokens):
     jparams = jb.init(jax.random.PRNGKey(0))
     jloss, jgrad = jax.value_and_grad(jb.loss_fn)(
         jparams, {"tokens": jnp.asarray(tokens)})
-    tparams = params_from_numpy(jax.tree.map(np.asarray, jparams), tb.cfg)
+    tparams = params_from_numpy(jax.tree.map(np.asarray, jparams), tb.cfg,
+                                "cpu")
     tparams = {k: _req(v) for k, v in tparams.items()}
     tloss = tb.loss_fn(tparams, {"tokens": torch.from_numpy(tokens)})
     tgrad = torch.autograd.grad(tloss, tree_leaves(tparams))
@@ -75,18 +76,18 @@ def test_loss_and_gradient_match_reference(q_chunk):
 def test_params_from_numpy_shapes_and_errors():
     jb, tb = _pair()
     tree = jax.tree.map(np.asarray, jb.init(jax.random.PRNGKey(0)))
-    params = params_from_numpy(tree, tb.cfg)
+    params = params_from_numpy(tree, tb.cfg, "cpu")
     assert TW.tree_spec(params).shapes == JW.tree_spec(tree).shapes
     assert all(p.dtype == torch.float32 for p in tree_leaves(params))
     extra = dict(tree, junk=np.zeros(3, np.float32))
     with pytest.raises(ValueError, match="extra"):
-        params_from_numpy(extra, tb.cfg)
+        params_from_numpy(extra, tb.cfg, "cpu")
     missing = {k: v for k, v in tree.items() if k != "lnf"}
     with pytest.raises(ValueError, match="missing"):
-        params_from_numpy(missing, tb.cfg)
+        params_from_numpy(missing, tb.cfg, "cpu")
     bad = dict(tree, lnf=np.zeros(3, np.float32))
     with pytest.raises(ValueError, match="shape"):
-        params_from_numpy(bad, tb.cfg)
+        params_from_numpy(bad, tb.cfg, "cpu")
 
 
 def test_full_width_config_matches_reference_shapes():

@@ -177,7 +177,7 @@ def test_loss_and_gradient_match_reference(arch_id):
     jloss, jgrad = jax.jit(jax.value_and_grad(jb.loss_fn))(
         jparams, {n: jnp.asarray(v) for n, v in batch.items()})
     tparams = _req(params_from_numpy(jax.tree.map(np.asarray, jparams),
-                                     tb.cfg))
+                                     tb.cfg, "cpu"))
     tloss = tb.loss_fn(tparams, {n: torch.from_numpy(v)
                                  for n, v in batch.items()})
     tgrad = torch.autograd.grad(tloss, tree_leaves(tparams))
@@ -205,7 +205,7 @@ def test_moe_params_tree_and_router_dtype():
     assert sum(int(np.prod(s)) for s in got) == 1_334_628_352
     small = dataclasses.replace(tcfg, n_layers=1, vocab=64, d_model=64,
                                 n_heads=4, n_kv_heads=2, d_ff=8)
-    p = t_build(small).init(torch.Generator().manual_seed(0))
+    p = t_build(small).init(torch.Generator().manual_seed(0), "cpu")
     assert p["moe"]["router"].dtype == torch.float32
     assert p["moe"]["w1"].dtype == torch.bfloat16 == p["embed"].dtype
     paths = [path for path, _ in tree_paths(param_shapes(tcfg))]
@@ -234,7 +234,8 @@ def test_reduced_fed_round_granite_moe():
     jstep = jax.jit(JF.build_round_step(jb.loss_fn, jcomp, jcfg))
     tstep = TF.build_round_step(tb.loss_fn, tcomp, tcfg)
     jparams = jb.init(jax.random.PRNGKey(0))
-    tparams = params_from_numpy(jax.tree.map(np.asarray, jparams), tb.cfg)
+    tparams = params_from_numpy(jax.tree.map(np.asarray, jparams), tb.cfg,
+                                "cpu")
     jst = JF.init_server_state(jparams, jcfg, jcomp, jax.random.PRNGKey(1))
     tst = TF.init_server_state(tparams, tcfg, tcomp, TN.prng_key(1))
     bspec = JF.make_batch_spec(jcfg, jb.train_batch_spec(2, 32))

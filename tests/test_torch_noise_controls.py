@@ -692,7 +692,7 @@ def test_train_run_cpu_noise_controls(flags, capsys):
                           "--seq-len", "16"] + flags)
     history = TT.run(args)
     d = TW.tree_spec(t_build(t_get_arch("qwen2_0_5b").reduced().model)
-                     .init(torch.Generator().manual_seed(0))).n_coords
+                     .init(torch.Generator().manual_seed(0), "cpu")).n_coords
     bits = 32 if "dpgauss" in flags else 1
     assert len(history) == 2
     for m in history:

@@ -470,7 +470,8 @@ def test_reduced_qwen_vote_round_matches_reference():
     tcomp = TC.Pipeline(spec)
     tstep = TF.build_round_step(tb.loss_fn, tcomp, tcfg,
                                 TF.RoundContext(weights_are_mask=True))
-    tparams = params_from_numpy(jax.tree.map(np.asarray, jparams), tb.cfg)
+    tparams = params_from_numpy(jax.tree.map(np.asarray, jparams), tb.cfg,
+                                "cpu")
     ts1, tm = tstep(TF.init_server_state(tparams, tcfg, tcomp,
                                          TN.prng_key(1)),
                     {"tokens": torch.tensor(tokens).long()},
@@ -505,7 +506,7 @@ def test_train_run_cpu_robust_and_adversary(flags, capsys):
                           "--seq-len", "16"] + flags)
     history = TT.run(args)
     d = TW.tree_spec(t_build(t_get_arch("qwen2_0_5b").reduced().model)
-                     .init(torch.Generator().manual_seed(0))).n_coords
+                     .init(torch.Generator().manual_seed(0), "cpu")).n_coords
     live = 2 if "dropout(f=1)" in flags else 3
     assert len(history) == 2
     for m in history:

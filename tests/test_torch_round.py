@@ -165,7 +165,8 @@ def test_reduced_qwen_round_end_to_end():
     js1, jm = jstep(js0, {"tokens": jnp.asarray(tokens)},
                     jnp.ones((1, 3)))
 
-    tparams = params_from_numpy(jax.tree.map(np.asarray, jparams), tb.cfg)
+    tparams = params_from_numpy(jax.tree.map(np.asarray, jparams), tb.cfg,
+                                "cpu")
     tcomp = TC.ZSignCompressor(z=1, sigma=SIGMA)
     tcfg = TF.FedConfig(n_clients=3, local_steps=2, client_lr=CLR,
                         server_lr=SLR)
@@ -204,7 +205,7 @@ def test_train_run_cpu_uplink_bits(participation, capsys):
     history = TT.run(args)
     assert len(history) == 2
     d = TW.tree_spec(t_build(t_get_arch("qwen2_0_5b").reduced().model)
-                     .init(torch.Generator().manual_seed(0))).n_coords
+                     .init(torch.Generator().manual_seed(0), "cpu")).n_coords
     for m in history:
         n_live = float(m.participation)
         assert n_live == 4 * participation

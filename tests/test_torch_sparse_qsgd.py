@@ -340,7 +340,8 @@ def test_reduced_qwen_topk_round_matches_reference():
     tcomp = TC.Pipeline(spec)
     tstep = TF.build_round_step(tb.loss_fn, tcomp, tcfg,
                                 TF.RoundContext(weights_are_mask=True))
-    tparams = params_from_numpy(jax.tree.map(np.asarray, jparams), tb.cfg)
+    tparams = params_from_numpy(jax.tree.map(np.asarray, jparams), tb.cfg,
+                                "cpu")
     ts1, tm = tstep(TF.init_server_state(tparams, tcfg, tcomp,
                                          TN.prng_key(1)),
                     {"tokens": torch.tensor(tokens).long()},
@@ -373,7 +374,7 @@ def test_train_run_cpu_sparse_and_qsgd(flags, capsys):
                           "--seq-len", "16"] + flags)
     history = TT.run(args)
     d = TW.tree_spec(t_build(t_get_arch("qwen2_0_5b").reduced().model)
-                     .init(torch.Generator().manual_seed(0))).n_coords
+                     .init(torch.Generator().manual_seed(0), "cpu")).n_coords
     # ceil(log2(2s + 1)) = 3 bits a coordinate at s = 2
     bits = {"topk": 64 * 0.02, "qsgd": 3.0}.get(flags[1], 64 * 0.01)
     assert len(history) == 2
