@@ -169,7 +169,38 @@ Phases, each of which raises (non-zero exit, no result line) on failure:
                       super-block, d_model 64; the full model does not fit
                       the card), zsign at 4 clients, 2 rounds (E1 + R1 once
                       a round), then 16 greedy decode steps
-5. the public op ``zsign_decompress_sum`` (U1, on no round path) on a
+5. multi_device, ``stream(shard=K,devices=2)``: two ranks (fresh
+   processes, ``torch.multiprocessing.spawn``) of a gloo group share the
+   one card (NCCL refuses two ranks on one device) and each runs
+   ``launch.train.run`` at full qwen2-0.5B width; each path runs first in
+   this process under ``stream(shard=K)``:
+     multi_zsign      zsign(z=1, sigma=0.01), 16 clients, shards of 4, 2
+                      rounds: each rank E1 (n = 4, (4, 494,034,944) f32)
+                      and R1 twice a round, both held to their plain
+                      versions on round 0; params after every round equal
+                      on both ranks and to the one-process run
+     multi_ef         ef|zsign(use_kernel=true), 8 clients, shards of 2, 1
+                      round: each rank F1 twice ((2, 494,034,944) f32) and
+                      R1 once in fold mode (the pending 4 clients padded
+                      to 8), both held to their plain versions on round 0;
+                      residual rows equal to the one-process run's, 4 x d x
+                      4 bytes a rank; the decoded f32 update and every
+                      param leaf, bf16 too, within rtol 5e-5 / atol 1e-7
+                      of it (the f32 sums meet in another association
+                      order), the largest ulp gaps printed
+     multi_trimmed    zsign_packed(z=1,sigma=0.01,agg=trimmed(f=2)), 16
+                      clients, shards of 4, 1 round: the int32 vote pair
+                      crosses ranks; params equal to the one-process run
+   Each rank makes one reduce of its accumulator and one of the loss a
+   round (``core.wire.reduce_accumulator``), moving at most 2 x the
+   accumulator's bytes + 8; printed with the round times at D = 1 and D =
+   2, each rank's peak memory and the backend. A reduce's time in a round
+   includes the wait for the other rank's shards; after the rounds each
+   rank times the same reduce twice more, alone after a barrier, for the
+   transfer's time and rate. Then ``round_mfu``: 6 *
+   N_active * 2,048 tokens (the port's roofline) over the H100's peak,
+   against the zsign path's round times.
+6. the public op ``zsign_decompress_sum`` (U1, on no round path) on a
    full-width payload stack, checked against R1 with unit weights; then
    times at the paths' shapes (n = 8, d as above) with CUDA events, each
    kernel beside its plain version on the same inputs and its bound (R1 in
@@ -448,6 +479,42 @@ MOE_SERVE = {"batch": 16, "steps": 64, "max_len": 512}
 MOE_GAP, MOE_RTOL = 1e-5, 1e-4
 #: the checkpoint replay: EF at 2 clients (3.95 GB of residuals)
 CKPT_FLAGS = EF + ["--clients", "2", "--save-every", "20"]
+#: the multi-device phase: stream(shard=K,devices=2), two ranks of a gloo
+#: group sharing the one card (NCCL refuses two ranks on one device), each
+#: path first in one process under stream(shard=K). Label, train flags,
+#: shard, rounds, and each rank's launches a round
+MULTI_RANKS = 2
+MULTI_PATHS = [
+    ("multi_zsign", ZSIGN + ["--clients", "16"], 4, 2,
+     {"zsign_encode": 2, "sign_reduce": 2, "sign_reduce_fold": 0,
+      "ef_sign": 0}),
+    ("multi_ef", EF + ["--clients", "8"], 2, 1,
+     {"zsign_encode": 0, "sign_reduce": 1, "sign_reduce_fold": 1,
+      "ef_sign": 2}),
+    ("multi_trimmed", ["--pipeline",
+                       "zsign_packed(z=1,sigma=0.01,agg=trimmed(f=2))",
+                       "--clients", "16"], 4, 1,
+     {"zsign_encode": 2, "sign_reduce": 2, "sign_reduce_fold": 0,
+      "ef_sign": 0}),
+]
+#: paths whose kernels are held to their plain versions on round 0 (on
+#: every rank and in the one-process run), with the rows of each kernel's
+#: first launch there; its columns are d_pad for E1 and F1, the payload's
+#: d_pad / 8 bytes for R1 (add mode, or fold mode closing the pending
+#: block of 4 clients padded to 8)
+MULTI_PLAIN = {
+    "multi_zsign": {"zsign_encode": 4, "sign_reduce": 4},
+    "multi_ef": {"ef_sign": 2, "sign_reduce_fold": 8},
+    "multi_trimmed": {"zsign_encode": 4, "sign_reduce": 4},
+}
+#: seconds a rank waits at init and in a collective before failing
+MULTI_TIMEOUT_S = 300
+#: the reference's tolerance on f32 results of the f32-weighted EF sum
+#: (tests/test_cohort_stream.py:382-384)
+EF_RTOL, EF_ATOL = 5e-5, 1e-7
+#: round_mfu: tokens of one zsign round (8 clients x E 2 x micro-batch 2 x
+#: seq 64)
+MFU_TOKENS = 8 * 2 * 2 * 64
 
 
 def _wrappers():
@@ -758,7 +825,9 @@ class _PlainCheckProbe:
     path whose round-0 E1 and R1 launches are held against their plain
     versions on the same buffer, keys and weights: E1 by the erf rule
     (bit-exact, or every differing bit within 4 f32 ulp of its
-    threshold), R1 as int32 patterns. The plain calls are not counted."""
+    threshold), R1 in add mode and in fold mode (the carry before the
+    launch, which writes over it) as int32 patterns. The plain calls are
+    not counted."""
 
     def __init__(self, ops):
         self._ops, self.seen = ops, {}
@@ -791,6 +860,57 @@ class _PlainCheckProbe:
             self.seen["sign_reduce"] = {"shape": list(packed.shape),
                                         "max_abs_err": 0.0}
             del want
+        return got
+
+    def _fold_close(self, rows, w, sums):
+        if "sign_reduce_fold" in self.seen:
+            return self._ops._fold_close(rows, w, sums)
+        want = self._ops.sign_reduce_plain(rows, w, sums, fold=True)
+        got = self._ops._fold_close(rows, w, sums)
+        if not _same_bits(got, want):
+            raise AssertionError("R1 fold mode: bits differ from the plain "
+                                 "version")
+        self.seen["sign_reduce_fold"] = {"shape": list(rows.shape),
+                                         "max_abs_err": 0.0}
+        del want
+        return got
+
+    def sign_fold_step(self, packed, weights, acc):
+        from repro_torch.core import wire
+        return wire._sign_fold_step(packed, weights, acc,
+                                    close=self._fold_close)
+
+    def sign_fold_finalize(self, acc):
+        from repro_torch.core import wire
+        return wire.sign_fold_finalize(acc, close=self._fold_close)
+
+
+class _EfPlainProbe:
+    """Stands in for the F1 module inside ``core.compression``: the first
+    ``ef_sign_rows`` launch is held against ``ef_sign_rows_plain`` on the
+    same rows, residuals (before the launch, which writes over them),
+    scales and live mask; payload bytes and residual bit patterns equal.
+    The plain call is not counted. Records into ``seen`` (shared with a
+    ``_PlainCheckProbe``)."""
+
+    def __init__(self, eops, seen):
+        self._eops, self.seen = eops, seen
+
+    def __getattr__(self, name):
+        return getattr(self._eops, name)
+
+    def ef_sign_rows(self, g2d, e2d, scale, **kw):
+        if "ef_sign" in self.seen:
+            return self._eops.ef_sign_rows(g2d, e2d, scale, **kw)
+        want = self._eops.ef_sign_rows_plain(g2d, e2d, scale,
+                                             **{**kw, "in_place": False})
+        got = self._eops.ef_sign_rows(g2d, e2d, scale, **kw)
+        for k, name in enumerate(("payload", "residuals", "q")):
+            if want[k] is not None and not _same_bits(got[k], want[k]):
+                raise AssertionError(f"F1: {name} differ from the plain "
+                                     "version")
+        self.seen["ef_sign"] = {"shape": list(g2d.shape), "max_abs_err": 0.0}
+        del want
         return got
 
 
@@ -985,12 +1105,14 @@ def _norm64(row, chunk=1 << 26):
 
 
 def _digest(row, chunk=1 << 26):
-    """(sum, position-weighted sum) of a row's int32 pattern, int64
-    arithmetic mod 2^64."""
+    """(sum, position-weighted sum) of a row's bit pattern (int32 for 4-byte
+    elements, int16 for bf16), int64 arithmetic mod 2^64."""
+    iv = {2: torch.int16, 4: torch.int32}[row.element_size()]
+    row = row.reshape(-1)
     a = b = 0
     for lo in range(0, row.numel(), chunk):
         x = row[lo:lo + chunk].to(DEV, non_blocking=True)
-        x = x.view(torch.int32).to(torch.int64)
+        x = x.view(iv).to(torch.int64)
         pos = torch.arange(lo + 1, lo + 1 + x.numel(), device=DEV,
                            dtype=torch.int64) * 2654435761
         a += int(x.sum())
@@ -2451,6 +2573,346 @@ def times_compress(dev):
             "bound_by": by, "max_abs_err": 0}
 
 
+def _ulp_gap(a, b, chunk=1 << 26):
+    """Largest distance of two same-dtype float tensors in units in the
+    last place (their bit patterns as integers), and how many elements
+    differ."""
+    a, b = a.detach().reshape(-1), b.detach().reshape(-1)
+    iv = {2: torch.int16, 4: torch.int32}[a.element_size()]
+    gap = n = 0
+    for lo in range(0, a.numel(), chunk):
+        d = (a[lo:lo + chunk].view(iv).to(torch.int64)
+             - b[lo:lo + chunk].view(iv).to(torch.int64)).abs()
+        gap = max(gap, int(d.max()))
+        n += int((d != 0).sum())
+    return gap, n
+
+
+def _outside_tol(got, want, chunk=1 << 26):
+    """Elements of ``got`` outside rtol EF_RTOL / atol EF_ATOL of ``want``
+    (compared in f32), and the largest relative gap."""
+    got, want = got.detach().reshape(-1), want.detach().reshape(-1)
+    n, rel = 0, 0.0
+    for lo in range(0, got.numel(), chunk):
+        g = got[lo:lo + chunk].float()
+        w = want[lo:lo + chunk].float()
+        d = (g - w).abs()
+        n += int((d > EF_ATOL + EF_RTOL * w.abs()).sum())
+        rel = max(rel, float((d / w.abs().clamp_min(1e-30)).max()))
+    return n, rel
+
+
+def _multi_run(label, flags, shard, rounds, devices, ref_path=None,
+               save_ref=None):
+    """One multi-device path through ``train.run``: the one-process
+    stream(shard=K) plan (``devices`` 1), or this rank's part of
+    stream(shard=K,devices=D). Counters and the reduce's statistics at 0
+    just before, read after every round. E1, R1 and F1 are held to their
+    plain versions on round 0 (``MULTI_PLAIN``). ``save_ref``: where the
+    one-process run writes its decoded update and params; ``ref_path``:
+    where a rank reads them to compare its own. -> a JSON-able record."""
+    from repro_torch.core import compression, wire
+    from repro_torch.core.tree import tree_leaves
+    from repro_torch.kernels.efsign import ops as eops
+    from repro_torch.kernels.zsign import ops
+    from repro_torch.launch import train
+    cohort = (f"stream(shard={shard})" if devices == 1 else
+              f"stream(shard={shard},devices={devices})")
+    args = train.parse_args(COMMON_ARGS + flags + [
+        "--cohort", cohort, "--rounds", str(rounds)])
+    per, keep, decoded = [], {}, []
+    decode = compression.Pipeline.decode_sum
+
+    def decode_sum(self, *a, **k):
+        g = decode(self, *a, **k)
+        decoded[:] = [g]
+        return g
+
+    def on_round(t, before, after, m, sec):
+        per.append({"sec": sec, "loss": float(m.loss),
+                    "part": float(m.participation), "counts": _counts(),
+                    "params": [_digest(v) for v in tree_leaves(after.params)],
+                    "reduce": dict(wire.REDUCE_STATS)})
+        if t == rounds - 1:
+            keep["state"] = after
+
+    plain = _PlainCheckProbe(ops) if label in MULTI_PLAIN else None
+    _free()
+    torch.cuda.reset_peak_memory_stats()
+    _reset_counts()
+    wire.reset_reduce_stats()
+    if plain is not None:
+        compression.K = plain
+        compression.EK = _EfPlainProbe(eops, plain.seen)
+    compression.Pipeline.decode_sum = decode_sum
+    try:
+        history = train.run(args, on_round=on_round)
+        torch.cuda.synchronize()
+    finally:
+        compression.K, compression.EK = ops, eops
+        compression.Pipeline.decode_sum = decode
+    if len(history) != rounds:
+        raise AssertionError(f"{label}: train.run ran {len(history)} rounds")
+    st = keep.pop("state")
+    rec = {"devices": devices, "cohort": cohort,
+           "peak_GB": torch.cuda.max_memory_allocated() / 1e9,
+           "round_s": [r["sec"] for r in per],
+           "loss": [r["loss"] for r in per],
+           "participation": [r["part"] for r in per],
+           "params": [r["params"] for r in per],
+           "counts": per[-1]["counts"],
+           "counts_by_round": [{k: r["counts"][k] - (per[t - 1]["counts"][k]
+                                                     if t else 0)
+                                for k in r["counts"]}
+                               for t, r in enumerate(per)],
+           "reduce_by_round": [{k: r["reduce"][k] - (per[t - 1]["reduce"][k]
+                                                     if t else 0)
+                                for k in r["reduce"]}
+                               for t, r in enumerate(per)],
+           "rows": None, "state_bytes": None, "acc_bytes": None}
+    if plain is not None:
+        rec["vs_plain_round0"] = plain.seen
+    if st.comp_state is not None:
+        rec["rows"] = {k: [_digest(r) for r in v.reshape(-1, v.shape[-1])]
+                       for k, v in st.comp_state.items()}
+        rec["state_bytes"] = sum(v.numel() * v.element_size()
+                                 for v in st.comp_state.values())
+    g = decoded[0]
+    if save_ref is not None:
+        torch.save({"g": g.cpu(), "params": [v.cpu() for v in
+                                             tree_leaves(st.params)]},
+                   save_ref)
+    if ref_path is not None:
+        ref = torch.load(ref_path, map_location=g.device)
+        rec["update_outside_tol"], rec["update_max_rel"] = _outside_tol(
+            g, ref["g"])
+        rec["update_ulp"] = _ulp_gap(g, ref["g"])
+        # every leaf, f32 and bf16, held to the tolerance; the ulp gap is
+        # printed for information
+        p_out = p_ulp = p_diff = 0
+        for v, w in zip(tree_leaves(st.params), ref["params"]):
+            gap, n = _ulp_gap(v, w)
+            p_out += _outside_tol(v, w)[0]
+            p_ulp, p_diff = max(p_ulp, gap), p_diff + n
+        rec.update(params_outside_tol=p_out, params_ulp=p_ulp,
+                   params_differing=p_diff)
+        del ref
+    del st, decoded, g
+    _free()
+    return rec
+
+
+def _rank_worker(rank, world, store, label, flags, shard, rounds, ref_path,
+                 out):
+    """One rank of the multi-device phase, in a fresh process: joins the
+    gloo group through a FileStore, runs its part of the path and writes
+    its record to ``out.format(rank)``."""
+    import datetime
+    import torch.distributed as dist
+    os.environ["LOCAL_RANK"] = str(rank)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    from repro_torch.launch.mesh import make_cohort_group
+    make_cohort_group(init_method=f"file://{store}", rank=rank,
+                      world_size=world, verbose=rank == 0,
+                      timeout=datetime.timedelta(seconds=MULTI_TIMEOUT_S))
+    rec = _multi_run(label, flags, shard, rounds, world, ref_path=ref_path)
+    rec.update(rank=rank, backend=dist.get_backend(),
+               device=f"cuda:{torch.cuda.current_device()}",
+               reduce_alone=_reduce_alone(flags, world))
+    with open(out.format(rank), "w") as f:
+        json.dump(rec, f)
+    dist.barrier()
+    dist.destroy_process_group()
+
+
+def _reduce_alone(flags, world, reps=2):
+    """The path's cross-rank reduce alone, ``reps`` times, each after a
+    barrier: the ranks start it together, so its seconds are the transfer
+    (pinned staging and gloo) and not a wait for a peer's shards. The
+    accumulator is the path's (the f32 sum, or the robust laws' (2, d_pad)
+    int32 pair) filled with ones, so the sum must be ``world``."""
+    import torch.distributed as dist
+    from repro_torch.core import wire
+    from repro_torch.kernels.zsign.ops import TILE
+    d_pad = -(-QWEN2_COORDS // TILE) * TILE
+    pair = "agg=" in " ".join(flags)
+    acc = torch.ones((2, d_pad) if pair else (d_pad,),
+                     dtype=torch.int32 if pair else torch.float32,
+                     device=torch.cuda.current_device())
+    out = []
+    for _ in range(reps):
+        dist.barrier()
+        torch.cuda.synchronize()
+        wire.reset_reduce_stats()
+        t0 = time.perf_counter()
+        got = wire.reduce_accumulator(acc)
+        torch.cuda.synchronize()
+        sec = time.perf_counter() - t0
+        if not bool((got == world).all()):
+            raise AssertionError("the timed reduce's sum is not the world "
+                                 "size")
+        moved = wire.REDUCE_STATS["sent"] + wire.REDUCE_STATS["received"]
+        out.append({"ms": sec * 1e3, "bytes": moved,
+                    "GB_per_s": moved / sec / 1e9})
+        del got
+    del acc
+    _free()
+    return out
+
+
+def phase_multi_device(dev, smi):
+    """multi_device: each of MULTI_PATHS first in this process under
+    stream(shard=K), then as two ranks (``torch.multiprocessing.spawn``,
+    fresh processes) running ``launch.train.run`` under
+    stream(shard=K,devices=2) on the one card. Params after every round
+    equal on both ranks and, for zsign and trimmed, to the one-process
+    run's; EF: residual rows equal to it, the decoded f32 update and every
+    param leaf within the reference's rtol 5e-5 / atol 1e-7, each rank's
+    residuals 4 x d x 4 bytes. Each rank's launches a round as MULTI_PATHS
+    says, its round-0 kernels held to their plain versions as MULTI_PLAIN
+    says; one reduce of the accumulator and one of the loss a round, at
+    most 2 x the accumulator's bytes + 8 a rank."""
+    import shutil
+    import tempfile
+    import torch.multiprocessing as mp
+    from repro_torch.kernels.zsign.ops import TILE
+    d_pad = -(-QWEN2_COORDS // TILE) * TILE
+    out, tmp = {}, tempfile.mkdtemp(prefix="chip_smoke_multi_")
+    try:
+        for label, flags, shard, rounds, want in MULTI_PATHS:
+            ref = (os.path.join(tmp, label + "_ref.pt")
+                   if label == "multi_ef" else None)
+            # as the ranks' records arrive: through JSON
+            one = json.loads(json.dumps(_multi_run(label, flags, shard,
+                                                   rounds, 1, save_ref=ref)))
+            rec_path = os.path.join(tmp, label + "_rank{}.json")
+            t0 = time.time()
+            mp.spawn(_rank_worker, nprocs=MULTI_RANKS, join=True,
+                     args=(MULTI_RANKS, os.path.join(tmp, label + ".store"),
+                           label, flags, shard, rounds, ref, rec_path))
+            spawn_s = time.time() - t0
+            ranks = []
+            for r in range(MULTI_RANKS):
+                with open(rec_path.format(r)) as f:
+                    ranks.append(json.load(f))
+            if ref is not None:
+                os.unlink(ref)
+            out.update(_multi_checks(label, flags, rounds, want, one, ranks,
+                                     d_pad, spawn_s, smi))
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return out
+
+
+def _plain_shapes(label, who, rec, d_pad):
+    """The kernels a MULTI_PLAIN path's run held to their plain versions
+    on round 0, at the shapes MULTI_PLAIN gives."""
+    if label not in MULTI_PLAIN:
+        return
+    want = {k: [n, d_pad // 8 if k.startswith("sign_reduce") else d_pad]
+            for k, n in MULTI_PLAIN[label].items()}
+    got = {k: v["shape"] for k, v in rec["vs_plain_round0"].items()}
+    if got != want:
+        raise AssertionError(f"{label}: {who}: kernels held against their "
+                             f"plain versions at {got}, want {want}")
+
+
+def _multi_checks(label, flags, rounds, want, one, ranks, d_pad, spawn_s,
+                  smi):
+    """The checks of one multi-device path, its JSON line, and its
+    summaries for the kernels line (``<label>`` the ranks' launches
+    summed, ``<label>_d1`` the one-process run's)."""
+    total = int(flags[flags.index("--clients") + 1])
+    # the f32 sum, or the robust laws' (2, d_pad) int32 vote pair
+    acc_bytes = (2 if "agg=" in " ".join(flags) else 1) * 4 * d_pad
+    for rk in ranks:
+        r = rk["rank"]
+        if rk["backend"] != "gloo" or rk["device"] != "cuda:0":
+            raise AssertionError(f"{label}: rank {r} on {rk['device']} "
+                                 f"with {rk['backend']}")
+        if rk["participation"] != [float(total)] * rounds:
+            raise AssertionError(f"{label}: rank {r} participation "
+                                 f"{rk['participation']}")
+        for t, c in enumerate(rk["counts_by_round"]):
+            got = {k: c[k] for k in want}
+            if got != want:
+                raise AssertionError(f"{label}: rank {r} round {t} "
+                                     f"launched {got}, want {want}")
+        for t, red in enumerate(rk["reduce_by_round"]):
+            moved = red["sent"] + red["received"]
+            if red["calls"] != 2 or moved > 2 * acc_bytes + 8:
+                raise AssertionError(f"{label}: rank {r} round {t}: "
+                                     f"{red['calls']} reduces moving {moved}"
+                                     f" bytes (at most {2 * acc_bytes + 8})")
+        _plain_shapes(label, f"rank {r}", rk, d_pad)
+    _plain_shapes(label, "one process", one, d_pad)
+    if ranks[0]["params"] != ranks[1]["params"]:
+        raise AssertionError(f"{label}: params differ between the ranks")
+    if ranks[0]["loss"] != ranks[1]["loss"]:
+        raise AssertionError(f"{label}: losses differ between the ranks")
+    checks = {"params_equal_across_ranks": True}
+    if label == "multi_ef":
+        if ranks[0]["rows"]["ef"] + ranks[1]["rows"]["ef"] != \
+                one["rows"]["ef"]:
+            raise AssertionError(f"{label}: residual rows differ from the "
+                                 "one-process run")
+        for rk in ranks:
+            if rk["state_bytes"] != 4 * QWEN2_COORDS * 4:
+                raise AssertionError(f"{label}: rank {rk['rank']} holds "
+                                     f"{rk['state_bytes']} residual bytes")
+            if rk["update_outside_tol"] or rk["params_outside_tol"]:
+                raise AssertionError(
+                    f"{label}: rank {rk['rank']}: {rk['update_outside_tol']}"
+                    f" update coordinates and {rk['params_outside_tol']} "
+                    f"params outside rtol {EF_RTOL} / atol {EF_ATOL} of the "
+                    f"one-process run (params up to {rk['params_ulp']} ulp "
+                    "from it)")
+        checks.update(
+            residual_rows_equal=True,
+            residual_bytes_per_rank=ranks[0]["state_bytes"],
+            update_max_rel=max(rk["update_max_rel"] for rk in ranks),
+            update_ulp_max=max(rk["update_ulp"][0] for rk in ranks),
+            update_coords_differing=ranks[0]["update_ulp"][1],
+            params_ulp_max=max(rk["params_ulp"] for rk in ranks),
+            params_differing=ranks[0]["params_differing"],
+            params_outside_rtol_atol=ranks[0]["params_outside_tol"])
+    else:
+        if ranks[0]["params"] != one["params"]:
+            raise AssertionError(f"{label}: params differ from the "
+                                 "one-process stream run")
+        checks["params_equal_to_one_process"] = True
+    # time in the round's reduce calls: the wait for the peer included
+    reduce = [[{"ms_in_call": red["seconds"] * 1e3,
+                "bytes": red["sent"] + red["received"]}
+               for red in rk["reduce_by_round"]] for rk in ranks]
+    print(json.dumps({
+        "multi_device": label, "flags": flags, "clients": total,
+        "rounds": rounds, "ranks": MULTI_RANKS,
+        "backend": ranks[0]["backend"], "card": smi,
+        "round_s": {"D1": one["round_s"],
+                    "D2": [rk["round_s"] for rk in ranks]},
+        "reduce_per_rank": reduce, "acc_bytes": acc_bytes,
+        "reduce_alone_per_rank": [rk["reduce_alone"] for rk in ranks],
+        "peak_mem_GB": {"D1": one["peak_GB"],
+                        "D2": [rk["peak_GB"] for rk in ranks]},
+        "launches_by_round": {"D1": one["counts_by_round"],
+                              "D2": [rk["counts_by_round"] for rk in ranks]},
+        "kernels_vs_plain_round0": [rk.get("vs_plain_round0")
+                                    for rk in ranks],
+        "spawn_and_run_s": spawn_s, **checks}))
+    summed = {k: sum(rk["counts"][k] for rk in ranks)
+              for k in ranks[0]["counts"]}
+    return {label: {"launches": summed,
+                    "secs": [max(x) for x in zip(*(rk["round_s"]
+                                                   for rk in ranks))],
+                    "peak": max(rk["peak_GB"] for rk in ranks) * 1e9,
+                    "vs_plain": [rk.get("vs_plain_round0") for rk in ranks]},
+            label + "_d1": {"launches": one["counts"],
+                            "secs": one["round_s"],
+                            "peak": one["peak_GB"] * 1e9}}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA card visible", file=sys.stderr)
@@ -2459,7 +2921,7 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     t_start = time.time()
-    name, smi = phase_device_and_build()
+    smi = phase_device_and_build()[1]
     flips_z1 = check_encode_and_reduce(dev)
     check_fold(dev)
     check_ef_compress_unpack(dev)
@@ -2485,6 +2947,10 @@ def main() -> int:
     results["hybrid_reduced"] = phase_hybrid_reduced(dev, smi)
     print(f"# xLSTM, enc-dec, mamba and hybrid phases ran "
           f"{time.time() - t_new:.1f} s")
+    t_new = time.time()
+    multi = phase_multi_device(dev, smi)
+    results.update(multi)
+    print(f"# multi-device phase ran {time.time() - t_new:.1f} s")
     times = times_encode_reduce(dev)
     times["ef_sign"] = times_ef(dev)
     times["zsign_compress"] = times_compress(dev)
@@ -2510,6 +2976,19 @@ def main() -> int:
                                  "recurrence": mamba["recurrence_ms"]},
         "peak_mem_GB": {k: v["peak"] / 1e9 for k, v in results.items()},
         "card": smi}))
+    # the useful-work share of the zsign round: 6 * N_active * tokens from
+    # the port's roofline, over the H100's peak, against the round time
+    from repro_torch.configs.common import get_arch
+    from repro_torch.launch.roofline import H100, param_counts
+    n_active = param_counts(get_arch("qwen2_0_5b"))["active"]
+    flops = 6.0 * n_active * MFU_TOKENS
+    print(json.dumps({"round_mfu": {
+        "path": "zsign", "n_active": n_active, "tokens": MFU_TOKENS,
+        "model_flops": flops, "peak_flops": H100.peak_flops,
+        "at_peak_ms": flops / H100.peak_flops * 1e3,
+        "round_s": results["zsign"]["secs"],
+        "mfu": [flops / H100.peak_flops / t
+                for t in results["zsign"]["secs"]]}, "card": smi}))
     total = {k: sum(r["launches"][k] for r in results.values())
              for k in results["zsign"]["launches"]}
     by_path = {k: {p: r["launches"][k] for p, r in results.items()
@@ -2576,10 +3055,17 @@ def main() -> int:
         seen = results[path]["checks"]["kernels_vs_plain_round0"]
         kernels[0][path + "_vs_plain"] = seen["zsign_encode"]
         kernels[1][path + "_vs_plain"] = seen["sign_reduce"]
+    by_name = {k["name"]: k for k in kernels}
+    for path in MULTI_PLAIN:
+        seen = results[path]["vs_plain"]
+        for kern in MULTI_PLAIN[path]:
+            kname, tag = ((kern[:-5], "_fold_vs_plain")
+                          if kern.endswith("_fold") else (kern, "_vs_plain"))
+            by_name[kname][path + tag] = [s[kern] for s in seen]
     print(f"# chip_smoke ran {time.time() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
-        "platform": "gpu", "kind": name,
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))
     return 0
 

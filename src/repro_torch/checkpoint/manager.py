@@ -27,6 +27,16 @@ them and returns ``(None, None)``
 The port restores a uint16 or V2 array as bf16 wherever the template's leaf
 is bf16, so it reads its own checkpoints and the reference's.
 
+Under ``stream(devices=D)`` each rank holds only its own client-state
+rows (``core.fedavg.owned_rows``); given their ``StateRows``, ``save`` is
+called on every rank, gathers the rows to rank 0 in rank order and rank 0
+writes the reference's (G, N, d) layout, and ``restore_latest`` gives each
+rank its rows of that layout, so a checkpoint saved at one device count
+resumes at any other. The rows cross in pieces of ``GATHER_CHUNK_BYTES``
+and a restore reads a rank's rows alone from the payload. A D > 1 save and
+restore has run at test sizes only (d = 96, a reduced qwen2), not at full
+width on a card.
+
 Not saved, as in the reference: an async run's late-payload queue (it lives
 in the built round step, ``fed/async_server.py``). The launcher's Plateau
 controller and participation sampler restart on resume
@@ -34,6 +44,7 @@ controller and participation sampler restart on resume
 """
 from __future__ import annotations
 
+import dataclasses
 import hashlib
 import json
 import os
@@ -41,12 +52,111 @@ import re
 import shutil
 import time
 import zipfile
-from typing import Any, Optional
+from typing import Any, Optional, Tuple
 
 import numpy as np
 import torch
 
 _M32 = 0xFFFFFFFF
+
+#: a D-rank save gathers the state rows to rank 0 in pieces of at most this
+#: many bytes (a rank's rows run to gigabytes at full width; no message may
+#: near the 2 GiB of a signed 32-bit size)
+GATHER_CHUNK_BYTES = 256 << 20
+#: a restore reads a rank's rows from the payload this many bytes at a time
+READ_CHUNK_BYTES = 64 << 20
+
+
+@dataclasses.dataclass(frozen=True)
+class StateRows:
+    """Where the client-state rows of a ``stream(devices=D)`` run lie: rank
+    r of ``group`` (the default torch.distributed group when None) holds
+    cohort rows ``spans[r]`` = (lo, hi) of every slot under ``key``, flat
+    (hi - lo, d); the saved layout is ``lead + (d,)``, lead = (G, N).
+    ``group`` is a subgroup only in tests that run D = 2 on pairs of a
+    4-rank group."""
+    spans: Tuple[Tuple[int, int], ...]
+    lead: Tuple[int, ...]
+    key: str = "comp_state"
+    group: Any = None
+
+
+def _gather_rows(slots: dict, rows: StateRows):
+    """Every rank's rows of each slot, in rank order, to rank 0 (point to
+    point in pieces of ``GATHER_CHUNK_BYTES``, through host memory under
+    gloo) -> {slot: lead + (d,)} host tensors on rank 0, None on the other
+    ranks."""
+    import torch.distributed as dist
+    g = rows.group
+    rank = dist.get_rank(g)
+    staged = dist.get_backend(g) == "gloo"
+
+    def peer(r):
+        return r if g is None else dist.get_global_rank(g, r)
+    out = {}
+    for k in sorted(slots):
+        mine = slots[k]
+        step = max(1, GATHER_CHUNK_BYTES // mine.element_size())
+        if rank != 0:
+            flat = mine.reshape(-1)
+            for lo in range(0, flat.numel(), step):
+                piece = flat[lo:lo + step]
+                dist.send(piece.cpu() if staged else piece.contiguous(),
+                          dst=peer(0), group=g)
+            continue
+        full = torch.empty((rows.spans[-1][1],) + tuple(mine.shape[1:]),
+                           dtype=mine.dtype)
+        for r, (lo, hi) in enumerate(rows.spans):
+            dst = full[lo:hi].reshape(-1)
+            if r == 0:
+                dst.copy_(mine.reshape(-1))
+                continue
+            for a in range(0, dst.numel(), step):
+                part = dst[a:a + step]
+                if staged:
+                    dist.recv(part, src=peer(r), group=g)
+                else:
+                    buf = torch.empty(part.shape, dtype=mine.dtype,
+                                      device=mine.device)
+                    dist.recv(buf, src=peer(r), group=g)
+                    part.copy_(buf)
+        out[k] = full.reshape(tuple(rows.lead) + tuple(mine.shape[1:]))
+    return out if rank == 0 else None
+
+
+def _read_rows(payload: str, key: str, lead: int, span) -> np.ndarray:
+    """Rows ``span`` = (lo, hi) of the stored array ``key``, its first
+    ``lead`` dims taken as one, read from its member of the .npz alone: the
+    rows before are skipped (``np.savez`` stores members uncompressed, so
+    the seek reads nothing) and those after are never read."""
+    lo, hi = span
+    fmt = np.lib.format
+    with zipfile.ZipFile(payload) as z, z.open(key + ".npy") as f:
+        version = fmt.read_magic(f)
+        if version == (1, 0):
+            shape, fortran, dtype = fmt.read_array_header_1_0(f)
+        elif version == (2, 0):
+            shape, fortran, dtype = fmt.read_array_header_2_0(f)
+        else:
+            raise ValueError(f"{key}: .npy format {version}")
+        if fortran or dtype.hasobject or len(shape) < lead:
+            raise ValueError(f"{key}: {shape} {dtype} is not a row-major "
+                             f"array of {lead} lead dims")
+        tail = tuple(shape[lead:])
+        n_rows = int(np.prod(shape[:lead]))
+        if not 0 <= lo <= hi <= n_rows:
+            raise ValueError(f"{key}: rows {span} of {n_rows}")
+        row = int(np.prod(tail)) * dtype.itemsize
+        f.seek(lo * row, os.SEEK_CUR)
+        out = np.empty((hi - lo,) + tail, dtype)
+        buf = memoryview(out.reshape(-1).view(np.uint8))
+        for a in range(0, out.nbytes, READ_CHUNK_BYTES):
+            b = min(a + READ_CHUNK_BYTES, out.nbytes)
+            part = f.read(b - a)
+            if len(part) != b - a:
+                raise EOFError(f"{key}: payload ends inside rows {span}")
+            buf[a:b] = part
+    return out
 
 
 def _paths(tree, prefix=()):
@@ -137,8 +247,18 @@ class CheckpointManager:
 
     # -- save ---------------------------------------------------------------
     def save(self, round_idx: int, state_tree: Any,
-             extra: Optional[dict] = None) -> str:
+             extra: Optional[dict] = None,
+             rows: Optional[StateRows] = None) -> Optional[str]:
+        """Write ``state_tree`` as the checkpoint of ``round_idx`` -> its
+        directory. With ``rows`` (a ``stream(devices=D)`` run) every rank
+        calls it: the rows gather to rank 0, which writes; the other ranks
+        return None."""
         t0 = time.perf_counter()
+        if rows is not None and state_tree.get(rows.key) is not None:
+            full = _gather_rows(state_tree[rows.key], rows)
+            if full is None:
+                return None
+            state_tree = {**state_tree, rows.key: full}
         flat, dtypes = {}, {}
         for path, leaf in _paths(state_tree):
             flat[_key(path)], dtypes[_key(path)] = _to_numpy(leaf)
@@ -185,11 +305,25 @@ class CheckpointManager:
         return sorted(out)
 
     # -- restore ------------------------------------------------------------
-    def restore_latest(self, template_tree: Any):
+    def restore_latest(self, template_tree: Any,
+                       rows: Optional[StateRows] = None):
         """-> (round_idx, tree) or (None, None). Walks back past corrupt
         checkpoints (digest mismatch, unreadable, or not matching the
         template's keys and shapes). Each leaf lands on the template
-        leaf's device, dtype and pinning."""
+        leaf's device, dtype and pinning. With ``rows``, this rank's rows
+        of each stored client-state slot (``lead + (d,)``) fill the
+        template's flat ones; they alone are read from the payload, so a
+        rank's host memory holds its own rows, never the cohort's."""
+        span = None
+        if rows is not None:
+            import torch.distributed as dist
+            span = rows.spans[dist.get_rank(rows.group)]
+
+        def stored(data, payload, p):
+            if span is not None and p[0] == rows.key:
+                return _read_rows(payload, _key(p), len(rows.lead), span)
+            return data[_key(p)]
+
         for round_idx, path in reversed(self._list()):
             t0 = time.perf_counter()
             try:
@@ -201,7 +335,7 @@ class CheckpointManager:
                 t1 = time.perf_counter()
                 with np.load(payload) as data:
                     tree = _rebuild(template_tree, (), lambda p, t: (
-                        _from_numpy(data[_key(p)], t)))
+                        _from_numpy(stored(data, payload, p), t)))
             except (OSError, ValueError, KeyError, TypeError, EOFError,
                     zipfile.BadZipFile) as e:
                 self.skipped.append((path, repr(e)))

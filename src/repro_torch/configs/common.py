@@ -1,5 +1,6 @@
-"""Architecture registry (port of ``repro.configs.common``): the ten archs
-of the reference, every family."""
+"""Architecture registry and shape grid (port of ``repro.configs.common``):
+the ten archs of the reference, every family, and the four cells of the
+analytic roofline (``launch/roofline.py``)."""
 from __future__ import annotations
 
 import dataclasses
@@ -11,10 +12,31 @@ from repro_torch.models.api import ModelCfg
 
 
 @dataclasses.dataclass(frozen=True)
+class ShapeCfg:
+    name: str
+    kind: str          # train | prefill | decode
+    seq_len: int
+    global_batch: int
+
+
+SHAPES = {
+    "train_4k": ShapeCfg("train_4k", "train", 4_096, 256),
+    "prefill_32k": ShapeCfg("prefill_32k", "prefill", 32_768, 32),
+    "decode_32k": ShapeCfg("decode_32k", "decode", 32_768, 128),
+    "long_500k": ShapeCfg("long_500k", "decode", 524_288, 1),
+}
+
+
+@dataclasses.dataclass(frozen=True)
 class ArchConfig:
     arch_id: str
     model: ModelCfg
     source: str                      # public-literature citation tag
+    big: bool = False                # sequential client groups on one pod,
+    #                                  one client per pod on several
+    #                                  (``launch/sharding.make_plan``)
+    seq_client_groups: int = 4       # sequential clients when big
+    local_steps: int = 1             # E of the roofline's train cell
     notes: str = ""
 
     def reduced(self) -> "ArchConfig":

@@ -12,5 +12,6 @@ ARCH = ArchConfig(
                    n_layers=64, d_model=5120, n_heads=40, n_kv_heads=8,
                    d_ff=27648, vocab=152064, qkv_bias=True,
                    tie_embeddings=False, dtype=torch.bfloat16),
+    big=True, seq_client_groups=2,
     notes="32B dense: per-client replica needs >16-way sharding => "
           "sequential clients single-pod, per-pod clients multi-pod")

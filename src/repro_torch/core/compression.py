@@ -1304,6 +1304,17 @@ class Pipeline:
             return sign_fold_finalize(acc, self.codec.agg_backend)
         return acc
 
+    def reduce_across_devices(self, acc, group=None):
+        """The round's one cross-rank reduce under ``stream(devices=D)``:
+        the rank-order sum of every rank's FINALIZED accumulator
+        (``wire.reduce_accumulator``; a ``SignFoldAcc``'s pending rows are
+        positional, so ``fold_finalize`` runs first) -> the cohort's
+        accumulator, the same on every rank."""
+        if isinstance(acc, wire.SignFoldAcc):
+            raise ValueError("reduce_across_devices takes a finalized "
+                             "accumulator: call fold_finalize first")
+        return wire.reduce_accumulator(acc, group)
+
     def _unscale(self, g: torch.Tensor, spec) -> torch.Tensor:
         # invert the tree-structured stages (sigma_sched), last stage first
         if not self._needs_spec:

@@ -32,7 +32,8 @@ STREAM_AUTO_MIN_ELEMS = 1 << 24
 STREAM_DEFAULT_SHARD = 64
 #: sentinel of ``stream(shard=auto)``: the memory-budget shard size
 STREAM_SHARD_AUTO = -1
-#: sentinel of ``stream(devices=auto)``: every process-local device (one)
+#: sentinel of ``stream(devices=auto)``: every rank of the torch.distributed
+#: group (one without a group)
 COHORT_DEVICES_AUTO = 0
 #: per-device budget for one in-flight stream shard, and its clamp bounds
 STREAM_SHARD_BUDGET_BYTES = 256 << 20
@@ -99,10 +100,12 @@ class CohortPolicy:
     ``stream`` still auto-gates); ``shard=K`` or ``shard=auto`` force
     streaming. ``unroll`` is parsed and recorded only: the reference hands
     it to ``lax.scan``, and eager PyTorch has no scan to unroll (the shard
-    loop is a Python loop). ``devices=auto`` is the one process-local
-    device; ``devices > 1`` (a ``torch.distributed`` group) is not yet
-    ported. ``feed=host`` keeps batch, mask and state rows in pinned host
-    memory (single device only).
+    loop is a Python loop). ``devices=D`` splits the shard sequence into
+    D contiguous slices, one for each rank of a ``torch.distributed`` group
+    (``launch/mesh.py``), whose accumulators meet in one O(d) reduce;
+    ``devices=auto`` takes the group's world size (1 without a group).
+    ``feed=host`` keeps batch, mask and state rows in pinned host memory
+    (single device only).
     """
     mode: str = "auto"
     shard: int = 0
@@ -135,10 +138,6 @@ class CohortPolicy:
             raise ValueError("feed='host' is a single-device driver; it "
                              "cannot be combined with devices="
                              f"{self.devices!r}")
-        if self.devices > 1:
-            raise NotImplementedError(
-                f"stream(devices={self.devices}) (a torch.distributed group "
-                "of cards) is not yet ported (ROADMAP queue 1 item 14)")
 
     @classmethod
     def parse(cls, spec: "str | CohortPolicy") -> "CohortPolicy":

@@ -40,6 +40,18 @@ j)``), so every plan below draws the reference's counter-stream bits.
                     pinned host memory: shard s+1 is copied to the card on
                     a side stream while shard s computes, and finished
                     state rows return to the host.
+  stream(devices=D) one rank of a torch.distributed group (launch/mesh.py)
+                    per device: the shard sequence, padded to a multiple of
+                    D with all-padding shards under a zero mask, splits
+                    into D contiguous slices, and rank r walks slice r with
+                    GLOBAL shard and client indices (keys, adversary,
+                    rows). Each rank finalizes its accumulator, and the
+                    ranks meet in ONE O(d) rank-order reduce
+                    (``Pipeline.reduce_across_devices``) plus one scalar
+                    (the loss); every rank then takes the same server step,
+                    so params and server state stay replicated bit for bit.
+                    Client-state rows stay with the rank whose slice holds
+                    them (``owned_rows``; ``init_server_state(ctx=)``).
 
 A ``RoundContext.adversary`` (``fed.adversary``) drops scheduled clients
 from the round's host mask before anything reads it, and corrupts each
@@ -65,7 +77,7 @@ with a ``sigma_sched`` stage get the round's TreeSpec at both ends.
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Callable, NamedTuple, Optional
+from typing import Any, Callable, NamedTuple, Optional, Tuple
 
 import torch
 
@@ -141,7 +153,7 @@ class CohortPlan(NamedTuple):
     mode: str          # "vmap" | "stream"
     shard: int         # clients per stream shard (0 on the vmap plan)
     unroll: int        # recorded only: the shard loop is a Python loop
-    devices: int       # always 1 (devices > 1 is not yet ported)
+    devices: int       # ranks of the torch.distributed group (1 = none)
     feed: str          # "device" | "host" shard feeding
 
 
@@ -155,17 +167,24 @@ def _server_optimizer(cfg: FedConfig) -> Optimizer:
 
 
 def init_server_state(params, cfg: FedConfig, compressor, rng: torch.Tensor,
-                      sigma0: float = 0.0,
-                      host_state: bool = False) -> ServerState:
+                      sigma0: float = 0.0, host_state: bool = False,
+                      ctx: Optional[RoundContext] = None,
+                      group=None) -> ServerState:
     """Fresh server state. ``host_state`` puts the per-client state rows in
     host memory (pinned when the params lie on a card), where the
     ``stream(feed=host)`` plan keeps them; the server-scope state stays
-    with the params."""
+    with the params. Given the round's ``ctx`` (and the cohort ``group``,
+    the default torch.distributed group when None), a rank of a
+    ``stream(devices=D)`` round holds only its own rows, flat: ``{slot:
+    (hi - lo, n_coords)}`` for its ``owned_rows`` (lo, hi)."""
     device = tree_leaves(params)[0].device
     n_coords = wire.tree_spec(params).n_coords
-    # one zero state row per client per slot: (groups, n_clients, ...)
+    rows = None if ctx is None else state_rows(cfg, ctx, n_coords, group)
+    # one zero state row per client per slot: (groups, n_clients, ...), or
+    # the rank's own rows
     cstate = compressor.init_state(
-        n_coords, lead=(cfg.client_groups, cfg.n_clients),
+        n_coords, lead=((cfg.client_groups, cfg.n_clients) if rows is None
+                        else (rows[1] - rows[0],)),
         device="cpu" if host_state else device,
         pin_memory=host_state and device.type == "cuda")
     cserver = compressor.init_server_state(n_coords, device=device)
@@ -190,14 +209,17 @@ def auto_shard_size(n_coords: int) -> int:
     return int(min(max(k, STREAM_SHARD_MIN), STREAM_SHARD_MAX))
 
 
-def resolve_cohort(policy, total_clients: int, n_coords: int) -> CohortPlan:
+def resolve_cohort(policy, total_clients: int, n_coords: int,
+                   group=None) -> CohortPlan:
     """CohortPolicy (or its spec string) + the round's shapes -> the plan,
     as the reference resolves it: ``vmap`` is the vmap plan; ``auto`` and a
     bare ``stream`` keep it below STREAM_AUTO_MIN_ELEMS client-coordinate
     elements and while one auto-sized shard covers the cohort; an explicit
     ``shard=K``, ``shard=auto`` or ``feed=host`` always streams. The shard
-    is clamped to the cohort; ``devices=auto`` is the one process-local
-    device, and the device count is clamped to the shard count."""
+    is clamped to the cohort; ``devices=auto`` is the size of the cohort's
+    torch.distributed ``group`` (the default group when None; 1 without
+    one), more devices than the group has ranks raise, and the device
+    count is clamped to the shard count."""
     pol = CohortPolicy.parse(policy)
     if pol.mode == "vmap":
         return VMAP_PLAN
@@ -210,9 +232,53 @@ def resolve_cohort(policy, total_clients: int, n_coords: int) -> CohortPlan:
     shard = min(want, total_clients)
     if shard >= total_clients and not forced:
         return VMAP_PLAN   # one shard IS the vmap plan
-    devices = 1 if pol.devices == COHORT_DEVICES_AUTO else pol.devices
+    _, world = wire.rank_world(group)
+    devices = world if pol.devices == COHORT_DEVICES_AUTO else pol.devices
+    if devices > world:
+        raise ValueError(
+            f"cohort plan wants devices={devices} but only {world} are "
+            f"visible (start D ranks, one per device: python -m "
+            f"torch.distributed.run --nproc-per-node D, which "
+            f"launch/mesh.py's make_cohort_group joins)")
     devices = max(1, min(devices, -(-total_clients // shard)))
     return CohortPlan("stream", shard, pol.unroll, devices, pol.feed)
+
+
+def rank_shards(plan: CohortPlan, total: int, rank: int) -> range:
+    """The global shard indices rank ``rank`` walks under ``plan``: all of
+    them on one device; under ``devices=D`` the shard count is padded to a
+    multiple of D (all-padding shards under a zero mask) and rank r takes
+    the contiguous slice [r * per, (r + 1) * per), the reference's
+    shard_map partition (and ``CohortSampler.device_partitions``)."""
+    n_shards = -(-total // plan.shard)
+    if plan.devices <= 1:
+        return range(n_shards)
+    per = -(-n_shards // plan.devices)
+    return range(rank * per, (rank + 1) * per)
+
+
+def owned_rows(plan: CohortPlan, total: int, rank: int) -> Tuple[int, int]:
+    """The cohort rows (lo, hi) whose client state rank ``rank`` holds: the
+    real clients of its shard slice (``rank_shards``); the padding slots of
+    the last slices own none. O(ceil(total / D) * d) state bytes a rank."""
+    shards = rank_shards(plan, total, rank)
+    return (min(shards.start * plan.shard, total),
+            min(shards.stop * plan.shard, total))
+
+
+def state_rows(cfg: FedConfig, ctx: RoundContext, n_coords: int,
+               group=None) -> Optional[Tuple[int, int]]:
+    """This rank's ``owned_rows`` when ``ctx`` runs the synchronous
+    ``stream(devices=D > 1)`` plan, else None (every row, in the (G, N)
+    layout). Async rounds walk every shard on each rank whatever
+    ``devices=`` says, as the reference's async rounds do."""
+    if RoundModePolicy.parse(ctx.round_mode).mode != "sync":
+        return None
+    total = cfg.client_groups * cfg.n_clients
+    plan = resolve_cohort(ctx.cohort, total, n_coords, group)
+    if plan.devices <= 1:
+        return None
+    return owned_rows(plan, total, wire.rank_world(group)[0])
 
 
 def _gather_rows(x: torch.Tensor, rows: torch.Tensor,
@@ -222,29 +288,53 @@ def _gather_rows(x: torch.Tensor, rows: torch.Tensor,
     return torch.index_select(x, 0, rows.to(x.device), out=out)
 
 
+def _gather_state(x: torch.Tensor, rows: torch.Tensor, row_lo: int,
+                  pin: bool) -> torch.Tensor:
+    """State rows ``rows`` (cohort indices) of a rank that holds rows
+    row_lo .. row_lo + len(x) - 1 in ``x``; a row another rank holds (a
+    padding slot's wrap) reads as zeros, since its weight is 0."""
+    local = rows - row_lo
+    own = (local >= 0) & (local < x.shape[0])
+    if bool(own.all()):
+        return _gather_rows(x, local, pin)
+    out = torch.zeros((rows.numel(),) + tuple(x.shape[1:]), dtype=x.dtype,
+                      device=x.device, pin_memory=pin)
+    if bool(own.any()):
+        out[own.to(x.device)] = x[local[own].to(x.device)]
+    return out
+
+
 def iter_shards(batch, mask, cstate, *, shard: int, total: int,
-                pin: bool = False, before_gather: Optional[Callable] = None):
+                pin: bool = False, before_gather: Optional[Callable] = None,
+                shards: Optional[range] = None, row_lo: int = 0):
     """The shard feeder of the streaming plan (port of the reference's
     ``iter_shards``): yields ``(s, batch_s, cstate_s, mask_s)`` per shard in
-    global shard order. A shard inside the cohort is a view of the flat
-    rows; the last shard wraps to the cohort's first rows (a gathered copy,
-    in pinned memory with ``pin``) under a zero participation mask. The
-    state rows of a view are the caller's own rows. ``before_gather`` runs
-    just before the wrapped rows are read (the host feed waits there for
-    the copies that write earlier shards' rows back)."""
-    n_shards = -(-total // shard)
+    global shard order, over ``shards`` (every shard of the cohort by
+    default; a rank's slice under ``stream(devices=D)``). A shard inside
+    the cohort is a view of the flat rows; a shard past its end wraps to
+    the cohort's first rows (a gathered copy, in pinned memory with
+    ``pin``) under a zero participation mask. ``cstate`` holds the flat
+    state rows from cohort row ``row_lo`` on (all rows, from 0, on one
+    device); the state rows of a view are the caller's own rows.
+    ``before_gather`` runs just before wrapped rows are read (the host feed
+    waits there for the copies that write earlier shards' rows back)."""
+    shards = range(-(-total // shard)) if shards is None else shards
 
     def flat(x):
         return x.reshape((total,) + tuple(x.shape[2:]))
 
     b = tree_map(flat, batch)
     m = flat(mask).to(torch.float32)
-    c = None if cstate is None else {k: flat(v) for k, v in cstate.items()}
-    for s in range(n_shards):
+    c = (None if cstate is None else
+         {k: v.reshape((-1, v.shape[-1])) for k, v in cstate.items()})
+    for s in shards:
         lo = s * shard
         if lo + shard <= total:
             def take(x):
                 return x[lo:lo + shard]
+
+            def take_state(x):
+                return x[lo - row_lo:lo - row_lo + shard]
             mask_s = m[lo:lo + shard]
         else:
             slots = torch.arange(lo, lo + shard)
@@ -254,9 +344,13 @@ def iter_shards(batch, mask, cstate, *, shard: int, total: int,
 
             def take(x):
                 return _gather_rows(x, rows, pin)
+
+            def take_state(x):
+                return _gather_state(x, rows, row_lo, pin)
             mask_s = m[rows.to(m.device)] * (slots < total).to(m.device)
         yield (s, tree_map(take, b),
-               None if c is None else {k: take(v) for k, v in c.items()},
+               None if c is None else {k: take_state(v)
+                                       for k, v in c.items()},
                mask_s)
 
 
@@ -309,12 +403,18 @@ def _write_rows(dst, src, n: int) -> None:
 
 
 def build_round_step(loss_fn: Callable, compressor, cfg: FedConfig,
-                     ctx: Optional[RoundContext] = None):
+                     ctx: Optional[RoundContext] = None, group=None):
     """-> round_step(state, batch, mask) -> (state, RoundMetrics).
 
     ``loss_fn(params, batch_slice)`` is a scalar loss; ``batch`` is a tree
     whose leaves have leading dims (client_groups, n_clients, E, ...);
-    ``mask`` is the (client_groups, n_clients) 0/1 (or weight) mask."""
+    ``mask`` is the (client_groups, n_clients) 0/1 (or weight) mask.
+    ``group``: the ranks of ``stream(devices=D)`` (the default
+    torch.distributed group when None); every rank calls the step with the
+    same batch and mask. The launcher always takes the default group; a
+    subgroup exists for tests that run D = 2 on pairs of a 4-rank group
+    (``tests/torch_multidevice_ranks.py``), as do the ``group`` arguments
+    of ``init_server_state`` and ``resolve_cohort``."""
     ctx = ctx or RoundContext()
     compressor = compressor.with_context(ctx)
     policy = CohortPolicy.parse(ctx.cohort)
@@ -460,7 +560,8 @@ def build_round_step(loss_fn: Callable, compressor, cfg: FedConfig,
         return acc, cstate, loss_sum
 
     def stream_cohort(inp: RoundInputs, batch, mask, live, cstate, round_idx,
-                      shard: int, host: bool, fold_w=None, on_shard=None):
+                      shard: int, host: bool, fold_w=None, on_shard=None,
+                      shards: Optional[range] = None, row_lo: int = 0):
         """The streaming plan: K = ``shard`` clients at a time through one
         (K, d_pad) buffer, each shard's payloads folded into one running
         accumulator, returned open (``fold_finalize`` closes it).
@@ -470,7 +571,9 @@ def build_round_step(loss_fn: Callable, compressor, cfg: FedConfig,
         the state rows; ``fold_w`` (padded to whole shards, on the device)
         weighs the fold instead of it where given, and ``on_shard(lo,
         enc)`` sees each shard's payload stack before the next shard runs
-        (the async driver's two hooks)."""
+        (the two hooks of async rounds). ``shards`` and ``row_lo``: a rank's
+        slice of ``stream(devices=D)`` and the first cohort row of its
+        flat state rows (``iter_shards``)."""
         spec, params, sub = inp.spec, inp.params, inp.sub
         gamma_t, extra = inp.gamma_t, inp.extra
         d = spec.n_coords
@@ -483,19 +586,20 @@ def build_round_step(loss_fn: Callable, compressor, cfg: FedConfig,
             batch, mask = tree_map(to_host, batch), to_host(mask)
             if cstate is not None:
                 cstate = {k: to_host(v) for k, v in cstate.items()}
-        shards = iter_shards(
+        feed = iter_shards(
             batch, mask, cstate, shard=shard, total=total, pin=host and cuda,
             before_gather=(torch.cuda.current_stream(device).synchronize
-                           if host and cuda else None))
+                           if host and cuda else None),
+            shards=shards, row_lo=row_lo)
         if host:
-            shards = _prefetch(shards, device)
+            feed = _prefetch(feed, device)
         flat_state = (None if cstate is None else
-                      {k: v.reshape((total,) + tuple(v.shape[2:]))
+                      {k: v.reshape((-1, v.shape[-1]))
                        for k, v in cstate.items()})
         buf = new_buffer(shard, d, device)
         acc = None
         loss_sum = torch.zeros((), dtype=torch.float32, device=device)
-        for s, batch_s, rows, mask_s in shards:
+        for s, batch_s, rows, mask_s in feed:
             lo = s * shard
             keys = znoise.client_keys(sub, lo, shard)
             enc, new_rows, ls = encode_clients(spec, params, batch_s, keys,
@@ -504,10 +608,10 @@ def build_round_step(loss_fn: Callable, compressor, cfg: FedConfig,
                                                buf, gamma_t, extra, lo,
                                                round_idx)
             with torch.no_grad():
-                if flat_state is not None:
+                real = min(shard, total - lo)
+                if flat_state is not None and real > 0:
                     # real rows only: the wrapped padding is never written
-                    real = min(shard, total - lo)
-                    _write_rows({k: v[lo:lo + real]
+                    _write_rows({k: v[lo - row_lo:lo - row_lo + real]
                                  for k, v in flat_state.items()},
                                 new_rows, real)
                 if acc is None:
@@ -526,6 +630,27 @@ def build_round_step(loss_fn: Callable, compressor, cfg: FedConfig,
             # the state rows' copies back to the host are complete
             torch.cuda.current_stream(device).synchronize()
         return acc, cstate, loss_sum
+
+    def rank_part(plan: CohortPlan, cstate) -> dict:
+        """This rank's shard slice and first state row under
+        ``stream(devices=D)``, after checking that the group has D ranks
+        and that ``cstate`` holds this rank's rows."""
+        rank, world = wire.rank_world(group)
+        if world != plan.devices:
+            raise ValueError(
+                f"stream(devices={plan.devices}) runs one rank per device, "
+                f"but the torch.distributed group has {world} ranks (the "
+                f"cohort of {total} clients in shards of {plan.shard} keeps "
+                f"{plan.devices} busy): start {plan.devices} ranks")
+        lo, hi = owned_rows(plan, total, rank)
+        for k, v in (cstate or {}).items():
+            if v.dim() != 2 or v.shape[0] != hi - lo:
+                raise ValueError(
+                    f"state slot {k!r} has shape {tuple(v.shape)}, but rank "
+                    f"{rank} of stream(devices={plan.devices}) holds its "
+                    f"{hi - lo} rows ({lo}..{hi - 1}) flat: build the state "
+                    f"with init_server_state(..., ctx=ctx)")
+        return {"shards": rank_shards(plan, total, rank), "row_lo": lo}
 
     def round_inputs(state: ServerState, mask) -> RoundInputs:
         params = state.params
@@ -551,7 +676,8 @@ def build_round_step(loss_fn: Callable, compressor, cfg: FedConfig,
         if compressor.needs_tree_spec:
             extra["spec"] = spec
         return RoundInputs(spec, params, device, rng, sub,
-                           resolve_cohort(policy, total, spec.n_coords),
+                           resolve_cohort(policy, total, spec.n_coords,
+                                          group),
                            mask_all, gamma_t, extra)
 
     def round_step(state: ServerState, batch, mask):
@@ -564,11 +690,21 @@ def build_round_step(loss_fn: Callable, compressor, cfg: FedConfig,
         live = (inp.mask.reshape(-1) > 0).tolist()
         mask_all = inp.mask if host else inp.mask.to(inp.device)
         if plan.mode == "stream":
+            part = {}
+            if plan.devices > 1:
+                part = rank_part(plan, state.comp_state)
             acc, cstate, loss_sum = stream_cohort(
                 inp, batch, mask_all, live, state.comp_state, state.round,
-                plan.shard, host)
+                plan.shard, host, **part)
             with torch.no_grad():
                 enc_sum = compressor.fold_finalize(acc)
+                if plan.devices > 1:
+                    # THE cross-rank step of the round: one O(d) reduce of
+                    # the finalized accumulators, and the loss
+                    enc_sum = compressor.reduce_across_devices(enc_sum,
+                                                               group)
+                    loss_sum = wire.reduce_accumulator(
+                        loss_sum.reshape(1), group).reshape(())
         else:
             enc_sum, cstate, loss_sum = vmap_groups(
                 inp, batch, mask_all, live, state.comp_state, state.round)

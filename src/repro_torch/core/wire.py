@@ -25,6 +25,7 @@ bit-identical to one call over all clients for any partition into shards).
 from __future__ import annotations
 
 import dataclasses
+import time
 from typing import Optional, Tuple
 
 import torch
@@ -454,3 +455,110 @@ def unpack_sum_dense(packed: torch.Tensor, weights: torch.Tensor,
     signs = unpack_signs(packed).reshape(n, -1).to(torch.float32)
     out = torch.einsum("nd,n->d", signs, weights.to(torch.float32))
     return out if acc is None else acc + out
+
+
+# ---------------------------------------------------------------------------
+# the cross-rank reduce of stream(devices=D)
+# ---------------------------------------------------------------------------
+
+#: what ``reduce_accumulator`` moved in this process since the last
+#: ``reset_reduce_stats``: calls, payload bytes sent and received, and
+#: seconds spent inside the calls. Those seconds are not a transfer time:
+#: they include the device work queued before the call and the wait for
+#: the other ranks (a rank's first receive blocks until the rank before it
+#: has finished its own shards); time a reduce after a barrier for a rate
+REDUCE_STATS = {"calls": 0, "sent": 0, "received": 0, "seconds": 0.0}
+
+
+def reset_reduce_stats() -> None:
+    REDUCE_STATS.update(calls=0, sent=0, received=0, seconds=0.0)
+
+
+def rank_world(group=None) -> Tuple[int, int]:
+    """(rank, world size) in ``group`` (the default torch.distributed group
+    when None), or (0, 1) where no group is initialized."""
+    import torch.distributed as dist
+    if not (dist.is_available() and dist.is_initialized()):
+        return 0, 1
+    return dist.get_rank(group), dist.get_world_size(group)
+
+
+def reduce_bytes_per_rank(acc_bytes: int, world: int) -> int:
+    """Bytes the busiest rank sends plus receives in one
+    ``reduce_accumulator`` of an ``acc_bytes`` accumulator: 2 messages at
+    either end of the chain, 4 in its middle."""
+    if world <= 1:
+        return 0
+    return acc_bytes * (2 if world == 2 else 4)
+
+
+#: the cross-rank reduce moves its accumulator in pieces of at most this
+#: many bytes: the pinned staging buffer stays small, and no message nears
+#: the 2 GiB of a signed 32-bit size
+REDUCE_CHUNK_BYTES = 256 << 20
+
+
+def reduce_accumulator(acc: torch.Tensor, group=None) -> torch.Tensor:
+    """Cross-rank sum of a wire ACCUMULATOR over a torch.distributed group
+    (the port of the reference's ``psum_accumulator``): the flat f32 sum,
+    the (2, d_pad) int32 vote pair, top-k's (2, d) value/count carry, the
+    dense f32 wire, or the (1,) round loss. -> the sum, on every rank.
+
+    The ranks fold IN RANK ORDER, ((a_0 + a_1) + a_2) + ...: rank r
+    receives the running sum from rank r - 1, adds its own accumulator and
+    sends the result on to rank r + 1; the total then walks back down the
+    chain from the last rank to rank 0. So the float order is fixed
+    whatever the backend, integer sums (0/1 masks, vote pairs) are exact,
+    and each rank sends and receives at most 4 accumulators
+    (``reduce_bytes_per_rank``): O(d), not the O(D * d) of an all-gather
+    or of a broadcast whose root sends one copy to each rank. Both walks go
+    in pieces of ``REDUCE_CHUNK_BYTES``. Gloo carries host bytes only: a
+    CUDA accumulator is staged through one pinned host buffer of a piece,
+    and the adds stay on its device. Counts into ``REDUCE_STATS``."""
+    import torch.distributed as dist
+    t0 = time.perf_counter()
+    rank, world = rank_world(group)
+    if world == 1:
+        return acc
+    peer = ((lambda r: r) if group is None
+            else (lambda r: dist.get_global_rank(group, r)))
+    staged = acc.is_cuda and dist.get_backend(group) == "gloo"
+    flat = acc.reshape(-1)
+    step = max(1, REDUCE_CHUNK_BYTES // acc.element_size())
+    host = (torch.empty((min(step, flat.numel()),), dtype=acc.dtype,
+                        pin_memory=True) if staged else None)
+
+    def recv(src, n):
+        buf = host[:n] if staged else torch.empty(
+            (n,), dtype=acc.dtype, device=acc.device)
+        dist.recv(buf, src=peer(src), group=group)
+        REDUCE_STATS["received"] += n * acc.element_size()
+        return buf.to(acc.device) if staged else buf
+
+    def send(piece, dst):
+        if staged:                        # synchronous: the bytes are ready
+            piece = host[:piece.numel()].copy_(piece)
+        dist.send(piece.contiguous(), dst=peer(dst), group=group)
+        REDUCE_STATS["sent"] += piece.numel() * acc.element_size()
+
+    out = torch.empty_like(flat)
+    pieces = [(lo, min(lo + step, flat.numel()))
+              for lo in range(0, flat.numel(), step)]
+    for lo, hi in pieces:                 # the running sum, up the chain
+        piece = flat[lo:hi]
+        if rank > 0:
+            piece = recv(rank - 1, hi - lo) + piece
+        if rank < world - 1:
+            send(piece, rank + 1)
+        else:
+            out[lo:hi] = piece
+    for lo, hi in pieces:                 # the total, back down
+        if rank < world - 1:
+            out[lo:hi] = recv(rank + 1, hi - lo)
+        if rank > 0:
+            send(out[lo:hi], rank - 1)
+    if staged:
+        torch.cuda.current_stream(acc.device).synchronize()
+    REDUCE_STATS["calls"] += 1
+    REDUCE_STATS["seconds"] += time.perf_counter() - t0
+    return out.reshape(acc.shape)

@@ -50,22 +50,36 @@ arch's image embeds and an encdec arch's source frames are drawn per round
 as jax's ``normal`` draws them from ``fold_in(PRNGKey(7), round)``, and the
 tokens are cut to the text length.
 
+``--cohort "stream(shard=K,devices=D)"`` splits the cohort's shards over
+D ranks, one process each, started by ``torch.distributed.run``:
+
+    python -m torch.distributed.run --standalone --nproc-per-node 2 \
+        -m repro_torch.launch.train --arch qwen2_0_5b --reduced \
+        --clients 8 --cohort "stream(shard=2,devices=2)" --device cpu
+
+Each rank joins the group from the environment (``launch/mesh.py``, with a
+timeout on init and on every collective, so a dead rank fails the run),
+walks its slice of the shards and holds its clients' state rows; the ranks
+meet once a round in one O(d) reduce. Rank 0 alone prints and writes
+checkpoints (the other ranks send it their state rows).
+
 Runs on ``cuda`` unless ``--device cpu`` is given; asking for CUDA on a
 machine without a card raises. ``run(args)`` is the same driver, callable in
-process, and returns the metrics of the rounds it ran. Not ported yet:
-``stream(devices=D > 1)``.
+process (in each rank of a group that is already up, too), and returns the
+metrics of the rounds it ran.
 """
 from __future__ import annotations
 
 import argparse
+import os
 import time
 from typing import Callable, List, Optional
 
 import torch
 
-from repro_torch.checkpoint.manager import CheckpointManager
+from repro_torch.checkpoint.manager import CheckpointManager, StateRows
 from repro_torch.configs.common import get_arch
-from repro_torch.core import compression, fedavg, noise
+from repro_torch.core import compression, fedavg, noise, wire
 from repro_torch.core.plateau import PlateauController
 from repro_torch.core.tree import tree_leaves
 from repro_torch.data.synthetic import TokenStream
@@ -105,11 +119,13 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
     ap.add_argument("--cohort", default="auto",
                     help="cohort execution policy: 'auto' (stream only when "
                          "the round is large), 'vmap', or 'stream(shard=K|"
-                         "auto[,unroll=U][,feed=device|host])': shards of K "
+                         "auto[,unroll=U][,devices=D|auto]"
+                         "[,feed=device|host])': shards of K "
                          "clients through one buffer, folding each shard "
-                         "into one running wire accumulator; feed=host "
-                         "keeps batch and state rows in pinned host memory "
-                         "and copies one shard ahead")
+                         "into one running wire accumulator; devices=D "
+                         "splits the shards over D ranks (torchrun); "
+                         "feed=host keeps batch and state rows in pinned "
+                         "host memory and copies one shard ahead")
     ap.add_argument("--adversary", default="none", metavar="SPEC",
                     help="wire-level fault injection: 'none', "
                          "'sign_flip(f=4)', 'byte_corrupt(f=2,p=0.1)', "
@@ -188,8 +204,17 @@ def run(args: argparse.Namespace,
     ``on_build(step)`` once with the round step this run built (an async
     step holds its late-payload queue in ``step.pending``);
     ``on_ckpt(event, stats)`` after each checkpoint save or restore
-    (``event`` "save" or "restore", ``stats`` the manager's timings)."""
+    (``event`` "save" or "restore", ``stats`` the manager's timings; rank
+    0 only). Under ``torch.distributed.run`` (``WORLD_SIZE`` > 1) it joins
+    the cohort group first."""
     device = resolve_device(args.device)
+    if int(os.environ.get("WORLD_SIZE", "1")) > 1:
+        from repro_torch.launch.mesh import make_cohort_group
+        make_cohort_group(device_type=device.type)
+    rank, world = wire.rank_world()
+    if world > 1 and device.type == "cuda":
+        device = torch.device("cuda", torch.cuda.current_device())
+    say = print if rank == 0 else (lambda *a, **k: None)
     arch = get_arch(args.arch)
     if args.reduced:
         arch = arch.reduced()
@@ -233,17 +258,34 @@ def run(args: argparse.Namespace,
     params = bundle.init(gen, device)
     n_params = sum(p.numel() for p in tree_leaves(params))
     state = fedavg.init_server_state(params, cfg, comp, noise.prng_key(1),
-                                     sigma0=args.sigma, host_state=host)
+                                     sigma0=args.sigma, host_state=host,
+                                     ctx=ctx)
+    total = args.groups * args.clients
+    plan = fedavg.resolve_cohort(args.cohort, total, n_params)
+    # under stream(devices=D) each rank holds its own state rows
+    rows = None
+    if fedavg.state_rows(cfg, ctx, n_params) is not None:
+        rows = StateRows(tuple(fedavg.owned_rows(plan, total, r)
+                               for r in range(plan.devices)),
+                         (args.groups, args.clients))
     start = 0
     mgr = CheckpointManager(args.ckpt_dir) if args.ckpt_dir else None
+
+    def save(r: int) -> None:
+        # gathered to rank 0 with rows; else rank 0 holds every row
+        if rows is not None or rank == 0:
+            mgr.save(r, state._asdict(), rows=rows)
+        if rank == 0:
+            _ckpt_line("saved", mgr.last_save, on_ckpt)
+
     if mgr is not None:
-        r, restored = mgr.restore_latest(state._asdict())
+        r, restored = mgr.restore_latest(state._asdict(), rows=rows)
         if restored is not None:
             state, start = fedavg.ServerState(**restored), r
-            print(f"# resumed from checkpoint at round {r}")
-            _ckpt_line("restored", mgr.last_restore, on_ckpt)
+            say(f"# resumed from checkpoint at round {r}")
+            if rank == 0:
+                _ckpt_line("restored", mgr.last_restore, on_ckpt)
     stream = TokenStream(vocab=arch.model.vocab)
-    total = args.groups * args.clients
     sampler = ParticipationSampler(
         total_clients=total,
         per_round=max(1, int(total * args.participation)),
@@ -254,16 +296,16 @@ def run(args: argparse.Namespace,
     layout = (args.groups, args.clients, args.local_steps, args.micro_batch)
     per_step = bundle.train_batch_spec(args.micro_batch, args.seq_len)
     wf = comp.wire_format()
-    plan = fedavg.resolve_cohort(args.cohort, total, n_params)
-    print(f"# arch={arch.model.name} params={n_params:,} "
-          f"compressor={comp.name} wire={wf.layout}/{wf.dtype} "
-          f"({wf.bits_per_coord:g} bits/coord) device={device} "
-          f"cohort={plan.mode}"
-          + (f"(shard={plan.shard},feed={plan.feed})"
-             if plan.mode == "stream" else f" groups={args.groups}")
-          + (f" round_mode={args.round_mode} latency={args.latency}"
-             if args.round_mode != "sync" else ""))
-    print("round,loss,ghat_norm,live,Mbits_cum,sigma,sec")
+    say(f"# arch={arch.model.name} params={n_params:,} "
+        f"compressor={comp.name} wire={wf.layout}/{wf.dtype} "
+        f"({wf.bits_per_coord:g} bits/coord) device={device} "
+        f"cohort={plan.mode}"
+        + (f"(shard={plan.shard},feed={plan.feed}"
+           + (f",devices={plan.devices}" if plan.devices > 1 else "") + ")"
+           if plan.mode == "stream" else f" groups={args.groups}")
+        + (f" round_mode={args.round_mode} latency={args.latency}"
+           if args.round_mode != "sync" else ""))
+    say("round,loss,ghat_norm,live,Mbits_cum,sigma,sec")
     history, bits, saved = [], 0.0, None
     feed = "cpu" if host else device
     for t in range(start, args.rounds):
@@ -282,22 +324,20 @@ def run(args: argparse.Namespace,
         if plateau is not None:
             new_state = new_state._replace(sigma=torch.tensor(
                 plateau.update(loss), dtype=torch.float32, device=device))
-        print(f"{t},{loss:.4f},{float(m.grad_est_norm):.3f},"
-              f"{int(m.participation)},{bits / 1e6:.2f},"
-              f"{float(new_state.sigma):.4f},{sec:.3f}")
+        say(f"{t},{loss:.4f},{float(m.grad_est_norm):.3f},"
+            f"{int(m.participation)},{bits / 1e6:.2f},"
+            f"{float(new_state.sigma):.4f},{sec:.3f}")
         if on_round is not None:
             on_round(t, state, new_state, m, sec)
         state = new_state
         history.append(m)
         if mgr is not None and (t + 1) % args.save_every == 0:
-            mgr.save(t + 1, state._asdict())
+            save(t + 1)
             saved = t + 1
-            _ckpt_line("saved", mgr.last_save, on_ckpt)
     if mgr is not None and saved != args.rounds:
-        mgr.save(args.rounds, state._asdict())
-        _ckpt_line("saved", mgr.last_save, on_ckpt)
-    print(f"# done: {args.rounds} rounds, {bits / 1e6:.1f} Mbit uplink "
-          f"({32.0 / comp.wire_bits_per_coord:.0f}x less than fp32)")
+        save(args.rounds)
+    say(f"# done: {args.rounds} rounds, {bits / 1e6:.1f} Mbit uplink "
+        f"({32.0 / comp.wire_bits_per_coord:.0f}x less than fp32)")
     return history
 
 

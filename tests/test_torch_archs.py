@@ -39,10 +39,9 @@ _DTYPES = {jnp.float32: torch.float32, jnp.bfloat16: torch.bfloat16}
 
 
 #: the reference's config fields that the port leaves out until code of its
-#: own reads them (ROADMAP queue 3): the dry-run's training knobs and
-#: shape grid, the expert-parallel and remat layouts
-OMITTED_ARCH = {"big", "seq_client_groups", "local_steps", "client_lr",
-                "server_lr", "zsign_z", "zsign_sigma"}
+#: own reads them (ROADMAP queue 3): the dry-run's training knobs (the
+#: launcher takes them from flags), the expert-parallel and remat layouts
+OMITTED_ARCH = {"client_lr", "server_lr", "zsign_z", "zsign_sigma"}
 OMITTED_MODEL = {"moe_ep", "remat_save_weights"}
 
 

@@ -91,12 +91,29 @@ def test_cohort_policy_parse_matches_reference(spec):
 
 @pytest.mark.parametrize("spec", ["stream(devices=2)",
                                   "stream(shard=4,devices=8)"])
-def test_multi_device_stream_is_not_yet_ported(spec):
-    JX.CohortPolicy.parse(spec)                  # valid in the reference
-    with pytest.raises(NotImplementedError, match="item 14"):
-        TX.CohortPolicy.parse(spec)
-    with pytest.raises(NotImplementedError, match="item 14"):
-        TX.RoundContext(cohort=spec)
+def test_multi_device_stream_parses_and_resolves_as_in_reference(
+        spec, monkeypatch):
+    """stream(devices=D): the reference's fields; with one device (no
+    torch.distributed group, one jax device) both packages refuse D > 1
+    with the same text up to how to start D devices; with 8 (8 jax
+    devices, a group of 8 ranks) both resolve to the same plans, devices
+    clamped to the shard count."""
+    want, got = JX.CohortPolicy.parse(spec), TX.CohortPolicy.parse(spec)
+    assert (got.mode, got.shard, got.devices) == \
+        (want.mode, want.shard, want.devices)
+    assert TX.RoundContext(cohort=spec).cohort == spec
+    with pytest.raises(ValueError) as je:
+        JF.resolve_cohort(spec, 64, 494_032_768)
+    with pytest.raises(ValueError) as te:
+        TF.resolve_cohort(spec, 64, 494_032_768)
+    head = f"cohort plan wants devices={want.devices} but only 1 are visible"
+    assert str(je.value).startswith(head) and str(te.value).startswith(head)
+    monkeypatch.setattr(jax, "device_count", lambda: 8)
+    monkeypatch.setattr(TW, "rank_world", lambda group=None: (0, 8))
+    for total in (1, 8, 10, 32, 64):
+        for n_coords in (100, 1 << 20, 494_032_768):
+            assert tuple(TF.resolve_cohort(spec, total, n_coords)) == \
+                tuple(JF.resolve_cohort(spec, total, n_coords))
 
 
 def test_cohort_constants_match_reference():

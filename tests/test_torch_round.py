@@ -230,8 +230,12 @@ def test_unported_paths_raise():
         assert TC.Pipeline(spec).spec == JC.Pipeline(spec).spec
     # DP-SignFedAvg is ported now: dp noise fuses into the codec's sigma
     assert TC.Pipeline("dp(clip=1.0,noise=0.1)|zsign").codec.sigma == 0.1
-    with pytest.raises(NotImplementedError, match="item 14"):
+    # stream(devices=D) is ported: without a torch.distributed group the
+    # world is one rank, so D = 2 asks for more ranks than exist
+    with pytest.raises(ValueError, match="wants devices=2 but only 1"):
         TF.resolve_cohort("stream(devices=2)", 64, 494_032_768)
+    assert TF.resolve_cohort("stream(devices=auto)", 64, 494_032_768) == \
+        TF.CohortPlan("stream", 8, 1, 1, "device")
     # the streaming plan and the group scan are ported now
     assert TF.resolve_cohort("auto", 64, 494_032_768) == TF.CohortPlan(
         "stream", 8, 1, 1, "device")
