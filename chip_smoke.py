@@ -200,6 +200,32 @@ Phases, each of which raises (non-zero exit, no result line) on failure:
    transfer's time and rate. Then ``round_mfu``: 6 *
    N_active * 2,048 tokens (the port's roofline) over the H100's peak,
    against the zsign path's round times.
+   ``sharded_replica`` (run before phase 3's paths, while the host's
+   memory is free), the model-sharded client replica: four ranks
+   (fresh processes) of a (data=2, model=2) gloo grid share the card and
+   run ``launch/dryrun.build_train_cell``'s step for real; each path runs
+   first in this process without a grid (seed-0 weights, the same tokens
+   and keys):
+     shard_qwen2      qwen2-0.5B at full width, the regular plan: 2 clients
+                      side by side (one a data row), each replica over
+                      `model` (flat ranges of 247,021,568), zsign(z=1,
+                      sigma=0.01), E = 1, micro-batch 2, seq 256, 2 rounds
+     shard_qwen25_32b qwen2.5-32b at full width with 2 of its 64 layers
+                      (d = 2,532,350,976), the big plan: 2 sequential groups
+                      of one client, the replica over data x model (ranges
+                      of 633,094,144), the micro-batch over data; 1 round
+   Each rank: E1 (with its tile0) G times and R1 once a round, both held
+   to their plain versions on round 0; its collective bytes by kind equal
+   to ``dryrun.analyze``'s count for its rank; its pseudo-gradient range
+   against the one-process row leaf by leaf (relative L2 at most 3e-2 on
+   round 0, 7e-2 later); wire bits off the one-process run's only where the
+   two pseudo-gradients differ, at most 2e-4 of those sent; params off it
+   (rtol 1e-5) only at coordinates where a wire bit differed; the loss
+   within 1e-4 of it; on shard_qwen25_32b a peak at most 0.6 x one
+   process's. Printed
+   per rank: peak beside one process's and the dry run's, collective bytes
+   beside the dry run's, round time and the seconds inside collectives;
+   E1 timed at a range shape beside its plain version and bound.
 6. the public op ``zsign_decompress_sum`` (U1, on no round path) on a
    full-width payload stack, checked against R1 with unit weights; then
    times at the paths' shapes (n = 8, d as above) with CUDA events, each
@@ -532,6 +558,7 @@ def _reset_counts():
     for w in ops.values():
         w.launches = 0
     ops["zsign_encode"].launches_n1 = 0
+    ops["zsign_encode"].launches_range = 0
     ops["sign_reduce"].fold_launches = 0
 
 
@@ -539,6 +566,7 @@ def _counts():
     ops = _wrappers()
     out = {k: w.launches for k, w in ops.items()}
     out["zsign_encode_n1"] = ops["zsign_encode"].launches_n1
+    out["zsign_encode_range"] = ops["zsign_encode"].launches_range
     out["sign_reduce_fold"] = ops["sign_reduce"].fold_launches
     return out
 
@@ -783,8 +811,8 @@ class _E1Probe:
     def __getattr__(self, name):
         return getattr(self._ops, name)
 
-    def zsign_encode(self, x2d, keys, sigma, z):
-        out = self._ops.zsign_encode(x2d, keys, sigma, z)
+    def zsign_encode(self, x2d, keys, sigma, z, tile0=None):
+        out = self._ops.zsign_encode(x2d, keys, sigma, z, tile0)
         call = {"z": z, "sigma": sigma.detach().clone()}
         if not self.calls:
             call["norms64"] = _norms64(x2d, self._d)
@@ -835,18 +863,18 @@ class _PlainCheckProbe:
     def __getattr__(self, name):
         return getattr(self._ops, name)
 
-    def zsign_encode(self, x2d, keys, sigma, z):
-        got = self._ops.zsign_encode(x2d, keys, sigma, z)
+    def zsign_encode(self, x2d, keys, sigma, z, tile0=None):
+        got = self._ops.zsign_encode(x2d, keys, sigma, z, tile0)
         if "zsign_encode" not in self.seen:
-            want = self._ops.zsign_encode_plain(x2d, keys, sigma, z)
+            want = self._ops.zsign_encode_plain(x2d, keys, sigma, z, tile0)
             nflip, far = self._ops.erf_rule_flips(x2d, keys, sigma, z, got,
-                                                  want)
+                                                  want, tile0=tile0)
             if far:
                 raise AssertionError(f"E1: {far} bits differ from the plain "
                                      "version outside the erf rule")
             self.seen["zsign_encode"] = {
-                "shape": list(x2d.shape), "bits_differing": nflip,
-                "max_abs_err": 1 if nflip else 0}
+                "shape": list(x2d.shape), "tile0": tile0,
+                "bits_differing": nflip, "max_abs_err": 1 if nflip else 0}
             del want
         return got
 
@@ -2913,6 +2941,641 @@ def _multi_checks(label, flags, rounds, want, one, ranks, d_pad, spawn_s,
                             "peak": one["peak_GB"] * 1e9}}
 
 
+# ---------------------------------------------------------------------------
+# sharded_replica: the model-sharded client replica on a 2 x 2 grid of ranks
+# ---------------------------------------------------------------------------
+
+SHARD_GRID, SHARD_AXES = (2, 2), ("data", "model")
+SHARD_RANKS = 4
+#: (label, arch, layers kept (None: all of them), rounds)
+SHARD_PATHS = [("shard_qwen2", "qwen2_0_5b", None, 2),
+               ("shard_qwen25_32b", "qwen2_5_32b", 2, 1)]
+#: seq 256; a global batch of 4 is a micro-batch of 2 a client step on both
+#: plans (2 clients side by side, or 2 sequential groups of one)
+SHARD_SEQ, SHARD_BATCH = 256, 4
+#: params at coordinates whose wire bits agree: rtol (the CPU tests')
+SHARD_RTOL = 1e-5
+#: the round's loss against the one-process round's: rtol (bf16 model, the
+#: sequence-split sums in another order; 2.0e-5 at most measured on the
+#: H100)
+SHARD_LOSS_RTOL = 1e-4
+#: each rank's pseudo-gradient range against the same coordinates of the
+#: one-process row: relative L2 error of each leaf's piece, twice the most
+#: measured on the H100. Round 0 starts from the same params: bf16 partial
+#: gradients summed by reduce-scatters, 1.48e-2 at most. Later rounds start
+#: from params that differ where wire bits did: 3.52e-2 at most. A missing
+#: sum in a backward gives 0.2-1.0 (a mutated copy, on the CPU).
+SHARD_PG_REL_L2 = (3e-2, 7e-2)
+#: wire bits that differ from the one-process run's, over all bits sent
+#: (7.0e-5 at most measured on the H100)
+SHARD_FLIP_SHARE = 2e-4
+#: shard_qwen25_32b: each rank's peak at most this share of one process's
+SHARD_PEAK_RATIO = 0.6
+SHARD_TIMEOUT_S = 600
+
+
+class _GridShape:
+    """The 2 x 2 grid's shape, for ``make_plan`` without a group."""
+    axis_names = SHARD_AXES
+    shape = dict(zip(SHARD_AXES, SHARD_GRID))
+
+
+def _shard_arch(arch_id, layers):
+    import dataclasses
+    from repro_torch.configs.common import get_arch
+    arch = get_arch(arch_id)
+    if layers is not None:
+        arch = dataclasses.replace(arch, model=dataclasses.replace(
+            arch.model, n_layers=layers))
+    return arch
+
+
+def _shard_shape():
+    from repro_torch.configs.common import ShapeCfg
+    return ShapeCfg("chip_train_256", "train", SHARD_SEQ, SHARD_BATCH)
+
+
+def _shard_batch(plan, vocab: int, t: int, dev):
+    """Round t's (G, N, E, micro, S) tokens, the same in every process."""
+    gen = torch.Generator().manual_seed(4000 + t)
+    return {"tokens": torch.randint(
+        0, vocab, (plan.client_groups, plan.n_clients, plan.local_steps,
+                   plan.micro, SHARD_SEQ), generator=gen,
+        dtype=torch.int32).to(dev)}
+
+
+def _shard_init(arch, dev):
+    """The path's seed-0 weights, drawn on the card (every process draws
+    the same)."""
+    from repro_torch.models.api import build_model
+    gen = torch.Generator(device=dev).manual_seed(0)
+    return build_model(arch.model).init(gen, device=dev)
+
+
+def _host_available_gb() -> float:
+    with open("/proc/meminfo") as f:
+        for line in f:
+            if line.startswith("MemAvailable:"):
+                return int(line.split()[1]) * 1024 / 1e9
+    return float("nan")
+
+
+def _shard_one(label, arch_id, layers, rounds, tmp):
+    """The path's rounds in this process, alone on the card, without a
+    grid (the vmap plan: 2 clients in one E1 launch, or the group scan of 2
+    groups of one client). Writes each client's pseudo-gradient row to a
+    raw f32 file in ``tmp`` (in 1 GiB pieces: the host holds none of it),
+    and each client's payload bytes and the final params for the ranks.
+    -> (record, {(round, client): row file})."""
+    from repro_torch.core import compression
+    from repro_torch.core import fedavg as TF
+    from repro_torch.core import noise as TN
+    from repro_torch.core.tree import tree_leaves, tree_paths
+    from repro_torch.launch import sharding as SH
+    from repro_torch.models.api import build_model
+    arch = _shard_arch(arch_id, layers)
+    plan = SH.make_plan(arch, _shard_shape(), _GridShape())
+    bundle = build_model(arch.model)
+    params = _shard_init(arch, DEV)
+    d = sum(v.numel() for v in tree_leaves(params))
+    comp = compression.Pipeline(
+        f"zsign(z={arch.zsign_z},sigma={arch.zsign_sigma})")
+    fcfg = TF.FedConfig(n_clients=plan.n_clients,
+                        client_groups=plan.client_groups,
+                        local_steps=plan.local_steps,
+                        client_lr=arch.client_lr, server_lr=arch.server_lr)
+    step = TF.build_round_step(bundle.loss_fn, comp, fcfg,
+                               SH.round_context(plan, cohort="vmap"))
+    state = TF.init_server_state(params, fcfg, comp, TN.prng_key(1))
+    del params
+    rows, payloads = {}, {}
+    cur = {"t": 0, "lo": 0, "copy_s": 0.0}
+    enc = compression.Pipeline.encode_batch
+
+    def encode_batch(self, keys, flat2d, n_coords=None, *a, **k):
+        out, st = enc(self, keys, flat2d, n_coords, *a, **k)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for i in range(flat2d.shape[0]):
+            key = (cur["t"], cur["lo"] + i)
+            rows[key] = os.path.join(tmp, f"{label}_row_{key[0]}_{key[1]}")
+            with open(rows[key], "wb") as f:
+                for lo in range(0, d, 1 << 28):
+                    f.write(flat2d[i, lo:min(d, lo + (1 << 28))].cpu()
+                            .numpy().tobytes())
+            payloads[key] = out[i].cpu()
+        cur["lo"] += flat2d.shape[0]
+        cur["copy_s"] += time.perf_counter() - t0
+        return out, st
+
+    _free()
+    torch.cuda.reset_peak_memory_stats()
+    _reset_counts()
+    compression.Pipeline.encode_batch = encode_batch
+    secs, losses = [], []
+    try:
+        for t in range(rounds):
+            cur.update(t=t, lo=0, copy_s=0.0)
+            batch = _shard_batch(plan, arch.model.vocab, t, DEV)
+            mask = torch.ones((plan.client_groups, plan.n_clients))
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, m = step(state, batch, mask)
+            torch.cuda.synchronize()
+            # the host copies of this check are not the round's
+            secs.append(time.perf_counter() - t0 - cur["copy_s"])
+            losses.append(float(m.loss))
+    finally:
+        compression.Pipeline.encode_batch = enc
+    peak = torch.cuda.max_memory_allocated()
+    counts = _counts()
+    torch.save({f"{t}_{c}": v for (t, c), v in payloads.items()},
+               os.path.join(tmp, label + "_bytes.pt"))
+    torch.save({".".join(p): v.cpu() for p, v in tree_paths(state.params)},
+               os.path.join(tmp, label + "_params.pt"))
+    del state, payloads
+    _free()
+    return {"d": d, "peak": peak, "round_s": secs, "loss": losses,
+            "counts": counts, "plan": plan}, rows
+
+
+class _RangePlainProbe(_PlainCheckProbe):
+    """``_PlainCheckProbe`` for the sharded rounds (E1 with its tile0, R1
+    add mode), keeping the plain versions' temporaries out of the rank's
+    peak: the peak before the plain call is kept and the counter reset
+    after it."""
+
+    def __init__(self, ops):
+        super().__init__(ops)
+        self.peak = 0
+
+    def _plain(self, fn, *a):
+        torch.cuda.synchronize()
+        self.peak = max(self.peak, torch.cuda.max_memory_allocated())
+        out = fn(*a)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        return out
+
+    def zsign_encode(self, x2d, keys, sigma, z, tile0=None):
+        if "zsign_encode" in self.seen:
+            return self._ops.zsign_encode(x2d, keys, sigma, z, tile0)
+        return self._plain(super().zsign_encode, x2d, keys, sigma, z, tile0)
+
+    def sign_reduce(self, packed, weights, acc=None):
+        if "sign_reduce" in self.seen:
+            return self._ops.sign_reduce(packed, weights, acc)
+        return self._plain(super().sign_reduce, packed, weights, acc)
+
+
+def _range_vs_row(x, path, lo, hi, spec):
+    """A rank's pseudo-gradient range ``x`` against coordinates [lo, hi)
+    of the one-process row in the raw f32 file ``path`` (read in 256 MiB
+    pieces), leaf by leaf of ``spec`` (a ``wire.TreeSpec``), so a wrong
+    small leaf is not lost in a large one: each leaf piece's relative L2
+    error, the worst of them, the largest error over the row's largest
+    magnitude, and the coordinates that differ (past hi ``x`` must be
+    0)."""
+    import numpy as np
+    row = np.memmap(path, dtype=np.float32, mode="r")
+    leaves = []
+    for name, shape, off in zip(spec.paths, spec.shapes, spec.offsets):
+        a, b = max(lo, off), min(hi, off + math.prod(shape))
+        if b > a:
+            leaves.append({"leaf": ".".join(name) if isinstance(
+                name, tuple) else str(name), "a": a, "b": b,
+                "err2": 0.0, "ref2": 0.0})
+    err_max = ref_max = 0.0
+    differing = int(torch.count_nonzero(x[hi - lo:]))
+    for a in range(lo, hi, 1 << 26):
+        b = min(hi, a + (1 << 26))
+        ref = torch.from_numpy(np.array(row[a:b])).to(x.device)
+        diff = x[a - lo:b - lo] - ref
+        for lf in leaves:
+            u, v = max(a, lf["a"]), min(b, lf["b"])
+            if v > u:
+                dd, rr = diff[u - a:v - a], ref[u - a:v - a]
+                lf["err2"] += float(torch.sum(dd * dd, dtype=torch.float64))
+                lf["ref2"] += float(torch.sum(rr * rr, dtype=torch.float64))
+        err_max = max(err_max, float(diff.abs().max()))
+        ref_max = max(ref_max, float(ref.abs().max()))
+        differing += int(torch.count_nonzero(diff))
+        del ref, diff
+    del row
+    rel = {lf["leaf"]: math.sqrt(lf["err2"] / lf["ref2"]) if lf["ref2"]
+           else (0.0 if lf["err2"] == 0 else math.inf) for lf in leaves}
+    err2 = sum(lf["err2"] for lf in leaves)
+    ref2 = sum(lf["ref2"] for lf in leaves)
+    worst = max(rel, key=rel.get)
+    return {"rel_l2": math.sqrt(err2 / max(ref2, 1e-300)),
+            "rel_l2_by_leaf": rel, "worst_leaf": worst,
+            "worst_leaf_rel_l2": rel[worst],
+            "max_err": err_max / max(ref_max, 1e-30),
+            "coords_differing": differing, "coords": hi - lo}
+
+
+def _shard_rank(rank, world, store, label, arch_id, layers, rounds, tmp,
+                rows, out):
+    """One rank of the 2 x 2 grid, in a fresh process: joins the gloo group
+    (four ranks share cuda:0), builds the dry run's train cell
+    (``dryrun.build_train_cell``), takes its shards of the seed-0 weights,
+    runs the rounds and writes its record to ``out.format(rank)``."""
+    import datetime
+    import torch.distributed as dist
+    os.environ["LOCAL_RANK"] = str(rank)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    from repro_torch.core import compression, wire
+    from repro_torch.core import fedavg as TF
+    from repro_torch.core import noise as TN
+    from repro_torch.core.tree import tree_paths, tree_set
+    from repro_torch.kernels.zsign import ops
+    from repro_torch.launch import dryrun, hints
+    from repro_torch.launch.mesh import make_replica_grid
+    from repro_torch.models.api import shard_params
+    grid = make_replica_grid(
+        SHARD_GRID, SHARD_AXES, device_type=DEV.type,
+        init_method=f"file://{store}", rank=rank,
+        timeout=datetime.timedelta(seconds=SHARD_TIMEOUT_S))
+    # every rank of the one-card machine computes on cuda:0
+    dev = DEV
+    arch = _shard_arch(arch_id, layers)
+    step, example, plan = dryrun.build_train_cell(arch, _shard_shape(), grid)
+    full = _shard_init(arch, dev)
+    shards = shard_params(full, arch.model, grid, plan, device=dev)
+    del full
+    _free()
+    state = TF.init_server_state(shards, example["fcfg"], example["comp"],
+                                 TN.prng_key(1))
+    layout = step.layout(shards)
+    lo, hi = layout.bounds
+    d = layout.spec.n_coords
+    one_bytes = torch.load(os.path.join(tmp, label + "_bytes.pt"))
+    row = grid.index(plan.client_axes)
+    seen = {"t": 0, "g": 0, "flips": [], "pg": [], "check_s": 0.0,
+            "peak": 0}
+    enc = compression.Pipeline.encode_range
+
+    def encode_range(self, keys, x2d, tile0, sigma=None):
+        got = enc(self, keys, x2d, tile0, sigma=sigma)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        # the check's own buffers are kept out of the rank's peak
+        seen["peak"] = max(seen["peak"], torch.cuda.max_memory_allocated())
+        client = seen["g"] * plan.n_clients + row
+        seen["g"] += 1
+        seen["pg"].append({"t": seen["t"], "client": client,
+                           **_range_vs_row(x2d[0], rows[(seen["t"], client)],
+                                           lo, min(hi, d), layout.spec)})
+        want = one_bytes[f"{seen['t']}_{client}"][lo // 8:hi // 8].to(dev)
+        diff = got[0] ^ want
+        nz = torch.nonzero(diff).reshape(-1)
+        bits = torch.nonzero((diff[nz].unsqueeze(-1) >> torch.arange(
+            8, device=dev, dtype=torch.uint8)) & 1)
+        coords = nz[bits[:, 0]] * 8 + bits[:, 1]
+        coords = coords[coords < d - lo]
+        seen["flips"].append({"t": seen["t"], "client": client,
+                              "coords": (coords + lo).cpu(),
+                              "vals": x2d[0, coords].cpu(),
+                              "sent": min(hi, d) - lo})
+        del diff, nz, bits, coords, want
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        # every rank waits here for the slowest check, so no rank's round
+        # time holds another's
+        dist.barrier()
+        seen["check_s"] += time.perf_counter() - t0
+        return got
+
+    _free()
+    torch.cuda.reset_peak_memory_stats()
+    _reset_counts()
+    per, peak = [], 0
+    compression.Pipeline.encode_range = encode_range
+    try:
+        for t in range(rounds):
+            seen.update(t=t, g=0, check_s=0.0)
+            batch = _shard_batch(plan, arch.model.vocab, t, dev)
+            mask = torch.ones((plan.client_groups, plan.n_clients))
+            hints.reset_collective_stats()
+            wire.reset_reduce_stats()
+            before = _counts()
+            probe = _RangePlainProbe(ops) if t == 0 else None
+            if probe is not None:
+                compression.K = probe
+            dist.barrier()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            try:
+                state, m = step(state, batch, mask)
+                torch.cuda.synchronize()
+            finally:
+                compression.K = ops
+            # the host reads of this check are not the round's
+            sec = time.perf_counter() - t0 - seen["check_s"]
+            after = _counts()
+            if probe is not None:
+                peak = max(peak, probe.peak)
+            per.append({
+                "sec": sec, "loss": float(m.loss),
+                "counts": {k: after[k] - before[k] for k in after},
+                "collective_bytes": hints.collective_totals(0),
+                "collective_calls": hints.collective_totals(1),
+                "collective_s": hints.collective_totals(2),
+                "collective_by_use": {k: list(v) for k, v in
+                                      hints.COLLECTIVES.items()},
+                "reduce": dict(wire.REDUCE_STATS),
+                "vs_plain": None if probe is None else probe.seen})
+    finally:
+        compression.Pipeline.encode_range = enc
+    peak = max(peak, seen["peak"], torch.cuda.max_memory_allocated())
+    # the params against the one-process run's, shard by shard
+    loaded = torch.load(os.path.join(tmp, label + "_params.pt"), mmap=True)
+    tree = {}
+    for k, v in loaded.items():
+        tree_set(tree, tuple(k.split(".")), v)
+    want = shard_params(tree, arch.model, grid, plan, device=dev)
+    outside, differing, off = 0, 0, []
+    for i, ((_, a), (_, b)) in enumerate(zip(tree_paths(state.params),
+                                             tree_paths(want))):
+        af, bf = a.float().reshape(-1), b.float().reshape(-1)
+        far = torch.nonzero((af - bf).abs() > SHARD_RTOL * bf.abs())
+        outside += far.numel()
+        off.append(layout.flat_coords(i, far.reshape(-1)).cpu())
+        differing += int((a != b).sum())
+    del want, tree, loaded
+    rec = {"rank": rank, "coords": dict(grid.coords),
+           "backend": dist.get_backend(),
+           "device": str(dev), "bounds": [lo, hi], "d": d, "peak": peak, "rounds": per,
+           "flips": seen["flips"], "pg_vs_one_process": seen["pg"],
+           "params_outside_rtol": outside, "params_off_coords": torch.cat(off),
+           "params_differing": differing,
+           "shard_bytes": sum(v.numel() * v.element_size()
+                              for _, v in tree_paths(state.params))}
+    torch.save(rec, out.format(rank))
+    dist.barrier()
+    dist.destroy_process_group()
+
+
+def _shard_predict(arch_id, layers, rank):
+    """``dryrun.analyze`` of the same cell for ``rank`` of a fake 2 x 2
+    group (meta tensors, E1 and R1 stood in by their kernels' outputs, the
+    card's route), in a process of its own (``phase_sharded_replica`` runs
+    the four ranks' in a pool beside the one-process run)."""
+    import torch.distributed as dist
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import make_replica_grid
+    arch = _shard_arch(arch_id, layers)
+    dryrun.fake_group(SHARD_RANKS, rank)
+    try:
+        grid = make_replica_grid(SHARD_GRID, SHARD_AXES, device_type="cpu")
+        step, ex, _ = dryrun.build_train_cell(
+            arch, _shard_shape(), grid, agg_backend="cuda",
+            encode_backend="cuda")
+        return dryrun.analyze(step, ex, grid, arch_id)
+    finally:
+        dist.destroy_process_group()
+
+
+def _shard_time_e1(dev, lo, hi):
+    """E1 at a rank's range shape, (1, hi - lo) f32 with tile0 = lo / 8192:
+    kernel and plain ms (CUDA events) beside the bound, bit-exact first."""
+    from repro_torch.core import noise
+    from repro_torch.kernels.zsign import ops
+    n = hi - lo
+    gen = torch.Generator(device=dev).manual_seed(21)
+    x = torch.randn((1, n), generator=gen, device=dev) * 0.01
+    keys = noise.client_keys(noise.prng_key(7), 0, 1)
+    sig = torch.full((1,), 0.01, device=dev)
+    t0 = lo // ops.TILE
+    got = ops.zsign_encode(x, keys, sig, 1, t0)
+    want = ops.zsign_encode_plain(x, keys, sig, 1, t0)
+    torch.cuda.synchronize()
+    nflip, far = ops.erf_rule_flips(x, keys, sig, 1, got, want, tile0=t0)
+    if far:
+        raise AssertionError(f"E1 (1, {n}) tile0 {t0}: {far} bits outside "
+                             "the erf rule")
+    del want
+    ms = _time_ms(lambda: ops.zsign_encode(x, keys, sig, 1, t0), reps=10,
+                  warmup=2)
+    plain_ms = _time_ms(lambda: ops.zsign_encode_plain(x, keys, sig, 1, t0),
+                        reps=1)
+    bound, by = _bound(nbytes=n * 4 + n / 8 + 16 + 4,
+                       ops=n / 4 * OPS_PER_COUNTER
+                       + n * (OPS_PER_ELEM + ERF_OPS))
+    del x, got
+    _free()
+    return {"shape": [1, n], "tile0": t0, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound, "bound_by": by, "bits_differing": nflip}
+
+
+def _shard_checks(label, layers, rounds, one, rows, ranks, predicted,
+                  spawn_s, smi):
+    """The checks of one sharded path, its JSON line, and its summary for
+    the kernels line."""
+    import numpy as np
+    plan = one["plan"]
+    G, N = plan.client_groups, plan.n_clients
+    want_counts = {"zsign_encode": G, "sign_reduce": 1,
+                   "sign_reduce_fold": 0, "ef_sign": 0, "zsign_compress": 0,
+                   "unpack_sum": 0}
+    n_flips, n_sent, union = 0, 0, []
+    for rk in ranks:
+        r = rk["rank"]
+        if rk["backend"] != "gloo" or rk["device"] != str(DEV):
+            raise AssertionError(f"{label}: rank {r} on {rk['device']} with "
+                                 f"{rk['backend']}")
+        lo, hi = rk["bounds"]
+        if lo % 8192 or (hi - lo) % 8192:
+            raise AssertionError(f"{label}: rank {r} range {lo}..{hi}")
+        for t, rd in enumerate(rk["rounds"]):
+            got = {k: rd["counts"][k] for k in want_counts}
+            if got != want_counts:
+                raise AssertionError(f"{label}: rank {r} round {t} launched "
+                                     f"{got}, want {want_counts}")
+            if rd["collective_bytes"] != predicted[r]["collectives"]:
+                raise AssertionError(
+                    f"{label}: rank {r} round {t} moved "
+                    f"{rd['collective_bytes']}, the dry run counts "
+                    f"{predicted[r]['collectives']}")
+            if not math.isfinite(rd["loss"]) or abs(
+                    rd["loss"] - one["loss"][t]) > SHARD_LOSS_RTOL * abs(
+                    one["loss"][t]):
+                raise AssertionError(f"{label}: rank {r} round {t} loss "
+                                     f"{rd['loss']}, one process "
+                                     f"{one['loss'][t]}")
+        seen = rk["rounds"][0]["vs_plain"]
+        if {k: v["shape"] for k, v in seen.items()} != {
+                "zsign_encode": [1, hi - lo],
+                "sign_reduce": [G, (hi - lo) // 8]}:
+            raise AssertionError(f"{label}: rank {r}: kernels held to "
+                                 f"their plain versions at {seen}")
+        if seen["zsign_encode"]["tile0"] != lo // 8192:
+            raise AssertionError(f"{label}: rank {r}: E1 tile0 "
+                                 f"{seen['zsign_encode']['tile0']}")
+        for pg in rk["pg_vs_one_process"]:
+            limit = SHARD_PG_REL_L2[min(pg["t"], 1)]
+            if not pg["worst_leaf_rel_l2"] <= limit:
+                raise AssertionError(
+                    f"{label}: rank {r} round {pg['t']} client "
+                    f"{pg['client']}: pseudo-gradient of {pg['worst_leaf']} "
+                    f"off the one-process row by relative L2 "
+                    f"{pg['worst_leaf_rel_l2']} (limit {limit}; all leaves "
+                    f"{pg['rel_l2_by_leaf']})")
+        for f in rk["flips"]:
+            n_sent += f["sent"]
+            row = np.memmap(rows[(f["t"], f["client"])], dtype=np.float32,
+                            mode="r")
+            p_one = torch.from_numpy(np.asarray(row[f["coords"].numpy()]))
+            del row
+            if bool((p_one == f["vals"]).any()):
+                raise AssertionError(f"{label}: rank {r}: wire bits differ "
+                                     "where the pseudo-gradients agree")
+            n_flips += f["coords"].numel()
+            union.append(f["coords"])
+    if n_flips > SHARD_FLIP_SHARE * n_sent:
+        raise AssertionError(f"{label}: {n_flips} of {n_sent} wire bits "
+                             "differ from the one-process run's (limit "
+                             f"{SHARD_FLIP_SHARE})")
+    # each param coordinate off the one-process run lies where some
+    # client's wire bit differed in some round (the server step is
+    # elementwise, and each coordinate's update is a function of the
+    # clients' bits there)
+    union = torch.unique(torch.cat(union)) if union else \
+        torch.empty((0,), dtype=torch.int64)
+    for rk in ranks:
+        stray = rk["params_off_coords"][~torch.isin(
+            rk["params_off_coords"], union)]
+        if stray.numel() or rk["params_off_coords"].numel() != \
+                rk["params_outside_rtol"]:
+            raise AssertionError(
+                f"{label}: rank {rk['rank']}: {stray.numel()} of "
+                f"{rk['params_outside_rtol']} param coordinates outside "
+                f"rtol {SHARD_RTOL} where no wire bit differed (first: "
+                f"{stray[:8].tolist()})")
+    peaks = [rk["peak"] for rk in ranks]
+    if label == "shard_qwen25_32b" and max(peaks) > SHARD_PEAK_RATIO * \
+            one["peak"]:
+        raise AssertionError(f"{label}: rank peaks {peaks} above "
+                             f"{SHARD_PEAK_RATIO} x the one-process peak "
+                             f"{one['peak']}")
+    losses = {rd["loss"] for rk in ranks for rd in rk["rounds"][-1:]}
+    if len(losses) != 1:
+        raise AssertionError(f"{label}: the ranks' losses differ: {losses}")
+    e1 = _shard_time_e1(DEV, *ranks[1]["bounds"])
+    print(json.dumps({
+        "sharded_replica": label, "card": smi,
+        "grid": dict(zip(SHARD_AXES, SHARD_GRID)), "backend": "gloo",
+        "plan": {"client_axes": plan.client_axes,
+                 "micro_axes": plan.micro_axes, "seq_axes": plan.seq_axes,
+                 "replica_axes": plan.replica_axes, "n_clients": N,
+                 "client_groups": G, "micro": plan.micro},
+        "cuts": {"layers": layers, "seq": SHARD_SEQ, "global_batch":
+                 SHARD_BATCH, "rounds": rounds, "local_steps": 1},
+        "d": one["d"], "ranges": [rk["bounds"] for rk in ranks],
+        "round_s": {"one_process": one["round_s"],
+                    "ranks": [[rd["sec"] for rd in rk["rounds"]]
+                              for rk in ranks]},
+        "collective_s": [[rd["collective_s"] for rd in rk["rounds"]]
+                         for rk in ranks],
+        "collective_by_use_last_round": [rk["rounds"][-1][
+            "collective_by_use"] for rk in ranks],
+        "collective_bytes": [rk["rounds"][0]["collective_bytes"]
+                             for rk in ranks],
+        "collective_bytes_dry_run": [p["collectives"] for p in predicted],
+        "collective_calls": [rk["rounds"][0]["collective_calls"]
+                             for rk in ranks],
+        "peak_GB": {"one_process": one["peak"] / 1e9,
+                    "ranks": [p / 1e9 for p in peaks],
+                    "dry_run": [p["peak_bytes"] / 1e9 for p in predicted],
+                    "ratio_to_one_process": max(peaks) / one["peak"]},
+        "shard_bytes": [rk["shard_bytes"] for rk in ranks],
+        "dry_run_flops": [p["flops_per_device"] for p in predicted],
+        "loss": {"one_process": one["loss"],
+                 "ranks": [rk["rounds"][-1]["loss"] for rk in ranks]},
+        "wire_bits_differing": n_flips, "wire_bits_sent": n_sent,
+        "coords_with_a_differing_bit": int(union.numel()),
+        "pseudo_gradient_vs_one_process": [
+            [{k: pg[k] for k in ("t", "client", "rel_l2", "worst_leaf",
+                                 "worst_leaf_rel_l2", "max_err",
+                                 "coords_differing", "coords")}
+             for pg in rk["pg_vs_one_process"]] for rk in ranks],
+        "params_outside_rtol": [rk["params_outside_rtol"] for rk in ranks],
+        "params_differing": [rk["params_differing"] for rk in ranks],
+        "kernels_vs_plain_round0": [rk["rounds"][0]["vs_plain"]
+                                    for rk in ranks],
+        "e1_range": e1, "spawn_and_run_s": spawn_s}))
+    summed = {k: sum(rd["counts"][k] for rk in ranks for rd in rk["rounds"])
+              for k in ranks[0]["rounds"][0]["counts"]}
+    return {label: {"launches": summed,
+                    "secs": [max(x) for x in zip(*([rd["sec"] for rd in
+                                                    rk["rounds"]]
+                                                   for rk in ranks))],
+                    "peak": max(peaks),
+                    "vs_plain": [rk["rounds"][0]["vs_plain"]
+                                 for rk in ranks],
+                    "e1_range": e1},
+            label + "_d1": {"launches": one["counts"],
+                            "secs": one["round_s"], "peak": one["peak"]}}
+
+
+def phase_sharded_replica(dev, smi):
+    """sharded_replica: each of SHARD_PATHS first in this process without a
+    grid, then as four ranks (``torch.multiprocessing.spawn``, fresh
+    processes) of a (data=2, model=2) gloo grid sharing the one card,
+    running the dry run's train cell (``dryrun.build_train_cell``) for
+    real. Each rank: E1 (with its tile0) and R1 launched as the plan says
+    and held to their plain versions on round 0; its collective bytes by
+    kind equal to the dry run's count for its rank; its pseudo-gradient
+    range within SHARD_PG_REL_L2 of the one-process row, leaf by leaf; wire
+    bits that differ from the one-process run's only where the
+    pseudo-gradients differ, and at most SHARD_FLIP_SHARE of them; params
+    off it only at coordinates where a wire bit differed; the loss within
+    SHARD_LOSS_RTOL; on shard_qwen25_32b a peak at most SHARD_PEAK_RATIO of
+    one process's."""
+    import shutil
+    import tempfile
+    import torch.multiprocessing as mp
+    out, tmp = {}, tempfile.mkdtemp(prefix="chip_smoke_shard_")
+    try:
+        for label, arch_id, layers, rounds in SHARD_PATHS:
+            print(f"# {label}: host memory available "
+                  f"{_host_available_gb():.1f} GB")
+            t0 = time.time()
+            # the dry run's four ranks on the host's cores, while the card
+            # runs the one-process rounds
+            pool = mp.get_context("spawn").Pool(SHARD_RANKS)
+            pending = pool.starmap_async(
+                _shard_predict, [(arch_id, layers, r)
+                                 for r in range(SHARD_RANKS)])
+            one, rows = _shard_one(label, arch_id, layers, rounds, tmp)
+            one_s = time.time() - t0
+            predicted = pending.get(timeout=SHARD_TIMEOUT_S)
+            pool.close()
+            pool.join()
+            predict_s = time.time() - t0
+            rec_path = os.path.join(tmp, label + "_rank{}.pt")
+            t0 = time.time()
+            mp.spawn(_shard_rank, nprocs=SHARD_RANKS, join=True,
+                     args=(SHARD_RANKS, os.path.join(tmp, label + ".store"),
+                           label, arch_id, layers, rounds, tmp, rows,
+                           rec_path))
+            spawn_s = time.time() - t0
+            ranks = [torch.load(rec_path.format(r))
+                     for r in range(SHARD_RANKS)]
+            out.update(_shard_checks(label, layers, rounds, one, rows, ranks,
+                                     predicted, spawn_s, smi))
+            print(f"# {label}: one process {one_s:.1f} s, with the dry run "
+                  f"beside it {predict_s:.1f} s, ranks {spawn_s:.1f} s")
+            del rows, ranks
+            for f in os.listdir(tmp):
+                os.unlink(os.path.join(tmp, f))
+            _free()
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA card visible", file=sys.stderr)
@@ -2926,6 +3589,11 @@ def main() -> int:
     check_fold(dev)
     check_ef_compress_unpack(dev)
     results = {}
+    # first of the paths: its ranks and files need the host's memory, which
+    # the host-fed paths' pinned rows take later
+    t_new = time.time()
+    results.update(phase_sharded_replica(dev, smi))
+    print(f"# sharded-replica phase ran {time.time() - t_new:.1f} s")
     for label, flags, per_round in PATHS:
         results[label] = phase_path(label, flags, per_round)
     phase_identities(results)
@@ -3001,6 +3669,7 @@ def main() -> int:
          "replaces": tpu + "zsign/zsign.py:145 (n = 1: zsign.py:123)",
          "launches": total["zsign_encode"],
          "launches_n1": total["zsign_encode_n1"],
+         "launches_range": total["zsign_encode_range"],
          "check": f"bit-exact vs plain, z=1 flips {flips_z1} (small) / "
                   f"{enc['bits_differing']} (full width); batched bytes "
                   "equal to n = 1 launches; a sigma per client (one 0) "
@@ -3062,6 +3731,14 @@ def main() -> int:
             kname, tag = ((kern[:-5], "_fold_vs_plain")
                           if kern.endswith("_fold") else (kern, "_vs_plain"))
             by_name[kname][path + tag] = [s[kern] for s in seen]
+    for path in (p[0] for p in SHARD_PATHS):
+        seen = results[path]["vs_plain"]
+        for kname in ("zsign_encode", "sign_reduce"):
+            by_name[kname][path + "_vs_plain"] = [s[kname] for s in seen]
+        e1 = results[path]["e1_range"]
+        by_name["zsign_encode"][path + "_range"] = {
+            k: e1[k] for k in ("shape", "tile0", "ms", "plain_ms",
+                               "bound_ms", "bound_by", "bits_differing")}
     print(f"# chip_smoke ran {time.time() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -37,6 +37,12 @@ class ArchConfig:
     #                                  (``launch/sharding.make_plan``)
     seq_client_groups: int = 4       # sequential clients when big
     local_steps: int = 1             # E of the roofline's train cell
+    #: the dry run's train cell (``launch/dryrun.build_train_cell``): the
+    #: client and server learning rates and the default zsign codec
+    client_lr: float = 0.01
+    server_lr: float = 1.0
+    zsign_z: int = 1                 # 1 = Gaussian, 0 = uniform (z=inf)
+    zsign_sigma: float = 0.01
     notes: str = ""
 
     def reduced(self) -> "ArchConfig":

@@ -12,5 +12,6 @@ ARCH = ArchConfig(
     model=ModelCfg(name="internvl2-1b", family="vlm",
                    n_layers=24, d_model=896, n_heads=14, n_kv_heads=2,
                    d_ff=4864, vocab=151655, qkv_bias=True,
-                   n_img_tokens=256, dtype=torch.bfloat16),
+                   n_img_tokens=256, dtype=torch.bfloat16,
+                   remat_save_weights=True),
     notes="vlm: 256 stub image tokens prefixed; loss on text only")

@@ -11,5 +11,6 @@ ARCH = ArchConfig(
     model=ModelCfg(name="qwen2-0.5b", family="dense",
                    n_layers=24, d_model=896, n_heads=14, n_kv_heads=2,
                    d_ff=4864, vocab=151936, qkv_bias=True,
-                   dtype=torch.bfloat16),
+                   dtype=torch.bfloat16,
+                   remat_save_weights=True),
     notes="GQA kv=2, QKV bias, tied embeddings")

@@ -11,5 +11,6 @@ ARCH = ArchConfig(
     source="arXiv:2308.11596",
     model=ModelCfg(name="seamless-m4t-large-v2", family="encdec",
                    n_layers=24, d_model=1024, n_heads=16, n_kv_heads=16,
-                   d_ff=8192, vocab=256206, dtype=torch.bfloat16),
+                   d_ff=8192, vocab=256206, dtype=torch.bfloat16,
+                   remat_save_weights=True),
     notes="24 enc + 24 dec; train seq split src:tgt 50:50")

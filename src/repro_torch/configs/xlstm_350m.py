@@ -10,5 +10,6 @@ ARCH = ArchConfig(
     source="arXiv:2405.04517 (unverified)",
     model=ModelCfg(name="xlstm-350m", family="xlstm",
                    n_layers=24, d_model=1024, n_heads=4, n_kv_heads=4,
-                   d_ff=0, vocab=50304, dtype=torch.bfloat16),
+                   d_ff=0, vocab=50304, dtype=torch.bfloat16,
+                   remat_save_weights=True),
     notes="recurrent: O(1) decode state => runs long_500k")

@@ -567,16 +567,38 @@ class SignCodec:
             return K.zsign_encode_plain(x2d, keys, sig, None)
         return K.zsign_encode(x2d, keys, sig, None)
 
-    def _encode_bits(self, keys, x2d, n_coords: int, sig, add_noise: bool):
+    def _encode_bits(self, keys, x2d, n_coords: int, sig, add_noise: bool,
+                     tile0: Optional[int] = None):
         backend = resolve_backend("encode", self.encode_backend,
                                   x2d.device.type)
         if backend == "reference" or (
                 add_noise and not znoise.counter_supported(self.z)):
+            if tile0 is not None:
+                raise NotImplementedError(
+                    "the dense-noise encode of a flat range waits (ROADMAP:"
+                    " EF/F1 and the other pipelines on a grid)")
             return self._encode_dense(keys, x2d, n_coords, sig, add_noise)
         z = self.z if add_noise else None
         if backend == "cuda":
-            return K.zsign_encode(x2d, keys, sig, z)
-        return K.zsign_encode_plain(x2d, keys, sig, z)
+            return K.zsign_encode(x2d, keys, sig, z, tile0)
+        return K.zsign_encode_plain(x2d, keys, sig, z, tile0)
+
+    def encode_range(self, keys: torch.Tensor, x2d: torch.Tensor,
+                     tile0: int, sigma=None) -> torch.Tensor:
+        """The sign encode of flat ranges: (n, 2) keys and (n, len) f32
+        rows holding coordinates [tile0 * 8192, tile0 * 8192 + len) of the
+        clients' pseudo-gradients -> (n, len / 8) uint8, the byte slice of
+        the whole vectors' encode (E1 with ``tile0``)."""
+        n = x2d.shape[0]
+        sig0, add_noise = self._noise_gate(sigma)
+        if isinstance(sig0, torch.Tensor):
+            sig = sig0.to(device=x2d.device, dtype=torch.float32).reshape(
+                1).expand(n).contiguous()
+        else:
+            sig = torch.full((n,), sig0, dtype=torch.float32,
+                             device=x2d.device)
+        return self._encode_bits(keys, x2d, x2d.shape[1], sig, add_noise,
+                                 tile0)
 
     def _noise_gate(self, sigma):
         """-> (sigma, add_noise); the ONE place the noise gate is decided. A
@@ -1272,6 +1294,32 @@ class Pipeline:
             new_state.update(self.transforms[i].post_encode(state, p, local,
                                                             rows))
         return payload, new_state
+
+    def check_range_encode(self) -> None:
+        """Raise ``NotImplementedError`` unless the pipeline encodes flat
+        ranges (``encode_range``): the model-sharded replica runs zsign and
+        zsign_packed with agg=mean, z in {1, inf} and sigma >= 0, and no
+        transform stage; anything else on a grid waits, and never falls
+        back to the unsharded path."""
+        c = self.codec
+        ok = (not self.transforms and isinstance(c, SignCodec)
+              and c.agg == "mean" and c.scale == "none"
+              and c.sigma_mode == "fixed" and c.sigma >= 0.0
+              and c.encode_backend != "reference"
+              and (c.sigma == 0.0 or znoise.counter_supported(c.z)))
+        if not ok:
+            raise NotImplementedError(
+                f"pipeline {self.spec!r} on a grid waits (ROADMAP: EF/F1 "
+                f"and the other pipelines on a grid): the model-sharded "
+                f"replica encodes zsign / zsign_packed with agg=mean, z in "
+                f"{{1, inf}} and sigma >= 0, without transform stages")
+
+    def encode_range(self, keys: torch.Tensor, x2d: torch.Tensor,
+                     tile0: int, sigma=None) -> torch.Tensor:
+        """``SignCodec.encode_range`` of the codec (after
+        ``check_range_encode``); ``sigma`` is the dynamic override."""
+        return self.codec.encode_range(self._stage_key(keys, 0), x2d, tile0,
+                                       sigma=sigma)
 
     def stacks_group_payloads(self) -> bool:
         """Whether the sequential group scan stacks the raw payloads and

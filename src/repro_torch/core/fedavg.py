@@ -751,3 +751,197 @@ def build_round_step(loss_fn: Callable, compressor, cfg: FedConfig,
             total=total)
     return round_step
 
+
+
+# ---------------------------------------------------------------------------
+# the model-sharded client replica
+# ---------------------------------------------------------------------------
+
+def _axes_size(grid, axes) -> int:
+    n = 1
+    for a in axes:
+        n *= grid.shape[a]
+    return n
+
+
+def build_sharded_round_step(loss_fn: Callable, compressor, cfg: FedConfig,
+                             ctx: Optional[RoundContext], *, grid, plan,
+                             specs, remat: bool = True):
+    """-> round_step(state, batch, mask) -> (state, RoundMetrics) of the
+    model-sharded client replica on a ``launch/mesh.ReplicaGrid`` (the
+    counterpart of the reference's ``build_round_step`` with its launcher's
+    ``spmd_axes`` and ``param_constraint``, ``launch/dryrun.py:84-100``).
+
+    ``plan`` (``launch/sharding.make_plan``) says which axes run clients
+    side by side (``client_axes``: one client per data row), which split a
+    client's micro-batch (``micro_axes``) and sequence (``seq_axes``), and
+    which share its replica (``replica_axes``); ``specs`` is the params'
+    spec tree (``param_specs``). ``state.params`` holds this rank's shards
+    (``models/api.shard_params``). Every rank is called with the same
+    (G, N, E, micro, S) batch and (G, N) mask.
+
+    A round: for each of the G sequential groups, this rank's data row
+    runs its client's local SGD on the sharded replica (``loss_fn`` under
+    ``launch/hints.sharding_hints``: FSDP gathers, sequence-parallel
+    attention, remat); the per-leaf pseudo-gradient shards move to this
+    rank's flat range in one exchange (``wire.RangeLayout.to_range``); E1
+    encodes the range with its first tile id. After the groups, R1 reduces
+    the range's (G, n_bytes) payload rows under the mask; the ranks that own
+    the same range on the other data rows sum their f32 partials in rank
+    order (``wire.reduce_accumulator`` over the client axes: exact for 0/1
+    masks); the range is decoded, moved back onto the shards
+    (``from_range``) and the server optimizer steps each shard. So no rank
+    holds a (d,) vector or the whole tree, and the payload bytes of a range
+    are the byte slice of the unsharded round's. Pipelines other than
+    zsign / zsign_packed (agg=mean, z in {1, inf}), async rounds, stream
+    cohorts and adversaries raise ``NotImplementedError``. ``remat``
+    rematerializes each layer (on by default, as in the reference; off
+    only to show that it changes no bit)."""
+    from repro_torch.launch import hints
+    from repro_torch.launch.sharding import spec_dim
+    ctx = ctx or RoundContext()
+    compressor = compressor.with_context(ctx)
+    compressor.check_range_encode()
+    if RoundModePolicy.parse(ctx.round_mode).mode != "sync":
+        raise NotImplementedError("async rounds on a grid wait (ROADMAP)")
+    if CohortPolicy.parse(ctx.cohort).mode == "stream":
+        raise NotImplementedError("a stream cohort on a grid waits "
+                                  "(ROADMAP); the grid runs its clients "
+                                  "side by side on the client axes")
+    if ctx.adversary != "none":
+        raise NotImplementedError("the wire adversary on a grid waits "
+                                  "(ROADMAP: the robust laws on a grid)")
+    G, N = cfg.client_groups, cfg.n_clients
+    if _axes_size(grid, plan.client_axes) != N:
+        raise ValueError(f"{N} clients side by side, but the client axes "
+                         f"{plan.client_axes} hold "
+                         f"{_axes_size(grid, plan.client_axes)} rows")
+    opt = _server_optimizer(cfg)
+    gamma = cfg.client_lr
+    c = grid.index(plan.client_axes)
+    client_group = grid.group(plan.client_axes)
+    paths = [p for p, _ in tree_paths(specs)]
+    leaf_specs = [spec_dim(s) for _, s in tree_paths(specs)]
+    cache = {}
+
+    def layout_for(params) -> wire.RangeLayout:
+        if "layout" not in cache:
+            shapes = []
+            for (_, leaf), (dim, axes) in zip(tree_paths(params),
+                                              leaf_specs):
+                shape = list(leaf.shape)
+                if dim is not None:
+                    shape[dim] *= _axes_size(grid, axes)
+                shapes.append(tuple(shape))
+            offsets, off = [], 0
+            for s in shapes:
+                offsets.append(off)
+                n = 1
+                for x in s:
+                    n *= x
+                off += n
+            spec = wire.TreeSpec(tuple(paths), tuple(shapes),
+                                 tuple(offsets), off)
+            cache["layout"] = wire.RangeLayout(spec, leaf_specs, grid,
+                                               plan.replica_axes)
+        return cache["layout"]
+
+    def client_update(params0, client_batch):
+        """One client's local SGD on the shards -> (pseudo-gradient shards
+        in TreeSpec order, the mean local loss)."""
+        if cfg.local_steps == 1:
+            p = tree_map(lambda w: w.detach().requires_grad_(True), params0)
+            loss = loss_fn(p, tree_map(lambda x: x[0], client_batch))
+            grads = torch.autograd.grad(loss, tree_leaves(p))
+            return list(grads), loss.detach().to(torch.float32)
+        p, losses = params0, []
+        for e in range(cfg.local_steps):
+            pg = tree_map(lambda w: w.detach().requires_grad_(True), p)
+            loss = loss_fn(pg, tree_map(lambda x: x[e], client_batch))
+            leaves = tree_leaves(pg)
+            grads = torch.autograd.grad(loss, leaves)
+            with torch.no_grad():
+                p = {}
+                for path, w, g in zip(paths, leaves, grads):
+                    tree_set(p, path, w.detach() - gamma * g.to(w.dtype))
+            losses.append(loss.detach().to(torch.float32))
+        with torch.no_grad():
+            pseudo = [(a.to(torch.float32) - b.to(torch.float32)) / gamma
+                      for a, b in zip(tree_leaves(params0), tree_leaves(p))]
+        return pseudo, torch.stack(losses).mean()
+
+    def round_step(state: ServerState, batch, mask):
+        import time as _time
+        params = state.params
+        device = tree_leaves(params)[0].device
+        layout = layout_for(params)
+        lo, hi = layout.bounds
+        tile0 = lo // compressor.pad_multiple()
+        rng, sub = znoise.split(state.rng)
+        mask_all = torch.as_tensor(mask, dtype=torch.float32).reshape(G, N)
+        if ctx.debug_wire:
+            wire.check_mask_membership(mask_all)
+        keys = znoise.client_keys(sub, 0, G * N)
+        sigma = state.sigma if ctx.dynamic_sigma else None
+        buf = torch.empty((1, hi - lo), dtype=torch.float32, device=device)
+        payloads = []
+        loss_sum = torch.zeros((), dtype=torch.float32, device=device)
+        with hints.sharding_hints(grid, plan.seq_axes, plan.micro_axes,
+                                  replica_axes=plan.replica_axes,
+                                  specs=specs, remat=remat):
+            for g in range(G):
+                pseudo, loss = client_update(
+                    params, tree_map(lambda x: x[g, c], batch))
+                with torch.no_grad():
+                    layout.to_range(pseudo, out=buf[0])
+                    del pseudo
+                    payloads.append(compressor.encode_range(
+                        keys[g * N + c:g * N + c + 1], buf, tile0,
+                        sigma=sigma))
+                    w = mask_all[g, c].to(device)
+                    loss_sum = loss_sum + torch.where(w > 0, loss * w, 0.0)
+        del buf
+        with torch.no_grad():
+            packed = torch.cat(payloads)
+            del payloads
+            enc_sum = compressor.aggregate(packed, mask_all[:, c].to(device),
+                                           hi - lo)
+            if client_group is not None:
+                # THE cross-client step: the ranks that own this range on
+                # the other data rows, in rank order
+                t0 = _time.perf_counter()
+                enc_sum = wire.reduce_accumulator(enc_sum, client_group)
+                hints.record("all_reduce", enc_sum.numel() * 4, t0,
+                             "client_sum")
+                t0 = _time.perf_counter()
+                loss_sum = wire.reduce_accumulator(loss_sum.reshape(1),
+                                                   client_group).reshape(())
+                hints.record("all_reduce", 4, t0, "loss")
+            n_live = torch.clamp_min(mask_all.sum(), 1.0).to(device)
+            g_range = compressor.decode_sum(enc_sum, n_live, sigma=sigma)
+            real = max(0, min(hi, layout.spec.n_coords) - lo)
+            sq = torch.sum(torch.square(g_range[:real])).reshape(1)
+            if layout.group is not None:
+                sq = hints.all_reduce_sum(sq, layout.group, "norm")
+            upd = layout.from_range(g_range, [tuple(v.shape) for v in
+                                              tree_leaves(params)])
+            del g_range
+            g_hat: dict = {}
+            for path, u in zip(paths, upd):
+                tree_set(g_hat, path, u)
+            scaled = tree_map(lambda u: gamma * u, g_hat)
+            new_params, new_opt = opt.update(scaled, state.opt_state, params)
+            metrics = RoundMetrics(
+                loss=loss_sum / n_live,
+                grad_est_norm=torch.sqrt(sq[0]),
+                participation=n_live,
+                uplink_bits=n_live * float(layout.spec.n_coords
+                                           * compressor.wire_bits_per_coord),
+                shard_clients=torch.tensor(0, dtype=torch.int32))
+            return ServerState(params=new_params, opt_state=new_opt,
+                               comp_state=state.comp_state, rng=rng,
+                               round=state.round + 1, sigma=state.sigma,
+                               comp_server=state.comp_server), metrics
+
+    round_step.layout = layout_for
+    return round_step

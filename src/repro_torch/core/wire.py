@@ -562,3 +562,302 @@ def reduce_accumulator(acc: torch.Tensor, group=None) -> torch.Tensor:
     REDUCE_STATS["calls"] += 1
     REDUCE_STATS["seconds"] += time.perf_counter() - t0
     return out.reshape(acc.shape)
+
+
+# ---------------------------------------------------------------------------
+# the model-sharded replica's wire on flat ranges
+# ---------------------------------------------------------------------------
+
+def flat_ranges(n_coords: int, parts: int,
+                tile: int = 8192) -> Tuple[Tuple[int, int], ...]:
+    """The TreeSpec-flattened coordinates [0, d_pad) (d padded to ``tile``)
+    split into ``parts`` contiguous ranges, one per replica rank: range r
+    starts on a tile boundary and holds a whole number of tiles (the last
+    ones may hold fewer, or none)."""
+    n_tiles = -(-n_coords // tile)
+    per = -(-n_tiles // parts)
+    return tuple((min(r * per, n_tiles) * tile,
+                  min((r + 1) * per, n_tiles) * tile) for r in range(parts))
+
+
+@dataclasses.dataclass(frozen=True)
+class _LeafShards:
+    """One leaf of the flat vector split into ``n`` shards along ``dim``:
+    its flat positions p = i*W + k*cw + w (row i, shard k, w < cw) hold
+    shard k's local element t = i*cw + w, so a shard's local order is the
+    leaf's order restricted to it."""
+    offset: int
+    numel: int
+    n: int
+    W: int          # leaf elements per row (dims from ``dim`` on)
+    cw: int         # one shard's elements per row
+
+    @classmethod
+    def of(cls, offset: int, shape, dim, n: int) -> "_LeafShards":
+        numel = 1
+        for s in shape:
+            numel *= s
+        if dim is None or n == 1:
+            return cls(offset, numel, 1, max(numel, 1), max(numel, 1))
+        post = 1
+        for s in shape[dim + 1:]:
+            post *= s
+        return cls(offset, numel, n, shape[dim] * post,
+                   shape[dim] * post // n)
+
+    def count_before(self, k: int, x: int) -> int:
+        """Shard k's elements at leaf positions below ``x``."""
+        rows, rem = divmod(x, self.W)
+        return rows * self.cw + min(max(rem - k * self.cw, 0), self.cw)
+
+    def blocks(self, k: int, t0: int, t1: int):
+        """Shard k's local elements [t0, t1) as at most three blocks
+        (t, nrows, width, p): ``nrows`` rows of ``width`` from local t on,
+        at leaf positions p + row * W + [0, width)."""
+        out, t = [], t0
+        while t < t1:
+            i, w = divmod(t, self.cw)
+            if w or t1 - t < self.cw:
+                width = min(self.cw - w, t1 - t)
+                out.append((t, 1, width, i * self.W + k * self.cw + w))
+                t += width
+            else:
+                nrows = (t1 - t) // self.cw
+                out.append((t, nrows, self.cw, i * self.W + k * self.cw))
+                t += nrows * self.cw
+        return out
+
+
+class RangeLayout:
+    """The re-layout between one client's parameter shards on the replica
+    ranks of a grid (each leaf cut along its spec's dimension over the
+    spec's axes, replicated over the other replica axes) and the flat
+    ranges of ``flat_ranges`` (replica rank r holds coordinates [lo_r,
+    hi_r) in f32).
+
+    ``to_range`` moves each rank's per-leaf shards (the pseudo-gradient)
+    into its flat range and ``from_range`` moves a range (the decoded
+    update) back onto the shards, each as one ``all_to_all_single``
+    exchange over the replica group (in pieces of at most
+    REDUCE_CHUNK_BYTES a rank, staged through pinned memory under gloo;
+    ``launch/hints.all_to_all``). Each is O(d / R) a rank: no rank holds a
+    (d,) vector or the whole tree. A leaf replicated over some replica axes
+    reaches range r from the holder that shares r's coordinates on those
+    axes (itself, for a fully replicated leaf)."""
+
+    def __init__(self, spec: TreeSpec, leaf_shards, grid, replica_axes,
+                 tile: int = 8192):
+        self.spec = spec
+        self.replica_axes = grid.axes(replica_axes)
+        names = self.replica_axes
+        sizes = [grid.shape[a] for a in names]
+        self.R = 1
+        for s in sizes:
+            self.R *= s
+        self.group = grid.group(names)
+        self.me = grid.index(names)
+        self.ranges = flat_ranges(spec.n_coords, self.R, tile)
+        # replica rank j's coordinates over the replica axes
+        coords = []
+        for j in range(self.R):
+            c, rem = {}, j
+            for a, s in reversed(list(zip(names, sizes))):
+                c[a] = rem % s
+                rem //= s
+            coords.append(c)
+        self.leaves = []
+        self._shard_of = []        # [leaf][replica rank] -> shard index
+        self._src = []             # [leaf][dest rank][shard] -> source
+        for (dim, axes), shape, off in zip(leaf_shards, spec.shapes,
+                                           spec.offsets):
+            axes = grid.axes(axes)
+            n = 1
+            for a in axes:
+                n *= grid.shape[a]
+            self.leaves.append(_LeafShards.of(off, shape, dim, n))
+            shard_of = [grid.index_of(c, axes) for c in coords]
+            self._shard_of.append(shard_of)
+            src = []
+            for r in range(self.R):
+                row = {}
+                for j in range(self.R):
+                    same = all(coords[j][a] == coords[r][a]
+                               for a in names if a not in axes)
+                    if same:
+                        row[shard_of[j]] = j
+                src.append(row)
+            self._src.append(src)
+        # this rank's streams only (O(R) pairs, not R^2): (sends, receives)
+        me, ranks = self.me, range(self.R)
+        self._fwd = ([self._fwd_segments(me, r) for r in ranks],
+                     [self._fwd_segments(j, me) for j in ranks])
+        self._bwd = ([self._bwd_segments(me, j) for j in ranks],
+                     [self._bwd_segments(r, me) for r in ranks])
+        self._pieces = {"to_range": self._n_pieces(self._most(True)),
+                        "from_range": self._n_pieces(self._most(False))}
+
+    @property
+    def bounds(self) -> Tuple[int, int]:
+        return self.ranges[self.me]
+
+    def flat_coords(self, i: int, t: torch.Tensor) -> torch.Tensor:
+        """The flat coordinates of this rank's local elements ``t`` (int64)
+        of its shard of leaf i."""
+        leaf = self.leaves[i]
+        k = self._shard_of[i][self.me]
+        return leaf.offset + (t // leaf.cw) * leaf.W + k * leaf.cw \
+            + t % leaf.cw
+
+    def _run(self, i: int, k: int, r: int) -> Tuple[int, int]:
+        """Shard k of leaf i's local run inside range r."""
+        leaf = self.leaves[i]
+        lo, hi = self.ranges[r]
+        x0 = min(max(lo - leaf.offset, 0), leaf.numel)
+        x1 = min(max(hi - leaf.offset, 0), leaf.numel)
+        return leaf.count_before(k, x0), leaf.count_before(k, x1)
+
+    def _fwd_segments(self, j: int, r: int):
+        """(leaf, t0, t1) of stream j -> r of ``to_range``."""
+        out = []
+        for i in range(len(self.leaves)):
+            k = self._shard_of[i][j]
+            if self._src[i][r].get(k) != j:
+                continue
+            t0, t1 = self._run(i, k, r)
+            if t1 > t0:
+                out.append((i, t0, t1))
+        return out
+
+    def _bwd_segments(self, r: int, j: int):
+        """(leaf, t0, t1) of stream r -> j of ``from_range``."""
+        out = []
+        for i in range(len(self.leaves)):
+            t0, t1 = self._run(i, self._shard_of[i][j], r)
+            if t1 > t0:
+                out.append((i, t0, t1))
+        return out
+
+    @staticmethod
+    def _length(segs) -> int:
+        return sum(t1 - t0 for _, t0, t1 in segs)
+
+    def _most(self, to_range: bool) -> int:
+        """The most f32 elements any replica rank sends or receives in one
+        exchange, the same on every rank: a rank's shards (every shard
+        element goes to one range in ``to_range`` and comes from one in
+        ``from_range``), a range's coordinates (``to_range`` receives each
+        once), and, in ``from_range``, a range's elements of each leaf
+        times the replica ranks that hold each of them."""
+        shards = sum(leaf.numel // leaf.n for leaf in self.leaves)
+        most = shards
+        for lo, hi in self.ranges:
+            if to_range:
+                most = max(most, min(hi, self.spec.n_coords)
+                           - min(lo, self.spec.n_coords))
+                continue
+            sent = 0
+            for leaf in self.leaves:
+                x0 = min(max(lo - leaf.offset, 0), leaf.numel)
+                x1 = min(max(hi - leaf.offset, 0), leaf.numel)
+                sent += (x1 - x0) * (self.R // leaf.n)
+            most = max(most, sent)
+        return most
+
+    @staticmethod
+    def _n_pieces(most: int) -> int:
+        """Pieces of an exchange: a piece's send and receive bytes stay
+        under REDUCE_CHUNK_BYTES on every rank."""
+        return max(1, -(-4 * most // REDUCE_CHUNK_BYTES))
+
+    @staticmethod
+    def _cut(segs, p: int, P: int):
+        """Piece p of P of a stream: its (leaf, t0, t1) sub-segments."""
+        n = RangeLayout._length(segs)
+        u0, u1 = n * p // P, n * (p + 1) // P
+        out, pos = [], 0
+        for i, t0, t1 in segs:
+            a, b = max(u0 - pos, 0), min(u1 - pos, t1 - t0)
+            if b > a:
+                out.append((i, t0 + a, t0 + b))
+            pos += t1 - t0
+        return out
+
+    def _exchange(self, streams, pack, unpack, device, use: str) -> None:
+        from repro_torch.launch import hints
+        P = self._pieces[use]
+        for p in range(P):
+            sends = [self._cut(seg, p, P) for seg in streams[0]]
+            recvs = [self._cut(seg, p, P) for seg in streams[1]]
+            parts = [pack(self.me, r, s) for r in range(self.R)
+                     for s in sends[r]]
+            send = (torch.cat(parts) if parts else
+                    torch.empty((0,), dtype=torch.float32, device=device))
+            in_splits = [self._length(s) for s in sends]
+            out_splits = [self._length(s) for s in recvs]
+            if self.group is None:
+                recv = send
+            else:
+                recv = torch.empty((sum(out_splits),), dtype=torch.float32,
+                                   device=device)
+                hints.all_to_all(recv, send, out_splits, in_splits,
+                                 self.group, use)
+            pos = 0
+            for j in range(self.R):
+                for i, t0, t1 in recvs[j]:
+                    unpack(j, i, t0, t1, recv[pos:pos + t1 - t0])
+                    pos += t1 - t0
+
+    def to_range(self, shards, out: Optional[torch.Tensor] = None):
+        """This rank's per-leaf shards (in TreeSpec order, any float dtype)
+        -> its flat range, a (hi - lo,) f32 buffer (``out`` if given);
+        coordinates past n_coords are 0."""
+        lo, hi = self.bounds
+        flat = [s.reshape(-1) for s in shards]
+        device = flat[0].device
+        if out is None:
+            out = torch.empty((hi - lo,), dtype=torch.float32, device=device)
+        if hi > self.spec.n_coords:
+            out[max(self.spec.n_coords - lo, 0):].zero_()
+
+        def pack(j, r, seg):
+            i, t0, t1 = seg
+            return flat[i][t0:t1].to(torch.float32)
+
+        def unpack(j, i, t0, t1, vals):
+            leaf = self.leaves[i]
+            k = self._shard_of[i][j]
+            for t, nrows, width, p in leaf.blocks(k, t0, t1):
+                dst = torch.as_strided(out, (nrows, width), (leaf.W, 1),
+                                       out.storage_offset() + leaf.offset
+                                       + p - lo)
+                dst.copy_(vals[t - t0:t - t0 + nrows * width].view(
+                    nrows, width))
+
+        self._exchange(self._fwd, pack, unpack, device, "to_range")
+        return out
+
+    def from_range(self, rng: torch.Tensor, shard_shapes):
+        """A (hi - lo,) f32 range (the decoded update) -> this rank's
+        per-leaf f32 shards of ``shard_shapes`` (TreeSpec order)."""
+        lo, _ = self.bounds
+        outs = [torch.empty(tuple(s), dtype=torch.float32,
+                            device=rng.device) for s in shard_shapes]
+        flat = [o.reshape(-1) for o in outs]
+
+        def pack(r, j, seg):
+            i, t0, t1 = seg
+            leaf = self.leaves[i]
+            k = self._shard_of[i][j]
+            parts = []
+            for t, nrows, width, p in leaf.blocks(k, t0, t1):
+                src = torch.as_strided(rng, (nrows, width), (leaf.W, 1),
+                                       rng.storage_offset() + leaf.offset
+                                       + p - lo)
+                parts.append(src.reshape(-1))
+            return torch.cat(parts)
+
+        def unpack(r, i, t0, t1, vals):
+            flat[i][t0:t1].copy_(vals)
+
+        self._exchange(self._bwd, pack, unpack, rng.device, "from_range")
+        return outs

@@ -32,7 +32,7 @@ _INT, _LL = ctypes.c_int, ctypes.c_longlong
 #: ctypes signature of every exported launcher (all return cudaError_t)
 SIGNATURES = {
     "zsign_encode_launch": [_VOID_P, _VOID_P, _VOID_P, _VOID_P, _INT, _LL,
-                            _INT, _VOID_P],
+                            _INT, _LL, _VOID_P],
     "sign_reduce_launch": [_VOID_P, _VOID_P, _VOID_P, _VOID_P, _INT, _LL,
                            _INT, _VOID_P],
     "zsign_compress_launch": [_VOID_P, _VOID_P, _VOID_P, _VOID_P, _INT, _LL,

@@ -5,7 +5,10 @@
 // compress_rng_pallas_batched (K2, zsign.py:145). n == 1 is K1.
 //
 // What it computes, per client c and 8192-element tile t (tile ids restart
-// at 0 for every client), for element e = q*2048 + l of the tile:
+// at tile0 for every client: 0 for a whole vector, the global id of a flat
+// range's first tile on the model-sharded replica, as the reference's tile
+// ids are an operand, zsign.py:129, :168), for element e = q*2048 + l of
+// the tile:
 //   counter   = t*2048 + l
 //   (y0, y1)  = threefry2x32-13(key_c, (counter, 0))
 //   u         = (half + 0.5) * 2^-16, half = lo16(y0), hi16(y0), lo16(y1),
@@ -68,9 +71,10 @@ __global__ void __launch_bounds__(256)
 zsign_encode_kernel(const float* __restrict__ x,
                     const long long* __restrict__ keys,
                     const float* __restrict__ sigma,
-                    uint8_t* __restrict__ out, long long d_pad) {
+                    uint8_t* __restrict__ out, long long d_pad,
+                    long long tile0) {
   const int j = threadIdx.x;                    // 0..255
-  const long long t = blockIdx.x;               // tile within the client
+  const long long t = blockIdx.x;               // tile within the rows
   const int c = blockIdx.y;                     // client
   const float* xt = x + (long long)c * d_pad + t * 8192;
   uint8_t* ot = out + (long long)c * (d_pad / 8) + t * 1024;
@@ -84,7 +88,7 @@ zsign_encode_kernel(const float* __restrict__ x,
     thr_inv = __fdiv_rn(1.0f, fmaxf(sig, 1e-30f));
     const uint32_t k0 = (uint32_t)keys[2 * c];
     const uint32_t k1 = (uint32_t)keys[2 * c + 1];
-    const uint32_t cbase = (uint32_t)(t * 2048) + 8u * j;
+    const uint32_t cbase = (uint32_t)((tile0 + t) * 2048) + 8u * j;
 #pragma unroll
     for (int k = 0; k < 8; ++k) threefry13(k0, k1, cbase + k, y0[k], y1[k]);
   }
@@ -123,10 +127,12 @@ zsign_encode_kernel(const float* __restrict__ x,
 }  // namespace
 
 // x: (n, d_pad) f32 contiguous, d_pad % 8192 == 0; keys: (n, 2) int64 holding
-// the uint32 key words; sigma: (n,) f32; out: (n, d_pad/8) uint8.
+// the uint32 key words; sigma: (n,) f32; out: (n, d_pad/8) uint8; tile0: the
+// global tile id of each row's first tile.
 extern "C" int zsign_encode_launch(const void* x, const void* keys,
                                    const void* sigma, void* out, int n,
-                                   long long d_pad, int mode, void* stream) {
+                                   long long d_pad, int mode, long long tile0,
+                                   void* stream) {
   const dim3 grid((unsigned)(d_pad / 8192), (unsigned)n);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float* xf = static_cast<const float*>(x);
@@ -134,11 +140,14 @@ extern "C" int zsign_encode_launch(const void* x, const void* keys,
   const float* sg = static_cast<const float*>(sigma);
   uint8_t* o = static_cast<uint8_t*>(out);
   if (mode == 0) {
-    zsign_encode_kernel<0><<<grid, 256, 0, s>>>(xf, kk, sg, o, d_pad);
+    zsign_encode_kernel<0><<<grid, 256, 0, s>>>(xf, kk, sg, o, d_pad,
+                                                   tile0);
   } else if (mode == 1) {
-    zsign_encode_kernel<1><<<grid, 256, 0, s>>>(xf, kk, sg, o, d_pad);
+    zsign_encode_kernel<1><<<grid, 256, 0, s>>>(xf, kk, sg, o, d_pad,
+                                                   tile0);
   } else if (mode == 2) {
-    zsign_encode_kernel<2><<<grid, 256, 0, s>>>(xf, kk, sg, o, d_pad);
+    zsign_encode_kernel<2><<<grid, 256, 0, s>>>(xf, kk, sg, o, d_pad,
+                                                   tile0);
   } else {
     return (int)cudaErrorInvalidValue;
   }

@@ -58,15 +58,19 @@ def _mode(z) -> int:
 # ---------------------------------------------------------------------------
 
 def zsign_encode_plain(x2d: torch.Tensor, keys: torch.Tensor,
-                       sigma: torch.Tensor, z) -> torch.Tensor:
+                       sigma: torch.Tensor, z,
+                       tile0: Optional[int] = None) -> torch.Tensor:
     """Plain version of E1: (n, d_pad) f32, (n, 2) int64 key words, (n,)
-    f32 sigma -> (n, d_pad/8) uint8. Walks the tiles in chunks of
-    CHUNK_TILES, so its widest intermediate is (n, CHUNK_TILES * 2048)
-    int64 counters, never an (n, d) integer surface."""
+    f32 sigma -> (n, d_pad/8) uint8; ``tile0`` is the global tile id of the
+    rows' first tile (a flat range of the model-sharded replica; None: the
+    rows are whole vectors, tile 0 first). Walks the tiles in chunks of
+    CHUNK_TILES, so its widest intermediate is (n, CHUNK_TILES * 2048) int64
+    counters, never an (n, d) integer surface."""
     n, d_pad = x2d.shape
     if d_pad % TILE:
         raise ValueError(f"d_pad={d_pad} is not a multiple of {TILE}")
     mode = _mode(z)
+    tile0 = tile0 or 0
     out = torch.empty((n, d_pad // 8), dtype=torch.uint8, device=x2d.device)
     if mode == 0:
         for s in range(0, d_pad, CHUNK_TILES * TILE):
@@ -81,8 +85,9 @@ def zsign_encode_plain(x2d: torch.Tensor, keys: torch.Tensor,
     n_tiles = d_pad // TILE
     for t0 in range(0, n_tiles, CHUNK_TILES):
         nt = min(CHUNK_TILES, n_tiles - t0)
-        # counters of tiles t0..t0+nt: (1, nt, 2048), client-local
-        c = (t0 + torch.arange(nt, device=dev)).reshape(1, nt, 1) * QUARTER \
+        # counters of tiles tile0+t0 .. +nt: (1, nt, 2048), client-local
+        c = (tile0 + t0 + torch.arange(nt, device=dev)).reshape(1, nt, 1) \
+            * QUARTER \
             + torch.arange(QUARTER, device=dev).reshape(1, 1, QUARTER)
         y0, y1 = znoise.counter_words(k0, k1, c)            # (n, nt, 2048)
         u0, u1 = znoise.halves_to_u01(y0)
@@ -96,15 +101,19 @@ def zsign_encode_plain(x2d: torch.Tensor, keys: torch.Tensor,
 
 
 def zsign_encode(x2d: torch.Tensor, keys: torch.Tensor, sigma: torch.Tensor,
-                 z) -> torch.Tensor:
+                 z, tile0: Optional[int] = None) -> torch.Tensor:
     """E1: client-batched fused encode. x2d (n, d_pad) f32 with d_pad a
     multiple of 8192; keys (n, 2) int64 tensor holding each client's two
     uint32 key words; sigma (n,) f32; z in {Z_INF, 1} or None (noise off).
     -> (n, d_pad/8) uint8, each client's bytes exactly those of its own
-    n = 1 call (tile ids restart at 0 for every client). ``launches_n1``
-    counts the launches with n = 1 (the sequential-client group scan)."""
+    n = 1 call (tile ids restart at ``tile0`` for every client: None or 0
+    for a whole vector, the global id of a flat range's first tile on the
+    model-sharded replica, whose bytes are then that byte slice of the
+    whole vector's). ``launches_n1`` counts the launches with n = 1 (the
+    sequential-client group scan) and ``launches_range`` those over a flat
+    range (``tile0`` given, 0 included)."""
     if x2d.device.type == "cpu":
-        return zsign_encode_plain(x2d, keys, sigma, z)
+        return zsign_encode_plain(x2d, keys, sigma, z, tile0)
     mode = _mode(z)
     n, d_pad = x2d.shape
     if d_pad % TILE or d_pad // TILE >= 2 ** 31:
@@ -121,17 +130,20 @@ def zsign_encode(x2d: torch.Tensor, keys: torch.Tensor, sigma: torch.Tensor,
     fn = launcher("zsign/csrc/zsign_encode.cu", "zsign_encode_launch")
     with torch.cuda.device(x2d.device):
         err = fn(x2d.data_ptr(), keys.data_ptr(), sigma.data_ptr(),
-                 out.data_ptr(), n, d_pad, mode,
+                 out.data_ptr(), n, d_pad, mode, int(tile0 or 0),
                  torch.cuda.current_stream().cuda_stream)
     raise_on(err, "zsign_encode")
     zsign_encode.launches += 1
     if n == 1:
         zsign_encode.launches_n1 += 1
+    if tile0 is not None:
+        zsign_encode.launches_range += 1
     return out
 
 
 zsign_encode.launches = 0
 zsign_encode.launches_n1 = 0
+zsign_encode.launches_range = 0
 
 
 def zsign_encode_fused(x: torch.Tensor, key: torch.Tensor, sigma, *, z,
@@ -162,12 +174,14 @@ def element_u01(keys: torch.Tensor, client: torch.Tensor,
 
 def erf_rule_flips(x2d: torch.Tensor, keys: torch.Tensor,
                    sigma: torch.Tensor, z, got: torch.Tensor,
-                   want: torch.Tensor, max_ulps: int = 4):
+                   want: torch.Tensor, max_ulps: int = 4,
+                   tile0: Optional[int] = None):
     """Compare two encodes of the same inputs bit by bit. Two f32 ``erf``
     implementations (XLA's, torch's, CUDA's) differ by a few ulp, which can
     flip a wire bit only where ``u`` lies within a few ulp of the threshold
     ``1 - P_z(r)``. -> (number of differing bits, number of them farther
-    than ``max_ulps`` f32 ulp from the threshold); the second must be 0."""
+    than ``max_ulps`` f32 ulp from the threshold); the second must be 0.
+    ``tile0``: the rows' first tile id (a flat range's; None: 0)."""
     diff = (got ^ want).to(x2d.device)
     client, byte = torch.nonzero(diff, as_tuple=True)
     if client.numel() == 0:
@@ -176,7 +190,7 @@ def erf_rule_flips(x2d: torch.Tensor, keys: torch.Tensor,
             >> torch.arange(8, device=x2d.device, dtype=torch.uint8)) & 1
     rows, ks = torch.nonzero(bits, as_tuple=True)
     client, elem = client[rows], byte[rows] * 8 + ks
-    u = element_u01(keys, client, elem)
+    u = element_u01(keys, client, elem + (tile0 or 0) * TILE)
     x = x2d[client, elem]
     sig = sigma.to(x2d.device, torch.float32)[client]
     thr = 1.0 - znoise.sign_prob(x * torch.reciprocal(

@@ -1,0 +1,310 @@
+"""Dry run of the model-sharded train cell (port of
+``repro.launch.dryrun``): one round of the sharded round step of an (arch x
+shape x production mesh) cell, traced as one rank of a FAKE process group
+of the mesh's size, with the per-rank bytes, FLOPs and collective bytes it
+would take, and the analytic roofline terms of the H100.
+
+    PYTHONPATH=src python -m repro_torch.launch.dryrun --arch qwen2_5_32b \\
+        --shape train_4k [--multi-pod | --both-meshes] [--out results.json]
+
+The reference lowers and compiles the jitted step on 512 placeholder TPU
+devices and reads the compiled artifact. The port's counterpart builds the
+same step (``build_train_cell``: ``core/fedavg.build_sharded_round_step``
+on a ``launch/mesh.make_production_mesh`` grid) and runs it once in a
+``fake`` process group of 256 or 512 ranks
+(``torch.testing._internal.distributed.fake_pg.FakeStore``): every tensor
+has a shape and no storage (``meta`` tensors), every collective returns at
+once, and what the round does is counted, not computed. ``analyze``
+reports for this rank:
+
+  * bytes of the arguments (param shards, server state, batch and mask),
+    of the outputs, and the peak of everything live (``MemTracker``), the
+    reference's ``memory_analysis`` fields;
+  * FLOPs (``FlopCounterMode``);
+  * collective bytes by kind (``launch/hints.collective_totals``: the bytes
+    of each collective's result, as the reference sums the HLO's).
+
+``run_cell`` adds ``launch/roofline.terms_for`` with the H100 ``Chip`` (the
+reference's v5e constants are not ported). The trace takes the card's
+route through the wire: E1 and R1 stand in by their kernels' outputs (they
+count and do not compute); on a card ``chip_smoke.py`` runs this same
+``build_train_cell`` step for real on a 2 x 2 grid. Train cells of the dense family are ported; the other
+families on a grid, the prefill and decode cells and ``long_500k`` are not
+yet, and the CLI says so instead of printing a result.
+"""
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import json
+import time
+from typing import Optional
+
+import torch
+import torch.distributed as dist
+
+from repro_torch.configs.common import SHAPES, ShapeCfg, get_arch, list_archs
+from repro_torch.core import compression, fedavg
+from repro_torch.core.tree import tree_leaves, tree_map
+from repro_torch.launch import hints
+from repro_torch.launch import sharding as SH
+from repro_torch.launch.mesh import make_production_mesh
+from repro_torch.models.api import BatchLeaf, build_model, family_module
+
+#: what each cell kind waits for (the CLI prints it, never a result)
+NOT_PORTED = {
+    "family": "the {family} family on a grid is not ported yet (ROADMAP: "
+              "MoE expert-parallel, the recurrent and enc-dec families' "
+              "sequence shards)",
+    "prefill": "the prefill cell is not ported yet (ROADMAP: the prefill "
+               "and decode cells with cache_specs)",
+    "decode": "the decode cell is not ported yet (ROADMAP: the prefill and "
+              "decode cells with cache_specs)",
+}
+
+
+class NotPorted(NotImplementedError):
+    """A cell whose machinery the port does not have yet."""
+
+
+def _shard_shape(shape, spec, grid):
+    dim, axes = SH.spec_dim(spec)
+    shape = list(shape)
+    if dim is not None:
+        n = 1
+        for a in axes:
+            n *= grid.shape[a]
+        shape[dim] //= n
+    return tuple(shape)
+
+
+def build_train_cell(arch, shape: ShapeCfg, grid, *,
+                     pipeline: Optional[str] = None, remat: bool = True,
+                     agg_backend: str = "auto",
+                     encode_backend: str = "auto"):
+    """The sharded round step of a train cell -> (step, example, plan).
+
+    ``step(state, batch, mask)`` is ``fedavg.build_sharded_round_step`` for
+    the arch's loss on ``grid`` under ``sharding.make_plan``'s plan, with
+    the arch's default codec ``zsign(z=..,sigma=..)`` or ``pipeline``, and
+    the reference's backend selectors.
+    ``example`` holds the shapes of its arguments: ``params`` (this rank's
+    shards, a tree of ``BatchLeaf``), ``specs``, ``batch`` ((G, N, E,
+    micro, S) leaves) and ``mask`` ((G, N)); ``make_inputs`` builds them."""
+    if arch.model.family != "dense":
+        raise NotPorted(NOT_PORTED["family"].format(family=arch.model.family))
+    if shape.kind != "train":
+        raise NotPorted(NOT_PORTED[shape.kind])
+    bundle = build_model(arch.model)
+    plan = SH.make_plan(arch, shape, grid)
+    comp = compression.Pipeline(
+        pipeline if pipeline else
+        f"zsign(z={arch.zsign_z},sigma={arch.zsign_sigma})")
+    fcfg = fedavg.FedConfig(n_clients=plan.n_clients,
+                            client_groups=plan.client_groups,
+                            local_steps=plan.local_steps,
+                            client_lr=arch.client_lr,
+                            server_lr=arch.server_lr)
+    full = family_module(arch.model).param_shapes(arch.model)
+    specs = SH.param_specs(full, grid, plan,
+                           moe_experts=arch.model.moe_experts)
+    params = tree_map(lambda s, sp: BatchLeaf(_shard_shape(s, sp, grid),
+                                              arch.model.dtype),
+                      full, specs)
+    ctx = SH.round_context(plan, agg_backend=agg_backend,
+                           encode_backend=encode_backend)
+    step = fedavg.build_sharded_round_step(bundle.loss_fn, comp, fcfg, ctx,
+                                           grid=grid, plan=plan, specs=specs,
+                                           remat=remat)
+    per_step = bundle.train_batch_spec(plan.micro, shape.seq_len)
+    batch = {k: BatchLeaf((plan.client_groups, plan.n_clients,
+                           plan.local_steps) + tuple(v.shape), v.dtype)
+             for k, v in per_step.items()}
+    example = {"params": params, "specs": specs, "batch": batch,
+               "mask": BatchLeaf((plan.client_groups, plan.n_clients),
+                                 torch.float32),
+               "fcfg": fcfg, "comp": comp, "vocab": arch.model.vocab}
+    return step, example, plan
+
+
+def make_inputs(example, seed: int = 0):
+    """(state, batch, mask) for ``build_train_cell``'s step on ``meta``
+    tensors: the server state over storage-less param shards, tokens drawn
+    from ``seed`` and a full mask."""
+    gen = torch.Generator(device="cpu").manual_seed(seed)
+    params = tree_map(lambda leaf: torch.empty(
+        leaf.shape, dtype=leaf.dtype, device="meta"), example["params"])
+    state = fedavg.init_server_state(
+        params, example["fcfg"], example["comp"],
+        torch.tensor([0, seed], dtype=torch.int64))
+    batch = {k: torch.randint(0, example["vocab"], v.shape, generator=gen,
+                              dtype=torch.int32).to("meta")
+             for k, v in example["batch"].items()}
+    mask = torch.ones(example["mask"].shape, dtype=torch.float32)
+    return state, batch, mask
+
+
+def _nbytes(tree) -> int:
+    return sum(t.numel() * t.element_size() for t in tree_leaves(tree)
+               if isinstance(t, torch.Tensor))
+
+
+class _KernelFootprint:
+    """Stands in for the kernel module inside ``core.compression`` while a
+    trace runs: E1 and R1 return empty outputs of their kernels' shapes,
+    which is what the card allocates for them, and compute nothing."""
+
+    def __init__(self, ops):
+        self._ops = ops
+
+    def __getattr__(self, name):
+        return getattr(self._ops, name)
+
+    def zsign_encode(self, x2d, keys, sigma, z, tile0=None):
+        return torch.empty((x2d.shape[0], x2d.shape[1] // 8),
+                           dtype=torch.uint8, device=x2d.device)
+
+    def sign_reduce(self, packed, weights, acc=None):
+        out = torch.empty((8 * packed.shape[1],), dtype=torch.float32,
+                          device=packed.device)
+        return out if acc is None else acc + out
+
+
+def analyze(step, example, grid, label: str, seed: int = 0) -> dict:
+    """One round of ``step`` traced as this rank of a fake process group
+    (the caller's): the per-rank bytes (arguments, outputs, peak live),
+    FLOPs and collective bytes by kind. Nothing is allocated or computed:
+    the tensors are ``meta`` tensors, and E1 and R1 stand in by their
+    kernels' outputs, the card's memory, so ``step`` is built with the
+    ``cuda`` backends (``run_cell`` does)."""
+    from torch.distributed._tools.mem_tracker import MemTracker
+    from torch.utils.flop_counter import FlopCounterMode
+    t0 = time.time()
+    state, batch, mask = make_inputs(example, seed=seed)
+    args = {"params": _nbytes(state.params),
+            "state": _nbytes([state.opt_state, state.comp_state,
+                              state.rng, state.sigma,
+                              state.comp_server]),
+            "batch": _nbytes(batch) + _nbytes(mask)}
+    mt = MemTracker()
+    mt.track_external(*[t for t in tree_leaves(
+        [state.params, batch, mask]) if isinstance(t, torch.Tensor)])
+    fc = FlopCounterMode(display=False)
+    hints.reset_collective_stats()
+    ops = compression.K
+    compression.K = _KernelFootprint(ops)
+    try:
+        with mt, fc:
+            new_state, metrics = step(state, batch, mask)
+    finally:
+        compression.K = ops
+    peak = mt.get_tracker_snapshot("peak")
+    out_bytes = _nbytes(new_state.params) + _nbytes(list(metrics))
+    # the device's peak (the host's few bytes of keys and mask left out)
+    peak_total = max(v.get("Total", 0) for v in peak.values())
+    arg_total = sum(args.values())
+    return {
+        "label": label, "devices": grid.size, "rank": grid.rank,
+        "trace_s": round(time.time() - t0, 2),
+        "argument_size_in_bytes": arg_total,
+        "argument_bytes": args,
+        "output_size_in_bytes": out_bytes,
+        "peak_bytes": peak_total,
+        "temp_size_in_bytes": max(0, peak_total - arg_total),
+        "flops_per_device": float(fc.get_total_flops()),
+        "collectives": hints.collective_totals(0),
+        "collective_calls": hints.collective_totals(1),
+        "collective_bytes_per_device": sum(
+            hints.collective_totals(0).values()),
+    }
+
+
+def fake_group(world: int, rank: int = 0) -> None:
+    """(Re)initialize the default group as a ``fake`` group of ``world``
+    ranks, this process being ``rank``."""
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+    if dist.is_initialized():
+        dist.destroy_process_group()
+    dist.init_process_group("fake", store=FakeStore(), rank=rank,
+                            world_size=world)
+
+
+def run_cell(arch_id: str, shape_name: str, *, multi_pod: bool,
+             pipeline: Optional[str] = None, rank: int = 0) -> dict:
+    """One cell on the production mesh (a fake group of 256 or 512 ranks):
+    ``analyze`` (of rank ``rank``) and the H100 roofline terms."""
+    from repro_torch.launch import roofline as RF
+    arch = get_arch(arch_id)
+    shape = SHAPES[shape_name]
+    mesh_label = "pod2x16x16" if multi_pod else "16x16"
+    label = f"{arch_id}/{shape_name}/{mesh_label}"
+    if shape_name == "long_500k":
+        return {"label": label, "not_ported": "long_500k is not ported "
+                "yet (a decode cell; ROADMAP)"}
+    fake_group(512 if multi_pod else 256, rank)
+    try:
+        grid = make_production_mesh(multi_pod=multi_pod, device_type="cpu")
+        step, example, plan = build_train_cell(
+            arch, shape, grid, pipeline=pipeline, agg_backend="cuda",
+            encode_backend="cuda")
+        res = analyze(step, example, grid, label)
+    finally:
+        dist.destroy_process_group()
+    res["plan"] = dataclasses.asdict(plan)
+    terms = RF.terms_for(arch, shape, plan,
+                         res["collective_bytes_per_device"], grid.size)
+    secs = terms.seconds()
+    res.update({
+        "chip": terms.chip.name,
+        "hbm_bytes_per_device": terms.hbm_bytes_per_dev,
+        "model_flops_total": terms.model_flops_total,
+        "analytic_flops_per_device": terms.flops_per_dev,
+        "t_compute_s": res["flops_per_device"] / terms.chip.peak_flops,
+        "t_memory_s": secs["memory"],
+        "t_collective_s": secs["collective"],
+        "dominant": terms.dominant(),
+        "roofline_fraction": terms.roofline_fraction(),
+        "useful_ratio": terms.model_flops_total / max(
+            1.0, res["flops_per_device"] * grid.size),
+    })
+    return res
+
+
+def main(argv=None) -> None:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--arch", default="all")
+    ap.add_argument("--shape", default="all")
+    ap.add_argument("--multi-pod", action="store_true")
+    ap.add_argument("--both-meshes", action="store_true")
+    ap.add_argument("--pipeline", default=None, metavar="SPEC",
+                    help="a pipeline spec in place of the arch's default "
+                         "zsign codec (zsign or zsign_packed, agg=mean, z "
+                         "in {1, inf}, on a grid so far)")
+    ap.add_argument("--out", default=None)
+    args = ap.parse_args(argv)
+    archs = list_archs() if args.arch == "all" else [args.arch]
+    shapes = list(SHAPES) if args.shape == "all" else [args.shape]
+    meshes = [False, True] if args.both_meshes else [args.multi_pod]
+    results = []
+    for arch_id in archs:
+        for shape_name in shapes:
+            for mp in meshes:
+                label = (f"{arch_id}/{shape_name}/"
+                         f"{'pod2x16x16' if mp else '16x16'}")
+                try:
+                    res = run_cell(arch_id, shape_name, multi_pod=mp,
+                                   pipeline=args.pipeline)
+                except NotPorted as e:
+                    res = {"label": label, "not_ported": str(e)}
+                except Exception as e:  # record the failure, keep sweeping
+                    res = {"label": label,
+                           "error": f"{type(e).__name__}: {e}"}
+                results.append(res)
+                print(json.dumps(res, default=str), flush=True)
+    if args.out:
+        with open(args.out, "w") as f:
+            json.dump(results, f, indent=1, default=str)
+
+
+if __name__ == "__main__":
+    main()

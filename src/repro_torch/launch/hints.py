@@ -1,0 +1,428 @@
+"""Sharding hints (port of ``repro.launch.hints``): the collectives that
+make one client's replica run over a grid of ranks, written as
+``torch.autograd.Function``s, behind a context the launcher sets so model
+code calls them without threading the grid through every layer.
+
+The reference pins layouts and lets GSPMD insert the collectives; here
+each hint IS its collective, over a subgroup of a ``launch/mesh.ReplicaGrid``:
+
+  ``seq_shard(x, seq_dim)``  this rank's slice of a full (B, S, ...) tensor:
+                       the sequence over the seq axes and, on the big
+                       plan's ``micro_axes``, the batch (no communication;
+                       the identity on a tensor that is a slice already)
+  ``gather_seq(x)``    all-gather along the sequence over the seq axes (the
+                       GQA K/V at kv-head width, in their stored dtype);
+                       its backward is a reduce-scatter
+  ``fsdp_gather(lp)``  one layer's weight shards gathered along the
+                       dimension their spec names (the reference's
+                       ``fsdp_params``); its backward reduce-scatters the
+                       weight gradients onto the shards. A leaf replicated
+                       over replica axes has its gradient all-reduced over
+                       them instead
+  ``reduce_sum(x, axes)``  a forward all-reduce with no gradient (the
+                       loss's token sums)
+
+Every hint is the identity when no grid is set, so the single-device path is
+unchanged. Under gloo a CUDA tensor is staged through pinned host memory
+(the bytes cross the host, as ``core/wire.reduce_accumulator``'s do). The
+all-reduces are that rank-order chain, so every rank gets the same bits.
+Every collective adds to ``COLLECTIVES``, under its kind and use (weight
+and K/V gathers, their gradients' reduce-scatters, the wire's re-layout,
+the loss, the replicated gradients), the bytes of its result a rank (the
+quantity the reference's dry run sums from the HLO: an all-gather's
+gathered tensor, a reduce-scatter's shard, an all-reduce's tensor, an
+all-to-all's received buffer), one call and the seconds inside it (staging
+included); ``collective_totals`` sums them by kind. ``launch/dryrun.py``
+and ``chip_smoke.py`` read them.
+
+Remat: ``remat_slot`` marks one layer's checkpointed forward. On its first
+run the gathered K/V (and, with ``save_weights``, the gathered weights) are
+kept; when ``torch.utils.checkpoint`` recomputes the layer in the backward
+pass the same hints return the kept tensors instead of gathering again
+(the reference's ``save_only_these_names("kv_gathered",
+"fsdp_gathered")`` policy).
+
+The reference's ``opt_barrier`` and its grad/vmap rules for
+``optimization_barrier`` (``hints.py:28-72``) are jax-only: torch neither
+hoists a cast across a collective nor needs the rules.
+"""
+from __future__ import annotations
+
+import time
+from contextlib import contextmanager
+from typing import Optional, Tuple
+
+import torch
+import torch.distributed as dist
+
+from repro_torch.core.tree import tree_paths, tree_set
+
+_CTX = {"grid": None, "seq_axes": None, "batch_axes": None,
+        "replica_axes": None, "specs": None, "seq_len": None,
+        "batch": None, "remat": None, "remat_on": True}
+
+KINDS = ("all_gather", "reduce_scatter", "all_to_all", "all_reduce")
+#: "<kind>:<use>" (e.g. "all_gather:weight", "reduce_scatter:kv",
+#: "all_to_all:to_range") -> [bytes, calls, seconds] since the last reset
+COLLECTIVES: dict = {}
+
+
+def reset_collective_stats() -> None:
+    COLLECTIVES.clear()
+
+
+def record(kind: str, nbytes: int, t0: float, use: str = "") -> None:
+    """Count one collective of ``kind`` for ``use`` whose result has
+    ``nbytes`` bytes, begun at ``time.perf_counter()`` = ``t0``."""
+    row = COLLECTIVES.setdefault(f"{kind}:{use}", [0, 0, 0.0])
+    row[0] += int(nbytes)
+    row[1] += 1
+    row[2] += time.perf_counter() - t0
+
+
+def collective_totals(field: int = 0) -> dict:
+    """Per kind, the sum over uses of ``COLLECTIVES``' bytes (``field``
+    0), calls (1) or seconds (2)."""
+    out = {k: 0.0 if field == 2 else 0 for k in KINDS}
+    for key, row in COLLECTIVES.items():
+        out[key.split(":")[0]] += row[field]
+    return out
+
+
+@contextmanager
+def sharding_hints(grid, seq_axes, batch_axes=None, *, replica_axes=(),
+                   specs=None, remat: bool = True):
+    """Set the grid for the hints: ``seq_axes`` split the sequence,
+    ``batch_axes`` the batch (the big plan's ``micro_axes``),
+    ``replica_axes`` share one client's replica, ``specs`` is the
+    parameter spec tree (``launch/sharding.param_specs``) that says how
+    each stored leaf is sharded; ``remat`` rematerializes each layer (the
+    model reads ``remat_on``)."""
+    old = dict(_CTX)
+    _CTX.update(grid=grid, seq_axes=tuple(seq_axes or ()),
+                batch_axes=tuple(batch_axes or ()),
+                replica_axes=tuple(replica_axes or ()), specs=specs,
+                seq_len=None, batch=None, remat=None, remat_on=remat)
+    try:
+        yield
+    finally:
+        _CTX.clear()
+        _CTX.update(old)
+
+
+def active() -> bool:
+    return _CTX["grid"] is not None
+
+
+def remat_on() -> bool:
+    """Whether the layers under the grid are rematerialized."""
+    return active() and _CTX["remat_on"]
+
+
+def _size(axes) -> int:
+    grid = _CTX["grid"]
+    n = 1
+    for a in axes or ():
+        n *= grid.shape[a]
+    return n
+
+
+def seq_shard_count() -> int:
+    """Number of sequence shards under the current hints (1 off a grid)."""
+    return _size(_CTX["seq_axes"]) if active() else 1
+
+
+# ---------------------------------------------------------------------------
+# raw collectives (staged through pinned host memory under gloo)
+# ---------------------------------------------------------------------------
+
+#: the single-tensor collectives under their current names (torch 2.13
+#: renames them; older versions have only the old names)
+_ALL_GATHER = getattr(dist, "all_gather_single", None) or \
+    dist.all_gather_into_tensor
+_REDUCE_SCATTER = getattr(dist, "reduce_scatter_single", None) or \
+    dist.reduce_scatter_tensor
+
+
+def _staged(x: torch.Tensor, group) -> bool:
+    return x.is_cuda and dist.get_backend(group) == "gloo"
+
+
+def _host(x: torch.Tensor) -> torch.Tensor:
+    out = torch.empty(x.shape, dtype=x.dtype, pin_memory=True)
+    return out.copy_(x)
+
+
+def _empty_like_host(shape, like: torch.Tensor) -> torch.Tensor:
+    return torch.empty(shape, dtype=like.dtype, pin_memory=True)
+
+
+def all_gather_dim(x: torch.Tensor, group, dim: int,
+                   use: str = "") -> torch.Tensor:
+    """Concatenation along ``dim`` of every rank's ``x`` in group-rank
+    order."""
+    t0 = time.perf_counter()
+    n = dist.get_world_size(group)
+    xt = x.movedim(dim, 0).contiguous()
+    shape = (n * xt.shape[0],) + tuple(xt.shape[1:])
+    if _staged(x, group):
+        out = _empty_like_host(shape, xt)
+        _ALL_GATHER(out, _host(xt), group=group)
+        out = out.to(x.device)
+    else:
+        out = torch.empty(shape, dtype=x.dtype, device=x.device)
+        _ALL_GATHER(out, xt, group=group)
+    out = out.movedim(0, dim).contiguous()
+    record("all_gather", out.numel() * out.element_size(), t0, use)
+    return out
+
+
+def reduce_scatter_dim(x: torch.Tensor, group, dim: int,
+                       use: str = "") -> torch.Tensor:
+    """This rank's chunk along ``dim`` of the sum over the group's ``x``."""
+    t0 = time.perf_counter()
+    n = dist.get_world_size(group)
+    xt = x.movedim(dim, 0).contiguous()
+    shape = (xt.shape[0] // n,) + tuple(xt.shape[1:])
+    if _staged(x, group):
+        out = _empty_like_host(shape, xt)
+        _REDUCE_SCATTER(out, _host(xt), group=group)
+        out = out.to(x.device)
+    else:
+        out = torch.empty(shape, dtype=x.dtype, device=x.device)
+        _REDUCE_SCATTER(out, xt, group=group)
+    out = out.movedim(0, dim).contiguous()
+    record("reduce_scatter", out.numel() * out.element_size(), t0, use)
+    return out
+
+
+def all_reduce_sum(x: torch.Tensor, group, use: str = "") -> torch.Tensor:
+    """The sum of the group's ``x`` (a new tensor), the same bits on every
+    rank: the rank-order chain of ``core/wire.reduce_accumulator`` (gloo's
+    all-reduce promises no order), so a replicated leaf's gradient and the
+    loss's token sums stay identical across a replica's ranks."""
+    from repro_torch.core import wire
+    t0 = time.perf_counter()
+    out = wire.reduce_accumulator(x.contiguous(), group)
+    record("all_reduce", out.numel() * out.element_size(), t0, use)
+    return out
+
+
+def all_to_all(out: torch.Tensor, inp: torch.Tensor, out_splits,
+               in_splits, group, use: str = "") -> None:
+    """``all_to_all_single`` of flat 1-D buffers (staged under gloo); the
+    result is written into ``out``."""
+    t0 = time.perf_counter()
+    if _staged(inp, group):
+        h_out = _empty_like_host(out.shape, out)
+        dist.all_to_all_single(h_out, _host(inp), list(out_splits),
+                               list(in_splits), group=group)
+        out.copy_(h_out)
+    else:
+        dist.all_to_all_single(out, inp, list(out_splits), list(in_splits),
+                               group=group)
+    record("all_to_all", out.numel() * out.element_size(), t0, use)
+
+
+# ---------------------------------------------------------------------------
+# autograd-aware hints
+# ---------------------------------------------------------------------------
+
+class _Gather(torch.autograd.Function):
+    """All-gather along ``dim`` over ``group``; backward: reduce-scatter
+    along ``dim`` over ``group``, then an all-reduce over ``rest`` (the
+    replica axes the value is replicated over). ``cached`` (a one-element
+    list) hands in the gathered value kept from the first forward of a
+    rematerialized layer."""
+
+    @staticmethod
+    def forward(ctx, x, group, dim, rest, cached, use):
+        ctx.group, ctx.dim, ctx.rest, ctx.use = group, dim, rest, use
+        if cached:
+            return cached[0]
+        return all_gather_dim(x, group, dim, use)
+
+    @staticmethod
+    def backward(ctx, g):
+        g = reduce_scatter_dim(g, ctx.group, ctx.dim, ctx.use)
+        if ctx.rest is not None:
+            g = all_reduce_sum(g, ctx.rest, ctx.use)
+        return g, None, None, None, None, None
+
+
+class _SumGrad(torch.autograd.Function):
+    """Identity forward; backward: all-reduce of the gradient over
+    ``group`` (a leaf replicated over replica ranks that each see a slice
+    of the data)."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return all_reduce_sum(g, ctx.group, "replicated_grad"), None
+
+
+class RematSlot:
+    """What one checkpointed layer keeps across its recompute: the
+    gathered tensors of its first forward, handed back in the same order
+    on the recompute."""
+
+    def __init__(self, save_weights: bool):
+        self.save_weights = save_weights
+        self.kept = []
+        self.pos = 0
+        self.first = True
+
+
+@contextmanager
+def remat_slot(slot: Optional[RematSlot]):
+    old = _CTX["remat"]
+    _CTX["remat"] = slot
+    try:
+        yield
+    finally:
+        _CTX["remat"] = old
+        if slot is not None:
+            slot.first = False
+            slot.pos = 0
+
+
+def _gather(x, group, dim, rest, keep: bool, use: str):
+    slot = _CTX["remat"]
+    if slot is None or not keep:
+        return _Gather.apply(x, group, dim, rest, [], use)
+    if slot.first:
+        out = _Gather.apply(x, group, dim, rest, [], use)
+        slot.kept.append(out.detach())
+        return out
+    cached = slot.kept[slot.pos]
+    slot.pos += 1
+    return _Gather.apply(x, group, dim, rest, [cached.detach()], use)
+
+
+def local_positions(batch: int, seq_len: int, device) -> torch.Tensor:
+    """Record the full batch and sequence length of the forward that
+    starts and return this rank's GLOBAL positions (its sequence slice;
+    every position off a grid)."""
+    if not active():
+        return torch.arange(seq_len, device=device)
+    _CTX["seq_len"], _CTX["batch"] = seq_len, batch
+    lo, hi = seq_bounds(seq_len)
+    return torch.arange(lo, hi, device=device)
+
+
+def seq_bounds(seq_len: int) -> Tuple[int, int]:
+    """[lo, hi) of this rank's sequence slice of a length ``seq_len``."""
+    if not active():
+        return 0, seq_len
+    n = _size(_CTX["seq_axes"])
+    if seq_len % n:
+        raise ValueError(f"sequence {seq_len} does not split over {n} "
+                         f"ranks")
+    i = _CTX["grid"].index(_CTX["seq_axes"])
+    per = seq_len // n
+    return i * per, (i + 1) * per
+
+
+def batch_bounds(batch: int) -> Tuple[int, int]:
+    """[lo, hi) of this rank's batch slice (the big plan's micro axes)."""
+    if not active() or not _CTX["batch_axes"]:
+        return 0, batch
+    n = _size(_CTX["batch_axes"])
+    if batch % n:
+        raise ValueError(f"micro-batch {batch} does not split over {n} "
+                         f"ranks")
+    i = _CTX["grid"].index(_CTX["batch_axes"])
+    per = batch // n
+    return i * per, (i + 1) * per
+
+
+def seq_shard(x, seq_dim: int = 1):
+    """This rank's (batch-, sequence-) slice of ``x`` when ``x`` is the
+    full tensor of the running forward; a slice already passes through."""
+    if not active() or _CTX["seq_len"] is None:
+        return x
+    if x.shape[seq_dim] == _CTX["seq_len"] and seq_shard_count() > 1:
+        lo, hi = seq_bounds(_CTX["seq_len"])
+        x = x.narrow(seq_dim, lo, hi - lo)
+    if seq_dim != 0 and x.shape[0] == _CTX["batch"] and \
+            _size(_CTX["batch_axes"]) > 1:
+        lo, hi = batch_bounds(_CTX["batch"])
+        x = x.narrow(0, lo, hi - lo)
+    return x
+
+
+def gather_seq(x, seq_dim: int = 1):
+    """All-gather of a (B, S_local, ...) tensor along the sequence over the
+    seq axes, the batch dim kept sharded (the GQA K/V in the stored dtype,
+    before any upcast). Kept across a layer's recompute."""
+    if not active() or seq_shard_count() == 1:
+        return x
+    grid = _CTX["grid"]
+    return _gather(x, grid.group(_CTX["seq_axes"]), seq_dim, None, True,
+                   "kv")
+
+
+def key_positions(positions, n_keys: int):
+    """The global positions of the keys a gathered K/V holds."""
+    if not active() or seq_shard_count() == 1:
+        return positions
+    return torch.arange(n_keys, device=positions.device)
+
+
+def _leaf_spec(path):
+    specs = _CTX["specs"]
+    for k in path:
+        if not isinstance(specs, dict) or k not in specs:
+            return ()
+        specs = specs[k]
+    return specs
+
+
+def fsdp_gather(lp, prefix: Tuple[str, ...] = (), *, stacked: bool = True,
+                skip=()):
+    """FSDP just-in-time gather of parameter shards: every leaf of ``lp``
+    (the tree at ``prefix`` of the stored params; one layer's slice of the
+    depth-stacked leaves when ``stacked``) whose spec shards a dimension is
+    all-gathered along it; its backward reduce-scatters the gradient onto
+    the shards (and all-reduces it over the replica axes the leaf is not
+    sharded over). A replicated leaf passes through with its gradient
+    all-reduced over the replica axes. Leaves under a key named in ``skip``
+    stay as they are. The gathered weights are kept across the layer's recompute
+    when its remat slot says ``save_weights``."""
+    if not active():
+        return lp
+    from repro_torch.launch.sharding import spec_dim
+    grid = _CTX["grid"]
+    replica = _CTX["replica_axes"]
+    slot = _CTX["remat"]
+    keep = slot is not None and slot.save_weights
+    out: dict = {}
+    for path, x in tree_paths(lp):
+        if any(k in skip for k in path):
+            tree_set(out, path, x)
+            continue
+        dim, axes = spec_dim(_leaf_spec(prefix + path))
+        rest = tuple(a for a in replica if a not in axes)
+        rest_group = grid.group(rest) if _size(rest) > 1 else None
+        if dim is None:
+            y = x if rest_group is None else _SumGrad.apply(x, rest_group)
+        else:
+            d = dim - 1 if stacked else dim
+            y = _gather(x, grid.group(axes), d, rest_group, keep, "weight")
+        tree_set(out, path, y)
+    return out
+
+
+def reduce_sum(x: torch.Tensor, axes) -> torch.Tensor:
+    """Forward all-reduce (sum) of a detached tensor over ``axes``."""
+    if not active() or _size(axes) == 1:
+        return x
+    return all_reduce_sum(x.detach(), _CTX["grid"].group(axes), "loss")
+
+
+def replica_axes() -> Tuple[str, ...]:
+    return _CTX["replica_axes"] or ()

@@ -18,9 +18,10 @@ Parameter counts come from the port's own parameter trees, built on the
 ``meta`` device (nothing is allocated, at any width). The collective term
 is the bytes the busiest rank moves in the round's one cross-rank reduce,
 as ``core.wire.reduce_accumulator`` counts them (``REDUCE_STATS``), for a
-1-bit sign wire's f32 accumulator: the port has no HLO to read them from.
-The reference's AOT compile on fake TPU devices (``dryrun.py``) and its
-compiler hints (``hints.py``) have no counterpart here.
+1-bit sign wire's f32 accumulator. The model-sharded replica's dry run
+(``launch/dryrun.py``, the counterpart of the reference's AOT compile)
+traces the sharded round step on a fake process group and hands its
+counted collective bytes to ``terms_for``.
 """
 from __future__ import annotations
 

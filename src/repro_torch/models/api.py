@@ -36,6 +36,10 @@ class ModelCfg:
     n_img_tokens: int = 0       # vlm stub prefix length
     src_frac: float = 0.5       # encdec: fraction of seq_len used as source
     q_chunk: int = 512
+    #: under a grid, keep the FSDP-gathered layer weights across the
+    #: layer's remat (one gather a layer a round instead of two, for the
+    #: layers' gathered bytes of memory); no effect off a grid
+    remat_save_weights: bool = False
 
     @property
     def d_head(self) -> int:
@@ -156,6 +160,31 @@ _NP_TO_TORCH = {"float32": torch.float32, "float16": torch.float16,
                 "bfloat16": torch.bfloat16}
 
 
+def _checked_leaves(tree, cfg: ModelCfg) -> dict:
+    """{path: leaf} of a full parameter tree, after checking its names and
+    shapes against the family's."""
+    want = dict(tree_paths(family_module(cfg).param_shapes(cfg)))
+    got = dict(tree_paths(tree))
+    missing, extra = sorted(set(want) - set(got)), sorted(set(got) - set(want))
+    if missing or extra:
+        raise ValueError(f"parameter tree mismatch: missing {missing}, "
+                         f"extra {extra}")
+    for path, leaf in got.items():
+        if tuple(leaf.shape) != tuple(want[path]):
+            raise ValueError(f"{'.'.join(path)}: shape {tuple(leaf.shape)} "
+                             f"!= {want[path]}")
+    return got
+
+
+def _numpy_leaf(path, arr, device) -> torch.Tensor:
+    arr = np.asarray(arr)
+    dtype = _NP_TO_TORCH.get(arr.dtype.name)
+    if dtype is None:
+        raise ValueError(f"{'.'.join(path)}: unsupported dtype {arr.dtype}")
+    t = torch.from_numpy(np.ascontiguousarray(arr.astype(np.float32)))
+    return t.to(device=device, dtype=dtype)
+
+
 def params_from_numpy(tree, cfg: ModelCfg, device="cuda") -> dict:
     """The reference's parameters (a nested dict of numpy arrays, as
     ``jax.tree.map(np.asarray, params)`` gives them) -> the port's tree with
@@ -163,22 +192,39 @@ def params_from_numpy(tree, cfg: ModelCfg, device="cuda") -> dict:
     router is f32 in a bf16 model). Raises on a missing, extra or
     mis-shaped leaf."""
     device = check_device(device)
-    want = dict(tree_paths(family_module(cfg).param_shapes(cfg)))
-    got = dict(tree_paths(tree))
-    missing, extra = sorted(set(want) - set(got)), sorted(set(got) - set(want))
-    if missing or extra:
-        raise ValueError(f"parameter tree mismatch: missing {missing}, "
-                         f"extra {extra}")
     out: dict = {}
-    for path, arr in got.items():
-        arr = np.asarray(arr)
-        if tuple(arr.shape) != tuple(want[path]):
-            raise ValueError(f"{'.'.join(path)}: shape {arr.shape} != "
-                             f"{want[path]}")
-        dtype = _NP_TO_TORCH.get(arr.dtype.name)
-        if dtype is None:
-            raise ValueError(f"{'.'.join(path)}: unsupported dtype "
-                             f"{arr.dtype}")
-        t = torch.from_numpy(np.ascontiguousarray(arr.astype(np.float32)))
-        tree_set(out, path, t.to(device=device, dtype=dtype))
+    for path, arr in _checked_leaves(tree, cfg).items():
+        tree_set(out, path, _numpy_leaf(path, arr, device))
+    return out
+
+
+def shard_params(tree, cfg: ModelCfg, grid, plan, device="cuda") -> dict:
+    """This rank's shards of a full parameter tree (the reference's numpy
+    arrays, as ``params_from_numpy`` takes them, or the port's tensors):
+    each leaf cut along the dimension its spec shards
+    (``launch/sharding.param_specs`` on ``grid`` under ``plan``), the
+    piece at this rank's index over the spec's axes, on ``device`` in the
+    leaf's dtype. A replicated leaf is copied whole."""
+    from repro_torch.launch.sharding import param_specs, spec_dim
+    device = check_device(device)
+    specs = dict(tree_paths(param_specs(
+        family_module(cfg).param_shapes(cfg), grid, plan,
+        moe_experts=cfg.moe_experts), ))
+    out: dict = {}
+    for path, leaf in _checked_leaves(tree, cfg).items():
+        dim, axes = spec_dim(specs[path])
+        if dim is not None:
+            n = 1
+            for a in axes:
+                n *= grid.shape[a]
+            c = leaf.shape[dim] // n
+            i = grid.index(axes)
+            idx = [slice(None)] * len(leaf.shape)
+            idx[dim] = slice(i * c, (i + 1) * c)
+            leaf = leaf[tuple(idx)]
+        if isinstance(leaf, torch.Tensor):
+            piece = leaf.to(device=device).contiguous().clone()
+        else:
+            piece = _numpy_leaf(path, leaf, device)
+        tree_set(out, path, piece)
     return out

@@ -5,8 +5,11 @@ sequence-chunked cross entropy.
 
 Layer parameters are stacked over depth (leading dim L) with the reference's
 names and layouts, so a parameter tree carries across the two packages as it
-is. The reference's sharding hints (``launch/hints.py``) have no counterpart
-on one card and are left out. Matmuls whose reference asks for an f32 result
+is. Under a grid (``launch/hints.py``) attention is sequence-parallel as
+the reference's is: queries stay on this rank's slice, the GQA K/V are
+gathered along the sequence at kv-head width in their stored dtype, and the
+causal mask and RoPE take global positions; off a grid the hints are the
+identity. Matmuls whose reference asks for an f32 result
 (``preferred_element_type``) run on f32 copies of their operands.
 """
 from __future__ import annotations
@@ -18,6 +21,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.core.tree import tree_map
+from repro_torch.launch import hints
 
 
 def _init(gen: torch.Generator, shape, scale=None, dtype=torch.float32,
@@ -147,27 +151,32 @@ def _sdpa_chunk(q_chunk, k, v, q_pos, k_pos, cfg: AttnCfg):
     return out.reshape(B, c, H, hd)
 
 
-def _flash_kv_attention(q, k, v, positions, cfg: AttnCfg, kv_chunk: int):
+def _flash_kv_attention(q, k, v, positions, cfg: AttnCfg, kv_chunk: int,
+                        k_pos=None):
     """Attention chunked over the KEY/VALUE axis with an online softmax:
-    peak scores memory (B, H, S, kc) instead of (B, H, S, S)."""
+    peak scores memory (B, H, S, kc) instead of (B, H, S, S). ``k_pos``:
+    the keys' positions where they are not the queries' (the gathered K/V
+    of a sequence shard)."""
     B, S, H, hd = q.shape
     K = k.shape[2]
     rep = H // K
-    kc = min(kv_chunk, S)
-    if S % kc != 0:
-        kc = S
+    k_pos = positions if k_pos is None else k_pos
+    S_k = k.shape[1]
+    kc = min(kv_chunk, S_k)
+    if S_k % kc != 0:
+        kc = S_k
     q5 = q.reshape(B, S, K, rep, hd).to(torch.float32)
     m = torch.full((B, K, rep, S), -1e30, dtype=torch.float32,
                    device=q.device)
     l = torch.zeros((B, K, rep, S), dtype=torch.float32, device=q.device)
     acc = torch.zeros((B, K, rep, S, hd), dtype=torch.float32,
                       device=q.device)
-    for c0 in range(0, S, kc):
+    for c0 in range(0, S_k, kc):
         k_c, v_c = k[:, c0:c0 + kc], v[:, c0:c0 + kc]
         s = torch.einsum("bsgrd,btgd->bgrst", q5,
                          k_c.to(torch.float32)) / (hd ** 0.5)
         if cfg.causal:
-            mask = _causal_mask(positions, positions[c0:c0 + kc], cfg)
+            mask = _causal_mask(positions, k_pos[c0:c0 + kc], cfg)
             s = torch.where(mask, s, -1e30)
         m_new = torch.maximum(m, s.amax(dim=-1))
         scale = torch.exp(m - m_new)
@@ -184,14 +193,19 @@ def _flash_kv_attention(q, k, v, positions, cfg: AttnCfg, kv_chunk: int):
 
 def attention(x, lp, cfg: AttnCfg, positions):
     """Training attention, x: (B, S, D) -> (B, S, D): one block for
-    S <= q_chunk, KV-chunked flash attention above."""
+    S <= q_chunk, KV-chunked flash attention above (S the whole sequence;
+    under a grid x is this rank's slice, ``positions`` its global
+    positions, and the gathered K/V hold every key)."""
     B, S, _ = x.shape
     q, k, v = _qkv(x, lp, cfg, positions)
-    if S <= cfg.q_chunk:
-        y = _sdpa_chunk(q, k, v, positions, positions, cfg)
+    k, v = hints.gather_seq(k), hints.gather_seq(v)
+    k_pos = hints.key_positions(positions, k.shape[1])
+    if k.shape[1] <= cfg.q_chunk:
+        y = _sdpa_chunk(q, k, v, positions, k_pos, cfg)
         y = y.reshape(B, S, cfg.n_heads * cfg.d_head)
     else:
-        y = _flash_kv_attention(q, k, v, positions, cfg, cfg.q_chunk)
+        y = _flash_kv_attention(q, k, v, positions, cfg, cfg.q_chunk,
+                                k_pos=k_pos)
     return y @ lp["wo"]
 
 
@@ -338,6 +352,12 @@ def chunked_ce(x, head, targets, mask=None, chunk: int = 512):
     """Sequence-chunked mean cross entropy: logits exist one (B, chunk, V)
     chunk at a time. x: (B, S, D); head: (D, V); targets: (B, S) int;
     mask: (B, S) float or None."""
+    tot, cnt = chunked_ce_sums(x, head, targets, mask, chunk)
+    return tot / torch.clamp_min(cnt, 1.0)
+
+
+def chunked_ce_sums(x, head, targets, mask=None, chunk: int = 512):
+    """``chunked_ce``'s (masked NLL sum, mask sum), each f32."""
     B, S, _ = x.shape
     if mask is None:
         mask = torch.ones((B, S), dtype=torch.float32, device=x.device)
@@ -352,4 +372,4 @@ def chunked_ce(x, head, targets, mask=None, chunk: int = 512):
         mb = mask[:, s0:s0 + c]
         tot = tot + torch.sum(nll * mb)
         cnt = cnt + torch.sum(mb)
-    return tot / torch.clamp_min(cnt, 1.0)
+    return tot, cnt

@@ -6,15 +6,26 @@ Parameters are the reference's tree: a dict of depth-stacked tensors
 (``attn.wq: (L, D, H*hd)``, ``mlp.w1: (L, D, F)`` or ``moe.w1: (L, E, D,
 F)``, ``ln1: (L, D)``, ...), so ``wire.TreeSpec`` order, weight carry-over
 and the flat wire line up with the reference. The forward walks the layers
-in a Python loop over the stacked slices (the reference's ``lax.scan``; its
-remat has no numerical effect).
+in a Python loop over the stacked slices (the reference's ``lax.scan``).
+
+Under a grid (``launch/hints.py``; the dense family's model-sharded
+replica) the params are this rank's shards: each layer gathers its weights
+(``fsdp_gather``), computes on this rank's sequence slice and keeps its
+output there (``seq_shard``), as the reference's ``_layer`` does; each layer
+is rematerialized (``torch.utils.checkpoint``, non-reentrant) keeping the
+gathered K/V, and the gathered weights under ``remat_save_weights``, the
+reference's ``_remat_policy``. The loss is the global token mean: local
+sums, then one all-reduce of the sum and the count over the replica axes.
+Off a grid every hint is the identity and nothing is rematerialized.
 """
 from __future__ import annotations
 
 from typing import Any, Dict
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
+from repro_torch.launch import hints
 from repro_torch.models import layers as L
 
 
@@ -57,10 +68,27 @@ def _ffn(cfg, hn, lp):
 
 
 def _layer(cfg, x, lp, positions):
+    # FSDP: the layer's weight shards gathered just in time (MoE experts
+    # are expert-parallel in the reference and are not gathered)
+    lp = hints.fsdp_gather(lp, skip=("moe",))
     h = x + L.attention(L.rms_norm(x, lp["ln1"]), lp["attn"],
                         cfg.attn_cfg(), positions)
+    h = hints.seq_shard(h)
     y, aux = _ffn(cfg, L.rms_norm(h, lp["ln2"]), lp)
-    return h + y, aux
+    return hints.seq_shard(h + y), aux
+
+
+def _remat_layer(cfg, x, lp, positions):
+    """One layer under the grid, rematerialized in the backward pass with
+    the gathered K/V (and weights, under ``remat_save_weights``) kept."""
+    slot = hints.RematSlot(cfg.remat_save_weights)
+
+    def run(x):
+        with hints.remat_slot(slot):
+            y, a = _layer(cfg, x, lp, positions)
+        return y, torch.as_tensor(a, dtype=torch.float32, device=y.device)
+
+    return checkpoint(run, x, use_reentrant=False)
 
 
 def _layer_params(params, cfg):
@@ -72,11 +100,15 @@ def _layer_params(params, cfg):
 def forward_hidden(params, tokens, cfg, *, embeds=None):
     """tokens (B, S), or ``embeds`` (B, S, D) cast to cfg.dtype in their
     place -> (final-norm hidden states (B, S, D), layer-mean MoE aux)."""
-    x = params["embed"][tokens] if embeds is None else embeds.to(cfg.dtype)
-    positions = torch.arange(x.shape[1], device=x.device)
+    src = tokens if embeds is None else embeds
+    positions = hints.local_positions(src.shape[0], src.shape[1],
+                                      params["embed"].device)
+    src = hints.seq_shard(src)
+    x = params["embed"][src] if embeds is None else src.to(cfg.dtype)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    layer = _remat_layer if hints.remat_on() else _layer
     for lp in _layer_params(params, cfg):
-        x, a = _layer(cfg, x, lp, positions)
+        x, a = layer(cfg, x, lp, positions)
         aux = aux + a
     return L.rms_norm(x, params["lnf"]), aux / cfg.n_layers
 
@@ -96,11 +128,54 @@ def loss_fn(params, batch, cfg):
     ``batch`` may carry ``embeds`` (in place of the token embeddings) and a
     ``loss_mask`` (B, S)."""
     tokens = batch["tokens"]
+    if hints.active():
+        return _sharded_loss(params, batch, cfg)
     x, aux = forward_hidden(params, tokens, cfg, embeds=batch.get("embeds"))
     mask = batch.get("loss_mask")
     mask = mask[:, 1:].to(torch.float32) if mask is not None else None
     ce = L.chunked_ce(x[:, :-1], lm_head(params, cfg), tokens[:, 1:],
                       mask, chunk=cfg.q_chunk)
+    return ce + 0.01 * aux
+
+
+#: the stored leaves outside the layer stack
+_TOP = ("embed", "lm_head", "lnf")
+
+
+def _sharded_loss(params, batch, cfg):
+    """``loss_fn`` under a grid. The embedding, head and final norm are
+    gathered once (a vocab-sharded table whole: one all-gather of V x D,
+    whose backward reduce-scatters the dense table gradient). Every rank
+    holds the client's whole (B, S) token batch, so the next-token label of
+    its last position is the first token of the next slice; the sequence's
+    last position has none. The value is the global token mean; the
+    gradient is this rank's share of it, which the reduce-scatters of the
+    backward sum."""
+    tokens = batch["tokens"]
+    p = dict(params)
+    p.update(hints.fsdp_gather({k: params[k] for k in _TOP if k in params},
+                               stacked=False))
+    x, aux = forward_hidden(p, tokens, cfg, embeds=batch.get("embeds"))
+    B, S = tokens.shape
+    lo, hi = hints.seq_bounds(S)
+    b0, b1 = hints.batch_bounds(B)
+    dev = x.device
+    pad = torch.zeros((b1 - b0, 1), dtype=tokens.dtype, device=dev)
+    tgt = torch.cat([tokens[b0:b1], pad], dim=1)[:, lo + 1:hi + 1]
+    valid = (torch.arange(lo, hi, device=dev) < S - 1).to(torch.float32)
+    mask = valid.expand(b1 - b0, hi - lo)
+    if batch.get("loss_mask") is not None:
+        m = batch["loss_mask"].to(device=dev, dtype=torch.float32)
+        m = torch.cat([m[b0:b1], pad.to(torch.float32)], dim=1)
+        mask = mask * m[:, lo + 1:hi + 1]
+    tot, cnt = L.chunked_ce_sums(x, lm_head(p, cfg), tgt, mask,
+                                 chunk=cfg.q_chunk)
+    sums = hints.reduce_sum(torch.stack([tot, cnt]), hints.replica_axes())
+    n = torch.clamp_min(sums[1], 1.0)
+    ce = tot / n
+    # the value is exactly the global mean (x - x is +0.0), the gradient
+    # this rank's share of it
+    ce = (ce - ce.detach()) + sums[0] / n
     return ce + 0.01 * aux
 
 

@@ -39,10 +39,9 @@ _DTYPES = {jnp.float32: torch.float32, jnp.bfloat16: torch.bfloat16}
 
 
 #: the reference's config fields that the port leaves out until code of its
-#: own reads them (ROADMAP queue 3): the dry-run's training knobs (the
-#: launcher takes them from flags), the expert-parallel and remat layouts
-OMITTED_ARCH = {"client_lr", "server_lr", "zsign_z", "zsign_sigma"}
-OMITTED_MODEL = {"moe_ep", "remat_save_weights"}
+#: own reads them (ROADMAP queue 3): the expert-parallel layout
+OMITTED_ARCH = set()
+OMITTED_MODEL = {"moe_ep"}
 
 
 def test_registry_lists_the_transformer_archs():

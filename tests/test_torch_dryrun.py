@@ -1,0 +1,128 @@
+"""The port's dry run (``launch/dryrun.py``): the sharded round step of a
+production-mesh cell traced as rank 0 of a fake process group of 256 ranks.
+
+  * qwen2_0_5b/train_4k on 16 x 16: the per-rank parameter bytes are the
+    sum over leaves of their bytes over their shard factor under the spec
+    rules, and the collective bytes by kind equal the closed form below,
+    term by term.
+  * qwen2_5_32b/train_4k on 16 x 16 (all 64 layers) completes and reports
+    its bytes, FLOPs and H100 roofline terms.
+  * The cells the port does not have yet say "not ported" and print no
+    result: other families on a grid, prefill, decode and long_500k.
+"""
+import json
+
+import numpy as np
+import pytest
+import torch
+import torch.distributed as dist
+
+import torch_sharded_ranks as R
+from repro_torch.configs.common import SHAPES, ShapeCfg, get_arch
+from repro_torch.core.tree import tree_paths
+from repro_torch.launch import dryrun
+from repro_torch.launch import sharding as SH
+from repro_torch.models.api import family_module
+
+torch.set_num_threads(1)
+
+
+@pytest.fixture(autouse=True)
+def _no_group():
+    if dist.is_initialized():
+        pytest.skip("a process group is up in this worker")
+    yield
+    assert not dist.is_initialized()
+
+
+def _shards(arch, mesh_shape, plan):
+    class M:
+        axis_names = ("data", "model")
+        shape = dict(zip(axis_names, mesh_shape))
+    full = family_module(arch.model).param_shapes(arch.model)
+    specs = dict(tree_paths(SH.param_specs(full, M(), plan)))
+    out = {}
+    for path, shape in tree_paths(full):
+        dim, axes = SH.spec_dim(specs[path])
+        n = 1
+        for a in axes:
+            n *= M.shape[a]
+        out[path] = (int(np.prod(shape)), n)
+    return out
+
+
+def test_qwen2_train_4k_bytes_and_collectives_closed_form():
+    arch = get_arch("qwen2_0_5b")
+    m = arch.model
+    res = dryrun.run_cell("qwen2_0_5b", "train_4k", multi_pod=False)
+    plan = SH.make_plan(arch, SHAPES["train_4k"], type(
+        "M", (), {"axis_names": ("data", "model"),
+                  "shape": {"data": 16, "model": 16}})())
+    assert plan.replica_axes == ("model",) and plan.micro == 16
+    R_, bpe = 16, 2
+    shards = _shards(arch, (16, 16), plan)
+    param_bytes = sum(n * bpe // k for n, k in shards.values())
+    assert res["argument_bytes"]["params"] == param_bytes
+
+    L, D, H, K = m.n_layers, m.d_model, m.n_heads, m.n_kv_heads
+    hd, F, V = m.d_head, m.d_ff, m.vocab
+    B, S = plan.micro, SHAPES["train_4k"].seq_len
+    # a layer's sharded weights (wq, wk, wv, wo, w1, w2, w3) and its
+    # replicated ones (bq, bk, bv, ln1, ln2), elements
+    w_layer = D * H * hd * 2 + D * K * hd * 2 + 3 * D * F
+    r_layer = H * hd + 2 * K * hd + 2 * D
+    kv = 2 * B * S * K * hd * bpe                  # gathered K and V
+    gathers = 1 if m.remat_save_weights else 2     # fwd (+ remat's)
+    d = sum(n for n, _ in shards.values())
+    n_tiles = -(-d // 8192)
+    range0 = -(-n_tiles // R_) * 8192              # rank 0's range
+    shard_elems = sum(n // k for n, k in shards.values())
+    want = {
+        # embed (V x D) once, each layer's weights, each layer's K/V
+        "all_gather": V * D * bpe + L * gathers * w_layer * bpe + L * kv,
+        # the gradients' shards, and the K/V gradients' sequence slices
+        "reduce_scatter": (V * D + L * w_layer) * bpe // R_
+        + L * kv // R_,
+        # the pseudo-gradient into the range, the update back, f32
+        "all_to_all": 4 * range0 + 4 * shard_elems,
+        # replicated leaves' gradients (layers and lnf), the loss's token
+        # sum and count, the range's sign sum and the loss over the 16
+        # clients, the update norm
+        "all_reduce": (L * r_layer + D) * bpe + 8 + 4 * range0 + 4 + 4,
+    }
+    assert res["collectives"] == want
+    assert res["collective_bytes_per_device"] == sum(want.values())
+    assert res["flops_per_device"] > 0 and res["peak_bytes"] > param_bytes
+    for k in ("t_compute_s", "t_memory_s", "t_collective_s", "dominant",
+              "roofline_fraction", "output_size_in_bytes"):
+        assert k in res
+    print(json.dumps(res))
+
+
+def test_qwen25_32b_train_4k_completes():
+    res = dryrun.run_cell("qwen2_5_32b", "train_4k", multi_pod=False)
+    print(json.dumps(res))
+    arch = get_arch("qwen2_5_32b")
+    plan = SH.make_plan(arch, SHAPES["train_4k"], type(
+        "M", (), {"axis_names": ("data", "model"),
+                  "shape": {"data": 16, "model": 16}})())
+    assert res["plan"]["replica_axes"] == ["data", "model"] or \
+        tuple(res["plan"]["replica_axes"]) == ("data", "model")
+    shards = _shards(arch, (16, 16), plan)
+    assert res["argument_bytes"]["params"] == sum(
+        n * 2 // k for n, k in shards.values())
+    assert res["chip"] == "H100 SXM 80GB"
+    assert res["dominant"] in ("compute", "memory", "collective")
+    assert all(res["collectives"][k] > 0 for k in
+               ("all_gather", "reduce_scatter", "all_to_all"))
+
+
+@pytest.mark.parametrize("arch_id,shape", [
+    ("granite_moe_1b_a400m", "train_4k"), ("xlstm_350m", "train_4k"),
+    ("qwen2_0_5b", "prefill_32k"), ("qwen2_0_5b", "decode_32k"),
+    ("qwen2_0_5b", "long_500k")])
+def test_cells_not_ported_say_so(arch_id, shape, capsys):
+    dryrun.main(["--arch", arch_id, "--shape", shape])
+    line = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert "not ported" in line["not_ported"]
+    assert "flops_per_device" not in line and "error" not in line

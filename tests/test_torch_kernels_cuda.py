@@ -8,7 +8,8 @@ card runs them as they are:
 
 E1 must give the plain version's exact bytes (z=1: any differing bit within
 4 ulp of its threshold, the erf rule), also with a different sigma for each
-client (sto-sign) and a client with sigma 0; C1 exact bytes; R1, U1 and F1 equal
+client (sto-sign), a client with sigma 0, and over a flat range (``tile0``:
+the byte slice of the whole rows' encode); C1 exact bytes; R1, U1 and F1 equal
 int32 bit patterns (F1's payload bytes too); R1 as the robust laws' vote
 pair route equal int32 to the popcount route.
 """
@@ -49,6 +50,31 @@ def test_cuda_encode_matches_plain(cuda, n, z):
             one = TO.zsign_encode(x[c:c + 1].contiguous(), keys[c:c + 1],
                                   sig[c:c + 1], z)
             assert torch.equal(one[0], got[c])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [1, 2])
+@pytest.mark.parametrize("z", [0, 1])
+def test_cuda_encode_over_a_range(cuda, n, z):
+    """E1 with tile0 (the model-sharded replica's flat range): equal to its
+    plain version with the same tile0, and to the byte slice of the whole
+    rows' encode."""
+    gen = torch.Generator(device=cuda).manual_seed(10 + n)
+    x = torch.randn((n, 7 * TILE), generator=gen, device=cuda) * 0.05
+    keys = TN.client_keys(TN.prng_key(n), 0, n)
+    sig = torch.full((n,), 0.05, device=cuda)
+    whole = TO.zsign_encode(x, keys, sig, z)
+    for t0, t1 in [(3, 7), (1, 2), (0, 7)]:
+        rows = x[:, t0 * TILE:t1 * TILE].contiguous()
+        before = TO.zsign_encode.launches_range
+        got = TO.zsign_encode(rows, keys, sig, z, tile0=t0)
+        torch.cuda.synchronize()
+        assert TO.zsign_encode.launches_range == before + 1
+        want = TO.zsign_encode_plain(rows, keys, sig, z, tile0=t0)
+        flips, far = TO.erf_rule_flips(rows, keys, sig, z, got, want,
+                                       tile0=t0)
+        assert far == 0 and (z == 1 or flips == 0)
+        assert torch.equal(got, whole[:, t0 * TILE // 8:t1 * TILE // 8])
 
 
 @pytest.mark.cuda
