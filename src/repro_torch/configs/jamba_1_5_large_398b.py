@@ -12,6 +12,7 @@ ARCH = ArchConfig(
     model=ModelCfg(name="jamba-1.5-large-398b", family="hybrid",
                    n_layers=72, d_model=8192, n_heads=64, n_kv_heads=8,
                    d_ff=24576, vocab=65536, moe_experts=16, moe_topk=2,
+                   moe_ep=True,
                    dtype=torch.bfloat16),
     big=True, seq_client_groups=2,
     notes="398B hybrid; sub-quadratic (mamba) => runs long_500k")

@@ -210,7 +210,7 @@ def auto_shard_size(n_coords: int) -> int:
 
 
 def resolve_cohort(policy, total_clients: int, n_coords: int,
-                   group=None) -> CohortPlan:
+                   group=None, spmd_axes=None) -> CohortPlan:
     """CohortPolicy (or its spec string) + the round's shapes -> the plan,
     as the reference resolves it: ``vmap`` is the vmap plan; ``auto`` and a
     bare ``stream`` keep it below STREAM_AUTO_MIN_ELEMS client-coordinate
@@ -219,12 +219,28 @@ def resolve_cohort(policy, total_clients: int, n_coords: int,
     is clamped to the cohort; ``devices=auto`` is the size of the cohort's
     torch.distributed ``group`` (the default group when None; 1 without
     one), more devices than the group has ranks raise, and the device
-    count is clamped to the shard count."""
+    count is clamped to the shard count.
+
+    ``spmd_axes`` is a grid plan's client axes (the model-sharded
+    replica's clients side by side, ``build_sharded_round_step``): the
+    grid already runs the clients in parallel, so ``auto`` and a bare
+    ``stream`` are the vmap plan and a forced stream policy raises the
+    reference's ``ValueError``."""
     pol = CohortPolicy.parse(policy)
     if pol.mode == "vmap":
         return VMAP_PLAN
     forced = pol.mode == "stream" and (pol.shard != 0 or pol.devices != 1
                                        or pol.feed == "host")
+    if spmd_axes is not None:
+        if forced:
+            raise ValueError(
+                f"cohort policy {policy!r} forces the streaming plan, "
+                f"but the launcher plan shards the client axis over mesh "
+                f"axes {spmd_axes!r} — the shard scan would serialize the "
+                "axis the mesh parallelizes. Drop the stream(...) policy "
+                "(the mesh already provides client parallelism) or use a "
+                "launcher plan without client_axes.")
+        return VMAP_PLAN
     if not forced and total_clients * n_coords < STREAM_AUTO_MIN_ELEMS:
         return VMAP_PLAN
     want = (auto_shard_size(n_coords)
@@ -792,26 +808,29 @@ def build_sharded_round_step(loss_fn: Callable, compressor, cfg: FedConfig,
     masks); the range is decoded, moved back onto the shards
     (``from_range``) and the server optimizer steps each shard. So no rank
     holds a (d,) vector or the whole tree, and the payload bytes of a range
-    are the byte slice of the unsharded round's. Pipelines other than
-    zsign / zsign_packed (agg=mean, z in {1, inf}), async rounds, stream
-    cohorts and adversaries raise ``NotImplementedError``. ``remat``
+    are the byte slice of the unsharded round's. The cohort policy is
+    resolved as the reference's launcher does, with the plan's client axes
+    as ``spmd_axes``: ``auto`` and ``stream`` run this round, a forced
+    ``stream(shard=K)`` raises ``ValueError``; on a plan without client
+    axes (the big plan's sequential groups), a policy that resolves to a
+    stream plan raises ``NotImplementedError``, as do pipelines other than
+    zsign / zsign_packed (agg=mean, z in {1, inf}), async rounds and
+    adversaries. ``remat``
     rematerializes each layer (on by default, as in the reference; off
     only to show that it changes no bit)."""
     from repro_torch.launch import hints
-    from repro_torch.launch.sharding import spec_dim
+    from repro_torch.launch.sharding import spec_dims
     ctx = ctx or RoundContext()
     compressor = compressor.with_context(ctx)
     compressor.check_range_encode()
     if RoundModePolicy.parse(ctx.round_mode).mode != "sync":
         raise NotImplementedError("async rounds on a grid wait (ROADMAP)")
-    if CohortPolicy.parse(ctx.cohort).mode == "stream":
-        raise NotImplementedError("a stream cohort on a grid waits "
-                                  "(ROADMAP); the grid runs its clients "
-                                  "side by side on the client axes")
     if ctx.adversary != "none":
         raise NotImplementedError("the wire adversary on a grid waits "
                                   "(ROADMAP: the robust laws on a grid)")
     G, N = cfg.client_groups, cfg.n_clients
+    if plan.client_axes:
+        resolve_cohort(ctx.cohort, G * N, 0, spmd_axes=plan.client_axes)
     if _axes_size(grid, plan.client_axes) != N:
         raise ValueError(f"{N} clients side by side, but the client axes "
                          f"{plan.client_axes} hold "
@@ -821,16 +840,15 @@ def build_sharded_round_step(loss_fn: Callable, compressor, cfg: FedConfig,
     c = grid.index(plan.client_axes)
     client_group = grid.group(plan.client_axes)
     paths = [p for p, _ in tree_paths(specs)]
-    leaf_specs = [spec_dim(s) for _, s in tree_paths(specs)]
+    leaf_specs = [spec_dims(s) for _, s in tree_paths(specs)]
     cache = {}
 
     def layout_for(params) -> wire.RangeLayout:
         if "layout" not in cache:
             shapes = []
-            for (_, leaf), (dim, axes) in zip(tree_paths(params),
-                                              leaf_specs):
+            for (_, leaf), dims in zip(tree_paths(params), leaf_specs):
                 shape = list(leaf.shape)
-                if dim is not None:
+                for dim, axes in dims:
                     shape[dim] *= _axes_size(grid, axes)
                 shapes.append(tuple(shape))
             offsets, off = [], 0
@@ -842,6 +860,12 @@ def build_sharded_round_step(loss_fn: Callable, compressor, cfg: FedConfig,
                 off += n
             spec = wire.TreeSpec(tuple(paths), tuple(shapes),
                                  tuple(offsets), off)
+            if not plan.client_axes and resolve_cohort(
+                    ctx.cohort, G * N, off).mode == "stream":
+                raise NotImplementedError(
+                    f"cohort {ctx.cohort!r} streams the sequential groups "
+                    f"of a plan without client axes: waits (ROADMAP: the "
+                    f"big plan's forced stream)")
             cache["layout"] = wire.RangeLayout(spec, leaf_specs, grid,
                                                plan.replica_axes)
         return cache["layout"]

@@ -25,6 +25,7 @@ bit-identical to one call over all clients for any partition into shards).
 from __future__ import annotations
 
 import dataclasses
+import math
 import time
 from typing import Optional, Tuple
 
@@ -582,58 +583,105 @@ def flat_ranges(n_coords: int, parts: int,
 
 @dataclasses.dataclass(frozen=True)
 class _LeafShards:
-    """One leaf of the flat vector split into ``n`` shards along ``dim``:
-    its flat positions p = i*W + k*cw + w (row i, shard k, w < cw) hold
-    shard k's local element t = i*cw + w, so a shard's local order is the
-    leaf's order restricted to it."""
+    """One leaf of the flat vector cut into ``n`` shards along one or two
+    dimensions. Shard k's elements, in its local (row-major) order, lie in
+    ``groups`` groups of G leaf positions; in each group they are R rows of
+    ``cw`` elements at a row stride of W, from leaf position g*G +
+    row0(k) + col0(k) on. So local element t = g*R*cw + i*cw + w sits at g*G
+    + row0(k) + i*W + col0(k) + w.
+
+    Cut along one dimension d into n (post = the elements past d): one
+    group, R = numel / W rows, W = shape[d] * post, cw = W / n, row0 = 0,
+    col0 = k * cw. Cut along d1 < d2 into n1 x n2 (shard k = k1 * n2 + k2;
+    mid = the elements between d1 and d2; an MoE expert tensor (L, E, D, F)
+    cut along E and F): a group per index before d1, G = shape[d1] * mid *
+    W, R = shape[d1] / n1 * mid, W = shape[d2] * post, cw = W / n2, row0 =
+    k1 * R * W, col0 = k2 * cw."""
     offset: int
     numel: int
-    n: int
-    W: int          # leaf elements per row (dims from ``dim`` on)
+    n: int          # shards
+    W: int          # row stride (leaf positions)
     cw: int         # one shard's elements per row
+    G: int          # group stride (leaf positions)
+    R: int          # rows per group of one shard
+    n2: int = 1     # shards along the inner dimension (two cut dims)
 
     @classmethod
-    def of(cls, offset: int, shape, dim, n: int) -> "_LeafShards":
-        numel = 1
-        for s in shape:
-            numel *= s
-        if dim is None or n == 1:
-            return cls(offset, numel, 1, max(numel, 1), max(numel, 1))
-        post = 1
-        for s in shape[dim + 1:]:
-            post *= s
-        return cls(offset, numel, n, shape[dim] * post,
-                   shape[dim] * post // n)
+    def of(cls, offset: int, shape, cuts=()) -> "_LeafShards":
+        """``cuts``: ((dim, shards), ...), in dimension order, at most
+        two."""
+        numel = math.prod(shape)
+        cuts = tuple((d, n) for d, n in cuts if n > 1)
+        if not cuts:
+            w = max(numel, 1)
+            return cls(offset, numel, 1, w, w, w, 1)
+        if len(cuts) > 2:
+            raise ValueError(f"a leaf cut along {len(cuts)} dimensions")
+        d2, n2 = cuts[-1]
+        W = math.prod(shape[d2:])
+        cw = W // n2
+        if len(cuts) == 1:
+            return cls(offset, numel, n2, W, cw, max(numel, 1),
+                       numel // W, n2)
+        d1, n1 = cuts[0]
+        mid = math.prod(shape[d1 + 1:d2])
+        return cls(offset, numel, n1 * n2, W, cw, shape[d1] * mid * W,
+                   shape[d1] // n1 * mid, n2)
+
+    def base(self, k: int) -> Tuple[int, int]:
+        """(row0, col0) of shard k."""
+        k1, k2 = divmod(k, self.n2)
+        return k1 * self.R * self.W, k2 * self.cw
 
     def count_before(self, k: int, x: int) -> int:
         """Shard k's elements at leaf positions below ``x``."""
-        rows, rem = divmod(x, self.W)
-        return rows * self.cw + min(max(rem - k * self.cw, 0), self.cw)
+        row0, col0 = self.base(k)
+        g, rem = divmod(x, self.G)
+        y = rem - row0
+        if y <= 0:
+            return g * self.R * self.cw
+        i, c = divmod(y, self.W)
+        inside = self.R * self.cw if i >= self.R else \
+            i * self.cw + min(max(c - col0, 0), self.cw)
+        return g * self.R * self.cw + inside
+
+    def position(self, k: int, t):
+        """The leaf position of shard k's local element ``t`` (an int or
+        an int64 tensor)."""
+        row0, col0 = self.base(k)
+        per = self.R * self.cw
+        g, u = t // per, t % per
+        return g * self.G + row0 + (u // self.cw) * self.W + col0 \
+            + u % self.cw
 
     def blocks(self, k: int, t0: int, t1: int):
-        """Shard k's local elements [t0, t1) as at most three blocks
-        (t, nrows, width, p): ``nrows`` rows of ``width`` from local t on,
-        at leaf positions p + row * W + [0, width)."""
+        """Shard k's local elements [t0, t1) as blocks (t, nrows, width,
+        p): ``nrows`` rows of ``width`` from local t on, at leaf positions p
+        + row * W + [0, width); at most two partial rows and one block a
+        group."""
         out, t = [], t0
         while t < t1:
             i, w = divmod(t, self.cw)
+            p = self.position(k, t)
             if w or t1 - t < self.cw:
                 width = min(self.cw - w, t1 - t)
-                out.append((t, 1, width, i * self.W + k * self.cw + w))
+                out.append((t, 1, width, p))
                 t += width
             else:
-                nrows = (t1 - t) // self.cw
-                out.append((t, nrows, self.cw, i * self.W + k * self.cw))
+                nrows = min((t1 - t) // self.cw, self.R - i % self.R)
+                out.append((t, nrows, self.cw, p))
                 t += nrows * self.cw
         return out
 
 
 class RangeLayout:
     """The re-layout between one client's parameter shards on the replica
-    ranks of a grid (each leaf cut along its spec's dimension over the
-    spec's axes, replicated over the other replica axes) and the flat
-    ranges of ``flat_ranges`` (replica rank r holds coordinates [lo_r,
-    hi_r) in f32).
+    ranks of a grid (each leaf cut along its spec's dimensions over their
+    axes, ``leaf_shards`` giving each leaf's ``launch/sharding.spec_dims``,
+    and replicated over the other replica axes) and the flat ranges of
+    ``flat_ranges`` (replica rank r holds coordinates [lo_r, hi_r) in f32).
+    A leaf cut along two dimensions (an expert tensor of the big plan) maps
+    a shard onto one strided block of the range a layer.
 
     ``to_range`` moves each rank's per-leaf shards (the pseudo-gradient)
     into its flat range and ``from_range`` moves a range (the decoded
@@ -668,14 +716,21 @@ class RangeLayout:
         self.leaves = []
         self._shard_of = []        # [leaf][replica rank] -> shard index
         self._src = []             # [leaf][dest rank][shard] -> source
-        for (dim, axes), shape, off in zip(leaf_shards, spec.shapes,
-                                           spec.offsets):
-            axes = grid.axes(axes)
-            n = 1
-            for a in axes:
-                n *= grid.shape[a]
-            self.leaves.append(_LeafShards.of(off, shape, dim, n))
-            shard_of = [grid.index_of(c, axes) for c in coords]
+        for dims, shape, off in zip(leaf_shards, spec.shapes,
+                                    spec.offsets):
+            dims = [(d, grid.axes(a)) for d, a in dims]
+            axes = tuple(a for _, ax in dims for a in ax)
+            self.leaves.append(_LeafShards.of(
+                off, shape, [(d, math.prod(grid.shape[a] for a in ax))
+                            for d, ax in dims]))
+            # the shard index k = k1 * n2 + k2 over the cut dimensions
+            shard_of = []
+            for c in coords:
+                k = 0
+                for _, ax in dims:
+                    k = k * math.prod(grid.shape[a] for a in ax) \
+                        + grid.index_of(c, ax)
+                shard_of.append(k)
             self._shard_of.append(shard_of)
             src = []
             for r in range(self.R):
@@ -704,9 +759,7 @@ class RangeLayout:
         """The flat coordinates of this rank's local elements ``t`` (int64)
         of its shard of leaf i."""
         leaf = self.leaves[i]
-        k = self._shard_of[i][self.me]
-        return leaf.offset + (t // leaf.cw) * leaf.W + k * leaf.cw \
-            + t % leaf.cw
+        return leaf.offset + leaf.position(self._shard_of[i][self.me], t)
 
     def _run(self, i: int, k: int, r: int) -> Tuple[int, int]:
         """Shard k of leaf i's local run inside range r."""

@@ -22,15 +22,21 @@ reports for this rank:
     reference's ``memory_analysis`` fields;
   * FLOPs (``FlopCounterMode``);
   * collective bytes by kind (``launch/hints.collective_totals``: the bytes
-    of each collective's result, as the reference sums the HLO's).
+    of each collective's result, as the reference sums the HLO's), and by
+    kind and use (weight and K/V gathers, the MoE dispatch's all-to-alls,
+    the wire's re-layout, ...).
 
 ``run_cell`` adds ``launch/roofline.terms_for`` with the H100 ``Chip`` (the
-reference's v5e constants are not ported). The trace takes the card's
+reference's v5e constants are not ported) and the peak against one H100's
+80 GB (``HBM_BYTES``). The trace takes the card's
 route through the wire: E1 and R1 stand in by their kernels' outputs (they
 count and do not compute); on a card ``chip_smoke.py`` runs this same
-``build_train_cell`` step for real on a 2 x 2 grid. Train cells of the dense family are ported; the other
-families on a grid, the prefill and decode cells and ``long_500k`` are not
-yet, and the CLI says so instead of printing a result.
+``build_train_cell`` step for real on a 2 x 2 grid. Train cells of the
+dense, MoE and VLM families are ported (the MoE experts gathered a layer or,
+under ``moe_ep``, expert-parallel with the dispatch's all-to-alls counted);
+the recurrent, hybrid and enc-dec families on a grid, the prefill and decode
+cells and ``long_500k`` are not yet, and the CLI says so instead of printing
+a result.
 """
 from __future__ import annotations
 
@@ -53,9 +59,9 @@ from repro_torch.models.api import BatchLeaf, build_model, family_module
 
 #: what each cell kind waits for (the CLI prints it, never a result)
 NOT_PORTED = {
-    "family": "the {family} family on a grid is not ported yet (ROADMAP: "
-              "MoE expert-parallel, the recurrent and enc-dec families' "
-              "sequence shards)",
+    "family": "the {family} family on a grid is not ported yet (ROADMAP "
+              "item 19: the recurrent, hybrid and enc-dec families on a "
+              "grid)",
     "prefill": "the prefill cell is not ported yet (ROADMAP: the prefill "
                "and decode cells with cache_specs)",
     "decode": "the decode cell is not ported yet (ROADMAP: the prefill and "
@@ -63,19 +69,14 @@ NOT_PORTED = {
 }
 
 
+#: one H100's device memory, the gate each rank's peak is reported against
+HBM_BYTES = 80e9
+#: the families whose train cell runs on a grid
+GRID_FAMILIES = ("dense", "moe", "vlm")
+
+
 class NotPorted(NotImplementedError):
     """A cell whose machinery the port does not have yet."""
-
-
-def _shard_shape(shape, spec, grid):
-    dim, axes = SH.spec_dim(spec)
-    shape = list(shape)
-    if dim is not None:
-        n = 1
-        for a in axes:
-            n *= grid.shape[a]
-        shape[dim] //= n
-    return tuple(shape)
 
 
 def build_train_cell(arch, shape: ShapeCfg, grid, *,
@@ -91,7 +92,7 @@ def build_train_cell(arch, shape: ShapeCfg, grid, *,
     ``example`` holds the shapes of its arguments: ``params`` (this rank's
     shards, a tree of ``BatchLeaf``), ``specs``, ``batch`` ((G, N, E,
     micro, S) leaves) and ``mask`` ((G, N)); ``make_inputs`` builds them."""
-    if arch.model.family != "dense":
+    if arch.model.family not in GRID_FAMILIES:
         raise NotPorted(NOT_PORTED["family"].format(family=arch.model.family))
     if shape.kind != "train":
         raise NotPorted(NOT_PORTED[shape.kind])
@@ -105,12 +106,13 @@ def build_train_cell(arch, shape: ShapeCfg, grid, *,
                             local_steps=plan.local_steps,
                             client_lr=arch.client_lr,
                             server_lr=arch.server_lr)
-    full = family_module(arch.model).param_shapes(arch.model)
-    specs = SH.param_specs(full, grid, plan,
+    # each leaf in its own dtype (the MoE router is f32 in a bf16 model)
+    meta = family_module(arch.model).init_params(None, arch.model,
+                                                 device="meta")
+    specs = SH.param_specs(meta, grid, plan,
                            moe_experts=arch.model.moe_experts)
-    params = tree_map(lambda s, sp: BatchLeaf(_shard_shape(s, sp, grid),
-                                              arch.model.dtype),
-                      full, specs)
+    params = tree_map(lambda t, sp: BatchLeaf(
+        SH.shard_shape(t.shape, sp, grid), t.dtype), meta, specs)
     ctx = SH.round_context(plan, agg_backend=agg_backend,
                            encode_backend=encode_backend)
     step = fedavg.build_sharded_round_step(bundle.loss_fn, comp, fcfg, ctx,
@@ -129,16 +131,15 @@ def build_train_cell(arch, shape: ShapeCfg, grid, *,
 
 def make_inputs(example, seed: int = 0):
     """(state, batch, mask) for ``build_train_cell``'s step on ``meta``
-    tensors: the server state over storage-less param shards, tokens drawn
-    from ``seed`` and a full mask."""
-    gen = torch.Generator(device="cpu").manual_seed(seed)
+    tensors: the server state over storage-less param shards, the batch's
+    leaves (tokens, the VLM's image embeds; storage-less, so no values to
+    draw), the PRNG key ``[0, seed]`` and a full mask."""
     params = tree_map(lambda leaf: torch.empty(
         leaf.shape, dtype=leaf.dtype, device="meta"), example["params"])
     state = fedavg.init_server_state(
         params, example["fcfg"], example["comp"],
         torch.tensor([0, seed], dtype=torch.int64))
-    batch = {k: torch.randint(0, example["vocab"], v.shape, generator=gen,
-                              dtype=torch.int32).to("meta")
+    batch = {k: torch.empty(v.shape, dtype=v.dtype, device="meta")
              for k, v in example["batch"].items()}
     mask = torch.ones(example["mask"].shape, dtype=torch.float32)
     return state, batch, mask
@@ -214,6 +215,8 @@ def analyze(step, example, grid, label: str, seed: int = 0) -> dict:
         "flops_per_device": float(fc.get_total_flops()),
         "collectives": hints.collective_totals(0),
         "collective_calls": hints.collective_totals(1),
+        "collectives_by_use": {k: v[0] for k, v in
+                               sorted(hints.COLLECTIVES.items())},
         "collective_bytes_per_device": sum(
             hints.collective_totals(0).values()),
     }
@@ -263,6 +266,8 @@ def run_cell(arch_id: str, shape_name: str, *, multi_pod: bool,
         "t_memory_s": secs["memory"],
         "t_collective_s": secs["collective"],
         "dominant": terms.dominant(),
+        "peak_over_hbm": res["peak_bytes"] / HBM_BYTES,
+        "fits_hbm": res["peak_bytes"] <= HBM_BYTES,
         "roofline_fraction": terms.roofline_fraction(),
         "useful_ratio": terms.model_flops_total / max(
             1.0, res["flops_per_device"] * grid.size),

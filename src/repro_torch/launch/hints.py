@@ -14,17 +14,27 @@ each hint IS its collective, over a subgroup of a ``launch/mesh.ReplicaGrid``:
                        GQA K/V at kv-head width, in their stored dtype);
                        its backward is a reduce-scatter
   ``fsdp_gather(lp)``  one layer's weight shards gathered along the
-                       dimension their spec names (the reference's
-                       ``fsdp_params``); its backward reduce-scatters the
-                       weight gradients onto the shards. A leaf replicated
-                       over replica axes has its gradient all-reduced over
-                       them instead
+                       dimensions their spec names (the reference's
+                       ``fsdp_params``; an expert tensor's E dimension may
+                       stay expert-parallel, the reference's ``_egather``);
+                       its backward reduce-scatters the weight gradients
+                       onto the shards. A leaf replicated over replica axes
+                       has its gradient all-reduced over them instead
+  ``expert_swap(buf)`` the MoE dispatch buffer between this rank's
+                       sequence shard and the experts it holds: one
+                       all-to-all over the seq axes each way (the
+                       reference's ``shard_dim`` reshards of ``moe_apply``'s
+                       ``ep`` branch); its backward is the other direction
   ``reduce_sum(x, axes)``  a forward all-reduce with no gradient (the
-                       loss's token sums)
+                       loss's token sums, the MoE aux's expert counts)
 
 Every hint is the identity when no grid is set, so the single-device path is
-unchanged. Under gloo a CUDA tensor is staged through pinned host memory
-(the bytes cross the host, as ``core/wire.reduce_accumulator``'s do). The
+unchanged. ``seq_shard_view(n)`` sets, in one process and without a grid,
+the sequence shard count the MoE layer counts its capacity over, as the
+reference's ``sharding_hints(mesh, seq_axes)`` does on one device: a
+one-process row then routes as a grid of n sequence shards does. Under gloo
+a CUDA tensor is staged through pinned host memory (the bytes cross the
+host, as ``core/wire.reduce_accumulator``'s do). The
 all-reduces are that rank-order chain, so every rank gets the same bits.
 Every collective adds to ``COLLECTIVES``, under its kind and use (weight
 and K/V gathers, their gradients' reduce-scatters, the wire's re-layout,
@@ -59,7 +69,7 @@ from repro_torch.core.tree import tree_paths, tree_set
 
 _CTX = {"grid": None, "seq_axes": None, "batch_axes": None,
         "replica_axes": None, "specs": None, "seq_len": None,
-        "batch": None, "remat": None, "remat_on": True}
+        "batch": None, "remat": None, "remat_on": True, "view": 1}
 
 KINDS = ("all_gather", "reduce_scatter", "all_to_all", "all_reduce")
 #: "<kind>:<use>" (e.g. "all_gather:weight", "reduce_scatter:kv",
@@ -110,6 +120,19 @@ def sharding_hints(grid, seq_axes, batch_axes=None, *, replica_axes=(),
         _CTX.update(old)
 
 
+@contextmanager
+def seq_shard_view(n: int):
+    """Off a grid, count the MoE capacity over ``n`` sequence shards (the
+    reference's ``moe_apply`` under ``sharding_hints`` with n sequence
+    devices): ``seq_shard_count()`` is n. A grid's own count wins."""
+    old = _CTX["view"]
+    _CTX["view"] = int(n)
+    try:
+        yield
+    finally:
+        _CTX["view"] = old
+
+
 def active() -> bool:
     return _CTX["grid"] is not None
 
@@ -128,8 +151,21 @@ def _size(axes) -> int:
 
 
 def seq_shard_count() -> int:
-    """Number of sequence shards under the current hints (1 off a grid)."""
-    return _size(_CTX["seq_axes"]) if active() else 1
+    """Number of sequence shards under the current hints (off a grid, 1 or
+    the count ``seq_shard_view`` sets)."""
+    return _size(_CTX["seq_axes"]) if active() else _CTX["view"]
+
+
+def seq_axes() -> Tuple[str, ...]:
+    return _CTX["seq_axes"] if active() else ()
+
+
+def seq_len(local: int) -> int:
+    """The full sequence length of the running forward: its recorded
+    length on a grid (``local_positions``), ``local`` off it."""
+    if active() and _CTX["seq_len"] is not None:
+        return _CTX["seq_len"]
+    return local
 
 
 # ---------------------------------------------------------------------------
@@ -211,8 +247,16 @@ def all_reduce_sum(x: torch.Tensor, group, use: str = "") -> torch.Tensor:
 def all_to_all(out: torch.Tensor, inp: torch.Tensor, out_splits,
                in_splits, group, use: str = "") -> None:
     """``all_to_all_single`` of flat 1-D buffers (staged under gloo); the
-    result is written into ``out``."""
+    result is written into ``out``. A buffer of another dtype than f32 (the
+    MoE dispatch's bf16) moves as its raw bytes, which every backend
+    takes (gloo refuses int16, for one)."""
     t0 = time.perf_counter()
+    nbytes = out.numel() * out.element_size()
+    if inp.dtype != torch.float32:
+        b = inp.element_size()
+        out, inp = out.view(torch.uint8), inp.view(torch.uint8)
+        out_splits = [b * n for n in out_splits]
+        in_splits = [b * n for n in in_splits]
     if _staged(inp, group):
         h_out = _empty_like_host(out.shape, out)
         dist.all_to_all_single(h_out, _host(inp), list(out_splits),
@@ -221,7 +265,7 @@ def all_to_all(out: torch.Tensor, inp: torch.Tensor, out_splits,
     else:
         dist.all_to_all_single(out, inp, list(out_splits), list(in_splits),
                                group=group)
-    record("all_to_all", out.numel() * out.element_size(), t0, use)
+    record("all_to_all", nbytes, t0, use)
 
 
 # ---------------------------------------------------------------------------
@@ -263,6 +307,56 @@ class _SumGrad(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         return all_reduce_sum(g, ctx.group, "replicated_grad"), None
+
+
+def _swap(x: torch.Tensor, group, to_experts: bool,
+          use: str) -> torch.Tensor:
+    """``expert_swap``'s exchange. To the experts: this rank's (B, E, C, D)
+    buffer -> (n, B, E/n, C, D), group rank i's cells of this rank's E/n
+    experts at [i]. Back: that layout -> (B, E, C, D), this rank's cells of
+    every expert."""
+    n = dist.get_world_size(group)
+    if to_experts:
+        B, E = x.shape[:2]
+        send = x.reshape((B, n, E // n) + tuple(x.shape[2:])).movedim(
+            1, 0).contiguous()
+    else:
+        send = x.contiguous()
+    out = torch.empty_like(send)
+    per = [send.numel() // n] * n
+    all_to_all(out.reshape(-1), send.reshape(-1), per, per, group, use)
+    if to_experts:
+        return out
+    return out.movedim(0, 1).reshape((out.shape[1], -1)
+                                     + tuple(out.shape[3:]))
+
+
+class _ExpertSwap(torch.autograd.Function):
+    """``_swap`` in one direction; backward: the other direction."""
+
+    @staticmethod
+    def forward(ctx, x, group, to_experts, use):
+        ctx.group, ctx.to_experts, ctx.use = group, to_experts, use
+        return _swap(x, group, to_experts, use)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _swap(g, ctx.group, not ctx.to_experts, ctx.use), None, \
+            None, None
+
+
+def expert_swap(buf: torch.Tensor, to_experts: bool) -> torch.Tensor:
+    """The MoE dispatch buffer between the sequence-shard layout and the
+    expert layout over the seq axes, whose n ranks hold E/n experts each
+    (rank i experts [i*E/n, (i+1)*E/n)): ``to_experts`` takes this rank's
+    (B, E, C, D) buffer of its sequence shard to (n, B, E/n, C, D), every
+    shard's cells of this rank's experts in shard order; the other
+    direction takes the experts' outputs back to (B, E, C, D). One
+    all-to-all a direction, data movement only: every rank's bits are
+    kept."""
+    group = _CTX["grid"].group(_CTX["seq_axes"])
+    return _ExpertSwap.apply(buf, group, to_experts,
+                             "moe_dispatch" if to_experts else "moe_combine")
 
 
 class RematSlot:
@@ -355,15 +449,15 @@ def seq_shard(x, seq_dim: int = 1):
     return x
 
 
-def gather_seq(x, seq_dim: int = 1):
+def gather_seq(x, seq_dim: int = 1, *, keep: bool = True, use: str = "kv"):
     """All-gather of a (B, S_local, ...) tensor along the sequence over the
     seq axes, the batch dim kept sharded (the GQA K/V in the stored dtype,
-    before any upcast). Kept across a layer's recompute."""
+    before any upcast). Kept across a layer's recompute when ``keep``."""
     if not active() or seq_shard_count() == 1:
         return x
     grid = _CTX["grid"]
-    return _gather(x, grid.group(_CTX["seq_axes"]), seq_dim, None, True,
-                   "kv")
+    return _gather(x, grid.group(_CTX["seq_axes"]), seq_dim, None, keep,
+                   use)
 
 
 def key_positions(positions, n_keys: int):
@@ -383,19 +477,21 @@ def _leaf_spec(path):
 
 
 def fsdp_gather(lp, prefix: Tuple[str, ...] = (), *, stacked: bool = True,
-                skip=()):
+                skip=(), keep_axes=()):
     """FSDP just-in-time gather of parameter shards: every leaf of ``lp``
     (the tree at ``prefix`` of the stored params; one layer's slice of the
-    depth-stacked leaves when ``stacked``) whose spec shards a dimension is
-    all-gathered along it; its backward reduce-scatters the gradient onto
-    the shards (and all-reduces it over the replica axes the leaf is not
-    sharded over). A replicated leaf passes through with its gradient
-    all-reduced over the replica axes. Leaves under a key named in ``skip``
-    stay as they are. The gathered weights are kept across the layer's recompute
-    when its remat slot says ``save_weights``."""
+    depth-stacked leaves when ``stacked``) is all-gathered along each
+    dimension its spec shards, except a dimension sharded over
+    ``keep_axes`` (the E dimension of expert-parallel experts, which stays
+    this rank's: the reference's ``_egather``); its backward reduce-scatters
+    the gradient onto the shards (and all-reduces it over the replica axes
+    the leaf is not sharded over). A replicated leaf passes through with its
+    gradient all-reduced over the replica axes. Leaves under a key named in
+    ``skip`` stay as they are. The gathered weights are kept across the
+    layer's recompute when its remat slot says ``save_weights``."""
     if not active():
         return lp
-    from repro_torch.launch.sharding import spec_dim
+    from repro_torch.launch.sharding import spec_dims
     grid = _CTX["grid"]
     replica = _CTX["replica_axes"]
     slot = _CTX["remat"]
@@ -405,23 +501,51 @@ def fsdp_gather(lp, prefix: Tuple[str, ...] = (), *, stacked: bool = True,
         if any(k in skip for k in path):
             tree_set(out, path, x)
             continue
-        dim, axes = spec_dim(_leaf_spec(prefix + path))
-        rest = tuple(a for a in replica if a not in axes)
+        dims = spec_dims(_leaf_spec(prefix + path))
+        held = {a for _, axes in dims for a in axes}
+        rest = tuple(a for a in replica if a not in held)
         rest_group = grid.group(rest) if _size(rest) > 1 else None
-        if dim is None:
+        cut = [(d, axes) for d, axes in dims
+               if not set(axes) & set(keep_axes)]
+        if not cut:
             y = x if rest_group is None else _SumGrad.apply(x, rest_group)
         else:
-            d = dim - 1 if stacked else dim
-            y = _gather(x, grid.group(axes), d, rest_group, keep, "weight")
+            # the inner dimension first; the replica all-reduce of the
+            # gradient once, in the outermost gather's backward
+            y = x
+            for i, (dim, axes) in enumerate(reversed(cut)):
+                d = dim - 1 if stacked else dim
+                y = _gather(y, grid.group(axes), d,
+                            rest_group if i == len(cut) - 1 else None, keep,
+                            "weight")
         tree_set(out, path, y)
     return out
 
 
-def reduce_sum(x: torch.Tensor, axes) -> torch.Tensor:
+def reduce_sum(x: torch.Tensor, axes, use: str = "loss") -> torch.Tensor:
     """Forward all-reduce (sum) of a detached tensor over ``axes``."""
     if not active() or _size(axes) == 1:
         return x
-    return all_reduce_sum(x.detach(), _CTX["grid"].group(axes), "loss")
+    return all_reduce_sum(x.detach(), _CTX["grid"].group(axes), use)
+
+
+def token_axes() -> Tuple[str, ...]:
+    """The axes that split one client's tokens: the sequence's and, on the
+    big plan, the micro-batch's."""
+    if not active():
+        return ()
+    return tuple(_CTX["seq_axes"]) + tuple(_CTX["batch_axes"])
+
+
+def sharded_over(path, dim: int, axes) -> bool:
+    """Whether the stored leaf at ``path`` has dimension ``dim`` sharded
+    over exactly ``axes`` under the current grid."""
+    if not active() or not axes:
+        return False
+    from repro_torch.launch.sharding import spec_dims
+    grid = _CTX["grid"]
+    return any(d == dim and grid.axes(a) == grid.axes(axes)
+               for d, a in spec_dims(_leaf_spec(path)))
 
 
 def replica_axes() -> Tuple[str, ...]:

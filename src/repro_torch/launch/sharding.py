@@ -19,7 +19,8 @@ shape tuples or ``BatchLeaf``s) and any mesh-like object with ``shape``
 and ``axis_names`` (a ``launch/mesh.ReplicaGrid`` or a stub). The
 model-sharded client replica (``core/fedavg.build_sharded_round_step``)
 stores each parameter as this rank's shard of its spec
-(``models/api.shard_params``); the dense family runs on a grid so far.
+(``models/api.shard_params``); the dense, MoE and VLM families run on a
+grid.
 """
 from __future__ import annotations
 
@@ -183,20 +184,22 @@ def param_specs(param_shapes, mesh, plan: ParallelPlan,
     return walk(param_shapes, ())
 
 
-def spec_dim(spec) -> Tuple[Any, Tuple[str, ...]]:
-    """-> (the sharded dimension or None, its axes as a tuple) of a
-    parameter spec (the rules shard at most one dimension of a dense
-    leaf; an MoE expert tensor may shard two, which the grid's runtime does
-    not take yet)."""
-    dims = [(d, e) for d, e in enumerate(spec) if e is not None]
-    if not dims:
-        return None, ()
-    if len(dims) > 1:
-        raise NotImplementedError(
-            f"spec {spec} shards {len(dims)} dimensions: MoE experts on a "
-            f"grid wait (ROADMAP: MoE expert-parallel on a grid)")
-    d, e = dims[0]
-    return d, ((e,) if isinstance(e, str) else tuple(e))
+def spec_dims(spec) -> Tuple[Tuple[int, Tuple[str, ...]], ...]:
+    """-> every sharded dimension of a parameter spec with its axes as a
+    tuple, in dimension order: () for a replicated leaf, one pair for a
+    dense leaf, two for an MoE expert tensor of the big plan (E over
+    `model`, the last dimension over the other replica axes)."""
+    return tuple((d, (e,) if isinstance(e, str) else tuple(e))
+                 for d, e in enumerate(spec) if e is not None)
+
+
+def shard_shape(shape, spec, mesh) -> Tuple[int, ...]:
+    """A leaf's shape ``shape`` cut along every dimension ``spec``
+    shards."""
+    out = list(shape)
+    for d, axes in spec_dims(spec):
+        out[d] //= axis_size(mesh, axes)
+    return tuple(out)
 
 
 # ---------------------------------------------------------------------------

@@ -28,6 +28,11 @@ class ModelCfg:
     vocab: int
     moe_experts: int = 0
     moe_topk: int = 0
+    #: expert-parallel experts (big experts: llama4, jamba): on a grid the
+    #: dispatch buffer goes to the experts' ranks by an all-to-all over the
+    #: sequence axes instead of the experts being gathered; one process
+    #: computes the same function either way
+    moe_ep: bool = False
     qkv_bias: bool = False
     sliding_window: int = 0
     tie_embeddings: bool = True
@@ -133,17 +138,19 @@ def build_model(cfg: ModelCfg) -> ModelBundle:
                            train_batch_spec=_lm_specs(cfg), **common)
 
     def vlm_loss(p, b):
-        img = b["img_embeds"].to(cfg.dtype)                # (B, P, D)
-        txt = p["embed"][b["tokens"]]                      # (B, S-P, D)
-        embeds = torch.cat([img, txt], dim=1)
-        B, P, S = img.shape[0], img.shape[1], embeds.shape[1]
-        dev = embeds.device
+        # the image embeds (B, P, D) stand in for the first P tokens'
+        # embeddings; the text's are looked up inside the model, in the
+        # table a grid gathers (and whose gradient it sums)
+        img, txt = b["img_embeds"], b["tokens"]
+        B, P = img.shape[0], img.shape[1]
+        S = P + txt.shape[1]
+        dev = txt.device
         mask = torch.cat([torch.zeros((B, P), device=dev),
                           torch.ones((B, S - P), device=dev)], dim=1)
         # the image prefix's tokens are a pad id (0), loss-masked out
-        full_tokens = torch.cat([torch.zeros((B, P), dtype=b["tokens"].dtype,
-                                             device=dev), b["tokens"]], dim=1)
-        return M.loss_fn(p, {"tokens": full_tokens, "embeds": embeds,
+        full_tokens = torch.cat([torch.zeros((B, P), dtype=txt.dtype,
+                                             device=dev), txt], dim=1)
+        return M.loss_fn(p, {"tokens": full_tokens, "img_embeds": img,
                              "loss_mask": mask}, cfg)
 
     def vlm_spec(micro, seq):
@@ -201,27 +208,27 @@ def params_from_numpy(tree, cfg: ModelCfg, device="cuda") -> dict:
 def shard_params(tree, cfg: ModelCfg, grid, plan, device="cuda") -> dict:
     """This rank's shards of a full parameter tree (the reference's numpy
     arrays, as ``params_from_numpy`` takes them, or the port's tensors):
-    each leaf cut along the dimension its spec shards
-    (``launch/sharding.param_specs`` on ``grid`` under ``plan``), the
-    piece at this rank's index over the spec's axes, on ``device`` in the
-    leaf's dtype. A replicated leaf is copied whole."""
-    from repro_torch.launch.sharding import param_specs, spec_dim
+    each leaf cut along every dimension its spec shards
+    (``launch/sharding.param_specs`` on ``grid`` under ``plan``; an MoE
+    expert tensor of the big plan along two), the piece at this rank's
+    index over each dimension's axes, on ``device`` in the leaf's dtype. A
+    replicated leaf is copied whole."""
+    from repro_torch.launch.sharding import param_specs, spec_dims
     device = check_device(device)
     specs = dict(tree_paths(param_specs(
         family_module(cfg).param_shapes(cfg), grid, plan,
         moe_experts=cfg.moe_experts), ))
     out: dict = {}
     for path, leaf in _checked_leaves(tree, cfg).items():
-        dim, axes = spec_dim(specs[path])
-        if dim is not None:
+        idx = [slice(None)] * len(leaf.shape)
+        for dim, axes in spec_dims(specs[path]):
             n = 1
             for a in axes:
                 n *= grid.shape[a]
             c = leaf.shape[dim] // n
             i = grid.index(axes)
-            idx = [slice(None)] * len(leaf.shape)
             idx[dim] = slice(i * c, (i + 1) * c)
-            leaf = leaf[tuple(idx)]
+        leaf = leaf[tuple(idx)]
         if isinstance(leaf, torch.Tensor):
             piece = leaf.to(device=device).contiguous().clone()
         else:

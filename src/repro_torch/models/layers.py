@@ -296,11 +296,12 @@ class MoERoute(NamedTuple):
 
 def moe_route(x, router, n_experts: int, top_k: int,
               capacity_factor: float = 1.25) -> MoERoute:
-    """The reference's routing with one sequence shard (off a mesh its
-    shard count is 1): f32 router logits, softmax, the iterative top-k,
-    gates renormalised; capacity C = max(1, int(S*k/E*1.25)) per batch
-    row; a token's k slots take positions in token-major, then k, order
-    from the running count of each expert; a slot past C is dropped."""
+    """The reference's routing of one sequence shard a batch row
+    (``moe_apply`` gives it the (B * ns, S_loc) view): f32 router logits,
+    softmax, the iterative top-k, gates renormalised; capacity C = max(1,
+    int(S*k/E*1.25)) per row; a token's k slots take positions in
+    token-major, then k, order from the running count of each expert; a
+    slot past C is dropped."""
     B, S, _ = x.shape
     E, k = n_experts, top_k
     C = max(1, int(S * k / E * capacity_factor))
@@ -316,36 +317,99 @@ def moe_route(x, router, n_experts: int, top_k: int,
                     torch.where(keep, pos, C - 1), C)
 
 
-def moe_apply(x, lp, n_experts: int, top_k: int,
-              capacity_factor: float = 1.25):
-    """Capacity-based top-k MoE, x: (B, S, D) -> (out (B, S, D), aux).
+def moe_seq_shards(seq_len: int, n_experts: int, top_k: int) -> int:
+    """The reference's ns: the sequence shard count of the grid (or of
+    ``hints.seq_shard_view``), or 1 when the sequence does not split into
+    that many shards or a shard's S_loc * k slots are fewer than E."""
+    ns = hints.seq_shard_count()
+    if seq_len % ns or (seq_len // ns) * top_k < n_experts:
+        return 1
+    return ns
 
-    Routing as ``moe_route``; a dropped slot carries a zero value into
-    cell (E-1, C-1); the output is summed over k in x.dtype; aux = E *
-    sum(frac * prob) with frac from the top-1 choice. Kept slots map one to
-    one onto buffer cells, so the scatter-add and the gather are each
-    other's transposes, which autograd gives without the reference's
-    custom_vjp. The reference's expert-parallel branch (``ep=True``,
-    one-hot einsums) is the same function and takes this dispatch too."""
+
+def _moe_aux(r: MoERoute, E: int, rows=None):
+    """aux = E * sum(frac * prob): frac the share of tokens whose top
+    choice is each expert, prob the mean gate, over every token of the
+    (micro-)batch. On a grid each rank sees a slice of the tokens (``rows``:
+    the sequence positions it owns of a gathered sequence), so the counts
+    are summed over the token axes before the product (a product of
+    means is not the mean of the ranks' products); the value is the global
+    aux on every rank, the gradient this rank's share of it."""
+    top1 = F.one_hot(r.idx[..., 0], E).to(torch.float32)
+    if not hints.active():
+        frac = torch.mean(top1, dim=(0, 1))
+        prob = torch.mean(r.gate_all, dim=(0, 1))
+        return E * torch.sum(frac * prob)
+    gate = r.gate_all
+    if rows is not None:
+        top1, gate = top1[:, rows[0]:rows[1]], gate[:, rows[0]:rows[1]]
+    prob_s = gate.sum(dim=(0, 1))
+    n = torch.full((1,), float(top1.shape[0] * top1.shape[1]),
+                   device=gate.device)
+    tot = hints.reduce_sum(torch.cat([top1.sum(dim=(0, 1)), prob_s.detach(),
+                                      n]), hints.token_axes(), "moe_aux")
+    frac, prob, cnt = tot[:E], tot[E:2 * E], tot[2 * E]
+    share = E * torch.sum(frac / cnt * (prob_s / cnt))
+    return (share - share.detach()) + E * torch.sum(frac / cnt * (prob / cnt))
+
+
+def moe_apply(x, lp, n_experts: int, top_k: int,
+              capacity_factor: float = 1.25, ep: bool = False):
+    """Capacity-based top-k MoE with shard-local dispatch, x: (B, S, D) ->
+    (out (B, S, D), aux), the reference's ``moe_apply``.
+
+    The sequence splits into ns shards (``moe_seq_shards``), each with its
+    own capacity: off a grid x is viewed as (B * ns, S / ns) rows; on a grid
+    x is this rank's (B, S_loc) slice, one shard, unless ns falls back to 1,
+    when the sequence is gathered first and this rank keeps its positions
+    of the output. Routing as ``moe_route``; a dropped slot carries a zero
+    value into cell (E-1, C-1); the output is summed over k in x.dtype; the
+    aux as ``_moe_aux``. Kept slots map one to one onto buffer cells, so the
+    scatter-add and the gather are each other's transposes, which autograd
+    gives without the reference's custom_vjp.
+
+    ``ep`` (a grid whose seq axes hold the experts, E/n of them a rank, in
+    ``lp``): the (B, E, C, D) buffer goes to the experts' ranks and back by
+    ``hints.expert_swap``, and this rank runs its experts' einsums over
+    every shard's cells. The reference's ``ep`` branch dispatches by one-hot
+    einsums; each kept cell receives exactly one value and every other term
+    is a zero, so its buffer holds the values this ``index_put`` writes
+    (and its combine reads the cells this gather reads)."""
     B, S, D = x.shape
     E, k = n_experts, top_k
+    grid = hints.active()
+    ns = moe_seq_shards(hints.seq_len(S), E, k)
+    rows = None
+    if grid and ns == 1 and hints.seq_shard_count() > 1:
+        rows = hints.seq_bounds(hints.seq_len(S))
+        x = hints.gather_seq(x, keep=False, use="moe_seq")
+    elif not grid and ns > 1:
+        x = x.reshape(B * ns, S // ns, D)      # the reference's (B, ns, S_loc)
+    Bv, Sv = x.shape[:2]
     r = moe_route(x, lp["router"], E, k, capacity_factor)
-    b_idx = torch.arange(B, device=x.device)[:, None].expand(B, S * k)
-    vals = x[:, :, None, :].expand(B, S, k, D).reshape(B, S * k, D)
+    b_idx = torch.arange(Bv, device=x.device)[:, None].expand(Bv, Sv * k)
+    vals = x[:, :, None, :].expand(Bv, Sv, k, D).reshape(Bv, Sv * k, D)
     vals = torch.where(r.keep[..., None], vals, 0).to(x.dtype)
-    buf = torch.zeros((B, E, r.capacity, D), dtype=x.dtype, device=x.device)
+    buf = torch.zeros((Bv, E, r.capacity, D), dtype=x.dtype,
+                      device=x.device)
     buf = buf.index_put((b_idx, r.e_idx, r.p_idx), vals, accumulate=True)
+    if ep:
+        buf = hints.expert_swap(buf, True)     # (n, Bv, E/n, C, D)
+        buf = buf.reshape((-1,) + tuple(buf.shape[2:]))
     h = torch.einsum("becd,edf->becf", buf, lp["w1"])
     g3 = torch.einsum("becd,edf->becf", buf, lp["w3"])
-    y = torch.einsum("becf,efd->becd", F.silu(h) * g3, lp["w2"])
-    out_slots = y.to(x.dtype)[b_idx, r.e_idx, r.p_idx]         # (B, S*k, D)
+    y = torch.einsum("becf,efd->becd", F.silu(h) * g3, lp["w2"]).to(x.dtype)
+    if ep:
+        y = hints.expert_swap(y.reshape((-1, Bv) + tuple(y.shape[1:])),
+                              False)
+    out_slots = y[b_idx, r.e_idx, r.p_idx]                    # (Bv, S*k, D)
     out_slots = torch.where(r.keep[..., None], out_slots, 0) \
-        * r.gates.reshape(B, S * k)[..., None].to(x.dtype)
-    out = out_slots.reshape(B, S, k, D).sum(dim=2)
-    frac = torch.mean(F.one_hot(r.idx[..., 0], E).to(torch.float32),
-                      dim=(0, 1))
-    prob = torch.mean(r.gate_all, dim=(0, 1))
-    return out, E * torch.sum(frac * prob)
+        * r.gates.reshape(Bv, Sv * k)[..., None].to(x.dtype)
+    out = out_slots.reshape(Bv, Sv, k, D).sum(dim=2)
+    aux = _moe_aux(r, E, rows)
+    if rows is not None:
+        out = out[:, rows[0]:rows[1]]
+    return out.reshape(B, S, D), aux
 
 
 def chunked_ce(x, head, targets, mask=None, chunk: int = 512):

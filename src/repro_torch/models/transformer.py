@@ -8,15 +8,21 @@ F)``, ``ln1: (L, D)``, ...), so ``wire.TreeSpec`` order, weight carry-over
 and the flat wire line up with the reference. The forward walks the layers
 in a Python loop over the stacked slices (the reference's ``lax.scan``).
 
-Under a grid (``launch/hints.py``; the dense family's model-sharded
-replica) the params are this rank's shards: each layer gathers its weights
-(``fsdp_gather``), computes on this rank's sequence slice and keeps its
-output there (``seq_shard``), as the reference's ``_layer`` does; each layer
-is rematerialized (``torch.utils.checkpoint``, non-reentrant) keeping the
-gathered K/V, and the gathered weights under ``remat_save_weights``, the
-reference's ``_remat_policy``. The loss is the global token mean: local
-sums, then one all-reduce of the sum and the count over the replica axes.
-Off a grid every hint is the identity and nothing is rematerialized.
+Under a grid (``launch/hints.py``; the model-sharded replica of the dense,
+MoE and VLM families) the params are this rank's shards: each layer gathers
+its weights (``fsdp_gather``), computes on this rank's sequence slice and
+keeps its output there (``seq_shard``), as the reference's ``_layer`` does;
+each layer is rematerialized (``torch.utils.checkpoint``, non-reentrant)
+keeping the gathered K/V, and the gathered weights under
+``remat_save_weights``, the reference's ``_remat_policy``. MoE experts are
+gathered like any weight (replicated experts, granite) or, under
+``moe_ep`` where the grid stores E over the sequence axes, keep their E
+shard and take the dispatch by an all-to-all (llama4, jamba); the f32
+router's gradient is summed over the replica axes as any replicated leaf's.
+The loss is the global token mean: local sums, then one all-reduce of the
+sum and the count over the replica axes; the MoE aux is global too
+(``layers._moe_aux``) and enters it once. Off a grid every hint is the
+identity and nothing is rematerialized.
 """
 from __future__ import annotations
 
@@ -60,21 +66,38 @@ def init_params(gen: torch.Generator, cfg, device="cpu") -> Dict[str, Any]:
     return p
 
 
-def _ffn(cfg, hn, lp):
+def _ffn(cfg, hn, lp, ep: bool = False):
     """-> (y, aux) of the layer's MLP or MoE on the normed hidden."""
     if cfg.moe_experts > 0:
-        return L.moe_apply(hn, lp["moe"], cfg.moe_experts, cfg.moe_topk)
+        return L.moe_apply(hn, lp["moe"], cfg.moe_experts, cfg.moe_topk,
+                           ep=ep)
     return L.swiglu(hn, lp["mlp"]), 0.0
 
 
+def _expert_parallel(cfg, local_seq: int) -> bool:
+    """Whether this grid runs the MoE expert-parallel: ``moe_ep``, the
+    reference's ns equal to the grid's sequence shards (no fallback to
+    one), and the experts' E dimension stored over the sequence axes."""
+    if not (cfg.moe_ep and hints.active()):
+        return False
+    ns = L.moe_seq_shards(hints.seq_len(local_seq), cfg.moe_experts,
+                          cfg.moe_topk)
+    return ns > 1 and hints.sharded_over(("moe", "w1"), 1, hints.seq_axes())
+
+
 def _layer(cfg, x, lp, positions):
-    # FSDP: the layer's weight shards gathered just in time (MoE experts
-    # are expert-parallel in the reference and are not gathered)
-    lp = hints.fsdp_gather(lp, skip=("moe",))
+    # FSDP: the layer's weight shards gathered just in time; expert-
+    # parallel experts keep their E shard (gathered over the other axes)
+    ep = cfg.moe_experts > 0 and _expert_parallel(cfg, x.shape[1])
+    g = hints.fsdp_gather({k: v for k, v in lp.items() if k != "moe"})
+    if "moe" in lp:
+        g["moe"] = hints.fsdp_gather(
+            lp["moe"], ("moe",), keep_axes=hints.seq_axes() if ep else ())
+    lp = g
     h = x + L.attention(L.rms_norm(x, lp["ln1"]), lp["attn"],
                         cfg.attn_cfg(), positions)
     h = hints.seq_shard(h)
-    y, aux = _ffn(cfg, L.rms_norm(h, lp["ln2"]), lp)
+    y, aux = _ffn(cfg, L.rms_norm(h, lp["ln2"]), lp, ep)
     return hints.seq_shard(h + y), aux
 
 
@@ -97,14 +120,20 @@ def _layer_params(params, cfg):
                                              "ln2")}, cfg.n_layers)
 
 
-def forward_hidden(params, tokens, cfg, *, embeds=None):
-    """tokens (B, S), or ``embeds`` (B, S, D) cast to cfg.dtype in their
-    place -> (final-norm hidden states (B, S, D), layer-mean MoE aux)."""
-    src = tokens if embeds is None else embeds
-    positions = hints.local_positions(src.shape[0], src.shape[1],
+def forward_hidden(params, tokens, cfg, *, prefix=None):
+    """tokens (B, S), with ``prefix`` (B, P, D) (the VLM's image embeds)
+    cast to cfg.dtype in place of the first P tokens' embeddings -> (final-
+    norm hidden states (B, S, D), layer-mean MoE aux). The token embeddings
+    are looked up in ``params["embed"]``, which under a grid is the
+    gathered table whose gradient the gather's backward sums."""
+    positions = hints.local_positions(tokens.shape[0], tokens.shape[1],
                                       params["embed"].device)
-    src = hints.seq_shard(src)
-    x = params["embed"][src] if embeds is None else src.to(cfg.dtype)
+    if prefix is not None:
+        P = prefix.shape[1]
+        x = hints.seq_shard(torch.cat(
+            [prefix.to(cfg.dtype), params["embed"][tokens[:, P:]]], dim=1))
+    else:
+        x = params["embed"][hints.seq_shard(tokens)]
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     layer = _remat_layer if hints.remat_on() else _layer
     for lp in _layer_params(params, cfg):
@@ -117,20 +146,21 @@ def lm_head(params, cfg):
     return params["embed"].T if cfg.tie_embeddings else params["lm_head"]
 
 
-def forward(params, tokens, cfg, *, embeds=None):
+def forward(params, tokens, cfg):
     """Full f32 logits (B, S, V) and the aux (small shapes: O(S*V))."""
-    x, aux = forward_hidden(params, tokens, cfg, embeds=embeds)
+    x, aux = forward_hidden(params, tokens, cfg)
     return (x @ lm_head(params, cfg)).to(torch.float32), aux
 
 
 def loss_fn(params, batch, cfg):
     """Next-token cross entropy, sequence-chunked, + 0.01 * the MoE aux.
-    ``batch`` may carry ``embeds`` (in place of the token embeddings) and a
-    ``loss_mask`` (B, S)."""
+    ``batch`` may carry ``img_embeds`` (a prefix in place of the first
+    tokens' embeddings, the VLM's) and a ``loss_mask`` (B, S)."""
     tokens = batch["tokens"]
     if hints.active():
         return _sharded_loss(params, batch, cfg)
-    x, aux = forward_hidden(params, tokens, cfg, embeds=batch.get("embeds"))
+    x, aux = forward_hidden(params, tokens, cfg,
+                            prefix=batch.get("img_embeds"))
     mask = batch.get("loss_mask")
     mask = mask[:, 1:].to(torch.float32) if mask is not None else None
     ce = L.chunked_ce(x[:, :-1], lm_head(params, cfg), tokens[:, 1:],
@@ -155,7 +185,7 @@ def _sharded_loss(params, batch, cfg):
     p = dict(params)
     p.update(hints.fsdp_gather({k: params[k] for k in _TOP if k in params},
                                stacked=False))
-    x, aux = forward_hidden(p, tokens, cfg, embeds=batch.get("embeds"))
+    x, aux = forward_hidden(p, tokens, cfg, prefix=batch.get("img_embeds"))
     B, S = tokens.shape
     lo, hi = hints.seq_bounds(S)
     b0, b1 = hints.batch_bounds(B)

@@ -39,9 +39,10 @@ _DTYPES = {jnp.float32: torch.float32, jnp.bfloat16: torch.bfloat16}
 
 
 #: the reference's config fields that the port leaves out until code of its
-#: own reads them (ROADMAP queue 3): the expert-parallel layout
+#: own reads them (none since the MoE families run on a grid: ``moe_ep``
+#: is compared like every other field)
 OMITTED_ARCH = set()
-OMITTED_MODEL = {"moe_ep"}
+OMITTED_MODEL = set()
 
 
 def test_registry_lists_the_transformer_archs():

@@ -7,9 +7,17 @@ production-mesh cell traced as rank 0 of a fake process group of 256 ranks.
     term by term.
   * qwen2_5_32b/train_4k on 16 x 16 (all 64 layers) completes and reports
     its bytes, FLOPs and H100 roofline terms.
+  * granite_moe_1b_a400m, internvl2_1b and llama4_scout_17b_a16e (2 of
+    its 48 layers; the full depth is the CLI's, ~2 min) train_4k on 16 x
+    16: the per-rank parameter bytes in closed form (llama4's expert
+    tensors cut along E and d_ff), each peak under the H100's 80 GB, and
+    llama4's expert-parallel dispatch: the all-to-all of each (B_loc, E,
+    C, D) bf16 buffer, both ways, three times a layer a group.
   * The cells the port does not have yet say "not ported" and print no
-    result: other families on a grid, prefill, decode and long_500k.
+    result: the recurrent, hybrid and enc-dec families on a grid, prefill,
+    decode and long_500k.
 """
+import dataclasses
 import json
 
 import numpy as np
@@ -40,13 +48,14 @@ def _shards(arch, mesh_shape, plan):
         axis_names = ("data", "model")
         shape = dict(zip(axis_names, mesh_shape))
     full = family_module(arch.model).param_shapes(arch.model)
-    specs = dict(tree_paths(SH.param_specs(full, M(), plan)))
+    specs = dict(tree_paths(SH.param_specs(
+        full, M(), plan, moe_experts=arch.model.moe_experts)))
     out = {}
     for path, shape in tree_paths(full):
-        dim, axes = SH.spec_dim(specs[path])
         n = 1
-        for a in axes:
-            n *= M.shape[a]
+        for _, axes in SH.spec_dims(specs[path]):
+            for a in axes:
+                n *= M.shape[a]
         out[path] = (int(np.prod(shape)), n)
     return out
 
@@ -117,8 +126,52 @@ def test_qwen25_32b_train_4k_completes():
                ("all_gather", "reduce_scatter", "all_to_all"))
 
 
+@pytest.mark.parametrize("arch_id,layers", [
+    ("granite_moe_1b_a400m", None), ("internvl2_1b", None),
+    ("llama4_scout_17b_a16e", 2)])
+def test_moe_vlm_train_4k_shard_bytes_closed_form(arch_id, layers,
+                                                  monkeypatch):
+    arch = get_arch(arch_id)
+    if layers is not None:
+        arch = dataclasses.replace(arch, model=dataclasses.replace(
+            arch.model, n_layers=layers))
+        monkeypatch.setattr(dryrun, "get_arch", lambda _: arch)
+    res = dryrun.run_cell(arch_id, "train_4k", multi_pod=False)
+    print(json.dumps(res))
+    m = arch.model
+    plan = SH.make_plan(arch, SHAPES["train_4k"], type(
+        "M", (), {"axis_names": ("data", "model"),
+                  "shape": {"data": 16, "model": 16}})())
+    shards = _shards(arch, (16, 16), plan)
+    # bf16 leaves, the f32 MoE router (replicated)
+    assert res["argument_bytes"]["params"] == sum(
+        n * (4 if path[-1] == "router" else 2) // k
+        for path, (n, k) in shards.items())
+    assert res["fits_hbm"] and res["peak_bytes"] < 80e9
+    by_use = res["collectives_by_use"]
+    if m.moe_ep:
+        # llama4: E over model, d_ff over data: 256 shards of each expert
+        # tensor; the dispatch buffer (B_loc, E, C, D) in bf16
+        assert shards[("moe", "w1")][1] == 256
+        B_loc, S_loc = plan.micro // 16, SHAPES["train_4k"].seq_len // 16
+        C = max(1, int(S_loc * m.moe_topk / m.moe_experts * 1.25))
+        swap = B_loc * m.moe_experts * C * m.d_model * 2
+        for use in ("moe_dispatch", "moe_combine"):
+            assert by_use[f"all_to_all:{use}"] == \
+                3 * m.n_layers * plan.client_groups * swap
+        assert res["collectives"]["all_to_all"] > 0
+    elif m.moe_experts:
+        # granite: E = 32 over model, gathered a layer (forward + remat)
+        assert shards[("moe", "w1")][1] == 16
+        assert not any(k.startswith("all_to_all:moe") for k in by_use)
+    else:
+        # internvl2: the vocab (151,655) leaves the table replicated
+        assert shards[("embed",)][1] == 1
+        assert res["argument_bytes"]["batch"] > 0
+
+
 @pytest.mark.parametrize("arch_id,shape", [
-    ("granite_moe_1b_a400m", "train_4k"), ("xlstm_350m", "train_4k"),
+    ("jamba_1_5_large_398b", "train_4k"), ("xlstm_350m", "train_4k"),
     ("qwen2_0_5b", "prefill_32k"), ("qwen2_0_5b", "decode_32k"),
     ("qwen2_0_5b", "long_500k")])
 def test_cells_not_ported_say_so(arch_id, shape, capsys):

@@ -28,7 +28,9 @@ in 12 encode tiles.
     reference's are within rtol 1e-5 of the reference's single-device round
     (the same numpy params, tokens and keys); the loss within rtol 1e-5.
   * Remat is inert: the same grid without remat, and with the gathered
-    weights kept (``remat_save_weights``), is bit-identical.
+    weights kept (``remat_save_weights``), is bit-identical. So is a bare
+    ``stream`` cohort, which a plan with client axes resolves to the vmap
+    round (``resolve_cohort``'s ``spmd_axes``, equal to the reference's).
   * Each rank's all-to-all bytes are its range plus its shards, in f32.
 """
 import pickle
@@ -116,20 +118,18 @@ def _inputs_shapes():
     return param_shapes(R.arch(False).model)
 
 
-def _assemble(name, recs):
-    """The full params from the ranks' shards (every data row's copy of a
-    replica checked equal)."""
-    grid, plan, specs = _specs(name)
+def assemble(recs, grid, plan, specs):
+    """The full params from the ranks' shards (``specs``: path -> spec;
+    every data row's copy of a replica checked equal; a leaf cut along two
+    dimensions is joined along both)."""
     out = {}
     for path, spec in specs.items():
-        dim, axes = SH.spec_dim(spec)
+        dims = SH.spec_dims(spec)
         pieces = {}
         for rk in recs:
             c = rk["coords"]
             key = tuple(c[a] for a in plan.client_axes)
-            idx = 0
-            for a in axes:
-                idx = idx * grid.shape[a] + c[a]
+            idx = tuple(_index(grid, c, axes) for _, axes in dims)
             got = rk["params"][path]
             if (key, idx) in pieces:
                 np.testing.assert_array_equal(
@@ -138,14 +138,33 @@ def _assemble(name, recs):
         rows = sorted({k for k, _ in pieces})
         full = []
         for key in rows:
-            idxs = sorted(i for k, i in pieces if k == key)
-            full.append(pieces[(key, 0)] if dim is None else np.concatenate(
-                [pieces[(key, i)] for i in idxs], axis=dim))
+            mine = {i: v for (k, i), v in pieces.items() if k == key}
+            # join the innermost cut first
+            for j in reversed(range(len(dims))):
+                joined = {}
+                for i in sorted(mine):
+                    joined.setdefault(i[:j], []).append(mine[i])
+                mine = {i: np.concatenate(v, axis=dims[j][0])
+                        for i, v in joined.items()}
+            full.append(mine[()])
         for f in full[1:]:
             np.testing.assert_array_equal(f.view(np.int32),
                                           full[0].view(np.int32))
         out[path] = full[0]
     return out
+
+
+def _index(grid, coords, axes) -> int:
+    i = 0
+    for a in grid.axis_names:
+        if a in axes:
+            i = i * grid.shape[a] + coords[a]
+    return i
+
+
+def _assemble(name, recs):
+    grid, plan, specs = _specs(name)
+    return assemble(recs, grid, plan, specs)
 
 
 def _client_of(rk, g):
@@ -396,6 +415,55 @@ def test_all_to_all_moves_range_and_shards(run, name):
             groups * 4 * (min(hi, d) - lo) + 4 * shard
         assert r["uplink_bits"] == float(
             d * r["plan"]["n_clients"] * r["plan"]["client_groups"])
+
+
+def test_stream_cohort_on_a_grid_is_the_vmap_round(run):
+    """A bare ``stream`` on a plan with client axes resolves to the vmap
+    plan, as the reference's does given ``spmd_axes``: the grid's round is
+    bit-identical to the ``auto`` one."""
+    _, ranks = run
+    for rk in ranks:
+        x, y = rk["round_regular"], rk["round_regular_stream"]
+        for u, v in zip(x["bytes"], y["bytes"]):
+            np.testing.assert_array_equal(u, v)
+        for p in x["params"]:
+            np.testing.assert_array_equal(x["params"][p].view(np.int32),
+                                          y["params"][p].view(np.int32))
+        assert x["loss"] == y["loss"]
+
+
+@pytest.mark.parametrize("policy", ["auto", "stream", "stream(shard=1)",
+                                    "stream(shard=2,feed=host)", "vmap",
+                                    "stream(devices=2)"])
+def test_resolve_cohort_with_spmd_axes_is_the_reference(policy):
+    """Given a grid plan's client axes, the port's ``resolve_cohort``
+    equals the reference's: ``auto``, ``stream`` and ``vmap`` are the vmap
+    plan, a forced stream raises the same ``ValueError`` text."""
+    axes = ("data",)
+    try:
+        want = JF.resolve_cohort(policy, 16, 1 << 24, spmd_axes=axes)
+    except ValueError as e:
+        with pytest.raises(ValueError) as got:
+            TF.resolve_cohort(policy, 16, 1 << 24, spmd_axes=axes)
+        assert str(got.value) == str(e)
+        assert "forces the streaming plan" in str(e)
+        return
+    assert tuple(TF.resolve_cohort(policy, 16, 1 << 24,
+                                   spmd_axes=axes)) == tuple(want)
+    assert want.mode == "vmap"
+
+
+def test_forced_stream_on_a_grid_raises_the_reference_error():
+    """``build_sharded_round_step`` resolves the cohort with the plan's
+    client axes: a forced stream is the reference's config conflict."""
+    grid = _Grid((2, 2))
+    plan = R.plan_for(grid, False)
+    with pytest.raises(ValueError, match="forces the streaming plan"):
+        TF.build_sharded_round_step(
+            lambda p, b: 0.0, TC.Pipeline("zsign"),
+            TF.FedConfig(n_clients=2), SH.round_context(
+                plan, cohort="stream(shard=1)"), grid=grid, plan=plan,
+            specs={})
 
 
 @pytest.mark.parametrize("spec", ["ef|zsign", "zsign(z=1,sigma=0.01,agg=vote)",

@@ -11,7 +11,8 @@
     encode: bit for bit the reference's ``fused_sign_encode_jnp`` at z =
     inf, and at z = 1 the port's own whole-vector encode (the reference's
     up to the erf rule).
-  * ``_LeafShards`` maps shard elements to leaf positions as slicing does,
+  * ``_LeafShards`` maps shard elements to leaf positions as slicing does
+    (a leaf cut along one dimension or, an expert tensor, along two),
     ``flat_ranges`` cuts whole tiles, ``RangeLayout.flat_coords`` gives a
     shard element's flat coordinate, and each exchange's piece count
     covers what every rank sends and receives.
@@ -198,22 +199,32 @@ def test_e1_over_a_range_is_the_byte_slice(z):
         whole[:, 2 * 1024:5 * 1024].numpy())
 
 
-@pytest.mark.parametrize("shape,dim,n", [((3, 8, 12), 2, 4), ((3, 8, 12), 1,
-                                                              2),
-                                        ((16, 6), 0, 4), ((5, 7), None, 1),
-                                        ((2, 4, 6, 8), 2, 3)])
-def test_leaf_shards_map_like_slicing(shape, dim, n):
+@pytest.mark.parametrize("shape,cuts", [
+    pytest.param((3, 8, 12), ((2, 4),), id="shape0-2-4"),
+    pytest.param((3, 8, 12), ((1, 2),), id="shape1-1-2"),
+    pytest.param((16, 6), ((0, 4),), id="shape2-0-4"),
+    pytest.param((5, 7), (), id="shape3-None-1"),
+    pytest.param((2, 4, 6, 8), ((2, 3),), id="shape4-2-3"),
+    # two cut dimensions: a stacked expert tensor (L, E, D, F) cut along E
+    # and F, and one cut along its first and last dimension
+    pytest.param((3, 4, 5, 6), ((1, 2), (3, 3)), id="experts-1x2-3x3"),
+    pytest.param((4, 6, 8), ((0, 2), (2, 4)), id="first-last-2x4"),
+    pytest.param((2, 4, 3, 2), ((1, 4), (3, 2)), id="experts-1x4-3x2")])
+def test_leaf_shards_map_like_slicing(shape, cuts):
     numel = int(np.prod(shape))
     pos = np.arange(numel).reshape(shape)
-    leaf = TW._LeafShards.of(0, shape, dim, n)
+    leaf = TW._LeafShards.of(0, shape, cuts)
+    n = int(np.prod([c for _, c in cuts])) if cuts else 1
     for k in range(n):
-        if dim is None:
-            shard = pos.reshape(-1)
-        else:
-            c = shape[dim] // n
-            idx = [slice(None)] * len(shape)
-            idx[dim] = slice(k * c, (k + 1) * c)
-            shard = pos[tuple(idx)].reshape(-1)
+        idx = [slice(None)] * len(shape)
+        rem = k
+        for dim, c in reversed(cuts):
+            w = shape[dim] // c
+            idx[dim] = slice(rem % c * w, (rem % c + 1) * w)
+            rem //= c
+        shard = pos[tuple(idx)].reshape(-1)
+        np.testing.assert_array_equal(
+            leaf.position(k, torch.arange(shard.size)).numpy(), shard)
         for x0, x1 in [(0, numel), (5, numel - 3), (7, 8), (0, 1),
                        (numel // 3, numel // 2)]:
             t0, t1 = leaf.count_before(k, x0), leaf.count_before(k, x1)
@@ -234,27 +245,31 @@ def test_range_layout_flat_coords_and_pieces(replica):
     count of each exchange covers the most any rank sends or receives
     (counted here over every pair of ranks)."""
     from repro_torch.launch.mesh import ReplicaGrid
-    leaves = [((16, 6), 0, ("model",)), ((3, 8, 12), 2, replica),
-              ((5, 7), None, ()), ((2, 4, 8192), 1, ("model",))]
-    shapes = tuple(s for s, _, _ in leaves)
+    leaves = [((16, 6), ((0, ("model",)),)), ((3, 8, 12), ((2, replica),)),
+              ((5, 7), ()), ((2, 4, 8192), ((1, ("model",)),)),
+              # an expert tensor (L, E, D, F): E over model, F over data
+              ((2, 4, 6, 8), ((1, ("model",)), (3, ("data",))))]
+    if replica == ("model",):
+        leaves = leaves[:-1]
+    shapes = tuple(s for s, _ in leaves)
     offsets = tuple(int(x) for x in np.cumsum(
         [0] + [int(np.prod(s)) for s in shapes[:-1]]))
     d = offsets[-1] + int(np.prod(shapes[-1]))
     spec = TW.TreeSpec(tuple(str(i) for i in range(len(leaves))), shapes,
                        offsets, d)
-    lays = [TW.RangeLayout(spec, [(dim, axes) for _, dim, axes in leaves],
+    lays = [TW.RangeLayout(spec, [dims for _, dims in leaves],
                            ReplicaGrid((2, 2), ("data", "model"), r, {}),
                            replica, tile=64) for r in range(4)]
     for r, lay in enumerate(lays):
         grid = ReplicaGrid((2, 2), ("data", "model"), r, {})
-        for i, (shape, dim, axes) in enumerate(leaves):
+        for i, (shape, dims) in enumerate(leaves):
             pos = offsets[i] + np.arange(int(np.prod(shape))).reshape(shape)
-            if dim is not None:
+            idx = [slice(None)] * len(shape)
+            for dim, axes in dims:
                 c = shape[dim] // 2 ** len(axes)
-                idx = [slice(None)] * len(shape)
                 k = grid.index(axes)
                 idx[dim] = slice(k * c, (k + 1) * c)
-                pos = pos[tuple(idx)]
+            pos = pos[tuple(idx)]
             got = lay.flat_coords(i, torch.arange(pos.size))
             np.testing.assert_array_equal(got.numpy(), pos.reshape(-1))
     by_me = {lay.me: lay for lay in lays}

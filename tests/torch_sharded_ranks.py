@@ -3,14 +3,17 @@ rank of a 4-rank gloo group on the CPU (a ``FileStore``, no TCP port),
 spawned once per test module. Imports torch, numpy and the port only.
 
 The test process writes the inputs (numpy params of a reduced dense model,
-tokens, fixed pseudo-gradients) to ``<out>/inputs.pkl``; every rank runs
-each scenario of ``SCENARIOS`` through the port's model-sharded round step
+tokens, fixed pseudo-gradients; or, for ``tests/test_torch_sharded_moe.py``,
+the reduced MoE and VLM models' params and batches) to
+``<out>/inputs.pkl``; every rank runs each scenario of ``SCENARIOS`` (or
+``MOE_SCENARIOS``) through the port's model-sharded round step
 (``core/fedavg.build_sharded_round_step``) on a ``ReplicaGrid`` of the
 default group and pickles what it saw to ``<out>/rank<r>.pkl``: its
 coordinates, its range, the pseudo-gradient range and payload bytes of each
 group (recorded at ``Pipeline.encode_range``), the decoded range (at
-``Pipeline.decode_sum``), its param shards after the round, the loss, and
-the collective bytes by kind.
+``Pipeline.decode_sum``), its param shards after the round, the loss, each
+client's MoE aux (recorded at ``transformer.forward_hidden``), and the
+collective bytes by kind.
 """
 from __future__ import annotations
 
@@ -44,27 +47,55 @@ SCENARIOS = {
                                   {"save_weights": True}),
     "round_big_noremat": ((2, 2), True, f"zsign(z=1,sigma={SIGMA})",
                           {"remat": False}),
+    # a bare stream cohort on a plan with client axes is the vmap round
+    "round_regular_stream": ((2, 2), False, f"zsign(z=1,sigma={SIGMA})",
+                             {"cohort": "stream"}),
+}
+
+#: the reduced MoE and VLM models: name -> (arch id, ModelCfg overrides)
+FAMILIES = {"granite": ("granite_moe_1b_a400m", {}),
+            "llama4": ("llama4_scout_17b_a16e", {}),
+            "internvl2": ("internvl2_1b", {}),
+            # a vocab that splits over the model axis: the embedding table
+            # is stored sharded, so the text lookup must read the gathered
+            # table
+            "internvl2_v256": ("internvl2_1b", {"vocab": 256})}
+#: the sequence of the MoE scenarios, and the one whose S_loc * k < E
+#: forces the reference's ns = 1 (llama4: k = 1, E = 4, S_loc = 3)
+MOE_SEQ, MOE_SEQ_NS1 = 32, 6
+_Z1 = f"zsign(z=1,sigma={SIGMA})"
+MOE_SCENARIOS = {
+    "granite_regular": ((2, 2), False, _Z1, {"model": "granite"}),
+    "llama4_big": ((2, 2), True, _Z1, {"model": "llama4"}),
+    "llama4_big_ns1": ((2, 2), True, _Z1, {"model": "llama4",
+                                           "seq": MOE_SEQ_NS1}),
+    "internvl2_regular": ((2, 2), False, _Z1, {"model": "internvl2"}),
+    "internvl2_v256": ((2, 2), False, _Z1, {"model": "internvl2_v256"}),
 }
 
 
-def arch(big: bool, save_weights: bool = False):
-    """The port's ArchConfig of the reduced dense model: regular (clients
-    over data) or big (2 sequential groups, the replica over data x
-    model)."""
-    from repro_torch.configs.common import ArchConfig
+def arch(big: bool, save_weights: bool = False, model=None):
+    """The port's ArchConfig of the reduced dense model, or of the reduced
+    ``FAMILIES[model]``: regular (clients over data) or big (2 sequential
+    groups, the replica over data x model)."""
+    from repro_torch.configs.common import ArchConfig, get_arch
     from repro_torch.models.api import ModelCfg
-    m = ModelCfg(dtype=torch.float32, remat_save_weights=save_weights,
-                 **MODEL)
-    return ArchConfig(arch_id="reduced_dense", model=m, source="test",
-                      big=big, seq_client_groups=2, client_lr=CLR,
-                      server_lr=SLR)
+    if model is None:
+        m = ModelCfg(dtype=torch.float32, remat_save_weights=save_weights,
+                     **MODEL)
+    else:
+        arch_id, over = FAMILIES[model]
+        m = dataclasses.replace(get_arch(arch_id).reduced().model, **over)
+    return ArchConfig(arch_id=model or "reduced_dense", model=m,
+                      source="test", big=big, seq_client_groups=2,
+                      client_lr=CLR, server_lr=SLR)
 
 
-def plan_for(grid, big: bool):
+def plan_for(grid, big: bool, seq: int = SEQ):
     from repro_torch.configs.common import ShapeCfg
     from repro_torch.launch.sharding import make_plan
     # micro-batch 2 per client step
-    return make_plan(arch(big), ShapeCfg("test", "train", SEQ, 4), grid)
+    return make_plan(arch(big), ShapeCfg("test", "train", seq, 4), grid)
 
 
 def _run(name, grid, inputs):
@@ -74,20 +105,22 @@ def _run(name, grid, inputs):
     from repro_torch.core.tree import tree_paths, tree_set
     from repro_torch.launch import hints
     from repro_torch.launch import sharding as SH
+    from repro_torch.models import transformer as TT
     from repro_torch.models.api import build_model, shard_params
-    shape, big, spec, opt = SCENARIOS[name]
-    a = arch(big, opt.get("save_weights", False))
-    plan = plan_for(grid, big)
+    shape, big, spec, opt = {**SCENARIOS, **MOE_SCENARIOS}[name]
+    a = arch(big, opt.get("save_weights", False), opt.get("model"))
+    plan = plan_for(grid, big, opt.get("seq", SEQ))
     bundle = build_model(a.model)
-    shards = shard_params(inputs["params"], a.model, grid, plan,
-                          device="cpu")
+    params = inputs["params"] if "model" not in opt else \
+        inputs["models"][opt["model"]]
+    shards = shard_params(params, a.model, grid, plan, device="cpu")
     # the specs of the FULL shapes
-    full_shapes = {p: np.asarray(v).shape
-                   for p, v in tree_paths(inputs["params"])}
+    full_shapes = {p: np.asarray(v).shape for p, v in tree_paths(params)}
     specs = {}
     for p, s in full_shapes.items():
         tree_set(specs, p, s)
-    specs = SH.param_specs(specs, grid, plan)
+    specs = SH.param_specs(specs, grid, plan,
+                           moe_experts=a.model.moe_experts)
     if opt.get("linear"):
         # the fixed pseudo-gradient of client c is G[c]: a linear loss
         g_shards = [shard_params(g, a.model, grid, plan, device="cpu")
@@ -99,6 +132,10 @@ def _run(name, grid, inputs):
                        zip(tree_paths(p), tree_paths(g_shards[c])))
         batch = {"c": torch.from_numpy(inputs["client_index"][
             :plan.client_groups, :plan.n_clients])}
+    elif "model" in opt:
+        loss_fn = bundle.loss_fn
+        batch = {k: torch.from_numpy(v)
+                 for k, v in inputs["batches"][name].items()}
     else:
         loss_fn = bundle.loss_fn
         batch = {"tokens": torch.from_numpy(
@@ -107,13 +144,19 @@ def _run(name, grid, inputs):
     fcfg = TF.FedConfig(n_clients=plan.n_clients,
                         client_groups=plan.client_groups, local_steps=1,
                         client_lr=CLR, server_lr=SLR)
-    step = TF.build_sharded_round_step(loss_fn, comp, fcfg,
-                                       SH.round_context(plan), grid=grid,
-                                       plan=plan, specs=specs,
-                                       remat=opt.get("remat", True))
+    step = TF.build_sharded_round_step(
+        loss_fn, comp, fcfg,
+        SH.round_context(plan, cohort=opt.get("cohort", "auto")), grid=grid,
+        plan=plan, specs=specs, remat=opt.get("remat", True))
     state = TF.init_server_state(shards, fcfg, comp, TN.prng_key(1))
-    seen = {"x": [], "bytes": [], "decoded": None}
+    seen = {"x": [], "bytes": [], "decoded": None, "aux": []}
     enc, dec = TC.Pipeline.encode_range, TC.Pipeline.decode_sum
+    fwd = TT.forward_hidden
+
+    def forward_hidden(*a, **k):
+        x, aux = fwd(*a, **k)
+        seen["aux"].append(float(aux.detach()))
+        return x, aux
 
     def encode_range(self, keys, x2d, tile0, sigma=None):
         out = enc(self, keys, x2d, tile0, sigma=sigma)
@@ -129,21 +172,41 @@ def _run(name, grid, inputs):
 
     TC.Pipeline.encode_range, TC.Pipeline.decode_sum = encode_range, \
         decode_sum
+    TT.forward_hidden = forward_hidden
     hints.reset_collective_stats()
     try:
         state, m = step(state, batch, np.ones((plan.client_groups,
                                                plan.n_clients), np.float32))
     finally:
         TC.Pipeline.encode_range, TC.Pipeline.decode_sum = enc, dec
+        TT.forward_hidden = fwd
     return {"coords": dict(grid.coords), "plan": dataclasses.asdict(plan),
             "bounds": step.layout(shards).bounds,
             "params": {p: v.numpy() for p, v in tree_paths(state.params)},
             "loss": float(m.loss), "norm": float(m.grad_est_norm),
             "uplink_bits": float(m.uplink_bits),
-            "collectives": hints.collective_totals(0), **seen}
+            "collectives": hints.collective_totals(0),
+            "collective_by_use": {k: v[0] for k, v in
+                                  hints.COLLECTIVES.items()}, **seen}
 
 
-def main(rank: int, world: int, store: str, out: str) -> None:
+def _expert_swap_bf16(grid):
+    """A bf16 (B, E, C, D) buffer, this rank's own values, to the experts'
+    ranks over `model` and back (``hints.expert_swap``), as int16 words."""
+    from repro_torch.launch import hints
+    B, E, C, D = 2, 4, 3, 8
+    x = (torch.arange(B * E * C * D, dtype=torch.float32) / 7
+         + 100 * grid.rank).reshape(B, E, C, D).to(torch.bfloat16)
+    with hints.sharding_hints(grid, ("model",), replica_axes=("model",)):
+        to = hints.expert_swap(x, True)
+        back = hints.expert_swap(to, False)
+    return {"coords": dict(grid.coords),
+            **{k: v.view(torch.int16).numpy()
+               for k, v in (("x", x), ("to", to), ("back", back))}}
+
+
+def main(rank: int, world: int, store: str, out: str,
+         which: str = "dense") -> None:
     import torch.distributed as dist
     torch.set_num_threads(1)
     from repro_torch.launch.mesh import make_replica_grid
@@ -152,11 +215,14 @@ def main(rank: int, world: int, store: str, out: str) -> None:
     dist.init_process_group("gloo", init_method=f"file://{store}",
                             rank=rank, world_size=world,
                             timeout=datetime.timedelta(seconds=300))
+    scenarios = SCENARIOS if which == "dense" else MOE_SCENARIOS
     grids = {s: make_replica_grid(s, ("data", "model"), device_type="cpu")
-             for s in sorted({v[0] for v in SCENARIOS.values()})}
+             for s in sorted({v[0] for v in scenarios.values()})}
     rec = {}
-    for name, (shape, _, _, _) in SCENARIOS.items():
+    for name, (shape, _, _, _) in scenarios.items():
         rec[name] = _run(name, grids[shape], inputs)
+    if which == "moe":
+        rec["expert_swap_bf16"] = _expert_swap_bf16(grids[(2, 2)])
     with open(f"{out}/rank{rank}.pkl", "wb") as f:
         pickle.dump(rec, f)
     dist.barrier()
