@@ -148,8 +148,9 @@ Phases, each of which raises (non-zero exit, no result line) on failure:
      xlstm_round      xlstm-350m (24 blocks: 18 mLSTM + 6 sLSTM, d_model
                       1024, bf16; d = 164,979,856), zsign(z=1,sigma=0.05) at
                       4 clients under vmap, seq 512 (two mLSTM key chunks,
-                      two sLSTM scan chunks), 2 rounds: E1 + R1 once a
-                      round, round 0's held against their plain versions
+                      two sLSTM scan chunks), 1 round (its host-bound
+                      sLSTM scan takes 20-50 s a round): E1 + R1 once,
+                      held against their plain versions
      xlstm_serve      its trained params: 16 requests x 256 greedy steps,
                       the recurrent cache's bytes equal after step 1 and
                       step 256; then in f32, batch 2, 64 positions, the
@@ -170,9 +171,10 @@ Phases, each of which raises (non-zero exit, no result line) on failure:
                       the card), zsign at 4 clients, 2 rounds (E1 + R1 once
                       a round), then 16 greedy decode steps
 5. multi_device, ``stream(shard=K,devices=2)``: two ranks (fresh
-   processes, ``torch.multiprocessing.spawn``) of a gloo group share the
-   one card (NCCL refuses two ranks on one device) and each runs
-   ``launch.train.run`` at full qwen2-0.5B width; each path runs first in
+   processes, ``torch.multiprocessing.spawn``, started once for the three
+   paths) of a gloo group share the one card (NCCL refuses two ranks on
+   one device) and each runs ``launch.train.run`` at full qwen2-0.5B
+   width; each path runs first in
    this process under ``stream(shard=K)``:
      multi_zsign      zsign(z=1, sigma=0.01), 16 clients, shards of 4, 2
                       rounds: each rank E1 (n = 4, (4, 494,034,944) f32)
@@ -202,7 +204,8 @@ Phases, each of which raises (non-zero exit, no result line) on failure:
    against the zsign path's round times.
    ``sharded_replica`` (run before phase 3's paths, while the host's
    memory is free), the model-sharded client replica: four ranks
-   (fresh processes) of a (data=2, model=2) gloo grid share the card and
+   (fresh processes, started once for the five paths) of a (data=2,
+   model=2) gloo grid share the card and
    run ``launch/dryrun.build_train_cell``'s step for real; each path runs
    first in this process without a grid (seed-0 weights, the same tokens
    and keys):
@@ -211,7 +214,18 @@ Phases, each of which raises (non-zero exit, no result line) on failure:
                       `model` (flat ranges of 247,021,568), zsign(z=1,
                       sigma=0.01), E = 1, micro-batch 2, seq 256, 1 round
                       (shard_granite_moe's 2 rounds cover the regular
-                      plan's later round)
+                      plan's later round); then, in the same ranks, one
+                      ``ef|zsign(use_kernel=true)`` round from round 0's
+                      weights and tokens on the range state: F1 once a
+                      rank over its range, R1 over the all-gathered (2,
+                      n_bytes) rows, both bit-exact against their plain
+                      versions; the scale bit-identical across a replica's
+                      ranks and within SHARD_EF_SCALE_RTOL of the
+                      one-process row's; wire bits off the one-process F1
+                      payload only where the pseudo-gradients' signs
+                      differ (at most SHARD_EF_FLIP_SHARE); the padding sent
+                      as +1 with no residual; collective bytes equal to
+                      the dry run's; F1 timed at the range shape
      shard_qwen25_32b qwen2.5-32b at full width with 2 of its 64 layers
                       (d = 2,532,350,976), the big plan: 2 sequential groups
                       of one client, the replica over data x model (ranges
@@ -394,7 +408,8 @@ PATHS = [
 ]
 #: rounds of a path where it is not ROUNDS, and uplink bits per coordinate
 #: where it is not 1
-PATH_ROUNDS = {"dpgauss": 1, "async_zsign": 3, "async_ef_poly": 3}
+PATH_ROUNDS = {"dpgauss": 1, "async_zsign": 3, "async_ef_poly": 3,
+               "xlstm_round": 1}
 PATH_BITS = {"dpgauss": 32, "ef_topk": 64 * 0.01,
              "topk_coord_stream": 64 * 0.01, "qsgd": 2}
 #: paths whose E1 calls the probe records (see _E1Probe)
@@ -631,6 +646,83 @@ DEV = torch.device("cuda", 0)
 def _free():
     gc.collect()
     torch.cuda.empty_cache()
+
+
+def _rank_loop(rank, world, setup, setup_args, jobs, done):
+    """A rank of a ``_RankPool``: joins the group (``setup``), then runs
+    each job ``(fn, args)`` of its queue as ``fn(rank, world, ctx,
+    *args)`` (``ctx`` is what ``setup`` returned) and frees the card's
+    cache and the pinned blocks torch's caching host allocator keeps (the
+    gloo staging of ``launch/hints``) after it, so that none outlives its
+    path into the next one's peaks, until a None."""
+    import torch.distributed as dist
+    ctx = setup(rank, world, *setup_args)
+    while True:
+        job = jobs[rank].get()
+        if job is None:
+            break
+        fn, args = job
+        fn(rank, world, ctx, *args)
+        _free()
+        torch._C._host_emptyCache()
+        done.put(rank)
+    dist.barrier()
+    dist.destroy_process_group()
+
+
+class _RankPool:
+    """``n`` ranks of a gloo group in fresh processes
+    (``torch.multiprocessing.spawn``), started once for every path of a
+    phase: each joins the group once and then runs the jobs ``run`` hands
+    it, one path at a time, so that a path pays for no process start,
+    import, card context or group of its own."""
+
+    def __init__(self, n, setup, setup_args, timeout_s):
+        import torch.multiprocessing as mp
+        spawn = mp.get_context("spawn")
+        self.n, self.timeout_s = n, timeout_s
+        self.jobs = [spawn.SimpleQueue() for _ in range(n)]
+        self.done = spawn.Queue()
+        self.ctx = mp.spawn(_rank_loop, nprocs=n, join=False,
+                            args=(n, setup, setup_args, self.jobs,
+                                  self.done))
+
+    def run(self, fn, *args):
+        """Every rank runs ``fn(rank, world, ctx, *args)``; returns when
+        all have, and raises as ``mp.spawn`` does when a rank failed."""
+        import queue
+        for q in self.jobs:
+            q.put((fn, args))
+        got, t0 = 0, time.time()
+        while got < self.n:
+            try:
+                self.done.get(timeout=1.0)
+                got += 1
+            except queue.Empty:
+                # a rank that failed raises here (the others are ended)
+                self.ctx.join(timeout=0)
+                if time.time() - t0 > self.timeout_s:
+                    raise TimeoutError(f"{fn.__name__}: {got} of "
+                                       f"{self.n} ranks done after "
+                                       f"{self.timeout_s} s")
+
+    def close(self, ok=True):
+        """Ends the ranks: a None to each, then a wait for every exit (a
+        rank that failed raises here); ``ok`` false ends them at once."""
+        if ok:
+            for q in self.jobs:
+                q.put(None)
+            t0 = time.time()
+            while not self.ctx.join(timeout=1.0):
+                if time.time() - t0 > self.timeout_s:
+                    ok = False
+                    break
+        if not ok:
+            for p in self.ctx.processes:
+                if p.is_alive():
+                    p.terminate()
+            for p in self.ctx.processes:
+                p.join()
 
 
 def phase_device_and_build():
@@ -1939,9 +2031,9 @@ def _decode_vs_forward(bundle, params, toks, forward):
 
 def phase_xlstm(dev, smi):
     """xlstm_round: xlstm-350m at full width, zsign(z=1,sigma=0.05) at 4
-    clients under vmap, E = 2, micro-batch 2, seq 512, 2 rounds through
-    launch.train.run: E1 and R1 once a round and equal to their plain
-    versions on round 0. xlstm_serve: the trained params serve 16 requests
+    clients under vmap, E = 2, micro-batch 2, seq 512, 1 round
+    (PATH_ROUNDS) through launch.train.run: E1 and R1 once and equal to
+    their plain versions. xlstm_serve: the trained params serve 16 requests
     x 256 greedy steps; the recurrent cache has the same bytes after step 1
     and step 256 and its state moved; then the params cast to f32, batch 2,
     64 positions: the one-token recurrence against the teacher-forced
@@ -2754,15 +2846,12 @@ def _multi_run(label, flags, shard, rounds, devices, ref_path=None,
     return rec
 
 
-def _rank_worker(rank, world, store, label, flags, shard, rounds, ref_path,
-                 out):
-    """One rank of the multi-device phase, in a fresh process: joins the
-    gloo group through a FileStore, runs its part of the path and writes
-    its record to ``out.format(rank)``."""
+def _multi_setup(rank, world, store):
+    """A rank of the multi-device phase, once for every path: joins the
+    gloo group through a FileStore."""
     import datetime
-    import torch.distributed as dist
     os.environ["LOCAL_RANK"] = str(rank)
-    # four ranks share the card: cached blocks that fit no later request
+    # two ranks share the card: cached blocks that fit no later request
     # would hold several GB a rank (before this process touches the card)
     os.environ["PYTORCH_CUDA_ALLOC_CONF"] = "expandable_segments:True"
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -2771,6 +2860,14 @@ def _rank_worker(rank, world, store, label, flags, shard, rounds, ref_path,
     make_cohort_group(init_method=f"file://{store}", rank=rank,
                       world_size=world, verbose=rank == 0,
                       timeout=datetime.timedelta(seconds=MULTI_TIMEOUT_S))
+
+
+def _rank_worker(rank, world, ctx, label, flags, shard, rounds, ref_path,
+                 out):
+    """One path on a rank of the multi-device phase (``_multi_setup``'s
+    group): runs its part of the path and writes its record to
+    ``out.format(rank)``."""
+    import torch.distributed as dist
     rec = _multi_run(label, flags, shard, rounds, world, ref_path=ref_path)
     rec.update(rank=rank, backend=dist.get_backend(),
                device=f"cuda:{torch.cuda.current_device()}",
@@ -2778,7 +2875,6 @@ def _rank_worker(rank, world, store, label, flags, shard, rounds, ref_path,
     with open(out.format(rank), "w") as f:
         json.dump(rec, f)
     dist.barrier()
-    dist.destroy_process_group()
 
 
 def _reduce_alone(flags, world, reps=2):
@@ -2818,8 +2914,8 @@ def _reduce_alone(flags, world, reps=2):
 
 def phase_multi_device(dev, smi):
     """multi_device: each of MULTI_PATHS first in this process under
-    stream(shard=K), then as two ranks (``torch.multiprocessing.spawn``,
-    fresh processes) running ``launch.train.run`` under
+    stream(shard=K), then on two ranks (fresh processes, ``_RankPool``,
+    spawned once for every path) running ``launch.train.run`` under
     stream(shard=K,devices=2) on the one card. Params after every round
     equal on both ranks and, for zsign and trimmed, to the one-process
     run's; EF: residual rows equal to it, the decoded f32 update and every
@@ -2830,11 +2926,15 @@ def phase_multi_device(dev, smi):
     most 2 x the accumulator's bytes + 8 a rank."""
     import shutil
     import tempfile
-    import torch.multiprocessing as mp
     from repro_torch.kernels.zsign.ops import TILE
     d_pad = -(-QWEN2_COORDS // TILE) * TILE
     out, tmp = {}, tempfile.mkdtemp(prefix="chip_smoke_multi_")
+    ranks_pool, ok = None, False
     try:
+        # the ranks start beside the first path's one-process run
+        ranks_pool = _RankPool(MULTI_RANKS, _multi_setup,
+                               (os.path.join(tmp, "group.store"),),
+                               MULTI_TIMEOUT_S)
         for label, flags, shard, rounds, want in MULTI_PATHS:
             ref = (os.path.join(tmp, label + "_ref.pt")
                    if label == "multi_ef" else None)
@@ -2843,10 +2943,9 @@ def phase_multi_device(dev, smi):
                                                    rounds, 1, save_ref=ref)))
             rec_path = os.path.join(tmp, label + "_rank{}.json")
             t0 = time.time()
-            mp.spawn(_rank_worker, nprocs=MULTI_RANKS, join=True,
-                     args=(MULTI_RANKS, os.path.join(tmp, label + ".store"),
-                           label, flags, shard, rounds, ref, rec_path))
-            spawn_s = time.time() - t0
+            ranks_pool.run(_rank_worker, label, flags, shard, rounds, ref,
+                           rec_path)
+            ranks_s = time.time() - t0
             ranks = []
             for r in range(MULTI_RANKS):
                 with open(rec_path.format(r)) as f:
@@ -2854,8 +2953,11 @@ def phase_multi_device(dev, smi):
             if ref is not None:
                 os.unlink(ref)
             out.update(_multi_checks(label, flags, rounds, want, one, ranks,
-                                     d_pad, spawn_s, smi))
+                                     d_pad, ranks_s, smi))
+        ok = True
     finally:
+        if ranks_pool is not None:
+            ranks_pool.close(ok)
         shutil.rmtree(tmp, ignore_errors=True)
     return out
 
@@ -2873,7 +2975,7 @@ def _plain_shapes(label, who, rec, d_pad):
                              f"plain versions at {got}, want {want}")
 
 
-def _multi_checks(label, flags, rounds, want, one, ranks, d_pad, spawn_s,
+def _multi_checks(label, flags, rounds, want, one, ranks, d_pad, ranks_s,
                   smi):
     """The checks of one multi-device path, its JSON line, and its
     summaries for the kernels line (``<label>`` the ranks' launches
@@ -2955,7 +3057,7 @@ def _multi_checks(label, flags, rounds, want, one, ranks, d_pad, spawn_s,
                               "D2": [rk["counts_by_round"] for rk in ranks]},
         "kernels_vs_plain_round0": [rk.get("vs_plain_round0")
                                     for rk in ranks],
-        "spawn_and_run_s": spawn_s, **checks}))
+        "ranks_run_s": ranks_s, **checks}))
     summed = {k: sum(rk["counts"][k] for rk in ranks)
               for k in ranks[0]["counts"]}
     return {label: {"launches": summed,
@@ -3019,6 +3121,23 @@ SHARD_PG_REL_L2_LATER = {"shard_granite_moe": 0.25}
 SHARD_FLIP_SHARE = 2e-4
 #: SHARD_PEAK_GATED: each rank's peak at most this share of one process's
 SHARD_PEAK_RATIO = 0.6
+#: the path whose ranks also run one EF round (F1 over each rank's range)
+#: after their own rounds, from round 0's params and tokens
+SHARD_EF_PATH = "shard_qwen2"
+SHARD_EF_SPEC = "ef|zsign(use_kernel=true)"
+#: EF's noise-free wire bits that differ from the one-process F1 payload,
+#: over all bits sent: every one lies where the two bf16 pseudo-gradients'
+#: signs differ (checked one by one), so this is the share of such signs,
+#: 1.58e-3 measured on an H100 80GB HBM3 at 700 W, with 2.5x room.
+#: SHARD_FLIP_SHARE is z = 1's, whose noise flips a bit for only a |dp| /
+#: sigma share of a sign difference; a missing sum in a backward (a leaf's
+#: relative L2 of 0.2-1.0) flips a tenth or more of the signs.
+SHARD_EF_FLIP_SHARE = 4e-3
+#: the EF scale mean(|p|) of a grid client against the same client's
+#: one-process row (summed in f64): relative error (the bf16 gradients
+#: differ by their reduce-scatters' order, by relative L2 under
+#: SHARD_PG_REL_L2; a missing sum moves the scale by far more)
+SHARD_EF_SCALE_RTOL = 1e-3
 SHARD_TIMEOUT_S = 600
 #: coordinates a chunk of the ranks' plain checks (a multiple of E1's tile)
 RANGE_CHECK_COORDS = 1 << 26
@@ -3110,6 +3229,48 @@ class _HostPeak(threading.Thread):
         self.join()
         return {"shmem_peak": self.shmem / 1e9, "used_peak": self.used / 1e9,
                 "mem_total": self.total / 1e9}
+
+
+class _Toucher(threading.Thread):
+    """Touches ``pool[lo:]`` (zeroes it) in ascending chunks in the
+    background, once started; ``wait(n)`` returns when ``pool[:n]`` is
+    touched (at once where ``n`` <= ``lo``)."""
+
+    def __init__(self, pool, lo: int, chunk: int = 1 << 28):
+        super().__init__(daemon=True)
+        self.pool, self.upto, self.chunk = pool, lo, chunk
+        self.cv, self.halt = threading.Condition(), False
+
+    def run(self):
+        n = self.pool.numel()
+        try:
+            while self.upto < n and not self.halt:
+                b = min(n, self.upto + self.chunk)
+                self.pool[self.upto:b].zero_()
+                with self.cv:
+                    self.upto = b
+                    self.cv.notify_all()
+        finally:                    # a waiter raises if it stopped short
+            with self.cv:
+                self.halt = True
+                self.cv.notify_all()
+
+    def wait(self, n: int):
+        n = min(n, self.pool.numel())
+        if n <= self.upto:
+            return
+        if self.ident is None:
+            self.start()
+        with self.cv:
+            self.cv.wait_for(lambda: self.upto >= n or self.halt)
+        if self.upto < n:
+            raise RuntimeError(f"touching the row pool stopped at "
+                               f"{self.upto} of {n}")
+
+    def stop(self):
+        self.halt = True
+        if self.ident is not None:
+            self.join()
 
 
 def _shard_one(label, arch_id, layers, rounds, seq, gbatch, tmp, pool):
@@ -3336,32 +3497,190 @@ def _range_vs_row(x, row, lo, hi, spec):
             "coords_differing": differing, "coords": hi - lo}
 
 
-def _shard_rank(rank, world, store, label, arch_id, layers, rounds, seq,
-                gbatch, tmp, rows, out):
-    """One rank of the 2 x 2 grid, in a fresh process: joins the gloo group
-    (four ranks share cuda:0), builds the dry run's train cell
-    (``dryrun.build_train_cell``), takes its shards of the seed-0 weights,
-    runs the rounds and writes its record to ``out.format(rank)``."""
-    import datetime
+class _EfRangeProbe:
+    """Stands in for the F1 module inside ``core.compression`` on the
+    sharded EF round: the range's F1 launch is held against
+    ``ef_sign_rows_plain`` on the same range row, residual (before the
+    launch, which writes over it), scale and live mask, in tile-aligned
+    chunks of RANGE_CHECK_COORDS (F1 is elementwise: a chunk's payload and
+    residual are the slices of the whole range's); payload bytes and
+    residual bit patterns equal. Its temporaries are kept out of the
+    rank's peak, as ``_RangePlainProbe``'s. Records the scale's bits."""
+
+    def __init__(self, eops):
+        self._eops, self.seen, self.peak = eops, {}, 0
+
+    def __getattr__(self, name):
+        return getattr(self._eops, name)
+
+    def ef_sign_rows(self, g2d, e2d, scale, **kw):
+        torch.cuda.synchronize()
+        self.peak = max(self.peak, torch.cuda.max_memory_allocated())
+        e0 = e2d.clone()
+        got = self._eops.ef_sign_rows(g2d, e2d, scale, **kw)
+        torch.cuda.synchronize()
+        real = e2d.shape[1]
+        for a in range(0, g2d.shape[1], RANGE_CHECK_COORDS):
+            b = min(g2d.shape[1], a + RANGE_CHECK_COORDS)
+            v = min(b, real)
+            if v <= a:
+                raise AssertionError("F1 check: a chunk of padding only")
+            want = self._eops.ef_sign_rows_plain(
+                g2d[:, a:b], e0[:, a:v].clone(), scale,
+                **{**kw, "in_place": False})
+            if not (_same_bits(got[0][:, a // 8:b // 8], want[0])
+                    and _same_bits(got[1][:, a:v], want[1])):
+                raise AssertionError("F1 over a range: differs from the "
+                                     "plain version")
+            del want
+        self.seen["ef_sign"] = {
+            "shape": list(g2d.shape), "residual": list(e2d.shape),
+            "max_abs_err": 0.0,
+            "scale": float(scale[0]),
+            "scale_bits": int(scale.view(torch.int32)[0])}
+        del e0
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        return got
+
+
+def _shard_ef_round(grid, arch, seq, gbatch, dev, rows):
+    """One ``SHARD_EF_SPEC`` round of the dry run's train cell on this
+    rank's grid, from the seed-0 weights and round 0's tokens (the zsign
+    rounds' first): F1 once over this rank's range and R1 over the
+    all-gathered (2, n_bytes) rows, each held to its plain version; the
+    payload's bits against the one-process pseudo-gradient row's signs
+    (round 0's rows, ``rows``, are what F1 sends for it with a zero
+    residual). -> the record."""
     import torch.distributed as dist
+    from repro_torch.core import compression, wire
+    from repro_torch.core import fedavg as TF
+    from repro_torch.core import noise as TN
+    from repro_torch.kernels.efsign import ops as eops
+    from repro_torch.kernels.zsign import ops
+    from repro_torch.launch import dryrun, hints
+    from repro_torch.models.api import shard_params
+    step, example, plan = dryrun.build_train_cell(
+        arch, _shard_shape(seq, gbatch), grid, pipeline=SHARD_EF_SPEC)
+    full = _shard_init(arch, dev)
+    shards = shard_params(full, arch.model, grid, plan, device=dev)
+    del full
+    layout = step.layout(shards)
+    lo, hi = layout.bounds
+    d = layout.spec.n_coords
+    state = TF.init_server_state(shards, example["fcfg"], example["comp"],
+                                 TN.prng_key(1), layout=layout)
+    del shards
+    batch = _shard_batch(plan, arch.model, seq, 0, dev)
+    mask = torch.ones((plan.client_groups, plan.n_clients))
+    client = grid.index(plan.client_axes)
+    seen = {}
+    enc = compression.Pipeline.encode_range
+
+    def encode_range(self, keys, x2d, tile0, sigma=None, **kw):
+        got = enc(self, keys, x2d, tile0, sigma=sigma, **kw)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        flips, sent, abs_one = 0, min(hi, d) - lo, 0.0
+        row = rows[(0, client)]
+        for a in range(0, sent, RANGE_CHECK_COORDS):
+            b = min(sent, a + RANGE_CHECK_COORDS)
+            x = x2d[0, a:b]
+            r = row[lo + a:lo + b].to(dev)
+            # the one-process row's sum of |p| over this range, in f64
+            abs_one += float(torch.sum(torch.abs(r), dtype=torch.float64))
+            one = r >= 0
+            del r
+            bits = wire.unpack_bits(got["packed"][0, a // 8:-(-b // 8)])[
+                :b - a]
+            off = bits != one
+            if bool(((x[off] >= 0) == one[off]).any()):
+                raise AssertionError("EF: wire bits differ where the "
+                                     "pseudo-gradients' signs agree")
+            flips += int(off.sum())
+            del x, one, bits, off
+        pad = wire.unpack_bits(got["packed"][0])[sent:]
+        seen.update(flips=flips, sent=sent, padding_bits_set=int(pad.sum()),
+                    padding_bits=int(pad.numel()), abs_sum_one_f64=abs_one)
+        seen["check_s"] = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        dist.barrier()
+        return got
+
+    probe, rprobe = _EfRangeProbe(eops), _RangePlainProbe(ops)
+    _free()
+    torch.cuda.reset_peak_memory_stats()
+    hints.reset_collective_stats()
+    wire.reset_reduce_stats()
+    before = _counts()
+    compression.Pipeline.encode_range = encode_range
+    compression.EK, compression.K = probe, rprobe
+    dist.barrier()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    try:
+        state, m = step(state, batch, mask)
+        torch.cuda.synchronize()
+    finally:
+        compression.Pipeline.encode_range = enc
+        compression.EK, compression.K = eops, ops
+    sec = time.perf_counter() - t0 - seen["check_s"]
+    after = _counts()
+    peak = max(probe.peak, rprobe.peak, torch.cuda.max_memory_allocated())
+    e = state.comp_state["ef"]
+    rec = {"sec": sec, "loss": float(m.loss), "peak": peak,
+           "uplink_bits": float(m.uplink_bits),
+           "counts": {k: after[k] - before[k] for k in after},
+           "collective_bytes": hints.collective_totals(0),
+           "collective_by_use": {k: list(v) for k, v in
+                                 hints.COLLECTIVES.items()},
+           "vs_plain": {**probe.seen, **rprobe.seen},
+           "residual_shape": list(e.shape),
+           "residual_padding_nonzero": int(torch.count_nonzero(
+               e[..., min(hi, d) - lo:])),
+           "client": client, **seen}
+    del state, e, batch
+    _free()
+    return rec
+
+
+def _shard_setup(rank, world, store, pool):
+    """A rank of the 2 x 2 grid (four ranks share cuda:0), once for every
+    sharded path: joins the gloo group and makes the grid. -> (the grid,
+    the shared row pool)."""
+    import datetime
     os.environ["LOCAL_RANK"] = str(rank)
     # four ranks share the card: cached blocks that fit no later request
     # would hold several GB a rank (before this process touches the card)
     os.environ["PYTORCH_CUDA_ALLOC_CONF"] = "expandable_segments:True"
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    from repro_torch.core import compression, wire
-    from repro_torch.core import fedavg as TF
-    from repro_torch.core import noise as TN
-    from repro_torch.core.tree import tree_paths, tree_set
-    from repro_torch.kernels.zsign import ops
-    from repro_torch.launch import dryrun, hints
     from repro_torch.launch.mesh import make_replica_grid
-    from repro_torch.models.api import shard_params
     grid = make_replica_grid(
         SHARD_GRID, SHARD_AXES, device_type=DEV.type,
         init_method=f"file://{store}", rank=rank,
         timeout=datetime.timedelta(seconds=SHARD_TIMEOUT_S))
+    return grid, pool
+
+
+def _shard_rank(rank, world, ctx, label, arch_id, layers, rounds, seq,
+                gbatch, tmp, spans, out):
+    """One path on a rank of the 2 x 2 grid (``_shard_setup``'s ``ctx``):
+    builds the dry run's train cell (``dryrun.build_train_cell``), takes
+    its shards of the seed-0 weights, runs the rounds and writes its record
+    to ``out.format(rank)``. ``spans`` places each one-process row in the
+    shared pool: {(round, client): (first element, length)}."""
+    import torch.distributed as dist
+    from repro_torch.core import compression, wire
+    from repro_torch.core import fedavg as TF
+    from repro_torch.core import noise as TN
+    from repro_torch.core.tree import tree_paths
+    from repro_torch.kernels.zsign import ops
+    from repro_torch.launch import dryrun, hints
+    from repro_torch.models.api import shard_params
+    grid, pool = ctx
+    rows = {k: pool[a:a + n] for k, (a, n) in spans.items()}
     # every rank of the one-card machine computes on cuda:0
     dev = DEV
     arch = _shard_arch(arch_id, layers)
@@ -3374,6 +3693,9 @@ def _shard_rank(rank, world, store, label, arch_id, layers, rounds, seq,
     state = TF.init_server_state(shards, example["fcfg"], example["comp"],
                                  TN.prng_key(1))
     layout = step.layout(shards)
+    # the state holds the params: nothing else may keep them past the
+    # rounds (the EF round below measures its own peak)
+    del shards
     lo, hi = layout.bounds
     d = layout.spec.n_coords
     one_bytes = torch.load(os.path.join(tmp, label + "_bytes.pt"))
@@ -3382,8 +3704,8 @@ def _shard_rank(rank, world, store, label, arch_id, layers, rounds, seq,
             "peak": 0}
     enc = compression.Pipeline.encode_range
 
-    def encode_range(self, keys, x2d, tile0, sigma=None):
-        got = enc(self, keys, x2d, tile0, sigma=sigma)
+    def encode_range(self, keys, x2d, tile0, sigma=None, **kw):
+        got = enc(self, keys, x2d, tile0, sigma=sigma, **kw)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         # the check's own buffers are kept out of the rank's peak
@@ -3455,42 +3777,59 @@ def _shard_rank(rank, world, store, label, arch_id, layers, rounds, seq,
     finally:
         compression.Pipeline.encode_range = enc
     peak = max(peak, seen["peak"], torch.cuda.max_memory_allocated())
-    # the params against the one-process run's, shard by shard
-    loaded = torch.load(os.path.join(tmp, label + "_params.pt"), mmap=True)
+    del batch, m, probe
+    outside, differing, off = _shard_params_vs_one(
+        state.params, os.path.join(tmp, label + "_params.pt"), arch, grid,
+        plan, layout, dev)
+    import resource
+    rec = {"rank": rank, "coords": dict(grid.coords),
+           # the process's peak over this path and the ones before it
+           "host_max_rss_GB": resource.getrusage(
+               resource.RUSAGE_SELF).ru_maxrss * 1024 / 1e9,
+           "backend": dist.get_backend(),
+           "device": str(dev), "bounds": [lo, hi], "d": d, "peak": peak, "rounds": per,
+           "flips": seen["flips"], "pg_vs_one_process": seen["pg"],
+           "params_outside_rtol": outside, "params_off_coords": off,
+           "params_differing": differing,
+           "shard_bytes": sum(v.numel() * v.element_size()
+                              for _, v in tree_paths(state.params))}
+    if label == SHARD_EF_PATH:
+        del state
+        _free()
+        rec["ef"] = _shard_ef_round(grid, arch, seq, gbatch, dev, rows)
+    torch.save(rec, out.format(rank))
+    dist.barrier()
+
+
+def _shard_params_vs_one(params, path, arch, grid, plan, layout, dev):
+    """A rank's params against the one-process run's (saved at ``path``),
+    shard by shard, in a frame of its own so that none of its copies
+    outlives it -> (entries outside SHARD_RTOL, entries differing, the flat
+    coordinates of those outside)."""
+    from repro_torch.core.tree import tree_paths, tree_set
+    from repro_torch.models.api import shard_params
+    loaded = torch.load(path, mmap=True)
     tree = {}
     for k, v in loaded.items():
         tree_set(tree, tuple(k.split(".")), v)
     want = shard_params(tree, arch.model, grid, plan, device=dev)
     outside, differing, off = 0, 0, []
-    for i, ((_, a), (_, b)) in enumerate(zip(tree_paths(state.params),
+    for i, ((_, a), (_, b)) in enumerate(zip(tree_paths(params),
                                              tree_paths(want))):
         af, bf = a.float().reshape(-1), b.float().reshape(-1)
         far = torch.nonzero((af - bf).abs() > SHARD_RTOL * bf.abs())
         outside += far.numel()
         off.append(layout.flat_coords(i, far.reshape(-1)).cpu())
         differing += int((a != b).sum())
-    del want, tree, loaded
-    import resource
-    rec = {"rank": rank, "coords": dict(grid.coords),
-           "host_max_rss_GB": resource.getrusage(
-               resource.RUSAGE_SELF).ru_maxrss * 1024 / 1e9,
-           "backend": dist.get_backend(),
-           "device": str(dev), "bounds": [lo, hi], "d": d, "peak": peak, "rounds": per,
-           "flips": seen["flips"], "pg_vs_one_process": seen["pg"],
-           "params_outside_rtol": outside, "params_off_coords": torch.cat(off),
-           "params_differing": differing,
-           "shard_bytes": sum(v.numel() * v.element_size()
-                              for _, v in tree_paths(state.params))}
-    torch.save(rec, out.format(rank))
-    dist.barrier()
-    dist.destroy_process_group()
+    return outside, differing, torch.cat(off)
 
 
-def _shard_predict(arch_id, layers, seq, gbatch, rank):
-    """``dryrun.analyze`` of the same cell for ``rank`` of a fake 2 x 2
-    group (meta tensors, E1 and R1 stood in by their kernels' outputs, the
-    card's route), in a process of its own (``phase_sharded_replica`` runs
-    the four ranks' in a pool beside the one-process run)."""
+def _shard_predict(arch_id, layers, seq, gbatch, rank, pipeline=None):
+    """``dryrun.analyze`` of the same cell (with ``pipeline``, else the
+    arch's codec) for ``rank`` of a fake 2 x 2 group (meta tensors, E1, R1
+    and F1 stood in by their kernels' outputs, the card's route), in a
+    process of its own (``phase_sharded_replica`` runs the four ranks' in a
+    pool beside the one-process run)."""
     import torch.distributed as dist
     from repro_torch.launch import dryrun
     from repro_torch.launch.mesh import make_replica_grid
@@ -3499,8 +3838,8 @@ def _shard_predict(arch_id, layers, seq, gbatch, rank):
     try:
         grid = make_replica_grid(SHARD_GRID, SHARD_AXES, device_type="cpu")
         step, ex, _ = dryrun.build_train_cell(
-            arch, _shard_shape(seq, gbatch), grid, agg_backend="cuda",
-            encode_backend="cuda")
+            arch, _shard_shape(seq, gbatch), grid, pipeline=pipeline,
+            agg_backend="cuda", encode_backend="cuda")
         return dryrun.analyze(step, ex, grid, arch_id)
     finally:
         dist.destroy_process_group()
@@ -3538,8 +3877,137 @@ def _shard_time_e1(dev, lo, hi):
             "bound_ms": bound, "bound_by": by, "bits_differing": nflip}
 
 
+def _shard_time_f1(dev, lo, hi, d):
+    """F1 at a rank's range shape: (1, hi - lo) f32 rows, the (1, real)
+    residual in place and one scale, as the EF grid round runs it; kernel
+    and plain ms (CUDA events) beside the bound, bit-exact first."""
+    from repro_torch.kernels.efsign import ops as eops
+    n, real = hi - lo, min(hi, d) - lo
+    gen = torch.Generator(device=dev).manual_seed(23)
+    g = torch.zeros((1, n), device=dev)
+    g[:, :real] = torch.randn((1, real), generator=gen, device=dev) * 0.01
+    e = torch.randn((1, real), generator=gen, device=dev) * 0.003
+    scale = torch.full((1,), 0.008, device=dev)
+    live = torch.ones((1,), device=dev)
+    got = eops.ef_sign_rows(g, e, scale, live=live)
+    want = eops.ef_sign_rows_plain(g, e, scale, live=live)
+    torch.cuda.synchronize()
+    if not (_same_bits(got[0], want[0]) and _same_bits(got[1], want[1])):
+        raise AssertionError(f"F1 (1, {n}): differs from plain")
+    del got, want
+    _free()
+    ms = _time_ms(lambda: eops.ef_sign_rows(g, e, scale, live=live,
+                                            in_place=True), reps=10,
+                  warmup=2)
+    plain_ms = _time_ms(lambda: eops.ef_sign_rows_plain(
+        g, e, scale, live=live, in_place=True), reps=1)
+    # reads g and e, writes e' and the payload (and the scale, live flag)
+    bound, by = _bound(nbytes=n * 4 + 2 * real * 4 + n / 8 + 8,
+                       ops=n * EF_OPS_PER_ELEM)
+    del g, e
+    _free()
+    return {"shape": [1, n], "residual": [1, real], "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by}
+
+
+def _shard_ef_checks(label, one, ranks, predicted, smi):
+    """The checks of the EF round inside ``label``'s ranks, its JSON line,
+    and its summary for the kernels line: F1 and R1 launched once a rank
+    and bit-exact against their plain versions; the scale bit-identical
+    across a replica's ranks and within SHARD_EF_SCALE_RTOL of the
+    one-process row's; wire bits off the one-process F1 payload only where
+    the pseudo-gradients' signs differ, at most SHARD_EF_FLIP_SHARE of
+    those sent; the padding past d sent as +1 and holding no residual; the
+    state the rank's range; collective bytes equal to the dry run's. The
+    line is printed before the last two gates."""
+    want_counts = {"zsign_encode": 0, "sign_reduce": 1,
+                   "sign_reduce_fold": 0, "ef_sign": 1, "zsign_compress": 0,
+                   "unpack_sum": 0}
+    d = one["d"]
+    scale_err, by_client, scale_grid = 0.0, {}, {}
+    # the one-process scale of each client: mean |p| of its row in f64,
+    # from the partial sums the ranks took over their ranges
+    scale_one = {}
+    for rk in ranks:
+        c = rk["ef"]["client"]
+        scale_one[c] = scale_one.get(c, 0.0) + rk["ef"]["abs_sum_one_f64"] / d
+    n_flips = n_sent = 0
+    for rk, pred in zip(ranks, predicted):
+        r, ef = rk["rank"], rk["ef"]
+        lo, hi = rk["bounds"]
+        got = {k: ef["counts"][k] for k in want_counts}
+        if got != want_counts:
+            raise AssertionError(f"{label} EF: rank {r} launched {got}, "
+                                 f"want {want_counts}")
+        if ef["collective_bytes"] != pred["collectives"]:
+            raise AssertionError(
+                f"{label} EF: rank {r} moved {ef['collective_bytes']}, the "
+                f"dry run counts {pred['collectives']}")
+        seen = ef["vs_plain"]
+        if {k: v["shape"] for k, v in seen.items()} != {
+                "ef_sign": [1, hi - lo], "sign_reduce": [
+                    SHARD_GRID[0], (hi - lo) // 8]} or \
+                seen["ef_sign"]["residual"] != [1, min(hi, d) - lo]:
+            raise AssertionError(f"{label} EF: rank {r}: kernels held to "
+                                 f"their plain versions at {seen}")
+        if ef["residual_shape"] != [1, 1, hi - lo] or \
+                ef["residual_padding_nonzero"] or \
+                ef["padding_bits_set"] != ef["padding_bits"]:
+            raise AssertionError(f"{label} EF: rank {r}: state {ef}")
+        c = ef["client"]
+        bits = seen["ef_sign"]["scale_bits"]
+        if by_client.setdefault(c, bits) != bits:
+            raise AssertionError(f"{label} EF: client {c}'s scale differs "
+                                 "across its replica's ranks")
+        scale_grid[c] = seen["ef_sign"]["scale"]
+        err = abs(seen["ef_sign"]["scale"] - scale_one[c]) / scale_one[c]
+        scale_err = max(scale_err, err)
+        if not err <= SHARD_EF_SCALE_RTOL:
+            raise AssertionError(f"{label} EF: client {c}'s scale "
+                                 f"{seen['ef_sign']['scale']}, one process "
+                                 f"{scale_one[c]} (rel {err})")
+        n_flips += ef["flips"]
+        n_sent += ef["sent"]
+        if not math.isfinite(ef["loss"]):
+            raise AssertionError(f"{label} EF: rank {r} loss {ef['loss']}")
+    f1 = _shard_time_f1(DEV, *ranks[1]["bounds"], d)
+    print(json.dumps({
+        "sharded_ef_round": label, "pipeline": SHARD_EF_SPEC, "card": smi,
+        "grid": dict(zip(SHARD_AXES, SHARD_GRID)),
+        "round_s": [rk["ef"]["sec"] for rk in ranks],
+        "loss": [rk["ef"]["loss"] for rk in ranks],
+        "uplink_bits": [rk["ef"]["uplink_bits"] for rk in ranks],
+        "scale_grid": scale_grid,
+        "scale_one_process_f64": scale_one,
+        "scale_max_rel_err": scale_err,
+        "wire_bits_differing": n_flips, "wire_bits_sent": n_sent,
+        "collective_bytes": [rk["ef"]["collective_bytes"] for rk in ranks],
+        "collective_bytes_dry_run": [p["collectives"] for p in predicted],
+        "collective_by_use": [rk["ef"]["collective_by_use"]
+                              for rk in ranks],
+        "state_bytes_dry_run": [p["state_bytes"] for p in predicted],
+        "peak_GB": {"ranks": [rk["ef"]["peak"] / 1e9 for rk in ranks],
+                    "dry_run": [p["peak_bytes"] / 1e9 for p in predicted]},
+        "kernels_vs_plain": [rk["ef"]["vs_plain"] for rk in ranks],
+        "f1_range": f1}))
+    if n_flips > SHARD_EF_FLIP_SHARE * n_sent:
+        raise AssertionError(f"{label} EF: {n_flips} of {n_sent} wire bits "
+                             "differ from the one-process F1 payload (limit "
+                             f"{SHARD_EF_FLIP_SHARE})")
+    if len({rk["ef"]["loss"] for rk in ranks}) != 1:
+        raise AssertionError(f"{label} EF: the ranks' losses differ")
+    summed = {k: sum(rk["ef"]["counts"][k] for rk in ranks)
+              for k in ranks[0]["ef"]["counts"]}
+    return {label + "_ef": {
+        "launches": summed,
+        "secs": [max(rk["ef"]["sec"] for rk in ranks)],
+        "peak": max(rk["ef"]["peak"] for rk in ranks),
+        "vs_plain": [rk["ef"]["vs_plain"] for rk in ranks],
+        "f1_range": f1}}
+
+
 def _shard_checks(label, layers, rounds, seq, gbatch, one, rows, ranks,
-                  predicted, spawn_s, smi):
+                  predicted, ranks_s, smi):
     """The checks of one sharded path, its JSON line, and its summary for
     the kernels line."""
     plan = one["plan"]
@@ -3674,7 +4142,7 @@ def _shard_checks(label, layers, rounds, seq, gbatch, one, rows, ranks,
         "params_differing": [rk["params_differing"] for rk in ranks],
         "kernels_vs_plain_round0": [rk["rounds"][0]["vs_plain"]
                                     for rk in ranks],
-        "e1_range": e1, "spawn_and_run_s": spawn_s}))
+        "e1_range": e1, "ranks_run_s": ranks_s}))
     summed = {k: sum(rd["counts"][k] for rk in ranks for rd in rk["rounds"])
               for k in ranks[0]["rounds"][0]["counts"]}
     return {label: {"launches": summed,
@@ -3689,10 +4157,30 @@ def _shard_checks(label, layers, rounds, seq, gbatch, one, rows, ranks,
                             "secs": one["round_s"], "peak": one["peak"]}}
 
 
-def phase_sharded_replica(dev, smi):
+def start_shard_predictions():
+    """Every sharded path's dry run (four ranks each; the EF round's cell
+    right after its path's) in a pool of SHARD_RANKS processes on the
+    host's cores, started as early as the caller likes (``main``: before
+    the kernels are built) so that the traces run while the card works.
+    -> (pool, {label: pending results})."""
+    import torch.multiprocessing as mp
+    pool = mp.get_context("spawn").Pool(SHARD_RANKS)
+    pending = {}
+    for p in SHARD_PATHS:
+        pending[p[0]] = pool.starmap_async(
+            _shard_predict, [(p[1], p[2], p[4], p[5], r)
+                             for r in range(SHARD_RANKS)])
+        if p[0] == SHARD_EF_PATH:
+            pending[p[0] + "_ef"] = pool.starmap_async(
+                _shard_predict, [(p[1], p[2], p[4], p[5], r, SHARD_EF_SPEC)
+                                 for r in range(SHARD_RANKS)])
+    return pool, pending
+
+
+def phase_sharded_replica(dev, smi, predictions=None):
     """sharded_replica: each of SHARD_PATHS first in this process without a
-    grid, then as four ranks (``torch.multiprocessing.spawn``, fresh
-    processes) of a (data=2, model=2) gloo grid sharing the one card,
+    grid, then on four ranks (fresh processes, ``_RankPool``, spawned once
+    for every path) of a (data=2, model=2) gloo grid sharing the one card,
     running the dry run's train cell (``dryrun.build_train_cell``) for
     real. Each rank: E1 (with its tile0) and R1 launched as the plan says
     and held to their plain versions on round 0; its collective bytes by
@@ -3705,27 +4193,29 @@ def phase_sharded_replica(dev, smi):
     one process's."""
     import shutil
     import tempfile
-    import torch.multiprocessing as mp
     out, tmp = {}, tempfile.mkdtemp(prefix="chip_smoke_shard_")
+    store = os.path.join(tmp, "grid.store")
     # the one-process rows of every path, one after another, in one shared
-    # host tensor sized for the path that keeps the most; the pages only
-    # that path reaches are touched in the background while the others run
-    # (a copy into fresh pages is ~3x slower)
+    # host tensor sized for the path that keeps the most (a copy into fresh
+    # pages is ~3x slower than into touched ones). The pages past the first
+    # path's rows are touched in the background, in the order the later
+    # paths reach them, from the end of the first path's one-process run on
+    # (a one-process run that copies its rows into fresh pages while they
+    # are touched takes several times longer), and each path waits until
+    # its own rows' pages are touched
     need = {p[0]: _shard_rows(*p[1:]) for p in SHARD_PATHS}
     row_pool = _shared_row(max(need.values()))
-    shared = sorted(need.values())[-2] if len(need) > 1 else 0
-    toucher = threading.Thread(target=row_pool[shared:].zero_)
-    toucher.start()
-    # every path's dry run (four ranks each) on the host's cores, from the
-    # start, while the card runs the paths
-    pool = mp.get_context("spawn").Pool(SHARD_RANKS)
-    pending = {p[0]: pool.starmap_async(
-        _shard_predict, [(p[1], p[2], p[4], p[5], r)
-                         for r in range(SHARD_RANKS)]) for p in SHARD_PATHS}
+    toucher = _Toucher(row_pool, need[SHARD_PATHS[0][0]])
+    # every path's dry run, from ``start_shard_predictions`` (the caller's,
+    # started earlier, or here), while the card runs the paths
+    pool, pending = predictions or start_shard_predictions()
+    ranks_pool, ok = None, False
     try:
+        # the ranks start beside the first path's one-process run
+        ranks_pool = _RankPool(SHARD_RANKS, _shard_setup, (store, row_pool),
+                               SHARD_TIMEOUT_S)
         for label, arch_id, layers, rounds, seq, gbatch in SHARD_PATHS:
-            if need[label] > shared:
-                toucher.join()
+            toucher.wait(need[label])
             avail = _meminfo()["MemAvailable"] / 1e9
             print(f"# {label}: host memory available {avail:.1f} GB")
             host = _HostPeak()
@@ -3734,30 +4224,39 @@ def phase_sharded_replica(dev, smi):
             one, rows = _shard_one(label, arch_id, layers, rounds, seq,
                                    gbatch, tmp, row_pool)
             one_s = time.time() - t0
+            if toucher.ident is None:
+                toucher.start()
             predicted = (pending[label] if pool is None else
                          pending[label].get(timeout=SHARD_TIMEOUT_S))
             predict_s = time.time() - t0
             rec_path = os.path.join(tmp, label + "_rank{}.pt")
+            spans = {k: (v.storage_offset(), v.numel())
+                     for k, v in rows.items()}
             t0 = time.time()
-            mp.spawn(_shard_rank, nprocs=SHARD_RANKS, join=True,
-                     args=(SHARD_RANKS, os.path.join(tmp, label + ".store"),
-                           label, arch_id, layers, rounds, seq, gbatch, tmp,
-                           rows, rec_path))
-            spawn_s = time.time() - t0
+            ranks_pool.run(_shard_rank, label, arch_id, layers, rounds, seq,
+                           gbatch, tmp, spans, rec_path)
+            ranks_s = time.time() - t0
             one["host"] = {"available_before": avail, **host.stop()}
             ranks = [torch.load(rec_path.format(r))
                      for r in range(SHARD_RANKS)]
             out.update(_shard_checks(label, layers, rounds, seq, gbatch,
-                                     one, rows, ranks, predicted, spawn_s,
+                                     one, rows, ranks, predicted, ranks_s,
                                      smi))
+            if label == SHARD_EF_PATH:
+                key = label + "_ef"
+                out.update(_shard_ef_checks(
+                    label, one, ranks,
+                    pending[key] if pool is None else
+                    pending[key].get(timeout=SHARD_TIMEOUT_S), smi))
             print(f"# {label}: one process {one_s:.1f} s, with the dry run "
-                  f"beside it {predict_s:.1f} s, ranks {spawn_s:.1f} s; host "
-                  f"peaks: Shmem {one['host']['shmem_peak']:.2f} GB, in use "
-                  f"{one['host']['used_peak']:.2f} of "
+                  f"beside it {predict_s:.1f} s, ranks {ranks_s:.1f} s; "
+                  f"host peaks: Shmem {one['host']['shmem_peak']:.2f} GB, "
+                  f"in use {one['host']['used_peak']:.2f} of "
                   f"{one['host']['mem_total']:.2f} GB")
             del rows, ranks
             for f in os.listdir(tmp):
-                os.unlink(os.path.join(tmp, f))
+                if os.path.join(tmp, f) != store:
+                    os.unlink(os.path.join(tmp, f))
             _free()
             if pool is not None:
                 # every dry run is done by now: its processes' memory goes
@@ -3767,11 +4266,14 @@ def phase_sharded_replica(dev, smi):
                 pool.close()
                 pool.join()
                 pool = None
+        ok = True
     finally:
+        if ranks_pool is not None:
+            ranks_pool.close(ok)
         if pool is not None:
             pool.terminate()
             pool.join()
-        toucher.join()
+        toucher.stop()
         row_pool.set_()             # the shared pages go now
         shutil.rmtree(tmp, ignore_errors=True)
     return out
@@ -3785,6 +4287,9 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     t_start = time.time()
+    # the sharded phase's dry runs start first: they trace on the host's
+    # cores while the kernels build and the checks below run
+    predictions = start_shard_predictions()
     smi = phase_device_and_build()[1]
     flips_z1 = check_encode_and_reduce(dev)
     check_fold(dev)
@@ -3793,7 +4298,8 @@ def main() -> int:
     # first of the paths: its ranks and files need the host's memory, which
     # the host-fed paths' pinned rows take later
     t_new = time.time()
-    results.update(phase_sharded_replica(dev, smi))
+    print(f"# kernels built and checked at {t_new - t_start:.1f} s")
+    results.update(phase_sharded_replica(dev, smi, predictions))
     print(f"# sharded-replica phase ran {time.time() - t_new:.1f} s")
     for label, flags, per_round in PATHS:
         results[label] = phase_path(label, flags, per_round)
@@ -3932,6 +4438,14 @@ def main() -> int:
             kname, tag = ((kern[:-5], "_fold_vs_plain")
                           if kern.endswith("_fold") else (kern, "_vs_plain"))
             by_name[kname][path + tag] = [s[kern] for s in seen]
+    ef_grid = results[SHARD_EF_PATH + "_ef"]
+    by_name["ef_sign"].update({
+        "launches_range": ef_grid["launches"]["ef_sign"],
+        SHARD_EF_PATH + "_ef_vs_plain": [s["ef_sign"] for s in
+                                         ef_grid["vs_plain"]],
+        SHARD_EF_PATH + "_ef_range": ef_grid["f1_range"]})
+    by_name["sign_reduce"][SHARD_EF_PATH + "_ef_vs_plain"] = [
+        s["sign_reduce"] for s in ef_grid["vs_plain"]]
     for path in (p[0] for p in SHARD_PATHS):
         seen = results[path]["vs_plain"]
         for kname in ("zsign_encode", "sign_reduce"):

@@ -30,7 +30,7 @@ from __future__ import annotations
 import dataclasses
 import math
 import re
-from typing import Optional, Sequence, Tuple
+from typing import Callable, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -148,14 +148,25 @@ def _decode_row(packed: torch.Tensor, d: int, f) -> torch.Tensor:
 
 
 def _mean_abs_rows(p2d: torch.Tensor, d: int,
-                   e2d: Optional[torch.Tensor] = None) -> torch.Tensor:
+                   e2d: Optional[torch.Tensor] = None,
+                   all_sum: Optional[Callable] = None,
+                   n_total: Optional[int] = None) -> torch.Tensor:
     """(n,) f32: mean(|p[c, :d] (+ e[c])|) over the TRUE d coordinates of
-    each row, one client at a time (no (n, d) temporary)."""
+    each row, one client at a time (no (n, d) temporary).
+
+    With ``all_sum`` the rows are flat ranges holding d of the ``n_total``
+    true coordinates of longer vectors (the model-sharded replica): each
+    row's sum of |p| over its range is the partial, ``all_sum(partials,
+    use)`` adds every range's in rank order, and the mean divides by
+    ``n_total``."""
     out = []
     for c in range(p2d.shape[0]):
         row = p2d[c, :d] if e2d is None else p2d[c, :d] + e2d[c]
-        out.append(torch.mean(torch.abs(row)))
-    return torch.stack(out)
+        out.append(torch.mean(torch.abs(row)) if all_sum is None
+                   else torch.sum(torch.abs(row)))
+    if all_sum is None:
+        return torch.stack(out)
+    return all_sum(torch.stack(out), "abs_sum") / float(n_total)
 
 
 def _live_rows(n: int, live: Optional[torch.Tensor]):
@@ -317,11 +328,16 @@ class DPTransform:
             object.__setattr__(self, "calibrated", True)
 
     def apply(self, keys: torch.Tensor, p2d: torch.Tensor, n_coords: int,
-              sigma=None) -> torch.Tensor:
+              sigma=None, all_sum: Optional[Callable] = None) -> torch.Tensor:
         """Clip, then add ``sig * N(0, 1)``, on each row's first n_coords
-        entries IN PLACE (``sigma`` is the engine's dynamic override)."""
+        entries IN PLACE (``sigma`` is the engine's dynamic override). With
+        ``all_sum`` the rows are flat ranges and the clip norm is the
+        whole vectors' (``dp.row_norms``); the noise is then fused into
+        the sign codec (``Pipeline.check_range_encode``)."""
         if self.clip > 0.0:
-            dplib.clip_rows_(p2d, n_coords, self.clip)
+            dplib.clip_rows_(p2d, n_coords, self.clip,
+                             None if all_sum is None else
+                             dplib.row_norms(p2d, n_coords, all_sum))
         if sigma is not None or self.noise > 0.0:
             sig = self.noise if sigma is None else sigma
             for c in range(p2d.shape[0]):
@@ -378,19 +394,29 @@ class SigmaSchedule:
         return torch.from_numpy(np.repeat(self.leaf_multipliers(spec),
                                           self._sizes(spec)))
 
-    def _mul_leaves(self, x: torch.Tensor, spec, factors) -> torch.Tensor:
+    def _mul_leaves(self, x: torch.Tensor, spec, factors,
+                    lo: int = 0) -> torch.Tensor:
+        # column j of x is coordinate lo + j of the TreeSpec's flat order;
+        # a leaf may straddle either end of the columns
+        hi = lo + x.shape[-1]
         for off, size, f in zip(spec.offsets, self._sizes(spec), factors):
-            x[..., off:off + size].mul_(float(f))
+            a, b = max(off, lo), min(off + size, hi)
+            if b > a:
+                x[..., a - lo:b - lo].mul_(float(f))
         return x
 
-    def scale(self, p: torch.Tensor, spec) -> torch.Tensor:
-        """p * m over the last axis, IN PLACE (the padding is untouched)."""
-        return self._mul_leaves(p, spec, self.leaf_multipliers(spec))
+    def scale(self, p: torch.Tensor, spec, lo: int = 0) -> torch.Tensor:
+        """p * m over the last axis, IN PLACE (the padding is untouched);
+        ``lo``: the flat coordinate of p's first column (a range of the
+        model-sharded replica)."""
+        return self._mul_leaves(p, spec, self.leaf_multipliers(spec), lo)
 
-    def unscale(self, g: torch.Tensor, spec) -> torch.Tensor:
-        """g * f32(1 / m) over the last axis, IN PLACE."""
+    def unscale(self, g: torch.Tensor, spec, lo: int = 0) -> torch.Tensor:
+        """g * f32(1 / m) over the last axis, IN PLACE (``lo`` as in
+        ``scale``)."""
         return self._mul_leaves(g, spec,
-                                np.float32(1.0) / self.leaf_multipliers(spec))
+                                np.float32(1.0) / self.leaf_multipliers(spec),
+                                lo)
 
 
 # ---------------------------------------------------------------------------
@@ -576,29 +602,12 @@ class SignCodec:
             if tile0 is not None:
                 raise NotImplementedError(
                     "the dense-noise encode of a flat range waits (ROADMAP:"
-                    " EF/F1 and the other pipelines on a grid)")
+                    " dense z > 1 on a grid)")
             return self._encode_dense(keys, x2d, n_coords, sig, add_noise)
         z = self.z if add_noise else None
         if backend == "cuda":
             return K.zsign_encode(x2d, keys, sig, z, tile0)
         return K.zsign_encode_plain(x2d, keys, sig, z, tile0)
-
-    def encode_range(self, keys: torch.Tensor, x2d: torch.Tensor,
-                     tile0: int, sigma=None) -> torch.Tensor:
-        """The sign encode of flat ranges: (n, 2) keys and (n, len) f32
-        rows holding coordinates [tile0 * 8192, tile0 * 8192 + len) of the
-        clients' pseudo-gradients -> (n, len / 8) uint8, the byte slice of
-        the whole vectors' encode (E1 with ``tile0``)."""
-        n = x2d.shape[0]
-        sig0, add_noise = self._noise_gate(sigma)
-        if isinstance(sig0, torch.Tensor):
-            sig = sig0.to(device=x2d.device, dtype=torch.float32).reshape(
-                1).expand(n).contiguous()
-        else:
-            sig = torch.full((n,), sig0, dtype=torch.float32,
-                             device=x2d.device)
-        return self._encode_bits(keys, x2d, x2d.shape[1], sig, add_noise,
-                                 tile0)
 
     def _noise_gate(self, sigma):
         """-> (sigma, add_noise); the ONE place the noise gate is decided. A
@@ -613,7 +622,9 @@ class SignCodec:
 
     def encode_with_decode_batch(self, keys: torch.Tensor, p2d: torch.Tensor,
                                  n_coords: int, need_decode: bool = False,
-                                 sigma=None):
+                                 sigma=None, tile0: Optional[int] = None,
+                                 all_sum: Optional[Callable] = None,
+                                 n_total: Optional[int] = None):
         """(n, 2) client keys + (n, d_pad) f32 rows (d_pad a multiple of
         8192, zero past n_coords) -> (payload, local decode or None). The
         payload is the (n, d_pad/8) uint8 stack, with ``{"packed",
@@ -622,11 +633,22 @@ class SignCodec:
         attributes to client c's payload (what an ``ef`` residual subtracts
         and a ``cv`` row adds), made one row at a time so the (n, d) decode
         of a cohort never exists. ``sigma`` is the dynamic override (an f32
-        scalar tensor)."""
+        scalar tensor).
+
+        The model-sharded replica encodes flat RANGES: the rows hold
+        coordinates [tile0 * 8192, tile0 * 8192 + d_pad) of longer vectors,
+        n_coords of them true ones, and the payload is the byte slice of
+        the whole vectors' (E1 with ``tile0``). The two statistics that
+        span a whole vector, sto-sign's sigma = ||p|| and the mean_abs
+        scale over the ``n_total`` true coordinates, then come from per-row
+        partials summed over the ranks by ``all_sum(partials, use)``."""
         n = p2d.shape[0]
         sig0, add_noise = self._noise_gate(sigma)
+        # the range keywords only over a range: the one-process calls keep
+        # their plain forms
+        span = {} if all_sum is None else {"all_sum": all_sum}
         if sig0 is None:
-            sig = dplib.row_norms(p2d, n_coords)
+            sig = dplib.row_norms(p2d, n_coords, **span)
         elif isinstance(sig0, torch.Tensor):
             sig = sig0.to(device=p2d.device, dtype=torch.float32).reshape(
                 1).expand(n).contiguous()
@@ -634,7 +656,8 @@ class SignCodec:
             sig = torch.full((n,), sig0, dtype=torch.float32,
                              device=p2d.device)
         if self.scale == "mean_abs":
-            s = _mean_abs_rows(p2d, n_coords)
+            s = _mean_abs_rows(p2d, n_coords, **span,
+                               **({"n_total": n_total} if span else {}))
             if not add_noise:
                 # EF-SignSGD proper: noise-free signs, p >= 0 -> +1 as on
                 # the wire, so the residual accounts exactly for what the
@@ -643,12 +666,13 @@ class SignCodec:
                 def local(c):
                     return torch.where(p2d[c, :n_coords] >= 0, s[c], -s[c])
             else:
-                packed = self._encode_bits(keys, p2d, n_coords, sig, True)
+                packed = self._encode_bits(keys, p2d, n_coords, sig, True,
+                                           tile0)
                 def local(c):
                     return _decode_row(packed[c], n_coords, s[c])
             return ({"packed": packed, "scale": s},
                     local if need_decode else None)
-        packed = self._encode_bits(keys, p2d, n_coords, sig, add_noise)
+        packed = self._encode_bits(keys, p2d, n_coords, sig, add_noise, tile0)
         if not need_decode:
             return packed, None
         if self.sigma_mode == "norm" or not add_noise:
@@ -1233,7 +1257,10 @@ class Pipeline:
                      n_coords: Optional[int] = None, state=None,
                      live: Optional[torch.Tensor] = None, sigma=None,
                      server=None, spec=None,
-                     live_rows: Optional[Sequence[int]] = None):
+                     live_rows: Optional[Sequence[int]] = None, *,
+                     tile0: Optional[int] = None,
+                     all_sum: Optional[Callable] = None,
+                     n_total: Optional[int] = None):
         """Encode a cohort: (n, 2) client keys, (n, d_pad) f32 rows (zero
         past ``n_coords``, which defaults to d_pad), the per-client state
         ``{slot: (n, n_coords)}`` and the (n,) participation mask ``live``
@@ -1250,7 +1277,16 @@ class Pipeline:
         the same tensors); dead clients (``live <= 0``) keep theirs
         bit-exactly. The fused EF path (``ef|zsign(use_kernel=true)``) is
         one launch of F1 over the cohort: at qwen2-0.5B width a second (n,
-        d) residual would cost another 15.8 GB."""
+        d) residual would cost another 15.8 GB.
+
+        With ``tile0`` the rows are flat RANGES of longer vectors (the
+        model-sharded replica, ``encode_range``): coordinates [lo, lo +
+        d_pad), lo = tile0 * 8192, and the payload is the byte slice of the
+        whole vectors' (E1 with ``tile0``). ``all_sum(partials, use)`` then
+        adds the per-row partials of the statistics that span a whole
+        vector (the EF scale over its ``n_total`` true coordinates,
+        sto-sign's sigma, the clip norm) over the ranks holding the other
+        ranges."""
         if self._has_server_state and server is None:
             raise ValueError(
                 "pipeline declares server-scope state slots (control "
@@ -1264,27 +1300,35 @@ class Pipeline:
                 "spec=wire.tree_spec(params) (the engine threads its "
                 "round TreeSpec here)")
         d = flat2d.shape[1] if n_coords is None else n_coords
+        # the range keywords only over ranges: the one-process calls keep
+        # their plain forms
+        span = ({} if all_sum is None
+                else {"all_sum": all_sum, "n_total": n_total})
         if self._use_ef_kernel(sigma):
             e = state["ef"]
             # mean(|g + e|) over the true d, outside the kernel as in the
             # reference
-            scale = _mean_abs_rows(flat2d, d, e)
+            scale = _mean_abs_rows(flat2d, d, e, **span)
             packed, e, _ = EK.ef_sign_rows(flat2d, e, scale, live=live,
                                            in_place=True)
             return {"packed": packed, "scale": scale}, {**state, "ef": e}
+        lo = 0 if tile0 is None else tile0 * ENCODE_TILE
         p = flat2d
         for i, t in enumerate(self.transforms):
             if getattr(t, "needs_tree_spec", False):
-                p = t.scale(p, spec)
+                p = t.scale(p, spec, lo)
             elif getattr(t, "stateful", False):
                 p = t.pre_encode(p, state, server)
             else:
                 p = t.apply(self._stage_key(keys, i), p, d,
-                            sigma=sigma if self._sigma_stage == i else None)
+                            sigma=sigma if self._sigma_stage == i else None,
+                            **({} if all_sum is None
+                               else {"all_sum": all_sum}))
         payload, local = self.codec.encode_with_decode_batch(
             self._stage_key(keys, len(self.transforms)), p, d,
             need_decode=bool(self._stateful_idx),
-            sigma=sigma if self._sigma_stage == "codec" else None)
+            sigma=sigma if self._sigma_stage == "codec" else None,
+            **({} if tile0 is None else {"tile0": tile0, **span}))
         if not self._stateful_idx:
             return payload, state
         rows = (_live_rows(p.shape[0], live) if live_rows is None
@@ -1297,29 +1341,65 @@ class Pipeline:
 
     def check_range_encode(self) -> None:
         """Raise ``NotImplementedError`` unless the pipeline encodes flat
-        ranges (``encode_range``): the model-sharded replica runs zsign and
-        zsign_packed with agg=mean, z in {1, inf} and sigma >= 0, and no
-        transform stage; anything else on a grid waits, and never falls
-        back to the unsharded path."""
+        ranges (``encode_range``). The model-sharded replica runs a sign
+        codec with agg=mean, a fixed sigma >= 0 or sto-sign's norm sigma,
+        z in {1, inf} where there is noise, and the scale none or mean_abs,
+        behind the transform stages ``ef`` (the fused F1 route too),
+        ``cv``, ``sigma_sched`` and ``dp`` (its clip; the noise is fused
+        into the sign codec). Anything else on a grid waits, and never
+        falls back to the unsharded path."""
         c = self.codec
-        ok = (not self.transforms and isinstance(c, SignCodec)
-              and c.agg == "mean" and c.scale == "none"
-              and c.sigma_mode == "fixed" and c.sigma >= 0.0
-              and c.encode_backend != "reference"
-              and (c.sigma == 0.0 or znoise.counter_supported(c.z)))
+        ok = (isinstance(c, SignCodec) and c.agg == "mean"
+              and c.sigma >= 0.0 and c.encode_backend != "reference"
+              and ((c.sigma_mode == "fixed" and c.sigma == 0.0)
+                   or znoise.counter_supported(c.z))
+              and all(isinstance(t, (ErrorFeedback, ControlVariate,
+                                     SigmaSchedule))
+                      or (isinstance(t, DPTransform) and t.noise == 0.0)
+                      for t in self.transforms))
         if not ok:
             raise NotImplementedError(
-                f"pipeline {self.spec!r} on a grid waits (ROADMAP: EF/F1 "
-                f"and the other pipelines on a grid): the model-sharded "
-                f"replica encodes zsign / zsign_packed with agg=mean, z in "
-                f"{{1, inf}} and sigma >= 0, without transform stages")
+                f"pipeline {self.spec!r} on a grid waits (ROADMAP: the "
+                f"other pipelines on a grid): the model-sharded replica "
+                f"encodes sign codecs with agg=mean (z in {{1, inf}} where "
+                f"there is noise), behind ef, cv, sigma_sched and a dp "
+                f"clip")
+
+    @property
+    def scale_weighted(self) -> bool:
+        """True when the payload carries a per-client f32 scale that
+        weighs the aggregate (the mean_abs wire of EF-SignSGD)."""
+        return getattr(self.codec, "scale", "none") == "mean_abs"
 
     def encode_range(self, keys: torch.Tensor, x2d: torch.Tensor,
-                     tile0: int, sigma=None) -> torch.Tensor:
-        """``SignCodec.encode_range`` of the codec (after
-        ``check_range_encode``); ``sigma`` is the dynamic override."""
-        return self.codec.encode_range(self._stage_key(keys, 0), x2d, tile0,
-                                       sigma=sigma)
+                     tile0: int, sigma=None, *,
+                     n_coords: Optional[int] = None, state=None,
+                     server=None, spec=None,
+                     live: Optional[torch.Tensor] = None,
+                     live_rows: Optional[Sequence[int]] = None,
+                     all_sum: Optional[Callable] = None):
+        """``encode_batch`` over flat RANGES (after ``check_range_encode``):
+        (n, 2) client keys and (n, L) f32 rows holding coordinates [lo, lo +
+        L), lo = tile0 * 8192, of the clients' whole pseudo-gradients of
+        ``n_coords`` true coordinates (lo + L by default); zero past them.
+        ``state`` holds the rows' state slots over the same range, ``{slot:
+        (n, L)}``, and ``server`` the server slots' range ``{slot: (L,)}``;
+        the stages see only the range's true coordinates, so the padding of
+        the last range stays zero and feeds no residual. ``spec`` is the
+        whole vectors' ``wire.TreeSpec``; ``all_sum`` as in
+        ``encode_batch`` (None: the range is the whole vector). -> the
+        payload stack, the byte slice of the whole vectors'."""
+        L = x2d.shape[1]
+        lo = tile0 * ENCODE_TILE
+        d = lo + L if n_coords is None else n_coords
+        real = max(0, min(lo + L, d) - lo)
+        st = (None if state is None else
+              {k: v[:, :real] for k, v in state.items()})
+        srv = (None if server is None else
+               {k: v[:real] for k, v in server.items()})
+        return self.encode_batch(keys, x2d, real, st, live, sigma, srv, spec,
+                                 live_rows, tile0=tile0, all_sum=all_sum,
+                                 n_total=d)[0]
 
     def stacks_group_payloads(self) -> bool:
         """Whether the sequential group scan stacks the raw payloads and
@@ -1363,7 +1443,7 @@ class Pipeline:
                              "accumulator: call fold_finalize first")
         return wire.reduce_accumulator(acc, group)
 
-    def _unscale(self, g: torch.Tensor, spec) -> torch.Tensor:
+    def _unscale(self, g: torch.Tensor, spec, lo: int = 0) -> torch.Tensor:
         # invert the tree-structured stages (sigma_sched), last stage first
         if not self._needs_spec:
             return g
@@ -1373,16 +1453,17 @@ class Pipeline:
                 "decode needs the round's wire.TreeSpec — pass spec=")
         for t in reversed(self.transforms):
             if getattr(t, "needs_tree_spec", False):
-                g = t.unscale(g, spec)
+                g = t.unscale(g, spec, lo)
         return g
 
-    def decode_sum(self, enc_sum, n_live, sigma=None, spec=None):
+    def decode_sum(self, enc_sum, n_live, sigma=None, spec=None, lo: int = 0):
         """Server estimate from the ``aggregate`` output and the live count
         (``sigma``: the dynamic override, for the codec only; ``spec``: the
-        round's TreeSpec, required with ``sigma_sched``)."""
+        round's TreeSpec, required with ``sigma_sched``; ``lo``: the flat
+        coordinate of the sum's first entry, a range's on a grid)."""
         sig = sigma if self._sigma_stage == "codec" else None
         return self._unscale(self.codec.decode_sum(enc_sum, n_live,
-                                                   sigma=sig), spec)
+                                                   sigma=sig), spec, lo)
 
 
 # ---------------------------------------------------------------------------

@@ -19,7 +19,7 @@ a test can hold the rest to the reference bit for bit.
 from __future__ import annotations
 
 import math
-from typing import Optional, Sequence
+from typing import Callable, Optional, Sequence
 
 import torch
 
@@ -29,11 +29,22 @@ def l2_norm(flat: torch.Tensor) -> torch.Tensor:
     return torch.linalg.vector_norm(flat)
 
 
-def row_norms(p2d: torch.Tensor, n_coords: int) -> torch.Tensor:
+def row_norms(p2d: torch.Tensor, n_coords: int,
+              all_sum: Optional[Callable] = None) -> torch.Tensor:
     """(n,) f32: the L2 norm of each row over its first ``n_coords``
-    entries, one row at a time (no (n, d) temporary)."""
-    return torch.stack([l2_norm(p2d[c, :n_coords])
+    entries, one row at a time (no (n, d) temporary).
+
+    With ``all_sum`` the rows are flat RANGES of longer vectors whose other
+    ranges lie on other ranks (the model-sharded replica): each row's sum
+    of squares over its range is the partial, ``all_sum(partials, use)``
+    adds the partials of every range in rank order (the same bits on every
+    rank), and the norm is its square root."""
+    if all_sum is None:
+        return torch.stack([l2_norm(p2d[c, :n_coords])
+                            for c in range(p2d.shape[0])])
+    part = torch.stack([torch.sum(torch.square(p2d[c, :n_coords]))
                         for c in range(p2d.shape[0])])
+    return torch.sqrt(all_sum(part, "row_norm"))
 
 
 def clip_factor(nrm: torch.Tensor, max_norm: float) -> torch.Tensor:

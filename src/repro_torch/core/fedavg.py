@@ -169,15 +169,32 @@ def _server_optimizer(cfg: FedConfig) -> Optimizer:
 def init_server_state(params, cfg: FedConfig, compressor, rng: torch.Tensor,
                       sigma0: float = 0.0, host_state: bool = False,
                       ctx: Optional[RoundContext] = None,
-                      group=None) -> ServerState:
+                      group=None, layout=None) -> ServerState:
     """Fresh server state. ``host_state`` puts the per-client state rows in
     host memory (pinned when the params lie on a card), where the
     ``stream(feed=host)`` plan keeps them; the server-scope state stays
     with the params. Given the round's ``ctx`` (and the cohort ``group``,
     the default torch.distributed group when None), a rank of a
     ``stream(devices=D)`` round holds only its own rows, flat: ``{slot:
-    (hi - lo, n_coords)}`` for its ``owned_rows`` (lo, hi)."""
+    (hi - lo, n_coords)}`` for its ``owned_rows`` (lo, hi).
+
+    On the model-sharded replica ``params`` are this rank's shards and
+    ``layout`` is the round step's ``wire.RangeLayout``
+    (``build_sharded_round_step(...).layout(params)``): the rank then
+    holds its flat range [lo, hi) of every slot, ``{slot: (G, 1, hi -
+    lo)}`` for its client of each group and ``{slot: (hi - lo,)}`` of the
+    server slots, with the params (``launch/sharding.range_state_specs``);
+    no rank holds a (d,) row."""
     device = tree_leaves(params)[0].device
+    if layout is not None:
+        lo, hi = layout.bounds
+        return ServerState(
+            params=params, opt_state=_server_optimizer(cfg).init(params),
+            comp_state=compressor.init_state(
+                hi - lo, lead=(cfg.client_groups, 1), device=device),
+            rng=rng, round=0,
+            sigma=torch.tensor(sigma0, dtype=torch.float32, device=device),
+            comp_server=compressor.init_server_state(hi - lo, device=device))
     n_coords = wire.tree_spec(params).n_coords
     rows = None if ctx is None else state_rows(cfg, ctx, n_coords, group)
     # one zero state row per client per slot: (groups, n_clients, ...), or
@@ -800,24 +817,34 @@ def build_sharded_round_step(loss_fn: Callable, compressor, cfg: FedConfig,
     runs its client's local SGD on the sharded replica (``loss_fn`` under
     ``launch/hints.sharding_hints``: FSDP gathers, sequence-parallel
     attention, remat); the per-leaf pseudo-gradient shards move to this
-    rank's flat range in one exchange (``wire.RangeLayout.to_range``); E1
-    encodes the range with its first tile id. After the groups, R1 reduces
-    the range's (G, n_bytes) payload rows under the mask; the ranks that own
-    the same range on the other data rows sum their f32 partials in rank
-    order (``wire.reduce_accumulator`` over the client axes: exact for 0/1
-    masks); the range is decoded, moved back onto the shards
-    (``from_range``) and the server optimizer steps each shard. So no rank
-    holds a (d,) vector or the whole tree, and the payload bytes of a range
+    rank's flat range in one exchange (``wire.RangeLayout.to_range``); the
+    pipeline encodes the range (``Pipeline.encode_range``: the transform
+    stages on the range's state rows, E1 with the range's first tile id, or
+    F1 on the fused EF route), its whole-vector statistics (the EF scale,
+    sto-sign's sigma, the DP clip norm) summed from per-range partials over
+    the replica's ranks in rank order (``hints.all_reduce_sum``). After the
+    groups, R1 reduces the range's (G, n_bytes) payload rows under the
+    mask; the ranks that own the same range on the other data rows sum
+    their f32 partials in rank order (``wire.reduce_accumulator`` over the
+    client axes: exact for 0/1 masks). On the scale-weighted EF wire the
+    f32 sum would depend on that order, so those ranks all-gather their
+    payload rows and scales instead (1 bit a coordinate a client, against
+    the 32 of an f32 partial) and R1 reduces the (G * N, n_bytes) stack in
+    global client order: the one-process round's reduce, byte slice for
+    byte slice. The range is decoded (and the cv server variate's range
+    updated from it), moved back onto the shards (``from_range``) and the
+    server optimizer steps each shard. So no rank holds a (d,) vector, a
+    (G, N, d) state or the whole tree; each keeps its range of every state
+    slot (``init_server_state(layout=)``), and the payload bytes of a range
     are the byte slice of the unsharded round's. The cohort policy is
     resolved as the reference's launcher does, with the plan's client axes
     as ``spmd_axes``: ``auto`` and ``stream`` run this round, a forced
     ``stream(shard=K)`` raises ``ValueError``; on a plan without client
     axes (the big plan's sequential groups), a policy that resolves to a
-    stream plan raises ``NotImplementedError``, as do pipelines other than
-    zsign / zsign_packed (agg=mean, z in {1, inf}), async rounds and
-    adversaries. ``remat``
-    rematerializes each layer (on by default, as in the reference; off
-    only to show that it changes no bit)."""
+    stream plan raises ``NotImplementedError``, as do the pipelines that
+    ``Pipeline.check_range_encode`` refuses, async rounds and adversaries.
+    ``remat`` rematerializes each layer (on by default, as in the
+    reference; off only to show that it changes no bit)."""
     from repro_torch.launch import hints
     from repro_torch.launch.sharding import spec_dims
     ctx = ctx or RoundContext()
@@ -894,19 +921,59 @@ def build_sharded_round_step(loss_fn: Callable, compressor, cfg: FedConfig,
                       for a, b in zip(tree_leaves(params0), tree_leaves(p))]
         return pseudo, torch.stack(losses).mean()
 
+    def check_state(state: ServerState, layout) -> None:
+        lo, hi = layout.bounds
+        for k, v in (state.comp_state or {}).items():
+            if tuple(v.shape) != (G, 1, hi - lo):
+                raise ValueError(
+                    f"state slot {k!r} has shape {tuple(v.shape)}, but this "
+                    f"rank holds its range {lo}..{hi} of its client's rows: "
+                    f"({G}, 1, {hi - lo}); build the state with "
+                    f"init_server_state(..., layout=step.layout(params))")
+        for k, v in (state.comp_server or {}).items():
+            if tuple(v.shape) != (hi - lo,):
+                raise ValueError(
+                    f"server slot {k!r} has shape {tuple(v.shape)}, not this "
+                    f"rank's range ({hi - lo},)")
+
+    def all_sum(group):
+        """The partial-sum hook of ``Pipeline.encode_range``: a per-row
+        partial over this range, summed over the replica's ranks."""
+        if group is None:
+            return lambda t, use: t
+        return lambda t, use: hints.all_reduce_sum(t, group, use)
+
+    def gather_clients(enc):
+        """The scale-weighted payloads of every client of the range, in
+        global client order g * N + c: this rank's (G, n_bytes) rows and
+        (G,) scales all-gathered over the client axes."""
+        packed = hints.all_gather_dim(enc["packed"], client_group, 0,
+                                      "wire_bytes")
+        scale = hints.all_gather_dim(enc["scale"], client_group, 0,
+                                     "wire_scale")
+        nb = packed.shape[-1]
+        return {"packed": packed.reshape(N, G, nb).transpose(0, 1).reshape(
+                    G * N, nb),
+                "scale": scale.reshape(N, G).transpose(0, 1).reshape(G * N)}
+
     def round_step(state: ServerState, batch, mask):
         import time as _time
         params = state.params
         device = tree_leaves(params)[0].device
         layout = layout_for(params)
+        check_state(state, layout)
         lo, hi = layout.bounds
         tile0 = lo // compressor.pad_multiple()
+        d = layout.spec.n_coords
         rng, sub = znoise.split(state.rng)
         mask_all = torch.as_tensor(mask, dtype=torch.float32).reshape(G, N)
         if ctx.debug_wire:
             wire.check_mask_membership(mask_all)
         keys = znoise.client_keys(sub, 0, G * N)
         sigma = state.sigma if ctx.dynamic_sigma else None
+        # what the encodes read besides their rows
+        extra = {"n_coords": d, "all_sum": all_sum(layout.group),
+                 "server": state.comp_server, "spec": layout.spec}
         buf = torch.empty((1, hi - lo), dtype=torch.float32, device=device)
         payloads = []
         loss_sum = torch.zeros((), dtype=torch.float32, device=device)
@@ -919,31 +986,56 @@ def build_sharded_round_step(loss_fn: Callable, compressor, cfg: FedConfig,
                 with torch.no_grad():
                     layout.to_range(pseudo, out=buf[0])
                     del pseudo
+                    w = mask_all[g, c].to(device)
+                    if state.comp_state is not None:
+                        # this client's rows, updated in place; a dead
+                        # client keeps its own
+                        extra["state"] = {k: v[g] for k, v in
+                                          state.comp_state.items()}
+                        extra["live"] = w.reshape(1)
+                        extra["live_rows"] = [0] if mask_all[g, c] > 0 else []
                     payloads.append(compressor.encode_range(
                         keys[g * N + c:g * N + c + 1], buf, tile0,
-                        sigma=sigma))
-                    w = mask_all[g, c].to(device)
+                        sigma=sigma, **extra))
                     loss_sum = loss_sum + torch.where(w > 0, loss * w, 0.0)
         del buf
         with torch.no_grad():
-            packed = torch.cat(payloads)
+            enc = (torch.cat(payloads) if isinstance(payloads[0],
+                                                     torch.Tensor)
+                   else {k: torch.cat([p[k] for p in payloads])
+                         for k in payloads[0]})
             del payloads
-            enc_sum = compressor.aggregate(packed, mask_all[:, c].to(device),
-                                           hi - lo)
+            if compressor.scale_weighted and client_group is not None:
+                enc_sum = compressor.aggregate(
+                    gather_clients(enc),
+                    mask_all.reshape(-1).to(device), hi - lo)
+            else:
+                enc_sum = compressor.aggregate(
+                    enc, mask_all[:, c].to(device), hi - lo)
+                if client_group is not None:
+                    # THE cross-client step: the ranks that own this range
+                    # on the other data rows, in rank order
+                    t0 = _time.perf_counter()
+                    enc_sum = wire.reduce_accumulator(enc_sum, client_group)
+                    hints.record("all_reduce", enc_sum.numel() * 4, t0,
+                                 "client_sum")
+            del enc
             if client_group is not None:
-                # THE cross-client step: the ranks that own this range on
-                # the other data rows, in rank order
-                t0 = _time.perf_counter()
-                enc_sum = wire.reduce_accumulator(enc_sum, client_group)
-                hints.record("all_reduce", enc_sum.numel() * 4, t0,
-                             "client_sum")
                 t0 = _time.perf_counter()
                 loss_sum = wire.reduce_accumulator(loss_sum.reshape(1),
                                                    client_group).reshape(())
                 hints.record("all_reduce", 4, t0, "loss")
             n_live = torch.clamp_min(mask_all.sum(), 1.0).to(device)
-            g_range = compressor.decode_sum(enc_sum, n_live, sigma=sigma)
-            real = max(0, min(hi, layout.spec.n_coords) - lo)
+            g_range = compressor.decode_sum(enc_sum, n_live, sigma=sigma,
+                                            spec=layout.spec, lo=lo)
+            real = max(0, min(hi, d) - lo)
+            if state.comp_server is not None:
+                # the server slots' range (the cv server variate) folds the
+                # decoded range in place, as the one-process round's
+                # _finish folds the decoded vector
+                compressor.update_server(
+                    {k: v[:real] for k, v in state.comp_server.items()},
+                    g_range, n_live, float(G * N))
             sq = torch.sum(torch.square(g_range[:real])).reshape(1)
             if layout.group is not None:
                 sq = hints.all_reduce_sum(sq, layout.group, "norm")
@@ -959,7 +1051,7 @@ def build_sharded_round_step(loss_fn: Callable, compressor, cfg: FedConfig,
                 loss=loss_sum / n_live,
                 grad_est_norm=torch.sqrt(sq[0]),
                 participation=n_live,
-                uplink_bits=n_live * float(layout.spec.n_coords
+                uplink_bits=n_live * float(d
                                            * compressor.wire_bits_per_coord),
                 shard_clients=torch.tensor(0, dtype=torch.int32))
             return ServerState(params=new_params, opt_state=new_opt,

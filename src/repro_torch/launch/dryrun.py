@@ -5,7 +5,9 @@ of the mesh's size, with the per-rank bytes, FLOPs and collective bytes it
 would take, and the analytic roofline terms of the H100.
 
     PYTHONPATH=src python -m repro_torch.launch.dryrun --arch qwen2_5_32b \\
-        --shape train_4k [--multi-pod | --both-meshes] [--out results.json]
+        --shape train_4k [--multi-pod | --both-meshes] [--pipeline SPEC] \\
+        [--agg-backend B] [--encode-backend B] [--cohort POLICY] \\
+        [--adversary SPEC] [--out results.json]
 
 The reference lowers and compiles the jitted step on 512 placeholder TPU
 devices and reads the compiled artifact. The port's counterpart builds the
@@ -17,9 +19,11 @@ has a shape and no storage (``meta`` tensors), every collective returns at
 once, and what the round does is counted, not computed. ``analyze``
 reports for this rank:
 
-  * bytes of the arguments (param shards, server state, batch and mask),
-    of the outputs, and the peak of everything live (``MemTracker``), the
-    reference's ``memory_analysis`` fields;
+  * bytes of the arguments (param shards, server state with this rank's
+    range of each pipeline state slot, batch and mask), of the outputs,
+    and the peak of everything live (``MemTracker``), the reference's
+    ``memory_analysis`` fields; the state slots' bytes in the range layout
+    and in the reference's replicated-coordinate one (``state_bytes``);
   * FLOPs (``FlopCounterMode``);
   * collective bytes by kind (``launch/hints.collective_totals``: the bytes
     of each collective's result, as the reference sums the HLO's), and by
@@ -29,20 +33,24 @@ reports for this rank:
 ``run_cell`` adds ``launch/roofline.terms_for`` with the H100 ``Chip`` (the
 reference's v5e constants are not ported) and the peak against one H100's
 80 GB (``HBM_BYTES``). The trace takes the card's
-route through the wire: E1 and R1 stand in by their kernels' outputs (they
-count and do not compute); on a card ``chip_smoke.py`` runs this same
-``build_train_cell`` step for real on a 2 x 2 grid. Train cells of the
-dense, MoE and VLM families are ported (the MoE experts gathered a layer or,
-under ``moe_ep``, expert-parallel with the dispatch's all-to-alls counted);
-the recurrent, hybrid and enc-dec families on a grid, the prefill and decode
-cells and ``long_500k`` are not yet, and the CLI says so instead of printing
-a result.
+route through the wire (the ``auto`` backends): E1, R1 and F1 stand in by
+their kernels' outputs (they count and do not compute); on a card
+``chip_smoke.py`` runs this same ``build_train_cell`` step for real on a 2
+x 2 grid. Train cells of the dense, MoE and VLM families are ported (the
+MoE experts gathered a layer or, under ``moe_ep``, expert-parallel with the
+dispatch's all-to-alls counted), with the pipelines the grid runs
+(``--pipeline``) and the reference's ``--agg-backend``,
+``--encode-backend``, ``--cohort`` and ``--adversary``; the recurrent,
+hybrid and enc-dec families on a grid, the prefill and decode cells,
+``long_500k``, a wire adversary and the pipelines the grid does not run yet
+are not, and the CLI says so instead of printing a result.
 """
 from __future__ import annotations
 
 import argparse
 import dataclasses
 import json
+import math
 import time
 from typing import Optional
 
@@ -52,6 +60,7 @@ import torch.distributed as dist
 from repro_torch.configs.common import SHAPES, ShapeCfg, get_arch, list_archs
 from repro_torch.core import compression, fedavg
 from repro_torch.core.tree import tree_leaves, tree_map
+from repro_torch.fed.adversary import parse_adversary
 from repro_torch.launch import hints
 from repro_torch.launch import sharding as SH
 from repro_torch.launch.mesh import make_production_mesh
@@ -66,6 +75,10 @@ NOT_PORTED = {
                "and decode cells with cache_specs)",
     "decode": "the decode cell is not ported yet (ROADMAP: the prefill and "
               "decode cells with cache_specs)",
+    "adversary": "the wire adversary {spec!r} on a grid is not ported yet "
+                 "(ROADMAP item 21 step 3: the vote pair and the robust "
+                 "laws with the adversary on a grid)",
+    "pipeline": "{msg}",
 }
 
 
@@ -82,20 +95,26 @@ class NotPorted(NotImplementedError):
 def build_train_cell(arch, shape: ShapeCfg, grid, *,
                      pipeline: Optional[str] = None, remat: bool = True,
                      agg_backend: str = "auto",
-                     encode_backend: str = "auto"):
+                     encode_backend: str = "auto", cohort: str = "auto",
+                     adversary: str = "none"):
     """The sharded round step of a train cell -> (step, example, plan).
 
     ``step(state, batch, mask)`` is ``fedavg.build_sharded_round_step`` for
     the arch's loss on ``grid`` under ``sharding.make_plan``'s plan, with
     the arch's default codec ``zsign(z=..,sigma=..)`` or ``pipeline``, and
-    the reference's backend selectors.
+    the reference's backend selectors, cohort policy and wire adversary
+    (a pipeline, cohort or adversary that the grid does not run yet raises
+    ``NotPorted``).
     ``example`` holds the shapes of its arguments: ``params`` (this rank's
     shards, a tree of ``BatchLeaf``), ``specs``, ``batch`` ((G, N, E,
-    micro, S) leaves) and ``mask`` ((G, N)); ``make_inputs`` builds them."""
+    micro, S) leaves) and ``mask`` ((G, N)), and the step's ``layout``
+    (its range state's); ``make_inputs`` builds them."""
     if arch.model.family not in GRID_FAMILIES:
         raise NotPorted(NOT_PORTED["family"].format(family=arch.model.family))
     if shape.kind != "train":
         raise NotPorted(NOT_PORTED[shape.kind])
+    if parse_adversary(adversary) is not None:
+        raise NotPorted(NOT_PORTED["adversary"].format(spec=adversary))
     bundle = build_model(arch.model)
     plan = SH.make_plan(arch, shape, grid)
     comp = compression.Pipeline(
@@ -114,10 +133,13 @@ def build_train_cell(arch, shape: ShapeCfg, grid, *,
     params = tree_map(lambda t, sp: BatchLeaf(
         SH.shard_shape(t.shape, sp, grid), t.dtype), meta, specs)
     ctx = SH.round_context(plan, agg_backend=agg_backend,
-                           encode_backend=encode_backend)
-    step = fedavg.build_sharded_round_step(bundle.loss_fn, comp, fcfg, ctx,
-                                           grid=grid, plan=plan, specs=specs,
-                                           remat=remat)
+                           encode_backend=encode_backend, cohort=cohort)
+    try:
+        step = fedavg.build_sharded_round_step(
+            bundle.loss_fn, comp, fcfg, ctx, grid=grid, plan=plan,
+            specs=specs, remat=remat)
+    except NotImplementedError as e:
+        raise NotPorted(NOT_PORTED["pipeline"].format(msg=e)) from e
     per_step = bundle.train_batch_spec(plan.micro, shape.seq_len)
     batch = {k: BatchLeaf((plan.client_groups, plan.n_clients,
                            plan.local_steps) + tuple(v.shape), v.dtype)
@@ -125,20 +147,24 @@ def build_train_cell(arch, shape: ShapeCfg, grid, *,
     example = {"params": params, "specs": specs, "batch": batch,
                "mask": BatchLeaf((plan.client_groups, plan.n_clients),
                                  torch.float32),
-               "fcfg": fcfg, "comp": comp, "vocab": arch.model.vocab}
+               "fcfg": fcfg, "comp": comp, "plan": plan,
+               "layout": step.layout, "vocab": arch.model.vocab}
     return step, example, plan
 
 
 def make_inputs(example, seed: int = 0):
     """(state, batch, mask) for ``build_train_cell``'s step on ``meta``
-    tensors: the server state over storage-less param shards, the batch's
-    leaves (tokens, the VLM's image embeds; storage-less, so no values to
-    draw), the PRNG key ``[0, seed]`` and a full mask."""
+    tensors: the server state over storage-less param shards, with this
+    rank's range of each pipeline state slot (``init_server_state(
+    layout=)``), the batch's leaves (tokens, the VLM's image embeds;
+    storage-less, so no values to draw), the PRNG key ``[0, seed]`` and a
+    full mask."""
     params = tree_map(lambda leaf: torch.empty(
         leaf.shape, dtype=leaf.dtype, device="meta"), example["params"])
     state = fedavg.init_server_state(
         params, example["fcfg"], example["comp"],
-        torch.tensor([0, seed], dtype=torch.int64))
+        torch.tensor([0, seed], dtype=torch.int64),
+        layout=example["layout"](params))
     batch = {k: torch.empty(v.shape, dtype=v.dtype, device="meta")
              for k, v in example["batch"].items()}
     mask = torch.ones(example["mask"].shape, dtype=torch.float32)
@@ -146,14 +172,19 @@ def make_inputs(example, seed: int = 0):
 
 
 def _nbytes(tree) -> int:
+    """Bytes of the tensors in a tree, lists and tuples (a ServerState's
+    fields, the metrics) walked too."""
+    if isinstance(tree, (list, tuple)):
+        return sum(_nbytes(t) for t in tree)
     return sum(t.numel() * t.element_size() for t in tree_leaves(tree)
                if isinstance(t, torch.Tensor))
 
 
 class _KernelFootprint:
-    """Stands in for the kernel module inside ``core.compression`` while a
-    trace runs: E1 and R1 return empty outputs of their kernels' shapes,
-    which is what the card allocates for them, and compute nothing."""
+    """Stands in for a kernel module inside ``core.compression`` while a
+    trace runs: E1, R1 and F1 return empty outputs of their kernels'
+    shapes, which is what the card allocates for them (F1 writes its
+    residual in place), and compute nothing."""
 
     def __init__(self, ops):
         self._ops = ops
@@ -169,6 +200,40 @@ class _KernelFootprint:
         out = torch.empty((8 * packed.shape[1],), dtype=torch.float32,
                           device=packed.device)
         return out if acc is None else acc + out
+
+    def ef_sign_rows(self, g2d, e2d, scale, *, live=None, in_place=False,
+                     with_q=False):
+        return (self.zsign_encode(g2d, None, None, None),
+                e2d if in_place else torch.empty_like(e2d),
+                torch.empty_like(e2d) if with_q else None)
+
+
+def state_bytes(example, layout, grid) -> dict:
+    """A rank's bytes of the pipeline's state slots in the model-sharded
+    replica's layout and in the reference's, each slot's whole shape cut by
+    its layout's spec rule (``sharding.shard_shape``). The replica's rules
+    (``sharding.range_state_specs``, ``range_server_specs``) cut (G, N, S)
+    client and (S,) server slots, S the R ranges' even span, to (G, 1, hi -
+    lo) and (hi - lo,), a full range as ``fedavg.init_server_state(
+    layout=)`` keeps it; the reference's (``wire_state_specs``,
+    ``server_state_specs``) cut (G, N, d) and (d,) to (G, 1, d) and (d,),
+    the coordinates replicated."""
+    plan = example["plan"]
+    G, N, d = plan.client_groups, plan.n_clients, layout.spec.n_coords
+    span = layout.R * (layout.ranges[0][1] - layout.ranges[0][0])
+    rules = {"range": (span, SH.range_state_specs, SH.range_server_specs),
+             "replicated_coords": (d, SH.wire_state_specs,
+                                   SH.server_state_specs)}
+    out = {}
+    for name, (n, client_rule, server_rule) in rules.items():
+        out[name] = 0
+        for s in example["comp"].state_slots(1):
+            shape = (G, N, n) if s.scope == "client" else (n,)
+            rule = client_rule if s.scope == "client" else server_rule
+            spec = rule({s.name: shape}, plan)[s.name]
+            out[name] += (math.prod(SH.shard_shape(shape, spec, grid))
+                          * torch.empty((), dtype=s.dtype).element_size())
+    return out
 
 
 def analyze(step, example, grid, label: str, seed: int = 0) -> dict:
@@ -192,13 +257,15 @@ def analyze(step, example, grid, label: str, seed: int = 0) -> dict:
         [state.params, batch, mask]) if isinstance(t, torch.Tensor)])
     fc = FlopCounterMode(display=False)
     hints.reset_collective_stats()
-    ops = compression.K
-    compression.K = _KernelFootprint(ops)
+    ops, eops = compression.K, compression.EK
+    compression.K, compression.EK = (_KernelFootprint(ops),
+                                     _KernelFootprint(eops))
     try:
         with mt, fc:
             new_state, metrics = step(state, batch, mask)
     finally:
-        compression.K = ops
+        compression.K, compression.EK = ops, eops
+    layout = example["layout"](state.params)
     peak = mt.get_tracker_snapshot("peak")
     out_bytes = _nbytes(new_state.params) + _nbytes(list(metrics))
     # the device's peak (the host's few bytes of keys and mask left out)
@@ -209,6 +276,7 @@ def analyze(step, example, grid, label: str, seed: int = 0) -> dict:
         "trace_s": round(time.time() - t0, 2),
         "argument_size_in_bytes": arg_total,
         "argument_bytes": args,
+        "state_bytes": state_bytes(example, layout, grid),
         "output_size_in_bytes": out_bytes,
         "peak_bytes": peak_total,
         "temp_size_in_bytes": max(0, peak_total - arg_total),
@@ -233,9 +301,12 @@ def fake_group(world: int, rank: int = 0) -> None:
 
 
 def run_cell(arch_id: str, shape_name: str, *, multi_pod: bool,
-             pipeline: Optional[str] = None, rank: int = 0) -> dict:
+             pipeline: Optional[str] = None, rank: int = 0,
+             agg_backend: str = "auto", encode_backend: str = "auto",
+             cohort: str = "auto", adversary: str = "none") -> dict:
     """One cell on the production mesh (a fake group of 256 or 512 ranks):
-    ``analyze`` (of rank ``rank``) and the H100 roofline terms."""
+    ``analyze`` (of rank ``rank``) and the H100 roofline terms. The trace
+    is the card's: the ``auto`` backends take the kernels' route."""
     from repro_torch.launch import roofline as RF
     arch = get_arch(arch_id)
     shape = SHAPES[shape_name]
@@ -248,8 +319,11 @@ def run_cell(arch_id: str, shape_name: str, *, multi_pod: bool,
     try:
         grid = make_production_mesh(multi_pod=multi_pod, device_type="cpu")
         step, example, plan = build_train_cell(
-            arch, shape, grid, pipeline=pipeline, agg_backend="cuda",
-            encode_backend="cuda")
+            arch, shape, grid, pipeline=pipeline,
+            agg_backend="cuda" if agg_backend == "auto" else agg_backend,
+            encode_backend=("cuda" if encode_backend == "auto"
+                            else encode_backend),
+            cohort=cohort, adversary=adversary)
         res = analyze(step, example, grid, label)
     finally:
         dist.destroy_process_group()
@@ -281,10 +355,25 @@ def main(argv=None) -> None:
     ap.add_argument("--shape", default="all")
     ap.add_argument("--multi-pod", action="store_true")
     ap.add_argument("--both-meshes", action="store_true")
+    ap.add_argument("--agg-backend", default="auto",
+                    choices=list(compression.AGG_BACKENDS))
+    ap.add_argument("--encode-backend", default="auto",
+                    choices=list(compression.ENCODE_BACKENDS))
+    ap.add_argument("--cohort", default="auto",
+                    help="cohort execution policy: auto | vmap | "
+                         "stream(shard=K|auto[,unroll=U][,devices=D|auto]"
+                         "[,feed=device|host])")
+    ap.add_argument("--adversary", default="none", metavar="SPEC",
+                    help="wire-level fault-injection policy compiled into "
+                         "the train cell (none | sign_flip(f=..) | "
+                         "byte_corrupt(f=..,p=..) | collude(f=..) | "
+                         "dropout(f=..)); on a grid only none so far")
     ap.add_argument("--pipeline", default=None, metavar="SPEC",
-                    help="a pipeline spec in place of the arch's default "
-                         "zsign codec (zsign or zsign_packed, agg=mean, z "
-                         "in {1, inf}, on a grid so far)")
+                    help="full compression pipeline spec overriding the "
+                         "arch default, e.g. 'cv|zsign_packed' or "
+                         "'ef|zsign' (grammar: docs/API.md); on a grid: "
+                         "sign codecs with agg=mean behind ef, cv, "
+                         "sigma_sched and a dp clip so far")
     ap.add_argument("--out", default=None)
     args = ap.parse_args(argv)
     archs = list_archs() if args.arch == "all" else [args.arch]
@@ -298,7 +387,11 @@ def main(argv=None) -> None:
                          f"{'pod2x16x16' if mp else '16x16'}")
                 try:
                     res = run_cell(arch_id, shape_name, multi_pod=mp,
-                                   pipeline=args.pipeline)
+                                   pipeline=args.pipeline,
+                                   agg_backend=args.agg_backend,
+                                   encode_backend=args.encode_backend,
+                                   cohort=args.cohort,
+                                   adversary=args.adversary)
                 except NotPorted as e:
                     res = {"label": label, "not_ported": str(e)}
                 except Exception as e:  # record the failure, keep sweeping

@@ -11,12 +11,14 @@ launchers' RoundContext.
 
 The spec rules of the reference's GSPMD plans are ported rule for rule:
 ``param_specs``, ``batch_specs``, ``wire_state_specs``,
-``server_state_specs`` and ``cache_specs``. A spec is a plain tuple, one
-entry per dimension: None, an axis name, or a tuple of names (the
-reference's ``PartitionSpec``, which is a tuple too). The rules are pure
-functions of names and shapes, over the port's trees (``meta`` tensors,
-shape tuples or ``BatchLeaf``s) and any mesh-like object with ``shape``
-and ``axis_names`` (a ``launch/mesh.ReplicaGrid`` or a stub). The
+``server_state_specs`` and ``cache_specs``; ``range_state_specs`` and
+``range_server_specs`` are the model-sharded replica's own state layout.
+A spec is a plain tuple, one entry per dimension: None, an axis name, or
+a tuple of names (the reference's ``PartitionSpec``, which is a tuple
+too). The rules are pure functions of names and shapes, over the port's
+trees (``meta`` tensors, shape tuples or ``BatchLeaf``s) and any
+mesh-like object with ``shape`` and ``axis_names`` (a
+``launch/mesh.ReplicaGrid`` or a stub). The
 model-sharded client replica (``core/fedavg.build_sharded_round_step``)
 stores each parameter as this rank's shard of its spec
 (``models/api.shard_params``); the dense, MoE and VLM families run on a
@@ -232,7 +234,9 @@ def batch_specs(batch_shapes, plan: ParallelPlan):
 def wire_state_specs(cstate_shapes, plan: ParallelPlan):
     """Per-client state slots (G, N, n_coords): clients over the plan's
     client axes, the coordinate axis replicated (each client reads and
-    writes only its own rows)."""
+    writes only its own rows). The reference's layout, kept as its rule;
+    the model-sharded replica (``core/fedavg.build_sharded_round_step``)
+    keeps ``range_state_specs``' instead."""
     def spec(leaf):
         shape = _shape(leaf)
         s = [None] * len(shape)
@@ -245,9 +249,37 @@ def wire_state_specs(cstate_shapes, plan: ParallelPlan):
 
 def server_state_specs(server_shapes, plan: ParallelPlan):
     """Server-scope slots (one flat (n_coords,) row each): replicated, as
-    the params they correct."""
+    the params they correct. The reference's layout; the model-sharded
+    replica keeps ``range_server_specs``' instead."""
     del plan
     return tree_map(lambda leaf: (), server_shapes)
+
+
+def range_state_specs(cstate_shapes, plan: ParallelPlan):
+    """The model-sharded replica's per-client state slots, (G, N, d_pad)
+    over the whole cohort: clients over the plan's client axes and the
+    flat coordinates over its replica axes, so a rank holds (G, 1, hi -
+    lo), the range [lo, hi) of its payload bytes (``wire.RangeLayout``;
+    ``fedavg.init_server_state(layout=)``). The state bytes a rank are
+    those of ``wire_state_specs`` over the replica's size; the dry run
+    counts both layouts' from these rules (``dryrun.state_bytes``)."""
+    def spec(leaf):
+        s = [None] * len(_shape(leaf))
+        if len(s) >= 3:
+            s[1] = _axes_entry(plan.client_axes)
+            s[2] = _axes_entry(plan.replica_axes)
+        return tuple(s)
+
+    return tree_map(spec, cstate_shapes)
+
+
+def range_server_specs(server_shapes, plan: ParallelPlan):
+    """The model-sharded replica's server-scope slots, one flat (d_pad,)
+    row each: the coordinates over the replica axes (a rank holds the
+    range of its payload bytes), replicated over the client axes, where
+    every rank decodes the same range."""
+    return tree_map(lambda leaf: (_axes_entry(plan.replica_axes),),
+                    server_shapes)
 
 
 def cache_specs(cache_shapes, plan: ParallelPlan, *, batch: int,

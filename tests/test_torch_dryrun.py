@@ -15,9 +15,17 @@ production-mesh cell traced as rank 0 of a fake process group of 256 ranks.
     C, D) bf16 buffer, both ways, three times a layer a group.
   * The cells the port does not have yet say "not ported" and print no
     result: the recurrent, hybrid and enc-dec families on a grid, prefill,
-    decode and long_500k.
+    decode and long_500k, a non-``none`` adversary and a pipeline the grid
+    does not run yet.
+  * The reference's launch flags (``--agg-backend``, ``--encode-backend``,
+    ``--cohort``, ``--adversary``) reach ``build_train_cell``; at the
+    reduced dense model on a fake 2 x 2 group the stateful pipelines'
+    range state is in the arguments and the peak in closed form, and the
+    new collectives (the whole-vector statistics' partial sums, EF's
+    payload all-gather) are in the count.
 """
 import dataclasses
+import functools
 import json
 
 import numpy as np
@@ -179,3 +187,112 @@ def test_cells_not_ported_say_so(arch_id, shape, capsys):
     line = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
     assert "not ported" in line["not_ported"]
     assert "flops_per_device" not in line and "error" not in line
+
+
+# ---------------------------------------------------------------------------
+# the launch flags, the range state and its collectives, at the reduced
+# dense model on a fake 2 x 2 group
+# ---------------------------------------------------------------------------
+
+@functools.lru_cache(maxsize=None)
+def _small_cell(spec, big=False):
+    """``analyze`` of the reduced dense model's train cell (seq 32, global
+    batch 4) for rank 0 of a fake 2 x 2 group, with ``spec``."""
+    from repro_torch.launch.mesh import make_replica_grid
+    dryrun.fake_group(4, 0)
+    try:
+        grid = make_replica_grid((2, 2), ("data", "model"),
+                                 device_type="cpu")
+        step, ex, plan = dryrun.build_train_cell(
+            R.arch(big), ShapeCfg("test", "train", R.SEQ, 4), grid,
+            pipeline=spec, agg_backend="cuda", encode_backend="cuda")
+        res = dryrun.analyze(step, ex, grid, spec)
+        # the step's layout, built by the traced round
+        layout = ex["layout"](None)
+    finally:
+        dist.destroy_process_group()
+    lo, hi = layout.bounds
+    return res, plan, hi - lo, layout.spec.n_coords
+
+
+@pytest.mark.parametrize("flag,value,key", [
+    ("--agg-backend", "torch", "agg_backend"),
+    ("--encode-backend", "torch", "encode_backend"),
+    ("--cohort", "vmap", "cohort"),
+    ("--adversary", "dropout(f=1)", "adversary")])
+def test_launch_flags_reach_build_train_cell(flag, value, key, monkeypatch,
+                                             capsys):
+    """Each of the reference's four launch flags reaches
+    ``build_train_cell``; ``auto`` backends take the kernels' route."""
+    seen = {}
+
+    def build(*a, **kw):
+        seen.update(kw)
+        raise dryrun.NotPorted("stop here")
+    monkeypatch.setattr(dryrun, "build_train_cell", build)
+    dryrun.main(["--arch", "qwen2_0_5b", "--shape", "train_4k", flag, value])
+    line = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert line["not_ported"] == "stop here"
+    want = {"agg_backend": "cuda", "encode_backend": "cuda",
+            "cohort": "auto", "adversary": "none", key: value}
+    assert {k: seen[k] for k in want} == want
+
+
+@pytest.mark.parametrize("spec", ["ef|zsign", "cv|zsign_packed"])
+@pytest.mark.parametrize("big", [False, True], ids=["regular", "big"])
+def test_range_state_bytes_closed_form(spec, big):
+    """The rank's state is its range: (G, 1, hi - lo) f32 client rows and
+    (hi - lo,) server rows, in the arguments and in the peak (the same
+    cell with a stateless codec peaks that much lower), beside the
+    reference layout's (G, 1, d) and (d,)."""
+    res, plan, L, d = _small_cell(spec, big)
+    base = _small_cell("zsign", big)[0]
+    G = plan.client_groups
+    rows = G + (1 if spec.startswith("cv") else 0)
+    assert res["state_bytes"] == {"range": 4 * rows * L,
+                                  "replicated_coords": 4 * rows * d}
+    # the key (2 int64) and sigma (f32) beside the slots; SGD keeps none
+    assert res["argument_bytes"]["state"] == 4 * rows * L + 20
+    assert res["peak_bytes"] == base["peak_bytes"] + 4 * rows * L
+
+
+@pytest.mark.parametrize("spec,new", [
+    ("ef|zsign", {"all_reduce:abs_sum": 4}),
+    ("ef|zsign(use_kernel=true)", {"all_reduce:abs_sum": 4}),
+    ("stosign", {"all_reduce:row_norm": 4}),
+    ("dp(clip=1.0,eps=2.0)|zsign_packed", {"all_reduce:row_norm": 4}),
+    ("cv|zsign_packed", {}),
+    ("sigma_sched(head=1.0,tail=0.25)|zsign(z=1,sigma=0.01)", {})])
+@pytest.mark.parametrize("big", [False, True], ids=["regular", "big"])
+def test_new_collectives_in_the_count(spec, new, big):
+    """Against the stateless codec's cell: one 4-byte partial sum over the
+    replica a group for each whole-vector statistic; on the EF wire with
+    clients side by side, the payload rows and scales all-gathered over
+    the client axis in place of the f32 client sum."""
+    res, plan, L, _ = _small_cell(spec, big)
+    base = _small_cell("zsign", big)[0]
+    G, N = plan.client_groups, plan.n_clients
+    want = dict(base["collectives_by_use"])
+    want.update({k: v * G for k, v in new.items()})
+    if spec.startswith("ef|") and N > 1:
+        del want["all_reduce:client_sum"]
+        want["all_gather:wire_bytes"] = N * G * L // 8
+        want["all_gather:wire_scale"] = 4 * N * G
+    assert res["collectives_by_use"] == want
+    totals = {k: sum(v for u, v in want.items() if u.startswith(k + ":"))
+              for k in res["collectives"]}
+    assert res["collectives"] == totals
+
+
+@pytest.mark.parametrize("args,why", [
+    (["--adversary", "sign_flip(f=1)"], "item 21 step 3"),
+    (["--adversary", "byte_corrupt(f=1,p=0.1)"], "item 21 step 3"),
+    (["--pipeline", "zsign(z=1,sigma=0.01,agg=vote)"], "ROADMAP")])
+def test_grid_gaps_print_not_ported(args, why, capsys):
+    """A non-``none`` adversary, and a pipeline the grid does not run yet,
+    print a ``not_ported`` record naming what they wait for, not an
+    error."""
+    dryrun.main(["--arch", "qwen2_0_5b", "--shape", "train_4k"] + args)
+    line = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert why in line["not_ported"]
+    assert "error" not in line and "flops_per_device" not in line

@@ -466,10 +466,11 @@ def test_forced_stream_on_a_grid_raises_the_reference_error():
             specs={})
 
 
-@pytest.mark.parametrize("spec", ["ef|zsign", "zsign(z=1,sigma=0.01,agg=vote)",
+@pytest.mark.parametrize("spec", ["zsign(z=1,sigma=0.01,agg=vote)",
+                                  "zsign(z=1,sigma=0.01,agg=trimmed(f=1))",
                                   "zsign_packed(z=2,sigma=0.01)",
-                                  "cv|zsign_packed", "topk(frac=0.25)",
-                                  "zsign(z=1,sigma=0.01,sigma_mode=norm)"])
+                                  "topk(frac=0.25)", "ef|topk(frac=0.25)",
+                                  "dp(clip=1.0,noise=0.1)|dense"])
 def test_other_pipelines_on_a_grid_raise(spec):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         TF.build_sharded_round_step(lambda p, b: 0.0, TC.Pipeline(spec),

@@ -5,7 +5,8 @@
     reference's ``jax.eval_shape`` trees, the port's ``meta`` trees), and
     so do ``make_plan``, ``batch_specs``, ``wire_state_specs``,
     ``server_state_specs`` and ``cache_specs`` (the decode and long-context
-    caches of every family).
+    caches of every family); the grid's own state layout,
+    ``range_state_specs`` and ``range_server_specs``, holds a rank's range.
   * E1 over a range: the plain encode of coordinates [t0 * 8192, t1 *
     8192) with ``tile0 = t0`` is the byte slice of the whole vector's
     encode: bit for bit the reference's ``fused_sign_encode_jnp`` at z =
@@ -136,6 +137,31 @@ def test_batch_and_state_specs_equal_the_reference(arch_id, mesh):
     jserver = {"cv_server": jax.ShapeDtypeStruct((d,), jnp.float32)}
     _same(JSH.server_state_specs(jserver, jplan),
           SH.server_state_specs({"cv_server": (d,)}, tplan))
+
+
+@pytest.mark.parametrize("mesh", list(MESHES))
+@pytest.mark.parametrize("arch_id", ["qwen2_0_5b", "qwen2_5_32b"])
+def test_range_state_specs_hold_a_ranks_range(arch_id, mesh):
+    """The model-sharded replica's state layout: a client slot's (G, N,
+    d_pad) has its clients over the client axes and its coordinates over
+    the replica axes, so a rank holds (G, 1, hi - lo) (its payload's
+    range, ``wire.flat_ranges``); a server slot's (d_pad,) has its
+    coordinates over the replica axes. The reference layout's bytes a
+    rank are the replica's size times these."""
+    m = MESHES[mesh]
+    _, plan = _plans(arch_id, m)
+    G, N = plan.client_groups, plan.n_clients
+    R = SH.axis_size_tuple(plan.replica_axes)
+    d_pad = 8192 * 512
+    spec = SH.range_state_specs({"ef": (G, N, d_pad)}, plan)["ef"]
+    assert spec == (None, SH._axes_entry(plan.client_axes),
+                    SH._axes_entry(plan.replica_axes))
+    lo, hi = TW.flat_ranges(d_pad, R)[0]
+    assert SH.shard_shape((G, N, d_pad), spec, m) == (G, 1, hi - lo)
+    ref = SH.wire_state_specs({"ef": (G, N, d_pad)}, plan)["ef"]
+    assert SH.shard_shape((G, N, d_pad), ref, m) == (G, 1, R * (hi - lo))
+    server = SH.range_server_specs({"cv_server": (d_pad,)}, plan)
+    assert SH.shard_shape((d_pad,), server["cv_server"], m) == (hi - lo,)
 
 
 @pytest.mark.parametrize("shape_name", ["decode_32k", "long_500k"])

@@ -13,7 +13,10 @@ coordinates, its range, the pseudo-gradient range and payload bytes of each
 group (recorded at ``Pipeline.encode_range``), the decoded range (at
 ``Pipeline.decode_sum``), its param shards after the round, the loss, each
 client's MoE aux (recorded at ``transformer.forward_hidden``), and the
-collective bytes by kind.
+collective bytes by kind. ``tests/test_torch_sharded_pipelines.py`` runs
+``PIPELINE_SCENARIOS`` (``which="pipelines"``): two rounds each of the
+stateful and transform pipelines on the range state, with what each round
+saw.
 """
 from __future__ import annotations
 
@@ -51,6 +54,34 @@ SCENARIOS = {
     "round_regular_stream": ((2, 2), False, f"zsign(z=1,sigma={SIGMA})",
                              {"cohort": "stream"}),
 }
+
+#: the stateful and transform pipelines of ``tests/test_torch_sharded_
+#: pipelines.py``, each on the regular plan of the 2 x 2 and 1 x 4 grids
+#: and the big plan of the 2 x 2 grid, on the linear-loss wire harness
+PIPELINE_SPECS = {"ef": "ef|zsign", "ef_f1": "ef|zsign(use_kernel=true)",
+                  "ef_noisy": "ef|zsign(z=1,sigma=0.01)",
+                  "cv": "cv|zsign_packed",
+                  "dp": "dp(clip=1.0,eps=2.0)|zsign_packed",
+                  "sched": "sigma_sched(head=1.0,tail=0.25)|zsign(z=1,"
+                           "sigma=0.01)",
+                  "stosign": "stosign"}
+PIPELINE_GRIDS = {"22": ((2, 2), False), "14": ((1, 4), False),
+                  "big": ((2, 2), True)}
+PIPELINE_ROUNDS = 2
+PIPELINE_SCENARIOS = {
+    f"{k}_{g}": (shape, big, spec, {"linear": True})
+    for k, spec in PIPELINE_SPECS.items()
+    for g, (shape, big) in PIPELINE_GRIDS.items()}
+
+
+def pipeline_mask(plan, t: int) -> np.ndarray:
+    """Round t's (G, N) 0/1 mask: everyone in round 0; round 1 drops the
+    cohort's last client."""
+    m = np.ones((plan.client_groups, plan.n_clients), np.float32)
+    if t == 1:
+        m[-1, -1] = 0.0
+    return m
+
 
 #: the reduced MoE and VLM models: name -> (arch id, ModelCfg overrides)
 FAMILIES = {"granite": ("granite_moe_1b_a400m", {}),
@@ -98,16 +129,16 @@ def plan_for(grid, big: bool, seq: int = SEQ):
     return make_plan(arch(big), ShapeCfg("test", "train", seq, 4), grid)
 
 
-def _run(name, grid, inputs):
+def _cell(name, grid, inputs):
+    """The scenario's sharded round step on ``grid`` -> (step, its
+    FedConfig, the pipeline, this rank's param shards, the batch, plan)."""
     from repro_torch.core import compression as TC
     from repro_torch.core import fedavg as TF
-    from repro_torch.core import noise as TN
     from repro_torch.core.tree import tree_paths, tree_set
-    from repro_torch.launch import hints
     from repro_torch.launch import sharding as SH
-    from repro_torch.models import transformer as TT
     from repro_torch.models.api import build_model, shard_params
-    shape, big, spec, opt = {**SCENARIOS, **MOE_SCENARIOS}[name]
+    shape, big, spec, opt = {**SCENARIOS, **MOE_SCENARIOS,
+                             **PIPELINE_SCENARIOS}[name]
     a = arch(big, opt.get("save_weights", False), opt.get("model"))
     plan = plan_for(grid, big, opt.get("seq", SEQ))
     bundle = build_model(a.model)
@@ -148,6 +179,17 @@ def _run(name, grid, inputs):
         loss_fn, comp, fcfg,
         SH.round_context(plan, cohort=opt.get("cohort", "auto")), grid=grid,
         plan=plan, specs=specs, remat=opt.get("remat", True))
+    return step, fcfg, comp, shards, batch, plan
+
+
+def _run(name, grid, inputs):
+    from repro_torch.core import compression as TC
+    from repro_torch.core import fedavg as TF
+    from repro_torch.core import noise as TN
+    from repro_torch.core.tree import tree_paths
+    from repro_torch.launch import hints
+    from repro_torch.models import transformer as TT
+    step, fcfg, comp, shards, batch, plan = _cell(name, grid, inputs)
     state = TF.init_server_state(shards, fcfg, comp, TN.prng_key(1))
     seen = {"x": [], "bytes": [], "decoded": None, "aux": []}
     enc, dec = TC.Pipeline.encode_range, TC.Pipeline.decode_sum
@@ -158,9 +200,9 @@ def _run(name, grid, inputs):
         seen["aux"].append(float(aux.detach()))
         return x, aux
 
-    def encode_range(self, keys, x2d, tile0, sigma=None):
-        out = enc(self, keys, x2d, tile0, sigma=sigma)
+    def encode_range(self, keys, x2d, tile0, sigma=None, **kw):
         seen["x"].append(x2d.clone().numpy())
+        out = enc(self, keys, x2d, tile0, sigma=sigma, **kw)
         seen["bytes"].append(out.clone().numpy())
         seen["tile0"] = tile0
         return out
@@ -190,6 +232,85 @@ def _run(name, grid, inputs):
                                   hints.COLLECTIVES.items()}, **seen}
 
 
+def _run_pipeline(name, grid, inputs):
+    """PIPELINE_ROUNDS rounds of a PIPELINE_SCENARIOS cell from the range
+    state of ``init_server_state(layout=)``: each round's pseudo-gradient
+    range and payload of each group (at ``Pipeline.encode_range``), the
+    whole-vector statistics the ranks summed (``dp.row_norms`` over
+    ranges; the EF scale rides in the payload), the decoded range, the
+    state and server rows, the params, the metrics and the collective
+    bytes by kind and use."""
+    from repro_torch.core import compression as TC
+    from repro_torch.core import dp as TD
+    from repro_torch.core import fedavg as TF
+    from repro_torch.core import noise as TN
+    from repro_torch.core.tree import tree_paths
+    from repro_torch.launch import hints
+    step, fcfg, comp, shards, batch, plan = _cell(name, grid, inputs)
+    layout = step.layout(shards)
+    state = TF.init_server_state(shards, fcfg, comp, TN.prng_key(1),
+                                 layout=layout)
+    enc, dec, norms = (TC.Pipeline.encode_range, TC.Pipeline.decode_sum,
+                       TD.row_norms)
+    rounds = []
+
+    def encode_range(self, keys, x2d, tile0, sigma=None, **kw):
+        rd = rounds[-1]
+        rd["x"].append(x2d.clone().numpy())
+        fused = self._use_ef_kernel(sigma)
+        if fused:
+            # F1 reads g and e and writes e': its codec input is g + e
+            p = x2d[:, :kw["state"]["ef"].shape[-1]] + kw["state"]["ef"]
+        out = enc(self, keys, x2d, tile0, sigma=sigma, **kw)
+        # the stages work in place: the rows are now the codec's input
+        rd["codec_in"].append(p.numpy() if fused else x2d.clone().numpy())
+        rd["bytes"].append((out["packed"] if isinstance(out, dict)
+                            else out).clone().numpy())
+        if isinstance(out, dict):
+            rd["scale"].append(out["scale"].clone().numpy())
+        rd["tile0"] = tile0
+        return out
+
+    def decode_sum(self, *a, **k):
+        g = dec(self, *a, **k)
+        rounds[-1]["decoded"] = g.clone().numpy()
+        return g
+
+    def row_norms(p2d, n_coords, all_sum=None):
+        out = norms(p2d, n_coords, all_sum)
+        if all_sum is not None:
+            rounds[-1]["norms"].append(out.clone().numpy())
+        return out
+
+    TC.Pipeline.encode_range, TC.Pipeline.decode_sum = encode_range, \
+        decode_sum
+    TD.row_norms = row_norms
+    try:
+        for t in range(PIPELINE_ROUNDS):
+            rounds.append({"x": [], "codec_in": [], "bytes": [], "scale": [],
+                           "norms": []})
+            hints.reset_collective_stats()
+            state, m = step(state, batch, pipeline_mask(plan, t))
+            rounds[-1].update({
+                "state": {k: v.clone().numpy() for k, v in
+                          (state.comp_state or {}).items()},
+                "server": {k: v.clone().numpy() for k, v in
+                           (state.comp_server or {}).items()},
+                "params": {p: v.clone().numpy()
+                           for p, v in tree_paths(state.params)},
+                "loss": float(m.loss), "norm": float(m.grad_est_norm),
+                "uplink_bits": float(m.uplink_bits),
+                "collectives": hints.collective_totals(0),
+                "collective_by_use": {k: v[0] for k, v in
+                                      hints.COLLECTIVES.items()}})
+    finally:
+        TC.Pipeline.encode_range, TC.Pipeline.decode_sum = enc, dec
+        TD.row_norms = norms
+    return {"coords": dict(grid.coords), "plan": dataclasses.asdict(plan),
+            "bounds": layout.bounds, "d": layout.spec.n_coords,
+            "rounds": rounds}
+
+
 def _expert_swap_bf16(grid):
     """A bf16 (B, E, C, D) buffer, this rank's own values, to the experts'
     ranks over `model` and back (``hints.expert_swap``), as int16 words."""
@@ -215,12 +336,14 @@ def main(rank: int, world: int, store: str, out: str,
     dist.init_process_group("gloo", init_method=f"file://{store}",
                             rank=rank, world_size=world,
                             timeout=datetime.timedelta(seconds=300))
-    scenarios = SCENARIOS if which == "dense" else MOE_SCENARIOS
+    scenarios = {"dense": SCENARIOS, "moe": MOE_SCENARIOS,
+                 "pipelines": PIPELINE_SCENARIOS}[which]
+    run = _run_pipeline if which == "pipelines" else _run
     grids = {s: make_replica_grid(s, ("data", "model"), device_type="cpu")
              for s in sorted({v[0] for v in scenarios.values()})}
     rec = {}
     for name, (shape, _, _, _) in scenarios.items():
-        rec[name] = _run(name, grids[shape], inputs)
+        rec[name] = run(name, grids[shape], inputs)
     if which == "moe":
         rec["expert_swap_bf16"] = _expert_swap_bf16(grids[(2, 2)])
     with open(f"{out}/rank{rank}.pkl", "wb") as f:
