@@ -3138,6 +3138,24 @@ SHARD_EF_FLIP_SHARE = 4e-3
 #: differ by their reduce-scatters' order, by relative L2 under
 #: SHARD_PG_REL_L2; a missing sum moves the scale by far more)
 SHARD_EF_SCALE_RTOL = 1e-3
+#: the rounds the same ranks run after the EF round, each from round 0's
+#: weights and tokens beside its one-process round: (tag, pipeline,
+#: adversary). The robust median under a byte-corrupting client (R1 as the
+#: vote pair's count over the all-gathered rows), dense z = 2 (C1 over each
+#: range, the block-keyed draw's slice) and EF top-k (the whole row's
+#: selection from the ranges' radix-select counts)
+SHARD_SPEC_ROUNDS = [
+    ("median", "zsign(z=1,sigma=0.01,agg=median)", "byte_corrupt(f=1,p=0.1)"),
+    ("z2", "zsign_packed(z=2,sigma=0.01)", "none"),
+    ("ef_topk", "ef|topk(frac=0.01)", "none")]
+#: ef_topk: coordinates in one run's kept set and not in the other's (a
+#: client's grid range against its one-process row), over the entries
+#: kept: the pseudo-gradients differ by their bf16 reduce-scatters' order,
+#: which moves entries near the threshold only (1.32e-2 measured on an
+#: H100 80GB HBM3 at 700 W). A missing sum in a backward (a CPU copy whose
+#: reduce-scatter returns its own chunk unsummed, at the reduced model)
+#: moved 0.495 of the set.
+SHARD_TOPK_SETDIFF_SHARE = 5e-2
 SHARD_TIMEOUT_S = 600
 #: coordinates a chunk of the ranks' plain checks (a multiple of E1's tile)
 RANGE_CHECK_COORDS = 1 << 26
@@ -3364,6 +3382,86 @@ def _shard_one(label, arch_id, layers, rounds, seq, gbatch, tmp, pool):
             "rows_bytes": 4 * d * len(rows)}, rows
 
 
+def _payload_cpu(p):
+    """A copy of a payload stack on the host: bytes, or a dict of its
+    tensors."""
+    if isinstance(p, dict):
+        return {k: v.to("cpu", copy=True) for k, v in p.items()}
+    return p.to("cpu", copy=True)
+
+
+def _shard_specs_one(label, arch_id, layers, seq, gbatch, tmp):
+    """SHARD_SPEC_ROUNDS' one-process rounds (the vmap plan: both clients
+    in one encode) from the seed-0 weights and round 0's tokens, under
+    their adversaries: each client's payload as encoded and as the
+    aggregate took it (after the attack), and the params, written to
+    ``tmp`` for the ranks. -> {tag: record}"""
+    from repro_torch.core import compression
+    from repro_torch.core import fedavg as TF
+    from repro_torch.core import noise as TN
+    from repro_torch.core.tree import tree_paths
+    from repro_torch.launch import hints
+    from repro_torch.launch import sharding as SH
+    from repro_torch.models.api import build_model
+    arch = _shard_arch(arch_id, layers)
+    plan = SH.make_plan(arch, _shard_shape(seq, gbatch), _GridShape())
+    bundle = build_model(arch.model)
+    enc = compression.Pipeline.encode_batch
+    agg = compression.Pipeline.aggregate
+    out = {}
+    for tag, spec, adv in SHARD_SPEC_ROUNDS:
+        comp = compression.Pipeline(spec)
+        fcfg = TF.FedConfig(n_clients=plan.n_clients,
+                            client_groups=plan.client_groups,
+                            local_steps=plan.local_steps,
+                            client_lr=arch.client_lr,
+                            server_lr=arch.server_lr)
+        step = TF.build_round_step(bundle.loss_fn, comp, fcfg,
+                                   SH.round_context(plan, cohort="vmap",
+                                                    adversary=adv))
+        state = TF.init_server_state(_shard_init(arch, DEV), fcfg, comp,
+                                     TN.prng_key(1))
+        seen = {"copy_s": 0.0}
+
+        def encode_batch(self, *a, **k):
+            got, st = enc(self, *a, **k)
+            t0 = time.perf_counter()
+            seen["encoded"] = _payload_cpu(got)
+            seen["copy_s"] += time.perf_counter() - t0
+            return got, st
+
+        def aggregate(self, payload, *a, **k):
+            t0 = time.perf_counter()
+            seen["sent"] = _payload_cpu(payload)
+            seen["copy_s"] += time.perf_counter() - t0
+            return agg(self, payload, *a, **k)
+
+        batch = _shard_batch(plan, arch.model, seq, 0, DEV)
+        mask = torch.ones((plan.client_groups, plan.n_clients))
+        _reset_counts()
+        compression.Pipeline.encode_batch = encode_batch
+        compression.Pipeline.aggregate = aggregate
+        try:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            with hints.seq_shard_view(SHARD_SEQ_SHARDS):
+                state, m = step(state, batch, mask)
+            torch.cuda.synchronize()
+            sec = time.perf_counter() - t0 - seen["copy_s"]
+        finally:
+            compression.Pipeline.encode_batch = enc
+            compression.Pipeline.aggregate = agg
+        torch.save({"encoded": seen["encoded"], "sent": seen["sent"]},
+                   os.path.join(tmp, f"{label}_{tag}_payload.pt"))
+        torch.save({".".join(p): v.cpu() for p, v in tree_paths(state.params)},
+                   os.path.join(tmp, f"{label}_{tag}_params.pt"))
+        out[tag] = {"sec": sec, "loss": float(m.loss),
+                    "uplink_bits": float(m.uplink_bits), "counts": _counts()}
+        del state, batch, m, seen
+        _free()
+    return out
+
+
 def _shard_rows(arch_id, layers, rounds, seq, gbatch) -> int:
     """f32 elements of a path's one-process rows: d for each client of
     each round (shapes only, nothing allocated)."""
@@ -3452,6 +3550,116 @@ class _RangePlainProbe(_PlainCheckProbe):
                                     "max_abs_err": 0.0}
         self._after()
         return got
+
+
+class _SpecRangeProbe(_RangePlainProbe):
+    """``_RangePlainProbe`` for SHARD_SPEC_ROUNDS: also C1 over the range
+    (kernel against ``zsign_compress_rows_plain``, bytes equal, in chunks of
+    RANGE_CHECK_COORDS: C1 is elementwise) and, on the vote route, R1's
+    weighted count as the vote pair's signed count: its int32 cast equal to
+    the popcount route's (``wire.vote_accumulator``) row 0 on the same
+    gathered rows and mask."""
+
+    def zsign_compress_rows(self, x2d, noise2d, sigma):
+        got = self._ops.zsign_compress_rows(x2d, noise2d, sigma)
+        if "zsign_compress" in self.seen:
+            return got
+        self._before()
+        for a in range(0, x2d.shape[1], RANGE_CHECK_COORDS):
+            b = min(x2d.shape[1], a + RANGE_CHECK_COORDS)
+            want = self._ops.zsign_compress_rows_plain(
+                x2d[:, a:b].contiguous(), noise2d[:, a:b].contiguous(),
+                sigma)
+            if not torch.equal(got[:, a // 8:b // 8], want):
+                raise AssertionError("C1 over a range: bytes differ from "
+                                     "the plain version")
+            del want
+        self.seen["zsign_compress"] = {"shape": list(x2d.shape),
+                                       "max_abs_err": 0}
+        self._after()
+        return got
+
+    def sign_reduce(self, packed, weights, acc=None):
+        from repro_torch.core import wire
+        got = super().sign_reduce(packed, weights, acc)
+        if "vote_count" in self.seen:
+            return got
+        self._before()
+        step = RANGE_CHECK_COORDS // 8
+        for a in range(0, packed.shape[1], step):
+            b = min(packed.shape[1], a + step)
+            want = wire.vote_accumulator(packed[:, a:b], weights)[0]
+            if not torch.equal(got[8 * a:8 * b].to(torch.int32), want):
+                raise AssertionError("R1 as the vote count: differs from "
+                                     "the popcount pair")
+            del want
+        self.seen["vote_count"] = {"shape": list(packed.shape),
+                                   "max_abs_err": 0}
+        self._after()
+        return got
+
+
+def _vote_decode_f64(pair, agg: str, trim_f: int = 0):
+    """``wire.vote_decode``'s closed forms evaluated in f64 and rounded
+    once to f32."""
+    s, n = pair[0].to(torch.float64), pair[1].to(torch.float64)
+    f_max = torch.floor((torch.clamp_min(n, 1.0) - 1.0) / 2.0)
+    f = f_max if agg == "median" else torch.clamp_max(f_max, float(trim_f))
+    m = torch.clamp_min(n - 2.0 * f, 1.0)
+    plus = torch.minimum(torch.clamp_min((s + n) * 0.5 - f, 0.0), m)
+    return torch.where(n > 0, (2.0 * plus - m) / m, 0.0).to(torch.float32)
+
+
+def _range_bit_flips(got, want, x, lo, hi, d):
+    """The coordinates (global) where a range's payload bytes ``got``
+    differ from the one-process bytes ``want`` (the same range), and the
+    range's codec input there."""
+    diff = got ^ want
+    nz = torch.nonzero(diff).reshape(-1)
+    bits = torch.nonzero((diff[nz].unsqueeze(-1) >> torch.arange(
+        8, device=diff.device, dtype=torch.uint8)) & 1)
+    coords = nz[bits[:, 0]] * 8 + bits[:, 1]
+    coords = coords[coords < d - lo]
+    return {"coords": (coords + lo).cpu(), "vals": x[coords].cpu(),
+            "sent": min(hi, d) - lo}
+
+
+def _topk_range_record(p, got, e, lo, one_idx):
+    """EF top-k over one range: the kept entries' values are the codec
+    input's; the residual is zero exactly at the kept coordinates and the
+    input elsewhere; the range's share of the whole row's certificate
+    (the smallest kept |p| and the largest kept index at it, the largest
+    unkept |p| and the smallest unkept index at it); the kept set against
+    the one-process client's entries in the range."""
+    real = p.shape[0]
+    idx = got["indices"][0].long()
+    score = p.abs()
+    kept = torch.zeros((real,), dtype=torch.bool, device=p.device)
+    kept[idx] = True
+    if int(kept.sum()) != idx.numel():
+        raise AssertionError("top-k: a range kept an index twice")
+    if not _same_bits(got["values"][0], p[idx]):
+        raise AssertionError("top-k: kept values are not the codec input's")
+    if not (_same_bits(e[kept], torch.zeros_like(e[kept]))
+            and _same_bits(e[~kept], p[~kept])):
+        raise AssertionError("EF top-k: the residual is not the input with "
+                             "the kept coordinates zeroed")
+    t_kept = score[kept].min()
+    t_unkept = score[~kept].max()
+    rec = {"kept": idx.numel(), "min_kept": float(t_kept),
+           "max_kept_idx_at_min": lo + int(torch.nonzero(
+               kept & (score == t_kept)).max()),
+           "max_unkept": float(t_unkept),
+           "min_unkept_idx_at_max": lo + int(torch.nonzero(
+               ~kept & (score == t_unkept)).min())}
+    one = one_idx.to(p.device).long()
+    one = one[(one >= lo) & (one < lo + real)] - lo
+    kept_one = torch.zeros_like(kept)
+    kept_one[one] = True
+    rec["kept_one_process"] = one.numel()
+    rec["setdiff"] = int((kept ^ kept_one).sum())
+    rec["union"] = (torch.nonzero(kept | kept_one).reshape(-1) + lo).cpu()
+    return rec
 
 
 def _range_vs_row(x, row, lo, hi, spec):
@@ -3645,6 +3853,172 @@ def _shard_ef_round(grid, arch, seq, gbatch, dev, rows):
     return rec
 
 
+def _shard_spec_round(grid, arch, seq, gbatch, dev, tmp, label, tag, spec,
+                      adv):
+    """One SHARD_SPEC_ROUNDS round of the dry run's train cell on this
+    rank's grid, from the seed-0 weights and round 0's tokens: its kernels
+    held to their plain versions (``_SpecRangeProbe``); the range's payload
+    against the one-process round's (``_shard_specs_one``): its bits, or
+    top-k's kept set and certificate; the adversary's attack on the range
+    against the same attack on the whole payload; the dense draw's range
+    against the whole row's; the median decode against its f64 closed
+    form; the params against the one-process params. -> the record."""
+    import torch.distributed as dist
+    from repro_torch.core import compression
+    from repro_torch.core import fedavg as TF
+    from repro_torch.core import noise as TN
+    from repro_torch.fed import adversary as TA
+    from repro_torch.kernels.zsign import ops
+    from repro_torch.launch import dryrun, hints
+    from repro_torch.models.api import shard_params
+    step, example, plan = dryrun.build_train_cell(
+        arch, _shard_shape(seq, gbatch), grid, pipeline=spec, adversary=adv)
+    full = _shard_init(arch, dev)
+    shards = shard_params(full, arch.model, grid, plan, device=dev)
+    del full
+    layout = step.layout(shards)
+    lo, hi = layout.bounds
+    d = layout.spec.n_coords
+    real = min(hi, d) - lo
+    state = TF.init_server_state(shards, example["fcfg"], example["comp"],
+                                 TN.prng_key(1), layout=layout)
+    del shards
+    batch = _shard_batch(plan, arch.model, seq, 0, dev)
+    mask = torch.ones((plan.client_groups, plan.n_clients))
+    client = grid.index(plan.client_axes)
+    one = torch.load(os.path.join(tmp, f"{label}_{tag}_payload.pt"))
+    seen = {"check_s": 0.0, "peak": 0}
+    enc = compression.Pipeline.encode_range
+    dec = compression.Pipeline.decode_sum
+    corrupt, draw = TA.Adversary.corrupt, TN.sample_z_noise
+
+    def checked(fn):
+        # a check's time and buffers are kept out of the round's
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        seen["peak"] = max(seen["peak"], torch.cuda.max_memory_allocated())
+        fn()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        seen["check_s"] += time.perf_counter() - t0
+
+    def encode_range(self, keys, x2d, tile0, sigma=None, **kw):
+        got = enc(self, keys, x2d, tile0, sigma=sigma, **kw)
+
+        def check():
+            if isinstance(got, dict):
+                seen["topk"] = _topk_range_record(
+                    x2d[0, :real], got, kw["state"]["ef"][0, :real], lo,
+                    one["encoded"]["indices"][client])
+            else:
+                want = one["encoded"][client][lo // 8:hi // 8].to(dev)
+                seen["flips"] = _range_bit_flips(got[0], want, x2d[0], lo,
+                                                 hi, d)
+        checked(check)
+        return got
+
+    def attack(self, payload, idx, round_idx, b0=0):
+        pre = payload.clone()
+        out = corrupt(self, payload, idx, round_idx, b0)
+
+        def check():
+            nb = pre.shape[1]
+            # the whole payload: ceil(d / 8192) tiles of 1024 bytes
+            whole = torch.zeros((1, -(-d // ops.TILE) * ops.TILE // 8),
+                                dtype=torch.uint8, device=dev)
+            whole[:, b0:b0 + nb] = pre
+            corrupt(self, whole, idx, round_idx, 0)
+            if not torch.equal(whole[:, b0:b0 + nb], out):
+                raise AssertionError("the attack on a byte range is not the "
+                                     "slice of the whole payload's")
+            # where the range's bytes before the attack are the one-process
+            # client's, the attacked bytes are too
+            one_pre = one["encoded"][client][b0:b0 + nb].to(dev)
+            one_sent = one["sent"][client][b0:b0 + nb].to(dev)
+            same = pre[0] == one_pre
+            seen["attack"] = {
+                "client": int(idx[0]), "b0": b0, "bytes": nb,
+                "bytes_hit": int((out != pre).sum()),
+                "bytes_off_one_process_where_inputs_agree": int(
+                    (out[0][same] != one_sent[same]).sum())}
+            del whole
+        checked(check)
+        return out
+
+    def sample(key, shape, z, device=None, dtype=torch.float32, lo=0):
+        got = draw(key, shape, z, device=device, dtype=dtype, lo=lo)
+
+        def check():
+            n = got.numel()
+            whole = draw(key, (d,), z, device=device, dtype=dtype)
+            if not _same_bits(whole[lo:lo + n], got.reshape(-1)):
+                raise AssertionError("the dense draw of a range is not the "
+                                     "slice of the whole row's")
+            seen["noise"] = {"range": [lo, lo + n], "row": d, "z": z}
+            del whole
+        checked(check)
+        return got
+
+    def decode_sum(self, enc_sum, n_live, *a, **k):
+        g = dec(self, enc_sum, n_live, *a, **k)
+        agg = getattr(self.codec, "agg", "mean")
+        if agg in ("vote", "trimmed", "median"):
+            def check():
+                for a0 in range(0, g.shape[0], RANGE_CHECK_COORDS):
+                    b0 = min(g.shape[0], a0 + RANGE_CHECK_COORDS)
+                    want = _vote_decode_f64(enc_sum[:, a0:b0], agg,
+                                            self.codec.trim_f)
+                    if not _same_bits(g[a0:b0], want):
+                        raise AssertionError(f"the {agg} decode differs "
+                                             "from its f64 closed form")
+                seen["decode"] = {"agg": agg, "shape": list(enc_sum.shape),
+                                  "max_abs_err": 0}
+            checked(check)
+        return g
+
+    probe = _SpecRangeProbe(ops)
+    _free()
+    torch.cuda.reset_peak_memory_stats()
+    hints.reset_collective_stats()
+    before = _counts()
+    compression.Pipeline.encode_range = encode_range
+    compression.Pipeline.decode_sum = decode_sum
+    TA.Adversary.corrupt, TN.sample_z_noise = attack, sample
+    compression.K = probe
+    dist.barrier()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    try:
+        state, m = step(state, batch, mask)
+        torch.cuda.synchronize()
+    finally:
+        compression.Pipeline.encode_range = enc
+        compression.Pipeline.decode_sum = dec
+        TA.Adversary.corrupt, TN.sample_z_noise = corrupt, draw
+        compression.K = ops
+    sec = time.perf_counter() - t0 - seen["check_s"]
+    after = _counts()
+    peak = max(probe.peak, seen["peak"], torch.cuda.max_memory_allocated())
+    outside, differing, off = _shard_params_vs_one(
+        state.params, os.path.join(tmp, f"{label}_{tag}_params.pt"), arch,
+        grid, plan, layout, dev)
+    rec = {"sec": sec, "loss": float(m.loss), "peak": peak,
+           "uplink_bits": float(m.uplink_bits),
+           "counts": {k: after[k] - before[k] for k in after},
+           "collective_bytes": hints.collective_totals(0),
+           "collective_by_use": {k: list(v) for k, v in
+                                 hints.COLLECTIVES.items()},
+           "vs_plain": probe.seen, "client": client,
+           "params_outside_rtol": outside, "params_off_coords": off,
+           "params_differing": differing,
+           **{k: v for k, v in seen.items() if k not in ("check_s", "peak")},
+           "check_s": seen["check_s"]}
+    del state, batch, m
+    _free()
+    dist.barrier()
+    return rec
+
+
 def _shard_setup(rank, world, store, pool):
     """A rank of the 2 x 2 grid (four ranks share cuda:0), once for every
     sharded path: joins the gloo group and makes the grid. -> (the grid,
@@ -3797,6 +4171,9 @@ def _shard_rank(rank, world, ctx, label, arch_id, layers, rounds, seq,
         del state
         _free()
         rec["ef"] = _shard_ef_round(grid, arch, seq, gbatch, dev, rows)
+        rec["specs"] = {tag: _shard_spec_round(grid, arch, seq, gbatch, dev,
+                                               tmp, label, tag, spec, adv)
+                        for tag, spec, adv in SHARD_SPEC_ROUNDS}
     torch.save(rec, out.format(rank))
     dist.barrier()
 
@@ -3824,7 +4201,8 @@ def _shard_params_vs_one(params, path, arch, grid, plan, layout, dev):
     return outside, differing, torch.cat(off)
 
 
-def _shard_predict(arch_id, layers, seq, gbatch, rank, pipeline=None):
+def _shard_predict(arch_id, layers, seq, gbatch, rank, pipeline=None,
+                   adversary="none"):
     """``dryrun.analyze`` of the same cell (with ``pipeline``, else the
     arch's codec) for ``rank`` of a fake 2 x 2 group (meta tensors, E1, R1
     and F1 stood in by their kernels' outputs, the card's route), in a
@@ -3839,7 +4217,7 @@ def _shard_predict(arch_id, layers, seq, gbatch, rank, pipeline=None):
         grid = make_replica_grid(SHARD_GRID, SHARD_AXES, device_type="cpu")
         step, ex, _ = dryrun.build_train_cell(
             arch, _shard_shape(seq, gbatch), grid, pipeline=pipeline,
-            agg_backend="cuda", encode_backend="cuda")
+            agg_backend="cuda", encode_backend="cuda", adversary=adversary)
         return dryrun.analyze(step, ex, grid, arch_id)
     finally:
         dist.destroy_process_group()
@@ -3908,6 +4286,230 @@ def _shard_time_f1(dev, lo, hi, d):
     _free()
     return {"shape": [1, n], "residual": [1, real], "ms": ms,
             "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by}
+
+
+def _shard_time_c1(dev, lo, hi, d):
+    """C1 at a rank's range shape: (1, hi - lo) f32 rows and their z = 2
+    noise (zero past d), as the z = 2 grid round runs it; kernel and plain
+    ms (CUDA events) beside the bound, bytes equal first."""
+    from repro_torch.core import noise
+    from repro_torch.kernels.zsign import ops
+    n, real = hi - lo, min(hi, d) - lo
+    gen = torch.Generator(device=dev).manual_seed(29)
+    x = torch.zeros((1, n), device=dev)
+    x[:, :real] = torch.randn((1, real), generator=gen, device=dev) * 0.01
+    nz = torch.zeros_like(x)
+    nz[0, :real] = noise.sample_z_noise(noise.prng_key(9), (real,), 2,
+                                        device=dev, lo=lo)
+    sig = torch.full((1,), 0.01, device=dev)
+    got = ops.zsign_compress_rows(x, nz, sig)
+    want = ops.zsign_compress_rows_plain(x, nz, sig)
+    torch.cuda.synchronize()
+    if not torch.equal(got, want):
+        raise AssertionError(f"C1 (1, {n}): bytes differ from plain")
+    del got, want
+    _free()
+    ms = _time_ms(lambda: ops.zsign_compress_rows(x, nz, sig), reps=10,
+                  warmup=2)
+    plain_ms = _time_ms(lambda: ops.zsign_compress_rows_plain(x, nz, sig),
+                        reps=2)
+    bound, by = _bound(nbytes=2 * n * 4 + n / 8 + 4,
+                       ops=n * COMPRESS_OPS_PER_ELEM)
+    del x, nz
+    _free()
+    return {"shape": [1, n], "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound, "bound_by": by}
+
+
+def _shard_time_r1_vote(dev, lo, hi):
+    """R1 at the median round's shape: the (2, (hi - lo) / 8) all-gathered
+    range rows under a 0/1 mask, the vote pair's count; kernel and plain ms
+    (CUDA events) beside the bound, int32 equal to the popcount route's
+    first."""
+    from repro_torch.core import wire
+    from repro_torch.kernels.zsign import ops
+    nb = (hi - lo) // 8
+    gen = torch.Generator(device=dev).manual_seed(31)
+    packed = torch.randint(0, 256, (2, nb), generator=gen, device=dev,
+                           dtype=torch.uint8)
+    mask = torch.ones((2,), device=dev)
+    got = ops.sign_reduce(packed, mask).to(torch.int32)
+    if not torch.equal(got, wire.vote_accumulator(packed, mask)[0]):
+        raise AssertionError(f"R1 (2, {nb}): the vote count differs from "
+                             "the popcount pair")
+    del got
+    _free()
+    ms = _time_ms(lambda: ops.sign_reduce(packed, mask), reps=10, warmup=2)
+    plain_ms = _time_ms(lambda: ops.sign_reduce_plain(packed, mask), reps=2)
+    bound, by = _bound(nbytes=2 * nb + 8 * nb * 4 + 8, ops=0)
+    del packed
+    _free()
+    return {"shape": [2, nb], "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound, "bound_by": by}
+
+
+def _shard_spec_checks(label, one, specs_one, rows, ranks, predicted, smi):
+    """The checks of SHARD_SPEC_ROUNDS inside ``label``'s ranks, a JSON
+    line each, and their summaries for the kernels line: each round's
+    launches (E1 and R1 for the median, C1 and R1 for z = 2, none for EF
+    top-k), its kernels held to their plain versions on every rank, its
+    collective bytes equal to the dry run's (top-k's values and indices
+    aside: the dry run counts an even share of k a range), the loss equal
+    on every rank and within SHARD_LOSS_RTOL of the one-process round's;
+    wire bits off the one-process payload only where the pseudo-gradients
+    differ and at most SHARD_FLIP_SHARE of those sent, params off it only
+    where a bit differed; the attack a slice of the whole payload's; the
+    dense draw a slice of the whole row's; top-k's kept set the whole
+    row's exactly (the ranges' certificate: k entries a client, every
+    unkept |p| below the smallest kept one or tied with it at a higher
+    index), at most SHARD_TOPK_SETDIFF_SHARE of it off the one-process
+    set, params off only inside either set."""
+    want = {"median": {"zsign_encode": 1, "sign_reduce": 1,
+                       "zsign_compress": 0, "ef_sign": 0},
+            "z2": {"zsign_encode": 0, "sign_reduce": 1,
+                   "zsign_compress": 1, "ef_sign": 0},
+            "ef_topk": {"zsign_encode": 0, "sign_reduce": 0,
+                        "zsign_compress": 0, "ef_sign": 0}}
+    kernels_seen = {"median": {"zsign_encode", "sign_reduce", "vote_count"},
+                    "z2": {"zsign_compress", "sign_reduce", "vote_count"},
+                    "ef_topk": set()}
+    d = one["d"]
+    out = {}
+    for tag, spec, adv in SHARD_SPEC_ROUNDS:
+        recs = [rk["specs"][tag] for rk in ranks]
+        pred = predicted[tag]
+        n_flips = n_sent = 0
+        union, cert = [], {}
+        for rk, rec, pr in zip(ranks, recs, pred):
+            r = rk["rank"]
+            got = {k: rec["counts"][k] for k in want[tag]}
+            if got != want[tag]:
+                raise AssertionError(f"{label} {tag}: rank {r} launched "
+                                     f"{got}, want {want[tag]}")
+            if set(rec["vs_plain"]) != kernels_seen[tag]:
+                raise AssertionError(f"{label} {tag}: rank {r}: kernels "
+                                     f"held to plain {rec['vs_plain']}")
+            skip = ("all_gather:wire_values", "all_gather:wire_indices")
+            mine = {k: v[0] for k, v in rec["collective_by_use"].items()
+                    if k not in skip}
+            dry = {k: v for k, v in pr["collectives_by_use"].items()
+                   if k not in skip}
+            if mine != dry:
+                raise AssertionError(f"{label} {tag}: rank {r} moved {mine}"
+                                     f", the dry run counts {dry}")
+            if not math.isfinite(rec["loss"]) or abs(
+                    rec["loss"] - specs_one[tag]["loss"]) > \
+                    SHARD_LOSS_RTOL * abs(specs_one[tag]["loss"]):
+                raise AssertionError(f"{label} {tag}: rank {r} loss "
+                                     f"{rec['loss']}, one process "
+                                     f"{specs_one[tag]['loss']}")
+            if rec["uplink_bits"] != specs_one[tag]["uplink_bits"]:
+                raise AssertionError(f"{label} {tag}: uplink bits "
+                                     f"{rec['uplink_bits']}")
+            if "flips" in rec:
+                f = rec["flips"]
+                n_sent += f["sent"]
+                p_one = rows[(0, rec["client"])][f["coords"]]
+                if bool((p_one == f["vals"]).any()):
+                    raise AssertionError(f"{label} {tag}: rank {r}: wire "
+                                         "bits differ where the pseudo-"
+                                         "gradients agree")
+                n_flips += f["coords"].numel()
+                union.append(f["coords"])
+            if "topk" in rec:
+                union.append(rec["topk"]["union"])
+                cert.setdefault(rec["client"], []).append(rec["topk"])
+        if tag == "median":
+            for rec in recs:
+                a = rec.get("attack")
+                if a is None or a["bytes_off_one_process_where_inputs_agree"]:
+                    raise AssertionError(f"{label} {tag}: attack {a}")
+            if not any(rec["attack"]["bytes_hit"] for rec in recs):
+                raise AssertionError(f"{label} {tag}: no byte was hit")
+        if tag == "z2" and not all("noise" in rec for rec in recs):
+            raise AssertionError(f"{label} {tag}: a range drew no noise")
+        setdiff = kept = 0
+        for c, parts in cert.items():
+            k = sum(p["kept"] for p in parts)
+            if k != max(1, int(d * 0.01)):
+                raise AssertionError(f"{label} {tag}: client {c} kept {k}")
+            t = min(p["min_kept"] for p in parts)
+            ties_kept = max(p["max_kept_idx_at_min"] for p in parts
+                            if p["min_kept"] == t)
+            for p in parts:
+                if p["max_unkept"] > t or (
+                        p["max_unkept"] == t
+                        and p["min_unkept_idx_at_max"] < ties_kept):
+                    raise AssertionError(f"{label} {tag}: client {c}: the "
+                                         "kept set is not the whole row's "
+                                         f"top k ({parts})")
+            setdiff += sum(p["setdiff"] for p in parts)
+            kept += k
+        if n_flips > SHARD_FLIP_SHARE * max(n_sent, 1):
+            raise AssertionError(f"{label} {tag}: {n_flips} of {n_sent} "
+                                 "wire bits differ from the one-process "
+                                 f"run's (limit {SHARD_FLIP_SHARE})")
+        if kept and setdiff > SHARD_TOPK_SETDIFF_SHARE * kept:
+            raise AssertionError(f"{label} {tag}: {setdiff} of {kept} kept "
+                                 "entries off the one-process sets (limit "
+                                 f"{SHARD_TOPK_SETDIFF_SHARE})")
+        union = torch.unique(torch.cat(union)) if union else \
+            torch.empty((0,), dtype=torch.int64)
+        for rk, rec in zip(ranks, recs):
+            stray = rec["params_off_coords"][~torch.isin(
+                rec["params_off_coords"], union)]
+            if stray.numel():
+                raise AssertionError(
+                    f"{label} {tag}: rank {rk['rank']}: {stray.numel()} "
+                    f"param coordinates outside rtol {SHARD_RTOL} where "
+                    f"neither a wire bit nor a kept entry differed")
+        if len({rec["loss"] for rec in recs}) != 1:
+            raise AssertionError(f"{label} {tag}: the ranks' losses differ")
+        line = {
+            "sharded_spec_round": label, "tag": tag, "pipeline": spec,
+            "adversary": adv, "card": smi,
+            "grid": dict(zip(SHARD_AXES, SHARD_GRID)),
+            "round_s": {"one_process": specs_one[tag]["sec"],
+                        "ranks": [rec["sec"] for rec in recs],
+                        "checks_ranks": [rec["check_s"] for rec in recs]},
+            "loss": {"one_process": specs_one[tag]["loss"],
+                     "ranks": [rec["loss"] for rec in recs]},
+            "uplink_bits": specs_one[tag]["uplink_bits"],
+            "collective_by_use": [rec["collective_by_use"] for rec in recs],
+            "collective_by_use_dry_run": [p["collectives_by_use"]
+                                          for p in pred],
+            "peak_GB": {"ranks": [rec["peak"] / 1e9 for rec in recs],
+                        "dry_run": [p["peak_bytes"] / 1e9 for p in pred]},
+            "kernels_vs_plain": [rec["vs_plain"] for rec in recs],
+            "wire_bits_differing": n_flips, "wire_bits_sent": n_sent,
+            "params_outside_rtol": [rec["params_outside_rtol"]
+                                    for rec in recs],
+            "params_differing": [rec["params_differing"] for rec in recs],
+            **({"attack": [rec["attack"] for rec in recs]}
+               if tag == "median" else {}),
+            **({"decode": [rec["decode"] for rec in recs]}
+               if tag == "median" else {}),
+            **({"noise": [rec["noise"] for rec in recs]}
+               if tag == "z2" else {}),
+            **({"topk": {"kept": kept, "setdiff_vs_one_process": setdiff,
+                         "ranges": [{k: v for k, v in rec["topk"].items()
+                                     if k != "union"} for rec in recs]}}
+               if tag == "ef_topk" else {})}
+        if tag == "z2":
+            line["c1_range"] = _shard_time_c1(DEV, *ranks[1]["bounds"], d)
+        if tag == "median":
+            line["r1_vote_range"] = _shard_time_r1_vote(DEV,
+                                                        *ranks[1]["bounds"])
+        print(json.dumps(line))
+        summed = {k: sum(rec["counts"][k] for rec in recs)
+                  for k in recs[0]["counts"]}
+        out[f"{label}_{tag}"] = {
+            "launches": summed, "secs": [max(rec["sec"] for rec in recs)],
+            "peak": max(rec["peak"] for rec in recs),
+            "vs_plain": [rec["vs_plain"] for rec in recs],
+            **{k: line[k] for k in ("c1_range", "r1_vote_range")
+               if k in line}}
+    return out
 
 
 def _shard_ef_checks(label, one, ranks, predicted, smi):
@@ -4041,9 +4643,11 @@ def _shard_checks(label, layers, rounds, seq, gbatch, one, rows, ranks,
                                      f"{rd['loss']}, one process "
                                      f"{one['loss'][t]}")
         seen = rk["rounds"][0]["vs_plain"]
+        # R1 reduces the range's rows of every client, all-gathered over
+        # the client axes
         if {k: v["shape"] for k, v in seen.items()} != {
                 "zsign_encode": [1, hi - lo],
-                "sign_reduce": [G, (hi - lo) // 8]}:
+                "sign_reduce": [G * N, (hi - lo) // 8]}:
             raise AssertionError(f"{label}: rank {r}: kernels held to "
                                  f"their plain versions at {seen}")
         if seen["zsign_encode"]["tile0"] != lo // 8192:
@@ -4174,6 +4778,10 @@ def start_shard_predictions():
             pending[p[0] + "_ef"] = pool.starmap_async(
                 _shard_predict, [(p[1], p[2], p[4], p[5], r, SHARD_EF_SPEC)
                                  for r in range(SHARD_RANKS)])
+            for tag, spec, adv in SHARD_SPEC_ROUNDS:
+                pending[p[0] + "_" + tag] = pool.starmap_async(
+                    _shard_predict, [(p[1], p[2], p[4], p[5], r, spec, adv)
+                                     for r in range(SHARD_RANKS)])
     return pool, pending
 
 
@@ -4223,6 +4831,9 @@ def phase_sharded_replica(dev, smi, predictions=None):
             t0 = time.time()
             one, rows = _shard_one(label, arch_id, layers, rounds, seq,
                                    gbatch, tmp, row_pool)
+            if label == SHARD_EF_PATH:
+                specs_one = _shard_specs_one(label, arch_id, layers, seq,
+                                             gbatch, tmp)
             one_s = time.time() - t0
             if toucher.ident is None:
                 toucher.start()
@@ -4248,6 +4859,11 @@ def phase_sharded_replica(dev, smi, predictions=None):
                     label, one, ranks,
                     pending[key] if pool is None else
                     pending[key].get(timeout=SHARD_TIMEOUT_S), smi))
+                out.update(_shard_spec_checks(
+                    label, one, specs_one, rows, ranks,
+                    {tag: pending[f"{label}_{tag}"] if pool is None else
+                     pending[f"{label}_{tag}"].get(timeout=SHARD_TIMEOUT_S)
+                     for tag, _, _ in SHARD_SPEC_ROUNDS}, smi))
             print(f"# {label}: one process {one_s:.1f} s, with the dry run "
                   f"beside it {predict_s:.1f} s, ranks {ranks_s:.1f} s; "
                   f"host peaks: Shmem {one['host']['shmem_peak']:.2f} GB, "
@@ -4446,6 +5062,23 @@ def main() -> int:
         SHARD_EF_PATH + "_ef_range": ef_grid["f1_range"]})
     by_name["sign_reduce"][SHARD_EF_PATH + "_ef_vs_plain"] = [
         s["sign_reduce"] for s in ef_grid["vs_plain"]]
+    for tag, _, _ in SHARD_SPEC_ROUNDS:
+        res = results[f"{SHARD_EF_PATH}_{tag}"]
+        for kname in ("zsign_encode", "sign_reduce", "zsign_compress"):
+            seen = [s[kname] for s in res["vs_plain"] if kname in s]
+            if seen:
+                by_name[kname][f"{SHARD_EF_PATH}_{tag}_vs_plain"] = seen
+    z2_grid = results[SHARD_EF_PATH + "_z2"]
+    by_name["zsign_compress"].update({
+        "launches_range": z2_grid["launches"]["zsign_compress"],
+        SHARD_EF_PATH + "_z2_range": z2_grid["c1_range"]})
+    by_name["sign_reduce"]["launches_vote_range"] = results[
+        SHARD_EF_PATH + "_median"]["launches"]["sign_reduce"]
+    median = results[SHARD_EF_PATH + "_median"]
+    by_name["sign_reduce"].update({
+        SHARD_EF_PATH + "_median_vote_count": [s["vote_count"] for s in
+                                               median["vs_plain"]],
+        SHARD_EF_PATH + "_median_vote_range": median["r1_vote_range"]})
     for path in (p[0] for p in SHARD_PATHS):
         seen = results[path]["vs_plain"]
         for kname in ("zsign_encode", "sign_reduce"):

@@ -328,21 +328,23 @@ class DPTransform:
             object.__setattr__(self, "calibrated", True)
 
     def apply(self, keys: torch.Tensor, p2d: torch.Tensor, n_coords: int,
-              sigma=None, all_sum: Optional[Callable] = None) -> torch.Tensor:
+              sigma=None, all_sum: Optional[Callable] = None,
+              lo: Optional[int] = None) -> torch.Tensor:
         """Clip, then add ``sig * N(0, 1)``, on each row's first n_coords
         entries IN PLACE (``sigma`` is the engine's dynamic override). With
-        ``all_sum`` the rows are flat ranges and the clip norm is the
-        whole vectors' (``dp.row_norms``); the noise is then fused into
-        the sign codec (``Pipeline.check_range_encode``)."""
+        ``all_sum`` the rows are flat ranges from coordinate ``lo`` on: the
+        clip norm is the whole vectors' (``dp.row_norms``) and the noise
+        the range's slice of each whole row's draw."""
         if self.clip > 0.0:
             dplib.clip_rows_(p2d, n_coords, self.clip,
                              None if all_sum is None else
                              dplib.row_norms(p2d, n_coords, all_sum))
         if sigma is not None or self.noise > 0.0:
             sig = self.noise if sigma is None else sigma
+            at = {} if lo is None else {"lo": lo}
             for c in range(p2d.shape[0]):
                 xi = znoise.sample_z_noise(keys[c], (n_coords,), 1,
-                                           device=p2d.device)
+                                           device=p2d.device, **at)
                 p2d[c, :n_coords].add_(xi.mul_(sig))
         return p2d
 
@@ -436,8 +438,9 @@ class DenseCodec:
         return 1
 
     def encode_with_decode_batch(self, keys, p2d, n_coords: int,
-                                 need_decode: bool = False, sigma=None):
-        del keys, sigma
+                                 need_decode: bool = False, sigma=None,
+                                 **span):
+        del keys, sigma, span
         return p2d, ((lambda c: p2d[c, :n_coords]) if need_decode else None)
 
     def aggregate(self, payload, mask, n_coords: int, acc=None):
@@ -561,18 +564,21 @@ class SignCodec:
 
     # -- client side --------------------------------------------------------
 
-    def _encode_dense(self, keys, x2d, n_coords: int, sig, add_noise: bool):
+    def _encode_dense(self, keys, x2d, n_coords: int, sig, add_noise: bool,
+                      lo: Optional[int] = None):
         """The dense-noise draw (``reference`` backend, and every finite
         z > 1): client c's noise is ``sample_z_noise(keys[c], (d,), z)``,
-        zero in the tile padding, as the reference pads it."""
+        zero in the tile padding, as the reference pads it; over a flat
+        range from coordinate ``lo`` on, the range's slice of that row."""
         n, d_pad = x2d.shape
         noise = None
         if add_noise:
             noise = torch.empty_like(x2d)
             noise[:, n_coords:].zero_()
+            at = {} if lo is None else {"lo": lo}
             for c in range(n):
                 noise[c, :n_coords] = znoise.sample_z_noise(
-                    keys[c], (n_coords,), self.z, device=x2d.device)
+                    keys[c], (n_coords,), self.z, device=x2d.device, **at)
         if self.dense_kernel:
             if not add_noise:
                 # vanilla SignSGD: no noise is drawn (x doubles as a dummy
@@ -599,11 +605,9 @@ class SignCodec:
                                   x2d.device.type)
         if backend == "reference" or (
                 add_noise and not znoise.counter_supported(self.z)):
-            if tile0 is not None:
-                raise NotImplementedError(
-                    "the dense-noise encode of a flat range waits (ROADMAP:"
-                    " dense z > 1 on a grid)")
-            return self._encode_dense(keys, x2d, n_coords, sig, add_noise)
+            return self._encode_dense(
+                keys, x2d, n_coords, sig, add_noise,
+                None if tile0 is None else tile0 * ENCODE_TILE)
         z = self.z if add_noise else None
         if backend == "cuda":
             return K.zsign_encode(x2d, keys, sig, z, tile0)
@@ -624,7 +628,8 @@ class SignCodec:
                                  n_coords: int, need_decode: bool = False,
                                  sigma=None, tile0: Optional[int] = None,
                                  all_sum: Optional[Callable] = None,
-                                 n_total: Optional[int] = None):
+                                 n_total: Optional[int] = None,
+                                 rank_prefix: Optional[Callable] = None):
         """(n, 2) client keys + (n, d_pad) f32 rows (d_pad a multiple of
         8192, zero past n_coords) -> (payload, local decode or None). The
         payload is the (n, d_pad/8) uint8 stack, with ``{"packed",
@@ -638,10 +643,12 @@ class SignCodec:
         The model-sharded replica encodes flat RANGES: the rows hold
         coordinates [tile0 * 8192, tile0 * 8192 + d_pad) of longer vectors,
         n_coords of them true ones, and the payload is the byte slice of
-        the whole vectors' (E1 with ``tile0``). The two statistics that
-        span a whole vector, sto-sign's sigma = ||p|| and the mean_abs
-        scale over the ``n_total`` true coordinates, then come from per-row
-        partials summed over the ranks by ``all_sum(partials, use)``."""
+        the whole vectors' (E1 with ``tile0``; C1 or the plain pack on the
+        dense draw's slice of the range). The two statistics that span a
+        whole vector, sto-sign's sigma = ||p|| and the mean_abs scale over
+        the ``n_total`` true coordinates, then come from per-row partials
+        summed over the ranks by ``all_sum(partials, use)``."""
+        del rank_prefix
         n = p2d.shape[0]
         sig0, add_noise = self._noise_gate(sigma)
         # the range keywords only over a range: the one-process calls keep
@@ -786,12 +793,16 @@ class QSGDCodec:
     def pad_multiple(self) -> int:
         return 1
 
-    def _quantize_row(self, key, row: torch.Tensor, nrm: torch.Tensor):
-        """q over ``row`` in place (``nrm`` already has the 1e-12 floor)."""
-        for lo in range(0, row.shape[0], znoise.BITS_CHUNK):
-            x = row[lo:lo + znoise.BITS_CHUNK]
+    def _quantize_row(self, key, row: torch.Tensor, nrm: torch.Tensor,
+                      lo: int = 0):
+        """q over ``row`` in place (``nrm`` already has the 1e-12 floor);
+        ``lo``: the flat coordinate of the row's first entry (a range's on
+        a grid), whose draws are the whole row's at the same
+        coordinates."""
+        for a in range(0, row.shape[0], znoise.BITS_CHUNK):
+            x = row[a:a + znoise.BITS_CHUNK]
             u = znoise.bits_to_uniform(znoise.random_bits(
-                key, lo, lo + x.shape[0], row.device))
+                key, lo + a, lo + a + x.shape[0], row.device))
             r = torch.abs(x) / nrm * self.s
             low = torch.floor(r)
             up = u < torch.clip(r - low, 0.0, 1.0)
@@ -801,13 +812,21 @@ class QSGDCodec:
             x.copy_(nrm * sgn * lvl)
 
     def encode_with_decode_batch(self, keys, p2d, n_coords: int,
-                                 need_decode: bool = False, sigma=None):
+                                 need_decode: bool = False, sigma=None,
+                                 tile0: Optional[int] = None,
+                                 all_sum: Optional[Callable] = None,
+                                 n_total: Optional[int] = None,
+                                 rank_prefix: Optional[Callable] = None):
         """(n, d) rows -> the (n, d) f32 q stack, written over the rows;
-        the local decode of client c is its q row."""
-        del sigma
-        nrms = dplib.row_norms(p2d, n_coords) + 1e-12
+        the local decode of client c is its q row. Over flat ranges
+        (``tile0``, ``all_sum`` as in ``SignCodec``) the norm is the whole
+        vectors' and the draws those of the range's coordinates."""
+        del sigma, n_total, rank_prefix
+        span = {} if all_sum is None else {"all_sum": all_sum}
+        nrms = dplib.row_norms(p2d, n_coords, **span) + 1e-12
+        lo = 0 if tile0 is None else tile0 * ENCODE_TILE
         for c in range(p2d.shape[0]):
-            self._quantize_row(keys[c], p2d[c, :n_coords], nrms[c])
+            self._quantize_row(keys[c], p2d[c, :n_coords], nrms[c], lo)
         local = (lambda c: p2d[c, :n_coords]) if need_decode else None
         return p2d, local
 
@@ -822,19 +841,91 @@ def topk_select(score: torch.Tensor, k: int) -> torch.Tensor:
     indices, and the result is ordered by (score descending, index
     ascending). ``torch.topk`` fixes neither on a card, but the VALUE of
     its smallest kept entry is the k-th largest score t whichever tied
-    entries it kept; the selection is then every entry above t, the first
-    k - count(> t) entries equal to t, and a stable descending sort of the
-    kept scores (taken in index order). -> (k,) int64."""
+    entries it kept; ``_keep_at`` then selects. -> (k,) int64."""
     t = torch.topk(score, k, sorted=False).values.min()
-    above = score > t
-    need = k - int(above.sum())
-    eq = score == t
-    keep = above | (eq & (torch.cumsum(eq, 0, dtype=torch.int32) <= need))
-    del above, eq
+    return _keep_at(score, t, lambda above, ties: k - above)
+
+
+#: entries a slice of the selection's passes (bounds temporaries)
+TOPK_CHUNK = 1 << 24
+
+
+def _keep_at(row: torch.Tensor, t: torch.Tensor, need: Callable
+             ) -> torch.Tensor:
+    """The selection of the k largest |entries| of ``row`` ((L,) f32) given
+    the k-th largest magnitude t: every entry above t, the first
+    ``need(n_above, n_ties)`` entries at t in index order (this row's
+    counts), and a stable descending sort of the kept magnitudes (taken in
+    index order). The passes walk TOPK_CHUNK entries at a time: beside the
+    row, only the (L,) keep mask and the ties' indices are whole-row
+    temporaries. -> the int64 indices, ordered by (|entry| descending,
+    index ascending)."""
+    L = row.shape[0]
+    keep = torch.empty((L,), dtype=torch.bool, device=row.device)
+    ties = []
+    for a in range(0, L, TOPK_CHUNK):
+        m = torch.abs(row[a:a + TOPK_CHUNK])
+        keep[a:a + m.shape[0]] = m > t
+        ties.append(torch.nonzero(m == t).reshape(-1) + a)
+    ties = torch.cat(ties) if ties else torch.zeros((0,), dtype=torch.int64,
+                                                    device=row.device)
+    n = need(int(keep.sum()), ties.numel())
+    keep[ties[:max(n, 0)]] = True
+    del ties
     idx = torch.nonzero(keep).reshape(-1)
     del keep
-    order = torch.sort(score[idx], descending=True, stable=True).indices
+    order = torch.sort(torch.abs(row[idx]), descending=True,
+                       stable=True).indices
     return idx[order]
+
+
+def range_topk_select(row: torch.Tensor, k: int, all_sum: Callable,
+                      rank_prefix: Callable) -> torch.Tensor:
+    """``topk_select`` of a whole row's magnitudes, where the row's flat
+    ranges lie on the ranks of a replica, taken on this rank's range
+    ``row`` ((L,) f32). -> the range-local int64 indices of the whole
+    row's k largest |entries| that lie in the range, ordered by (|entry|
+    descending, index ascending): the one-process selection's entries in
+    the range, ties at the k-th magnitude to the lowest global indices.
+
+    Only the threshold differs from ``topk_select``: the k-th largest
+    magnitude t is a radix select over the bit patterns of |row| (the
+    int32 view with the sign bit cleared orders as the magnitude): four
+    passes of 8 bits, each a 256-bin count of the entries that share the
+    digits found so far, summed over the ranks by ``all_sum(counts,
+    use)``, an exact integer sum. ``_keep_at`` keeps the entries above t,
+    and of the ties at t the first ``need - ties before this range`` in
+    index order, where ``rank_prefix(t, use)`` sums ``t`` over the ranks
+    before this one (the ranks hold the ranges in coordinate order)."""
+    bits = row.view(torch.int32)
+    L = bits.shape[0]
+    prefix, need = 0, k
+    for shift in (24, 16, 8, 0):
+        hist = torch.zeros((257,), dtype=torch.int64, device=row.device)
+        for a in range(0, L, TOPK_CHUNK):
+            b = bits[a:a + TOPK_CHUNK] & 0x7FFFFFFF
+            dig = (b >> shift) & 0xFF
+            if shift < 24:
+                # only the entries whose higher digits are t's so far
+                same = (b >> (shift + 8)) == (prefix >> (shift + 8))
+                dig = torch.where(same, dig, 256)
+            hist += torch.bincount(dig, minlength=257)
+        h = all_sum(hist[:256], "topk_hist").tolist()
+        above, digit = 0, 0
+        for digit in range(255, -1, -1):
+            if above + h[digit] >= need:
+                break
+            above += h[digit]
+        need -= above
+        prefix |= digit << shift
+    t = torch.tensor([prefix], dtype=torch.int32).view(torch.float32).to(
+        row.device)[0]
+
+    def ties_here(above, ties):
+        before = rank_prefix(torch.tensor([ties], dtype=torch.int64,
+                                          device=row.device), "topk_ties")
+        return need - int(before[0])
+    return _keep_at(row, t, ties_here)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -883,18 +974,35 @@ class TopKCodec:
         return min(1 << 20, max(4096, 1 << (c - 1).bit_length()))
 
     def encode_with_decode_batch(self, keys, p2d, n_coords: int,
-                                 need_decode: bool = False, sigma=None):
+                                 need_decode: bool = False, sigma=None,
+                                 tile0: Optional[int] = None,
+                                 all_sum: Optional[Callable] = None,
+                                 n_total: Optional[int] = None,
+                                 rank_prefix: Optional[Callable] = None):
         """(n, d) rows -> ({"values": (n, k) f32, "indices": (n, k)
         int32}, local decode). The local decode of client c is its row with
         only the kept values, so an ``ef`` residual is the row with the
-        kept coordinates zeroed."""
-        del keys, sigma
+        kept coordinates zeroed.
+
+        Over a flat range (``all_sum``; one row a call, since the ranges'
+        shares of k differ) k counts the ``n_total`` coordinates of the
+        whole vector, and the payload holds the whole row's selection in
+        the range (``range_topk_select``) with RANGE-LOCAL indices: the
+        one-process wire's (f32, int32) pairs, whose global indices would
+        pass int32 past 2^31 coordinates."""
+        del keys, sigma, tile0
         n = p2d.shape[0]
-        k = max(1, int(n_coords * self.frac))
-        idx = torch.empty((n, k), dtype=torch.int64, device=p2d.device)
-        for c in range(n):
-            row = p2d[c, :n_coords]
-            idx[c] = topk_select(torch.abs(row), k)
+        if all_sum is None:
+            k = max(1, int(n_coords * self.frac))
+            idx = torch.empty((n, k), dtype=torch.int64, device=p2d.device)
+            for c in range(n):
+                idx[c] = topk_select(torch.abs(p2d[c, :n_coords]), k)
+        elif n != 1:
+            raise ValueError(f"top-k encodes one range row a call, got {n}")
+        else:
+            idx = range_topk_select(
+                p2d[0, :n_coords], max(1, int(n_total * self.frac)),
+                all_sum, rank_prefix).reshape(1, -1)
         vals = torch.gather(p2d, 1, idx)
         payload = {"values": vals, "indices": idx.to(torch.int32)}
         if not need_decode:
@@ -1260,7 +1368,8 @@ class Pipeline:
                      live_rows: Optional[Sequence[int]] = None, *,
                      tile0: Optional[int] = None,
                      all_sum: Optional[Callable] = None,
-                     n_total: Optional[int] = None):
+                     n_total: Optional[int] = None,
+                     rank_prefix: Optional[Callable] = None):
         """Encode a cohort: (n, 2) client keys, (n, d_pad) f32 rows (zero
         past ``n_coords``, which defaults to d_pad), the per-client state
         ``{slot: (n, n_coords)}`` and the (n,) participation mask ``live``
@@ -1285,8 +1394,10 @@ class Pipeline:
         whole vectors' (E1 with ``tile0``). ``all_sum(partials, use)`` then
         adds the per-row partials of the statistics that span a whole
         vector (the EF scale over its ``n_total`` true coordinates,
-        sto-sign's sigma, the clip norm) over the ranks holding the other
-        ranges."""
+        sto-sign's sigma, the clip norm, the QSGD norm, top-k's threshold
+        counts) over the ranks holding the other ranges, and
+        ``rank_prefix(t, use)`` sums ``t`` over the ranks before this one
+        (top-k's ties)."""
         if self._has_server_state and server is None:
             raise ValueError(
                 "pipeline declares server-scope state slots (control "
@@ -1323,12 +1434,13 @@ class Pipeline:
                 p = t.apply(self._stage_key(keys, i), p, d,
                             sigma=sigma if self._sigma_stage == i else None,
                             **({} if all_sum is None
-                               else {"all_sum": all_sum}))
+                               else {"all_sum": all_sum, "lo": lo}))
         payload, local = self.codec.encode_with_decode_batch(
             self._stage_key(keys, len(self.transforms)), p, d,
             need_decode=bool(self._stateful_idx),
             sigma=sigma if self._sigma_stage == "codec" else None,
-            **({} if tile0 is None else {"tile0": tile0, **span}))
+            **({} if tile0 is None else {"tile0": tile0, **span,
+                                         "rank_prefix": rank_prefix}))
         if not self._stateful_idx:
             return payload, state
         rows = (_live_rows(p.shape[0], live) if live_rows is None
@@ -1340,30 +1452,19 @@ class Pipeline:
         return payload, new_state
 
     def check_range_encode(self) -> None:
-        """Raise ``NotImplementedError`` unless the pipeline encodes flat
-        ranges (``encode_range``). The model-sharded replica runs a sign
-        codec with agg=mean, a fixed sigma >= 0 or sto-sign's norm sigma,
-        z in {1, inf} where there is noise, and the scale none or mean_abs,
-        behind the transform stages ``ef`` (the fused F1 route too),
-        ``cv``, ``sigma_sched`` and ``dp`` (its clip; the noise is fused
-        into the sign codec). Anything else on a grid waits, and never
-        falls back to the unsharded path."""
+        """Raise before a grid round's local SGD where its aggregate would
+        refuse the pipeline: the robust sign laws (``agg=vote|trimmed|
+        median``) count votes under the static 0/1-mask guarantee
+        (``RoundContext(weights_are_mask=True)``, which
+        ``launch/sharding.round_context`` sets). Every other spec string
+        encodes flat ranges (``encode_range``)."""
         c = self.codec
-        ok = (isinstance(c, SignCodec) and c.agg == "mean"
-              and c.sigma >= 0.0 and c.encode_backend != "reference"
-              and ((c.sigma_mode == "fixed" and c.sigma == 0.0)
-                   or znoise.counter_supported(c.z))
-              and all(isinstance(t, (ErrorFeedback, ControlVariate,
-                                     SigmaSchedule))
-                      or (isinstance(t, DPTransform) and t.noise == 0.0)
-                      for t in self.transforms))
-        if not ok:
-            raise NotImplementedError(
-                f"pipeline {self.spec!r} on a grid waits (ROADMAP: the "
-                f"other pipelines on a grid): the model-sharded replica "
-                f"encodes sign codecs with agg=mean (z in {{1, inf}} where "
-                f"there is noise), behind ef, cv, sigma_sched and a dp "
-                f"clip")
+        if isinstance(c, SignCodec) and c.agg != "mean" \
+                and not c.weights_are_mask:
+            raise ValueError(
+                f"agg={c.agg!r} on a grid requires the static "
+                f"weights_are_mask guarantee (0/1 participation masks): run "
+                f"under RoundContext(weights_are_mask=True)")
 
     @property
     def scale_weighted(self) -> bool:
@@ -1377,8 +1478,9 @@ class Pipeline:
                      server=None, spec=None,
                      live: Optional[torch.Tensor] = None,
                      live_rows: Optional[Sequence[int]] = None,
-                     all_sum: Optional[Callable] = None):
-        """``encode_batch`` over flat RANGES (after ``check_range_encode``):
+                     all_sum: Optional[Callable] = None,
+                     rank_prefix: Optional[Callable] = None):
+        """``encode_batch`` over flat RANGES:
         (n, 2) client keys and (n, L) f32 rows holding coordinates [lo, lo +
         L), lo = tile0 * 8192, of the clients' whole pseudo-gradients of
         ``n_coords`` true coordinates (lo + L by default); zero past them.
@@ -1386,9 +1488,11 @@ class Pipeline:
         (n, L)}``, and ``server`` the server slots' range ``{slot: (L,)}``;
         the stages see only the range's true coordinates, so the padding of
         the last range stays zero and feeds no residual. ``spec`` is the
-        whole vectors' ``wire.TreeSpec``; ``all_sum`` as in
-        ``encode_batch`` (None: the range is the whole vector). -> the
-        payload stack, the byte slice of the whole vectors'."""
+        whole vectors' ``wire.TreeSpec``; ``all_sum`` and ``rank_prefix``
+        as in ``encode_batch`` (None: the range is the whole vector). ->
+        the payload stack: the byte slice of the whole vectors' on the
+        sign wire, the range's entries of the dense f32 wire, or top-k's
+        kept pairs in the range with range-local indices."""
         L = x2d.shape[1]
         lo = tile0 * ENCODE_TILE
         d = lo + L if n_coords is None else n_coords
@@ -1399,7 +1503,7 @@ class Pipeline:
                {k: v[:real] for k, v in server.items()})
         return self.encode_batch(keys, x2d, real, st, live, sigma, srv, spec,
                                  live_rows, tile0=tile0, all_sum=all_sum,
-                                 n_total=d)[0]
+                                 n_total=d, rank_prefix=rank_prefix)[0]
 
     def stacks_group_payloads(self) -> bool:
         """Whether the sequential group scan stacks the raw payloads and

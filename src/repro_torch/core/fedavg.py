@@ -77,6 +77,7 @@ with a ``sigma_sched`` stage get the round's TreeSpec at both ends.
 from __future__ import annotations
 
 import dataclasses
+import time
 from typing import Any, Callable, NamedTuple, Optional, Tuple
 
 import torch
@@ -819,32 +820,45 @@ def build_sharded_round_step(loss_fn: Callable, compressor, cfg: FedConfig,
     attention, remat); the per-leaf pseudo-gradient shards move to this
     rank's flat range in one exchange (``wire.RangeLayout.to_range``); the
     pipeline encodes the range (``Pipeline.encode_range``: the transform
-    stages on the range's state rows, E1 with the range's first tile id, or
-    F1 on the fused EF route), its whole-vector statistics (the EF scale,
-    sto-sign's sigma, the DP clip norm) summed from per-range partials over
-    the replica's ranks in rank order (``hints.all_reduce_sum``). After the
-    groups, R1 reduces the range's (G, n_bytes) payload rows under the
-    mask; the ranks that own the same range on the other data rows sum
-    their f32 partials in rank order (``wire.reduce_accumulator`` over the
-    client axes: exact for 0/1 masks). On the scale-weighted EF wire the
-    f32 sum would depend on that order, so those ranks all-gather their
-    payload rows and scales instead (1 bit a coordinate a client, against
-    the 32 of an f32 partial) and R1 reduces the (G * N, n_bytes) stack in
-    global client order: the one-process round's reduce, byte slice for
-    byte slice. The range is decoded (and the cv server variate's range
-    updated from it), moved back onto the shards (``from_range``) and the
-    server optimizer steps each shard. So no rank holds a (d,) vector, a
-    (G, N, d) state or the whole tree; each keeps its range of every state
-    slot (``init_server_state(layout=)``), and the payload bytes of a range
-    are the byte slice of the unsharded round's. The cohort policy is
-    resolved as the reference's launcher does, with the plan's client axes
-    as ``spmd_axes``: ``auto`` and ``stream`` run this round, a forced
-    ``stream(shard=K)`` raises ``ValueError``; on a plan without client
-    axes (the big plan's sequential groups), a policy that resolves to a
-    stream plan raises ``NotImplementedError``, as do the pipelines that
-    ``Pipeline.check_range_encode`` refuses, async rounds and adversaries.
+    stages on the range's state rows, E1 with the range's first tile id,
+    F1 on the fused EF route, C1 on the dense draw's range slice, the QSGD
+    bits at the range's coordinates, top-k's share of the whole row's
+    selection), its whole-vector statistics (the EF scale, sto-sign's
+    sigma, the DP clip norm, the QSGD norm, top-k's threshold counts) summed
+    from per-range partials over the replica's ranks in rank order
+    (``hints.all_reduce_sum``). A ``RoundContext.adversary`` drops its
+    clients from the (G, N) mask before anything reads it and attacks each
+    range payload after its encode, by global client index and the range's
+    first byte, the byte slice of the one-process attack. After the groups,
+    the ranks that own the same range on the other data rows meet over the
+    client axes in the one-process round's client order:
+
+      * the bitpacked sign wire (the 0/1-mask sum, the scale-weighted EF
+        wire, the robust laws' vote pair): the payload rows (and scales)
+        all-gathered, 1 bit a coordinate a client, and R1 reduces the
+        (G * N, n_bytes) stack in global client order. At the most
+        clients side by side that a plan holds (32, the regular plan on
+        2 x 16 x 16) that is 4 bytes a coordinate, what one walk of an
+        f32 rank-order chain moves, and the chain walks twice;
+      * the dense f32 wire (QSGD, dpgauss): the fold of
+        ``wire.fold_rows_over_ranks`` in global client order;
+      * top-k's COO pairs: all-gathered and scattered in global client
+        order (``wire.scatter_sum_coo``).
+
+    The range is decoded (and the cv server variate's range updated from
+    it), moved back onto the shards (``from_range``) and the server
+    optimizer steps each shard. So no rank holds a (d,) vector, a (G, N,
+    d) state or the whole tree; each keeps its range of every state slot
+    (``init_server_state(layout=)``), and a range's payload is the slice of
+    the unsharded round's. The cohort policy is resolved as the reference's
+    launcher does, with the plan's client axes as ``spmd_axes``: ``auto``
+    and ``stream`` run this round, a forced ``stream(shard=K)`` raises
+    ``ValueError``; on a plan without client axes (the big plan's
+    sequential groups), a policy that resolves to a stream plan raises
+    ``NotImplementedError``, as do async rounds.
     ``remat`` rematerializes each layer (on by default, as in the
     reference; off only to show that it changes no bit)."""
+    from repro_torch.core.compression import ENCODE_TILE
     from repro_torch.launch import hints
     from repro_torch.launch.sharding import spec_dims
     ctx = ctx or RoundContext()
@@ -852,10 +866,11 @@ def build_sharded_round_step(loss_fn: Callable, compressor, cfg: FedConfig,
     compressor.check_range_encode()
     if RoundModePolicy.parse(ctx.round_mode).mode != "sync":
         raise NotImplementedError("async rounds on a grid wait (ROADMAP)")
-    if ctx.adversary != "none":
-        raise NotImplementedError("the wire adversary on a grid waits "
-                                  "(ROADMAP: the robust laws on a grid)")
     G, N = cfg.client_groups, cfg.n_clients
+    adversary = parse_adversary(ctx.adversary)
+    if adversary is not None:
+        adversary = adversary.bind(G * N)
+    wire_layout = compressor.wire_format().layout
     if plan.client_axes:
         resolve_cohort(ctx.cohort, G * N, 0, spmd_axes=plan.client_axes)
     if _axes_size(grid, plan.client_axes) != N:
@@ -943,36 +958,111 @@ def build_sharded_round_step(loss_fn: Callable, compressor, cfg: FedConfig,
             return lambda t, use: t
         return lambda t, use: hints.all_reduce_sum(t, group, use)
 
+    def rank_prefix(layout):
+        """The ``rank_prefix`` hook of ``Pipeline.encode_range``: the sum
+        of a small tensor over the replica's ranks before this one."""
+        if layout.group is None:
+            return lambda t, use: torch.zeros_like(t)
+        return lambda t, use: hints.all_gather_dim(
+            t.reshape(1, -1), layout.group, 0, use)[:layout.me].sum(
+                0).reshape(t.shape)
+
+    def client_order(x):
+        """(N * G, ...) rows gathered in client-rank order -> (G * N, ...)
+        in global client order g * N + c."""
+        rest = tuple(x.shape[1:])
+        return x.reshape((N, G) + rest).transpose(0, 1).reshape(
+            (G * N,) + rest)
+
     def gather_clients(enc):
-        """The scale-weighted payloads of every client of the range, in
-        global client order g * N + c: this rank's (G, n_bytes) rows and
-        (G,) scales all-gathered over the client axes."""
-        packed = hints.all_gather_dim(enc["packed"], client_group, 0,
-                                      "wire_bytes")
-        scale = hints.all_gather_dim(enc["scale"], client_group, 0,
-                                     "wire_scale")
-        nb = packed.shape[-1]
-        return {"packed": packed.reshape(N, G, nb).transpose(0, 1).reshape(
-                    G * N, nb),
-                "scale": scale.reshape(N, G).transpose(0, 1).reshape(G * N)}
+        """The bitpacked payloads of every client of the range, in global
+        client order: this rank's (G, n_bytes) rows (and (G,) scales)
+        all-gathered over the client axes."""
+        if not isinstance(enc, dict):
+            return client_order(hints.all_gather_dim(enc, client_group, 0,
+                                                     "wire_bytes"))
+        return {k: client_order(hints.all_gather_dim(
+                    v, client_group, 0,
+                    "wire_bytes" if k == "packed" else "wire_scale"))
+                for k, v in enc.items()}
+
+    def gather_coo(payloads, device):
+        """Top-k's kept (values, range-local indices) of every client of
+        the range, in global client order: each rank's G rows (their
+        lengths differ) padded to the longest and all-gathered over the
+        client axes, then cut back to their lengths."""
+        rows = [(p["values"][0], p["indices"][0]) for p in payloads]
+        if client_group is None:
+            return rows
+        counts = client_order(hints.all_gather_dim(
+            torch.tensor([v.shape[0] for v, _ in rows], dtype=torch.int64,
+                         device=device), client_group, 0, "topk_counts"))
+        # a trace on meta tensors (the dry run) has no counts to read: this
+        # rank's widest row stands in for every client's
+        counts = ([max(v.shape[0] for v, _ in rows)] * (G * N)
+                  if counts.is_meta else counts.tolist())
+        width = max(counts)
+        vals = torch.zeros((G, width), dtype=torch.float32, device=device)
+        idx = torch.zeros((G, width), dtype=torch.int32, device=device)
+        for g, (v, i) in enumerate(rows):
+            vals[g, :v.shape[0]], idx[g, :i.shape[0]] = v, i
+        vals = client_order(hints.all_gather_dim(vals, client_group, 0,
+                                                 "wire_values"))
+        idx = client_order(hints.all_gather_dim(idx, client_group, 0,
+                                                "wire_indices"))
+        return [(vals[j, :n], idx[j, :n]) for j, n in enumerate(counts)]
+
+    def client_sum(payloads, mask_all, L: int, device):
+        """The aggregate of the range over every client of the round, from
+        this rank's G payloads (one a group): the ranks that own this range
+        on the other data rows meet over the client axes by one of the
+        three routes of ``build_sharded_round_step``, each in the
+        one-process round's client order."""
+        if wire_layout == "sparse_coo":
+            mask_flat = mask_all.reshape(-1).to(device)
+            acc = compressor.zero_acc(payloads[0], L)
+            for j, (v, i) in enumerate(gather_coo(payloads, device)):
+                acc = compressor.aggregate(
+                    {"values": v[None], "indices": i[None]},
+                    mask_flat[j:j + 1], L, acc=acc)
+            return acc
+        enc = (torch.cat(payloads) if isinstance(payloads[0], torch.Tensor)
+               else {k: torch.cat([p[k] for p in payloads])
+                     for k in payloads[0]})
+        del payloads[:]
+        if client_group is None:
+            return compressor.aggregate(enc, mask_all[:, c].to(device), L)
+        if wire_layout != "dense":
+            return compressor.aggregate(gather_clients(enc),
+                                        mask_all.reshape(-1).to(device), L)
+        t0 = time.perf_counter()
+        out = wire.fold_rows_over_ranks(enc, mask_all[:, c].to(device),
+                                        client_group)
+        # one (L,) f32 running sum a lap, a lap a group
+        hints.record("all_reduce", G * out.numel() * 4, t0, "client_sum")
+        return out
 
     def round_step(state: ServerState, batch, mask):
-        import time as _time
         params = state.params
         device = tree_leaves(params)[0].device
         layout = layout_for(params)
         check_state(state, layout)
         lo, hi = layout.bounds
-        tile0 = lo // compressor.pad_multiple()
+        # ranges start on an encode tile (``wire.flat_ranges``), whatever
+        # the codec's own pad multiple
+        tile0 = lo // ENCODE_TILE
         d = layout.spec.n_coords
         rng, sub = znoise.split(state.rng)
         mask_all = torch.as_tensor(mask, dtype=torch.float32).reshape(G, N)
+        if adversary is not None:
+            mask_all = adversary.drop_mask(mask_all, state.round)
         if ctx.debug_wire:
             wire.check_mask_membership(mask_all)
         keys = znoise.client_keys(sub, 0, G * N)
         sigma = state.sigma if ctx.dynamic_sigma else None
         # what the encodes read besides their rows
         extra = {"n_coords": d, "all_sum": all_sum(layout.group),
+                 "rank_prefix": rank_prefix(layout),
                  "server": state.comp_server, "spec": layout.spec}
         buf = torch.empty((1, hi - lo), dtype=torch.float32, device=device)
         payloads = []
@@ -997,31 +1087,20 @@ def build_sharded_round_step(loss_fn: Callable, compressor, cfg: FedConfig,
                     payloads.append(compressor.encode_range(
                         keys[g * N + c:g * N + c + 1], buf, tile0,
                         sigma=sigma, **extra))
+                    if adversary is not None:
+                        adversary.corrupt(payloads[-1],
+                                          torch.tensor([g * N + c]),
+                                          state.round, b0=lo // 8)
+                    if payloads[-1] is buf:
+                        # the dense wire's payload is the buffer itself
+                        buf = torch.empty_like(buf)
                     loss_sum = loss_sum + torch.where(w > 0, loss * w, 0.0)
         del buf
         with torch.no_grad():
-            enc = (torch.cat(payloads) if isinstance(payloads[0],
-                                                     torch.Tensor)
-                   else {k: torch.cat([p[k] for p in payloads])
-                         for k in payloads[0]})
+            enc_sum = client_sum(payloads, mask_all, hi - lo, device)
             del payloads
-            if compressor.scale_weighted and client_group is not None:
-                enc_sum = compressor.aggregate(
-                    gather_clients(enc),
-                    mask_all.reshape(-1).to(device), hi - lo)
-            else:
-                enc_sum = compressor.aggregate(
-                    enc, mask_all[:, c].to(device), hi - lo)
-                if client_group is not None:
-                    # THE cross-client step: the ranks that own this range
-                    # on the other data rows, in rank order
-                    t0 = _time.perf_counter()
-                    enc_sum = wire.reduce_accumulator(enc_sum, client_group)
-                    hints.record("all_reduce", enc_sum.numel() * 4, t0,
-                                 "client_sum")
-            del enc
             if client_group is not None:
-                t0 = _time.perf_counter()
+                t0 = time.perf_counter()
                 loss_sum = wire.reduce_accumulator(loss_sum.reshape(1),
                                                    client_group).reshape(())
                 hints.record("all_reduce", 4, t0, "loss")

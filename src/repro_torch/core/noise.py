@@ -11,8 +11,10 @@ therefore be generated on its own, in a CUDA block or in a chunk of the
 plain version, and both give the reference's exact bits.
 
 Finite z > 1 has no cheap inverse CDF: its encode draws a dense noise
-buffer (``sample_z_noise``) from a ``torch.Generator`` seeded from the
-client's key. That draw follows the reference's law, not its bits.
+buffer (``sample_z_noise``), each block of NOISE_BLOCK coordinates from a
+``torch.Generator`` seeded from ``fold_in`` of the client's key and the
+block's index, so a flat range's slice is drawn on its own. That draw
+follows the reference's law, not its bits.
 
 torch has no ``add`` or shifts for ``torch.uint32`` on the CPU, so the plain
 threefry works on int64 tensors (or Python ints) that hold uint32 words and
@@ -240,30 +242,58 @@ def key_generator(key: torch.Tensor, device=None) -> torch.Generator:
     return gen.manual_seed((k0 << 32) | k1)
 
 
+#: coordinates of one block of the dense draw (``sample_z_noise``): block b
+#: of a row comes from the generator of ``fold_in(key, b)``
+NOISE_BLOCK = 1 << 20
+
+
+def _z_block(gen: torch.Generator, n: int, z: int,
+             device) -> torch.Tensor:
+    """n i.i.d. xi_z in f32 from ``gen``."""
+    if z <= Z_INF:
+        u = torch.rand((n,), generator=gen, device=device)
+        return 2.0 * u - 1.0
+    if z == 1:
+        return torch.randn((n,), generator=gen, device=device)
+    k = 1.0 / (2 * z)
+    u = torch._standard_gamma(
+        torch.full((n,), k, dtype=torch.float32, device=device),
+        generator=gen)
+    mag = (u * 2.0) ** k
+    sign = torch.randint(0, 2, (n,), generator=gen, device=device,
+                         dtype=torch.int8)
+    return torch.where(sign > 0, mag, -mag)
+
+
 def sample_z_noise(key: torch.Tensor, shape, z: int, device=None,
-                   dtype=torch.float32) -> torch.Tensor:
-    """Draw i.i.d. xi_z with p.d.f. p_z (Definition 1) from the generator
-    of ``key`` (``key_generator``). The law is the reference's: uniform on
-    [-1, 1) for z=inf, standard normal for z=1, and for finite z > 1
-    ``(2 * Gamma(1/(2z)))^(1/(2z))`` with a Rademacher sign. torch cannot
+                   dtype=torch.float32, lo: int = 0) -> torch.Tensor:
+    """Draw i.i.d. xi_z with p.d.f. p_z (Definition 1), block-keyed: the
+    row's flat coordinate i lies in block b = i // NOISE_BLOCK, whose
+    NOISE_BLOCK values come from the generator of ``fold_in(key, b)``
+    (``key_generator``), always drawn whole. So coordinates [lo, lo + n)
+    of a row (``lo``: a flat range's first coordinate, the model-sharded
+    replica's) are bit for bit the slice of the whole row's draw, on any
+    split of the row. The law is the reference's: uniform on [-1, 1) for
+    z=inf, standard normal for z=1, and for finite z > 1 ``(2 *
+    Gamma(1/(2z)))^(1/(2z))`` with a Rademacher sign. torch cannot
     reproduce jax.random's bits, so the draw matches the reference in
     distribution only."""
     device = torch.device(device or "cpu")
-    gen = key_generator(key, device)
     shape = tuple(shape)
-    if z <= Z_INF:
-        u = torch.rand(shape, generator=gen, device=device)
-        return (2.0 * u - 1.0).to(dtype)
-    if z == 1:
-        return torch.randn(shape, generator=gen, device=device).to(dtype)
-    k = 1.0 / (2 * z)
-    u = torch._standard_gamma(
-        torch.full(shape, k, dtype=torch.float32, device=device),
-        generator=gen)
-    mag = (u * 2.0) ** k
-    sign = torch.randint(0, 2, shape, generator=gen, device=device,
-                         dtype=torch.int8)
-    return torch.where(sign > 0, mag, -mag).to(dtype)
+    n = math.prod(shape)
+    out = torch.empty((n,), dtype=dtype, device=device)
+    if n == 0:
+        return out.reshape(shape)
+    b0, b1 = lo // NOISE_BLOCK, (lo + n - 1) // NOISE_BLOCK + 1
+    bkeys = fold_in(key, torch.arange(b0, b1, dtype=torch.int64)).tolist()
+    for b, bk in zip(range(b0, b1), bkeys):
+        start = b * NOISE_BLOCK
+        a, e = max(lo, start), min(lo + n, start + NOISE_BLOCK)
+        blk = _z_block(key_generator(torch.tensor(bk), device),
+                       NOISE_BLOCK, z, device)
+        out[a - lo:e - lo] = blk[a - start:e - start]
+        del blk
+    return out.reshape(shape)
 
 
 def pdf_z(t, z: int) -> torch.Tensor:

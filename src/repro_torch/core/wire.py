@@ -516,53 +516,88 @@ def reduce_accumulator(acc: torch.Tensor, group=None) -> torch.Tensor:
     in pieces of ``REDUCE_CHUNK_BYTES``. Gloo carries host bytes only: a
     CUDA accumulator is staged through one pinned host buffer of a piece,
     and the adds stay on its device. Counts into ``REDUCE_STATS``."""
+    flat = acc.reshape(-1)
+    return _rank_chain([lambda lo, hi: flat[lo:hi]], flat, group,
+                       False).reshape(acc.shape)
+
+
+def fold_rows_over_ranks(rows: torch.Tensor, weights: torch.Tensor,
+                         group=None) -> torch.Tensor:
+    """The dense f32 wire's client sum over the ranks of a client group:
+    rank r holds the (G, L) rows of clients g * W + r (W ranks) and their
+    (G,) weights -> ``dense_masked_sum`` of all G * W rows in GLOBAL client
+    order, ((0 + w_0 p_0) + w_1 p_1) + ..., the same bits on every rank. The
+    running sum walks the chain G times (rank W - 1 hands lap g on to rank
+    0's lap g + 1) and the total walks back down, in the pieces and
+    staging of ``reduce_accumulator``: the one-process fold, term for
+    term, at G * W sequential hops of an (L,) piece."""
+    w = weights.to(device=rows.device, dtype=torch.float32)
+    terms = [lambda lo, hi, g=g: rows[g, lo:hi].to(torch.float32) * w[g]
+             for g in range(rows.shape[0])]
+    return _rank_chain(terms, rows[0], group, True)
+
+
+def _rank_chain(terms, like: torch.Tensor, group, from_zero: bool):
+    """The rank-order chain of ``reduce_accumulator`` over ``len(terms)``
+    laps: ``terms[g](lo, hi)`` is this rank's piece [lo, hi) of lap g; the
+    running sum starts at rank 0's first term (plus +0.0 where
+    ``from_zero``), passes rank r - 1 -> r within a lap and the last rank
+    -> rank 0 between laps; the total comes back down. -> the (n,) sum on
+    every rank."""
     import torch.distributed as dist
     t0 = time.perf_counter()
     rank, world = rank_world(group)
-    if world == 1:
-        return acc
+    laps = len(terms)
+    if world == 1 and laps == 1 and not from_zero:
+        return terms[0](0, like.numel())
     peer = ((lambda r: r) if group is None
             else (lambda r: dist.get_global_rank(group, r)))
-    staged = acc.is_cuda and dist.get_backend(group) == "gloo"
-    flat = acc.reshape(-1)
-    step = max(1, REDUCE_CHUNK_BYTES // acc.element_size())
-    host = (torch.empty((min(step, flat.numel()),), dtype=acc.dtype,
-                        pin_memory=True) if staged else None)
+    dtype, dev = like.dtype, like.device
+    size = like.element_size()
+    n = like.numel()
+    staged = like.is_cuda and world > 1 and dist.get_backend(group) == "gloo"
+    step = max(1, REDUCE_CHUNK_BYTES // size)
+    host = (torch.empty((min(step, n),), dtype=dtype, pin_memory=True)
+            if staged else None)
 
-    def recv(src, n):
-        buf = host[:n] if staged else torch.empty(
-            (n,), dtype=acc.dtype, device=acc.device)
+    def recv(src, m):
+        buf = host[:m] if staged else torch.empty((m,), dtype=dtype,
+                                                  device=dev)
         dist.recv(buf, src=peer(src), group=group)
-        REDUCE_STATS["received"] += n * acc.element_size()
-        return buf.to(acc.device) if staged else buf
+        REDUCE_STATS["received"] += m * size
+        return buf.to(dev) if staged else buf
 
     def send(piece, dst):
         if staged:                        # synchronous: the bytes are ready
             piece = host[:piece.numel()].copy_(piece)
         dist.send(piece.contiguous(), dst=peer(dst), group=group)
-        REDUCE_STATS["sent"] += piece.numel() * acc.element_size()
+        REDUCE_STATS["sent"] += piece.numel() * size
 
-    out = torch.empty_like(flat)
-    pieces = [(lo, min(lo + step, flat.numel()))
-              for lo in range(0, flat.numel(), step)]
+    out = torch.empty((n,), dtype=dtype, device=dev)
+    pieces = [(lo, min(lo + step, n)) for lo in range(0, n, step)]
     for lo, hi in pieces:                 # the running sum, up the chain
-        piece = flat[lo:hi]
-        if rank > 0:
-            piece = recv(rank - 1, hi - lo) + piece
-        if rank < world - 1:
-            send(piece, rank + 1)
-        else:
-            out[lo:hi] = piece
+        for g, term in enumerate(terms):
+            if rank == 0 and g == 0:
+                piece = term(lo, hi)
+                if from_zero:
+                    piece = torch.zeros_like(piece) + piece
+            else:
+                piece = (piece if world == 1 else
+                         recv((rank - 1) % world, hi - lo)) + term(lo, hi)
+            if rank == world - 1 and g == laps - 1:
+                out[lo:hi] = piece
+            elif world > 1:
+                send(piece, (rank + 1) % world)
     for lo, hi in pieces:                 # the total, back down
         if rank < world - 1:
             out[lo:hi] = recv(rank + 1, hi - lo)
         if rank > 0:
             send(out[lo:hi], rank - 1)
     if staged:
-        torch.cuda.current_stream(acc.device).synchronize()
+        torch.cuda.current_stream(dev).synchronize()
     REDUCE_STATS["calls"] += 1
     REDUCE_STATS["seconds"] += time.perf_counter() - t0
-    return out.reshape(acc.shape)
+    return out
 
 
 # ---------------------------------------------------------------------------

@@ -114,20 +114,25 @@ class Adversary:
         sel = self._selected(idx, round_idx).to(mask.device)
         return torch.where(sel, torch.zeros_like(mask), mask)
 
-    def corrupt(self, payload, idx, round_idx: int):
+    def corrupt(self, payload, idx, round_idx: int, b0: int = 0):
         """Attack one group's or shard's encoded payload stack IN PLACE
         (the engine's own, consumed by the aggregate) and return it.
         ``payload`` has a leading client axis matching ``idx`` (the clients'
         GLOBAL indices): a bitpacked (n, n_bytes) uint8 stack, a
-        {"packed", "scale"} dict, a COO {"values", "indices"} dict or a
-        dense (n, d) f32 stack. Identity for the dropout kind."""
+        {"packed", "scale"} dict (its bytes attacked, the scale sent as
+        it is), a COO {"values", "indices"} dict or a dense (n, d) f32
+        stack. ``b0``: the first byte of the whole payload that the rows
+        hold (a flat range's bytes on the model-sharded replica): the
+        byte draws are those of bytes [b0, b0 + n_bytes), the slice of the
+        whole payload's attack. Identity for the dropout kind."""
         if self.kind == "dropout":
             return payload
         rows = torch.nonzero(self._selected(idx, round_idx)).reshape(-1)
         idx = torch.as_tensor(idx).to(torch.int64)
         if isinstance(payload, dict):
             if "packed" in payload:
-                self._corrupt_packed(payload["packed"], rows, idx, round_idx)
+                self._corrupt_packed(payload["packed"], rows, idx, round_idx,
+                                     b0)
                 return payload
             if "values" in payload:
                 if self.kind != "sign_flip":
@@ -141,7 +146,7 @@ class Adversary:
             raise ValueError(f"unrecognized payload dict keys "
                              f"{sorted(payload)} for adversary injection")
         if payload.dtype == torch.uint8:
-            self._corrupt_packed(payload, rows, idx, round_idx)
+            self._corrupt_packed(payload, rows, idx, round_idx, b0)
             return payload
         if self.kind != "sign_flip":
             raise ValueError(
@@ -152,7 +157,8 @@ class Adversary:
         return payload
 
     def _corrupt_packed(self, packed: torch.Tensor, rows: torch.Tensor,
-                        idx: torch.Tensor, round_idx: int) -> None:
+                        idx: torch.Tensor, round_idx: int,
+                        b0: int = 0) -> None:
         rows = rows.tolist()
         if not rows:
             return
@@ -165,7 +171,7 @@ class Adversary:
         rkey = znoise.fold_in(znoise.prng_key(self.seed), int(round_idx))
         if self.kind == "collude":
             # every colluder sends the SAME pattern, drawn fresh each round
-            patt = _randint_u8(rkey, 0, n_bytes, dev)
+            patt = _randint_u8(rkey, b0, b0 + n_bytes, dev)
             for c in rows:
                 packed[c].copy_(patt)
             return
@@ -176,8 +182,8 @@ class Adversary:
             for lo in range(0, n_bytes, znoise.BITS_CHUNK):
                 hi = min(lo + znoise.BITS_CHUNK, n_bytes)
                 hit = znoise.bits_to_uniform(
-                    znoise.random_bits(kb, lo, hi, dev)) < p
-                rnd = _randint_u8(kv, lo, hi, dev)
+                    znoise.random_bits(kb, b0 + lo, b0 + hi, dev)) < p
+                rnd = _randint_u8(kv, b0 + lo, b0 + hi, dev)
                 seg = packed[c, lo:hi]
                 seg.copy_(torch.where(hit, rnd, seg))
 

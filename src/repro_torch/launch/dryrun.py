@@ -33,17 +33,19 @@ reports for this rank:
 ``run_cell`` adds ``launch/roofline.terms_for`` with the H100 ``Chip`` (the
 reference's v5e constants are not ported) and the peak against one H100's
 80 GB (``HBM_BYTES``). The trace takes the card's
-route through the wire (the ``auto`` backends): E1, R1 and F1 stand in by
-their kernels' outputs (they count and do not compute); on a card
-``chip_smoke.py`` runs this same ``build_train_cell`` step for real on a 2
-x 2 grid. Train cells of the dense, MoE and VLM families are ported (the
-MoE experts gathered a layer or, under ``moe_ep``, expert-parallel with the
-dispatch's all-to-alls counted), with the pipelines the grid runs
-(``--pipeline``) and the reference's ``--agg-backend``,
-``--encode-backend``, ``--cohort`` and ``--adversary``; the recurrent,
-hybrid and enc-dec families on a grid, the prefill and decode cells,
-``long_500k``, a wire adversary and the pipelines the grid does not run yet
-are not, and the CLI says so instead of printing a result.
+route through the wire (the ``auto`` backends): E1, R1, F1 and C1 stand
+in by their kernels' outputs (they count and do not compute), the dense
+noise draw by its output, and top-k's selection by its collectives and
+the range's even share of k; on a card ``chip_smoke.py`` runs this same
+``build_train_cell`` step for real on a 2 x 2 grid. Train cells of the
+dense, MoE and VLM families are ported (the MoE experts gathered a layer
+or, under ``moe_ep``, expert-parallel with the dispatch's all-to-alls
+counted), with every pipeline spec (``--pipeline``) and the reference's
+``--agg-backend``, ``--encode-backend``, ``--cohort`` and ``--adversary``;
+the recurrent, hybrid and enc-dec families on a grid, the prefill and
+decode cells, ``long_500k`` and a cohort that streams the big plan's
+sequential groups are not, and the CLI says so instead of printing a
+result.
 """
 from __future__ import annotations
 
@@ -59,8 +61,8 @@ import torch.distributed as dist
 
 from repro_torch.configs.common import SHAPES, ShapeCfg, get_arch, list_archs
 from repro_torch.core import compression, fedavg
+from repro_torch.core import noise as znoise
 from repro_torch.core.tree import tree_leaves, tree_map
-from repro_torch.fed.adversary import parse_adversary
 from repro_torch.launch import hints
 from repro_torch.launch import sharding as SH
 from repro_torch.launch.mesh import make_production_mesh
@@ -75,9 +77,6 @@ NOT_PORTED = {
                "and decode cells with cache_specs)",
     "decode": "the decode cell is not ported yet (ROADMAP: the prefill and "
               "decode cells with cache_specs)",
-    "adversary": "the wire adversary {spec!r} on a grid is not ported yet "
-                 "(ROADMAP item 21 step 3: the vote pair and the robust "
-                 "laws with the adversary on a grid)",
     "pipeline": "{msg}",
 }
 
@@ -103,8 +102,7 @@ def build_train_cell(arch, shape: ShapeCfg, grid, *,
     the arch's loss on ``grid`` under ``sharding.make_plan``'s plan, with
     the arch's default codec ``zsign(z=..,sigma=..)`` or ``pipeline``, and
     the reference's backend selectors, cohort policy and wire adversary
-    (a pipeline, cohort or adversary that the grid does not run yet raises
-    ``NotPorted``).
+    (a cohort that the grid does not run yet raises ``NotPorted``).
     ``example`` holds the shapes of its arguments: ``params`` (this rank's
     shards, a tree of ``BatchLeaf``), ``specs``, ``batch`` ((G, N, E,
     micro, S) leaves) and ``mask`` ((G, N)), and the step's ``layout``
@@ -113,8 +111,6 @@ def build_train_cell(arch, shape: ShapeCfg, grid, *,
         raise NotPorted(NOT_PORTED["family"].format(family=arch.model.family))
     if shape.kind != "train":
         raise NotPorted(NOT_PORTED[shape.kind])
-    if parse_adversary(adversary) is not None:
-        raise NotPorted(NOT_PORTED["adversary"].format(spec=adversary))
     bundle = build_model(arch.model)
     plan = SH.make_plan(arch, shape, grid)
     comp = compression.Pipeline(
@@ -133,11 +129,15 @@ def build_train_cell(arch, shape: ShapeCfg, grid, *,
     params = tree_map(lambda t, sp: BatchLeaf(
         SH.shard_shape(t.shape, sp, grid), t.dtype), meta, specs)
     ctx = SH.round_context(plan, agg_backend=agg_backend,
-                           encode_backend=encode_backend, cohort=cohort)
+                           encode_backend=encode_backend, cohort=cohort,
+                           adversary=adversary)
     try:
         step = fedavg.build_sharded_round_step(
             bundle.loss_fn, comp, fcfg, ctx, grid=grid, plan=plan,
             specs=specs, remat=remat)
+        # the cohort's plan resolves with the layout (a stream of the big
+        # plan's sequential groups waits)
+        step.layout(params)
     except NotImplementedError as e:
         raise NotPorted(NOT_PORTED["pipeline"].format(msg=e)) from e
     per_step = bundle.train_batch_spec(plan.micro, shape.seq_len)
@@ -196,6 +196,9 @@ class _KernelFootprint:
         return torch.empty((x2d.shape[0], x2d.shape[1] // 8),
                            dtype=torch.uint8, device=x2d.device)
 
+    def zsign_compress_rows(self, x2d, noise2d, sigma):
+        return self.zsign_encode(x2d, None, sigma, None)
+
     def sign_reduce(self, packed, weights, acc=None):
         out = torch.empty((8 * packed.shape[1],), dtype=torch.float32,
                           device=packed.device)
@@ -206,6 +209,29 @@ class _KernelFootprint:
         return (self.zsign_encode(g2d, None, None, None),
                 e2d if in_place else torch.empty_like(e2d),
                 torch.empty_like(e2d) if with_q else None)
+
+
+def _noise_footprint(key, shape, z, device=None, dtype=torch.float32,
+                     lo=0):
+    """Stands in for ``noise.sample_z_noise`` while a trace runs: the
+    draw's output, uncomputed."""
+    return torch.empty(tuple(shape), dtype=dtype, device=device)
+
+
+def _topk_footprint(n_coords: int):
+    """Stands in for ``compression.range_topk_select`` while a trace runs:
+    the same collectives (four 256-bin counts over the replica, the ties'
+    prefix), and the range's even share of the k kept entries, k * L / d,
+    in place of a selection that would read values a trace has not."""
+    def select(row, k, all_sum, rank_prefix):
+        for _ in range(4):
+            all_sum(torch.zeros((256,), dtype=torch.int64,
+                                device=row.device), "topk_hist")
+        rank_prefix(torch.zeros((1,), dtype=torch.int64,
+                                device=row.device), "topk_ties")
+        n = min(row.shape[0], -(-k * row.shape[0] // n_coords))
+        return torch.empty((n,), dtype=torch.int64, device=row.device)
+    return select
 
 
 def state_bytes(example, layout, grid) -> dict:
@@ -257,15 +283,19 @@ def analyze(step, example, grid, label: str, seed: int = 0) -> dict:
         [state.params, batch, mask]) if isinstance(t, torch.Tensor)])
     fc = FlopCounterMode(display=False)
     hints.reset_collective_stats()
+    layout = example["layout"](state.params)
     ops, eops = compression.K, compression.EK
+    select, draw = compression.range_topk_select, znoise.sample_z_noise
     compression.K, compression.EK = (_KernelFootprint(ops),
                                      _KernelFootprint(eops))
+    compression.range_topk_select = _topk_footprint(layout.spec.n_coords)
+    znoise.sample_z_noise = _noise_footprint
     try:
         with mt, fc:
             new_state, metrics = step(state, batch, mask)
     finally:
         compression.K, compression.EK = ops, eops
-    layout = example["layout"](state.params)
+        compression.range_topk_select, znoise.sample_z_noise = select, draw
     peak = mt.get_tracker_snapshot("peak")
     out_bytes = _nbytes(new_state.params) + _nbytes(list(metrics))
     # the device's peak (the host's few bytes of keys and mask left out)
@@ -367,13 +397,11 @@ def main(argv=None) -> None:
                     help="wire-level fault-injection policy compiled into "
                          "the train cell (none | sign_flip(f=..) | "
                          "byte_corrupt(f=..,p=..) | collude(f=..) | "
-                         "dropout(f=..)); on a grid only none so far")
+                         "dropout(f=..))")
     ap.add_argument("--pipeline", default=None, metavar="SPEC",
                     help="full compression pipeline spec overriding the "
                          "arch default, e.g. 'cv|zsign_packed' or "
-                         "'ef|zsign' (grammar: docs/API.md); on a grid: "
-                         "sign codecs with agg=mean behind ef, cv, "
-                         "sigma_sched and a dp clip so far")
+                         "'ef|zsign' (grammar: docs/API.md)")
     ap.add_argument("--out", default=None)
     args = ap.parse_args(argv)
     archs = list_archs() if args.arch == "all" else [args.arch]

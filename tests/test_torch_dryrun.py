@@ -95,17 +95,18 @@ def test_qwen2_train_4k_bytes_and_collectives_closed_form():
     range0 = -(-n_tiles // R_) * 8192              # rank 0's range
     shard_elems = sum(n // k for n, k in shards.values())
     want = {
-        # embed (V x D) once, each layer's weights, each layer's K/V
-        "all_gather": V * D * bpe + L * gathers * w_layer * bpe + L * kv,
+        # embed (V x D) once, each layer's weights, each layer's K/V, the
+        # range's sign bytes of the 16 clients
+        "all_gather": V * D * bpe + L * gathers * w_layer * bpe + L * kv
+        + 16 * range0 // 8,
         # the gradients' shards, and the K/V gradients' sequence slices
         "reduce_scatter": (V * D + L * w_layer) * bpe // R_
         + L * kv // R_,
         # the pseudo-gradient into the range, the update back, f32
         "all_to_all": 4 * range0 + 4 * shard_elems,
         # replicated leaves' gradients (layers and lnf), the loss's token
-        # sum and count, the range's sign sum and the loss over the 16
-        # clients, the update norm
-        "all_reduce": (L * r_layer + D) * bpe + 8 + 4 * range0 + 4 + 4,
+        # sum and count, the loss over the 16 clients, the update norm
+        "all_reduce": (L * r_layer + D) * bpe + 8 + 4 + 4,
     }
     assert res["collectives"] == want
     assert res["collective_bytes_per_device"] == sum(want.values())
@@ -266,17 +267,19 @@ def test_range_state_bytes_closed_form(spec, big):
 @pytest.mark.parametrize("big", [False, True], ids=["regular", "big"])
 def test_new_collectives_in_the_count(spec, new, big):
     """Against the stateless codec's cell: one 4-byte partial sum over the
-    replica a group for each whole-vector statistic; on the EF wire with
-    clients side by side, the payload rows and scales all-gathered over
-    the client axis in place of the f32 client sum."""
+    replica a group for each whole-vector statistic; with clients side by
+    side, the sign wire's payload rows all-gathered over the client axis
+    (no f32 client sum), and on the EF wire its scales beside them."""
     res, plan, L, _ = _small_cell(spec, big)
     base = _small_cell("zsign", big)[0]
     G, N = plan.client_groups, plan.n_clients
+    assert "all_reduce:client_sum" not in base["collectives_by_use"]
+    if N > 1:
+        assert base["collectives_by_use"]["all_gather:wire_bytes"] == \
+            N * G * L // 8
     want = dict(base["collectives_by_use"])
     want.update({k: v * G for k, v in new.items()})
     if spec.startswith("ef|") and N > 1:
-        del want["all_reduce:client_sum"]
-        want["all_gather:wire_bytes"] = N * G * L // 8
         want["all_gather:wire_scale"] = 4 * N * G
     assert res["collectives_by_use"] == want
     totals = {k: sum(v for u, v in want.items() if u.startswith(k + ":"))
@@ -285,14 +288,73 @@ def test_new_collectives_in_the_count(spec, new, big):
 
 
 @pytest.mark.parametrize("args,why", [
-    (["--adversary", "sign_flip(f=1)"], "item 21 step 3"),
-    (["--adversary", "byte_corrupt(f=1,p=0.1)"], "item 21 step 3"),
-    (["--pipeline", "zsign(z=1,sigma=0.01,agg=vote)"], "ROADMAP")])
+    (["--arch", "qwen2_5_32b", "--cohort", "stream(shard=2)"],
+     "big plan's forced stream")])
 def test_grid_gaps_print_not_ported(args, why, capsys):
-    """A non-``none`` adversary, and a pipeline the grid does not run yet,
-    print a ``not_ported`` record naming what they wait for, not an
-    error."""
+    """A cohort that streams the big plan's sequential groups (ROADMAP item
+    21 step 6) prints a ``not_ported`` record naming what it waits for,
+    not an error."""
+    dryrun.main(["--shape", "train_4k"] + args)
+    line = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert why in line["not_ported"] and "ROADMAP" in line["not_ported"]
+    assert "error" not in line and "flops_per_device" not in line
+
+
+@pytest.mark.parametrize("args", [
+    ["--adversary", "sign_flip(f=1)"],
+    ["--adversary", "byte_corrupt(f=1,p=0.1)",
+     "--pipeline", "zsign(z=1,sigma=0.01,agg=median)"],
+    ["--pipeline", "zsign(z=1,sigma=0.01,agg=vote)"]],
+    ids=["sign_flip", "byte_corrupt-median", "vote"])
+def test_adversary_and_robust_laws_print_a_train_record(args, capsys):
+    """The wire adversary and the robust laws run on the grid: the CLI
+    prints qwen2-0.5B's ``train_4k`` record, with the payload rows
+    all-gathered over the client axis (the sign wire's route, the vote
+    pair's too) and no f32 client sum."""
     dryrun.main(["--arch", "qwen2_0_5b", "--shape", "train_4k"] + args)
     line = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
-    assert why in line["not_ported"]
-    assert "error" not in line and "flops_per_device" not in line
+    assert line["label"] == "qwen2_0_5b/train_4k/16x16"
+    assert "error" not in line and "not_ported" not in line
+    assert line["flops_per_device"] > 0 and line["fits_hbm"]
+    by_use = line["collectives_by_use"]
+    assert "all_gather:wire_bytes" in by_use
+    assert "all_reduce:client_sum" not in by_use
+
+
+@pytest.mark.parametrize("spec,new,gone", [
+    ("zsign(z=1,sigma=0.01,agg=vote)", {}, ()),
+    ("zsign(z=1,sigma=0.01,agg=median)", {}, ()),
+    ("zsign_packed(z=2,sigma=0.01)", {}, ()),
+    ("qsgd(s=1)", {"all_reduce:row_norm": 4, "all_reduce:client_sum": "4GL"},
+     ("all_gather:wire_bytes",)),
+    ("dp(clip=1.0,noise=0.1)|dense", {"all_reduce:row_norm": 4,
+                                      "all_reduce:client_sum": "4GL"},
+     ("all_gather:wire_bytes",)),
+    ("topk(frac=0.25)", {"all_reduce:topk_hist": 8192,
+                         "all_gather:topk_ties": 16,
+                         "all_gather:topk_counts": "8N",
+                         "all_gather:wire_values": "kv",
+                         "all_gather:wire_indices": "kv"},
+     ("all_gather:wire_bytes",))])
+def test_new_specs_collectives_in_the_count(spec, new, gone):
+    """At the reduced dense model on a fake 2 x 2 group (2 clients side by
+    side, a replica of 2 ranks), against the zsign cell: the robust laws
+    and z = 2 all-gather the range's bytes as zsign does; QSGD's norm and
+    dpgauss's clip add a 4-byte partial sum, and their f32 wire folds
+    over the client axis (an (L,) f32 running sum a group) in place of the
+    bytes' all-gather; top-k adds its four 256-bin int64 counts, the
+    ties' prefix (an int64 a replica rank), the clients' counts and their
+    values and indices (the dry run's even share of k a range) in place
+    of the bytes."""
+    res, plan, L, d = _small_cell(spec)
+    base = _small_cell("zsign")[0]
+    N, G = plan.n_clients, plan.client_groups
+    share = -(-max(1, int(d * 0.25)) * L // d)
+    sizes = {"4GL": 4 * G * L, "8N": 8 * N * G,
+             "kv": 4 * N * G * share}
+    want = dict(base["collectives_by_use"])
+    for k in gone:
+        del want[k]
+    want.update({k: sizes.get(v, v) if isinstance(v, str) else v * G
+                 for k, v in new.items()})
+    assert res["collectives_by_use"] == want

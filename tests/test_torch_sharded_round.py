@@ -472,7 +472,46 @@ def test_forced_stream_on_a_grid_raises_the_reference_error():
                                   "topk(frac=0.25)", "ef|topk(frac=0.25)",
                                   "dp(clip=1.0,noise=0.1)|dense"])
 def test_other_pipelines_on_a_grid_raise(spec):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        TF.build_sharded_round_step(lambda p, b: 0.0, TC.Pipeline(spec),
-                                    TF.FedConfig(), None, grid=None,
-                                    plan=None, specs={})
+    """These six specs build on a grid and resolve their layout (their
+    rounds are held in ``tests/test_torch_sharded_pipelines.py``); what
+    still waits raises ``NotImplementedError`` naming ROADMAP with each of
+    them: an async round, and a cohort that streams the big plan's
+    sequential groups (ROADMAP item 21 step 6)."""
+    import dataclasses
+
+    import torch.distributed as dist
+
+    from repro_torch.configs.common import ShapeCfg
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import make_replica_grid
+    if dist.is_initialized():
+        pytest.skip("a process group is up in this worker")
+    shape = ShapeCfg("test", "train", R.SEQ, 4)
+    dryrun.fake_group(4, 0)
+    try:
+        grid = make_replica_grid((2, 2), ("data", "model"),
+                                 device_type="cpu")
+        _, ex, plan = dryrun.build_train_cell(R.arch(False), shape, grid,
+                                              pipeline=spec)
+        ctx = dataclasses.replace(
+            SH.round_context(plan),
+            round_mode="async(deadline=1.0,staleness=cutoff(2))")
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            TF.build_sharded_round_step(
+                lambda p, b: 0.0, TC.Pipeline(spec), ex["fcfg"], ctx,
+                grid=grid, plan=plan, specs=ex["specs"])
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            dryrun.build_train_cell(R.arch(True), shape, grid,
+                                    pipeline=spec, cohort="stream(shard=1)")
+    finally:
+        dist.destroy_process_group()
+
+
+def test_robust_laws_on_a_grid_need_the_mask_guarantee():
+    """The robust laws count votes under the static 0/1-mask guarantee:
+    without it the grid step refuses them at build, before a round's local
+    SGD, as the aggregate would after it."""
+    with pytest.raises(ValueError, match="weights_are_mask"):
+        TF.build_sharded_round_step(
+            lambda p, b: 0.0, TC.Pipeline("zsign(z=1,sigma=0.01,agg=vote)"),
+            TF.FedConfig(), None, grid=None, plan=None, specs={})

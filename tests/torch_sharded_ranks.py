@@ -55,23 +55,64 @@ SCENARIOS = {
                              {"cohort": "stream"}),
 }
 
-#: the stateful and transform pipelines of ``tests/test_torch_sharded_
-#: pipelines.py``, each on the regular plan of the 2 x 2 and 1 x 4 grids
-#: and the big plan of the 2 x 2 grid, on the linear-loss wire harness
+#: the pipelines of ``tests/test_torch_sharded_pipelines.py``, each on
+#: the regular plan of the 2 x 2 and 1 x 4 grids and the big plan of the
+#: 2 x 2 grid, on the linear-loss wire harness: the stateful and transform
+#: stages, the robust sign laws, dense z > 1, top-k (``sched_topk``: a
+#: codec whose pad multiple is 1 behind the leaf-offset stage), QSGD and
+#: dpgauss
 PIPELINE_SPECS = {"ef": "ef|zsign", "ef_f1": "ef|zsign(use_kernel=true)",
                   "ef_noisy": "ef|zsign(z=1,sigma=0.01)",
                   "cv": "cv|zsign_packed",
                   "dp": "dp(clip=1.0,eps=2.0)|zsign_packed",
                   "sched": "sigma_sched(head=1.0,tail=0.25)|zsign(z=1,"
                            "sigma=0.01)",
-                  "stosign": "stosign"}
+                  "stosign": "stosign",
+                  "vote": "zsign(z=1,sigma=0.01,agg=vote)",
+                  "trimmed": "zsign(z=1,sigma=0.01,agg=trimmed(f=1))",
+                  "median": "zsign(z=1,sigma=0.01,agg=median)",
+                  "z2": "zsign_packed(z=2,sigma=0.01)",
+                  "topk": "topk(frac=0.25)",
+                  "ef_topk": "ef|topk(frac=0.25)",
+                  "topk_coord": "topk(frac=0.25,agg=coord)",
+                  "sched_topk": "sigma_sched(head=1.0,tail=0.25)|topk("
+                                "frac=0.25)",
+                  "qsgd": "qsgd(s=1)",
+                  "dpgauss": "dp(clip=1.0,noise=0.1)|dense"}
+#: the specs whose dense noise both packages draw from one numpy table
+#: (``inputs["noise"]``, by client key), so that the grid is held to the
+#: reference as the one-process round is
+TABLE_NOISE = ("z2", "dpgauss")
 PIPELINE_GRIDS = {"22": ((2, 2), False), "14": ((1, 4), False),
                   "big": ((2, 2), True)}
 PIPELINE_ROUNDS = 2
+#: the robust laws under each adversary kind: every law with the clients
+#: side by side (2 x 2), and the median on the big plan's groups
+ADVERSARIES = {"sign_flip": "sign_flip(f=1)",
+               "byte_corrupt": "byte_corrupt(f=1,p=0.1)",
+               "collude": "collude(f=1)", "dropout": "dropout(f=1)"}
+ADVERSARY_SCENARIOS = {
+    **{f"adv_{law}_{kind}_22": ((2, 2), False, PIPELINE_SPECS[law],
+                                {"linear": True, "adversary": adv})
+       for law in ("vote", "trimmed", "median")
+       for kind, adv in ADVERSARIES.items()},
+    **{f"adv_median_{kind}_big": ((2, 2), True, PIPELINE_SPECS["median"],
+                                  {"linear": True, "adversary": adv})
+       for kind, adv in ADVERSARIES.items()}}
 PIPELINE_SCENARIOS = {
-    f"{k}_{g}": (shape, big, spec, {"linear": True})
-    for k, spec in PIPELINE_SPECS.items()
-    for g, (shape, big) in PIPELINE_GRIDS.items()}
+    **{f"{k}_{g}": (shape, big, spec,
+                    {"linear": True, "table": k in TABLE_NOISE})
+       for k, spec in PIPELINE_SPECS.items()
+       for g, (shape, big) in PIPELINE_GRIDS.items()},
+    # the block-keyed dense draw itself (no table)
+    **{f"{k}_block_22": ((2, 2), False, PIPELINE_SPECS[k], {"linear": True})
+       for k in TABLE_NOISE},
+    # 2 groups of 2 clients side by side: the dense wire's fold walks the
+    # client axis twice
+    **{f"{k}_g2_22": ((2, 2), False, PIPELINE_SPECS[k],
+                      {"linear": True, "groups": 2})
+       for k in ("qsgd", "dpgauss")},
+    **ADVERSARY_SCENARIOS}
 
 
 def pipeline_mask(plan, t: int) -> np.ndarray:
@@ -122,11 +163,16 @@ def arch(big: bool, save_weights: bool = False, model=None):
                       client_lr=CLR, server_lr=SLR)
 
 
-def plan_for(grid, big: bool, seq: int = SEQ):
+def plan_for(grid, big: bool, seq: int = SEQ, groups=None):
+    """The plan rules' plan (micro-batch 2 per client step), or, with
+    ``groups``, that many sequential groups beside its clients."""
     from repro_torch.configs.common import ShapeCfg
     from repro_torch.launch.sharding import make_plan
-    # micro-batch 2 per client step
-    return make_plan(arch(big), ShapeCfg("test", "train", seq, 4), grid)
+    plan = make_plan(arch(big), ShapeCfg("test", "train", seq, 4), grid)
+    if groups is None:
+        return plan
+    return dataclasses.replace(plan, client_groups=groups,
+                               micro=max(1, plan.micro // groups))
 
 
 def _cell(name, grid, inputs):
@@ -140,7 +186,7 @@ def _cell(name, grid, inputs):
     shape, big, spec, opt = {**SCENARIOS, **MOE_SCENARIOS,
                              **PIPELINE_SCENARIOS}[name]
     a = arch(big, opt.get("save_weights", False), opt.get("model"))
-    plan = plan_for(grid, big, opt.get("seq", SEQ))
+    plan = plan_for(grid, big, opt.get("seq", SEQ), opt.get("groups"))
     bundle = build_model(a.model)
     params = inputs["params"] if "model" not in opt else \
         inputs["models"][opt["model"]]
@@ -177,7 +223,8 @@ def _cell(name, grid, inputs):
                         client_lr=CLR, server_lr=SLR)
     step = TF.build_sharded_round_step(
         loss_fn, comp, fcfg,
-        SH.round_context(plan, cohort=opt.get("cohort", "auto")), grid=grid,
+        SH.round_context(plan, cohort=opt.get("cohort", "auto"),
+                         adversary=opt.get("adversary", "none")), grid=grid,
         plan=plan, specs=specs, remat=opt.get("remat", True))
     return step, fcfg, comp, shards, batch, plan
 
@@ -232,19 +279,32 @@ def _run(name, grid, inputs):
                                   hints.COLLECTIVES.items()}, **seen}
 
 
+def table_noise(table):
+    """A stand-in for ``noise.sample_z_noise`` that reads client key k's
+    noise row from ``table`` ({(k0, k1): (d,) f32}), coordinates [lo, lo +
+    n) of it."""
+    def sample(key, shape, z, device=None, dtype=torch.float32, lo=0):
+        n = int(np.prod(shape))
+        row = table[tuple(int(w) for w in key.reshape(2).tolist())]
+        return torch.from_numpy(row[lo:lo + n].copy()).reshape(shape)
+    return sample
+
+
 def _run_pipeline(name, grid, inputs):
     """PIPELINE_ROUNDS rounds of a PIPELINE_SCENARIOS cell from the range
     state of ``init_server_state(layout=)``: each round's pseudo-gradient
-    range and payload of each group (at ``Pipeline.encode_range``), the
-    whole-vector statistics the ranks summed (``dp.row_norms`` over
-    ranges; the EF scale rides in the payload), the decoded range, the
-    state and server rows, the params, the metrics and the collective
-    bytes by kind and use."""
+    range and payload of each group (at ``Pipeline.encode_range``; after
+    the adversary's attack, ``Adversary.corrupt``), the whole-vector
+    statistics the ranks summed (``dp.row_norms`` over ranges; the EF
+    scale rides in the payload), the decoded range, the state and server
+    rows, the params, the metrics and the collective bytes by kind and
+    use."""
     from repro_torch.core import compression as TC
     from repro_torch.core import dp as TD
     from repro_torch.core import fedavg as TF
     from repro_torch.core import noise as TN
     from repro_torch.core.tree import tree_paths
+    from repro_torch.fed import adversary as TA
     from repro_torch.launch import hints
     step, fcfg, comp, shards, batch, plan = _cell(name, grid, inputs)
     layout = step.layout(shards)
@@ -252,6 +312,7 @@ def _run_pipeline(name, grid, inputs):
                                  layout=layout)
     enc, dec, norms = (TC.Pipeline.encode_range, TC.Pipeline.decode_sum,
                        TD.row_norms)
+    corrupt, draw = TA.Adversary.corrupt, TN.sample_z_noise
     rounds = []
 
     def encode_range(self, keys, x2d, tile0, sigma=None, **kw):
@@ -264,11 +325,17 @@ def _run_pipeline(name, grid, inputs):
         out = enc(self, keys, x2d, tile0, sigma=sigma, **kw)
         # the stages work in place: the rows are now the codec's input
         rd["codec_in"].append(p.numpy() if fused else x2d.clone().numpy())
-        rd["bytes"].append((out["packed"] if isinstance(out, dict)
-                            else out).clone().numpy())
-        if isinstance(out, dict):
+        rd["payload"].append(_numpy_payload(out))
+        if "packed" in rd["payload"][-1]:
+            rd["bytes"].append(rd["payload"][-1]["packed"])
+        if isinstance(out, dict) and "scale" in out:
             rd["scale"].append(out["scale"].clone().numpy())
         rd["tile0"] = tile0
+        return out
+
+    def attack(self, payload, idx, round_idx, b0=0):
+        out = corrupt(self, payload, idx, round_idx, b0)
+        rounds[-1]["attacked"].append(_numpy_payload(out))
         return out
 
     def decode_sum(self, *a, **k):
@@ -285,10 +352,13 @@ def _run_pipeline(name, grid, inputs):
     TC.Pipeline.encode_range, TC.Pipeline.decode_sum = encode_range, \
         decode_sum
     TD.row_norms = row_norms
+    TA.Adversary.corrupt = attack
+    if PIPELINE_SCENARIOS[name][3].get("table"):
+        TN.sample_z_noise = table_noise(inputs["noise"])
     try:
         for t in range(PIPELINE_ROUNDS):
             rounds.append({"x": [], "codec_in": [], "bytes": [], "scale": [],
-                           "norms": []})
+                           "norms": [], "payload": [], "attacked": []})
             hints.reset_collective_stats()
             state, m = step(state, batch, pipeline_mask(plan, t))
             rounds[-1].update({
@@ -306,9 +376,19 @@ def _run_pipeline(name, grid, inputs):
     finally:
         TC.Pipeline.encode_range, TC.Pipeline.decode_sum = enc, dec
         TD.row_norms = norms
+        TA.Adversary.corrupt, TN.sample_z_noise = corrupt, draw
     return {"coords": dict(grid.coords), "plan": dataclasses.asdict(plan),
             "bounds": layout.bounds, "d": layout.spec.n_coords,
             "rounds": rounds}
+
+
+def _numpy_payload(p) -> dict:
+    """A payload as numpy arrays by kind: "packed" (and "scale") bytes,
+    "dense" f32 rows, or top-k's "values" and "indices"."""
+    if isinstance(p, dict):
+        return {k: v.clone().numpy() for k, v in p.items()}
+    return {"packed" if p.dtype == torch.uint8 else "dense":
+            p.clone().numpy()}
 
 
 def _expert_swap_bf16(grid):
