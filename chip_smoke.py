@@ -22,8 +22,11 @@ Phases, each of which raises (non-zero exit, no result line) on failure:
    across clients and holds a 0 (the sto-sign route). Outputs are compared
    as int32 bit patterns (bytes for payloads).
 3. twenty paths at full width through ``repro_torch.launch.train.run``:
-   qwen2-0.5B (24 layers, d = 494,032,768 coordinates, bf16), 2 local steps,
-   micro-batch 2, seq 64, 2 rounds each (the async paths 3):
+   qwen2-0.5B (24 layers, d = 494,032,768 coordinates, bf16), 1 local step
+   (moe_round, encdec_round and hybrid_reduced keep 2), micro-batch 2, seq
+   64, 2 rounds where a round hands state or a warm round time to the next
+   (zsign, ef, ef_stream, cv_stream, plateau, ef_topk; the async paths 3),
+   else 1:
      zsign            zsign(z=1, sigma=0.01), 8 clients: E1 + R1 once a round
      ef               ef|zsign(use_kernel=true), 8 clients: F1 + R1 once
      zsign_packed_z2  zsign_packed(z=2, sigma=0.01), 8 clients: C1 + R1 once
@@ -120,11 +123,11 @@ Phases, each of which raises (non-zero exit, no result line) on failure:
 4. serving, the MoE, xLSTM, enc-dec and hybrid families and checkpoints, at
    full width (the hybrid reduced):
      serve_qwen2      qwen2-0.5B (bf16, seed-0 weights): 16 requests of one
-                      start token, 256 greedy steps through the bundle's
+                      start token, 64 greedy steps through the bundle's
                       decode_step against init_cache(16, 4096) (805,306,368
                       cache bytes); ms a step (CUDA events after a warm-up
                       step), tokens/s, peak memory; every token in range, the
-                      cache non-zero exactly at positions < 256
+                      cache non-zero exactly at positions < 64
      decode_vs_forward  the same model in f32, batch 2, 16 positions:
                       forward logits against 16 decode steps, max |delta| <
                       2e-2; in bf16 printed (max |delta|, top-1 agreement)
@@ -148,12 +151,13 @@ Phases, each of which raises (non-zero exit, no result line) on failure:
      xlstm_round      xlstm-350m (24 blocks: 18 mLSTM + 6 sLSTM, d_model
                       1024, bf16; d = 164,979,856), zsign(z=1,sigma=0.05) at
                       4 clients under vmap, seq 512 (two mLSTM key chunks,
-                      two sLSTM scan chunks), 1 round (its host-bound
-                      sLSTM scan takes 20-50 s a round): E1 + R1 once,
-                      held against their plain versions
-     xlstm_serve      its trained params: 16 requests x 256 greedy steps,
+                      two sLSTM scan chunks), 1 local step, 1 round (its
+                      host-bound sLSTM scan takes 20-50 s a round at 2
+                      local steps): E1 + R1 once, held against their plain
+                      versions
+     xlstm_serve      its trained params: 16 requests x 64 greedy steps,
                       the recurrent cache's bytes equal after step 1 and
-                      step 256; then in f32, batch 2, 64 positions, the
+                      step 64; then in f32, batch 2, 64 positions, the
                       one-token recurrence against the teacher-forced
                       parallel form, max |delta| < 2e-2
      encdec_round     seamless-m4t-large-v2 (24 + 24 layers, d_model 1024,
@@ -226,10 +230,11 @@ Phases, each of which raises (non-zero exit, no result line) on failure:
                       differ (at most SHARD_EF_FLIP_SHARE); the padding sent
                       as +1 with no residual; collective bytes equal to
                       the dry run's; F1 timed at the range shape
-     shard_qwen25_32b qwen2.5-32b at full width with 2 of its 64 layers
-                      (d = 2,532,350,976), the big plan: 2 sequential groups
-                      of one client, the replica over data x model (ranges
-                      of 633,094,144), the micro-batch over data; 1 round
+     shard_qwen25_32b qwen2.5-32b at full width with 1 of its 64 layers
+                      (d = 2,044,745,728), the big plan: 2 sequential groups
+                      of one client, the replica over data x model (a
+                      quarter of the padded row each), the micro-batch over
+                      data; 1 round
      shard_granite_moe  granite-moe-1b-a400m at full width (d =
                       1,334,628,352; 32 experts of d_ff 512, top-8), the
                       regular plan as shard_qwen2, the experts (E over
@@ -238,8 +243,8 @@ Phases, each of which raises (non-zero exit, no result line) on failure:
      shard_llama4_scout llama4-scout-17b-a16e at full width with 1 of its
                       48 layers (d = 3,110,763,520; 16 experts of 5120 x
                       8192, top-1, the tied 202,048 x 5120 embedding), the
-                      big plan with its 4 sequential groups, global batch
-                      8 (micro-batch 2 over data), expert-parallel: E over
+                      big plan with 2 of its 4 sequential groups, global
+                      batch 4 (micro-batch 2 over data), expert-parallel: E over
                       `model`, d_ff over `data` (gathered a layer), the
                       dispatch buffer to the experts' ranks and back by
                       all-to-alls (capacity 10 a shard); 1 round
@@ -315,7 +320,7 @@ QSGD_OPS_PER_ELEM = 16
 #: f32 ops per coordinate of the trimmed vote decode
 VOTE_DECODE_OPS = 16
 
-COMMON_ARGS = ["--arch", "qwen2_0_5b", "--local-steps", "2",
+COMMON_ARGS = ["--arch", "qwen2_0_5b", "--local-steps", "1",
                "--micro-batch", "2", "--seq-len", "64", "--device", "cuda"]
 ZSIGN = ["--compressor", "zsign", "--z", "1", "--sigma", "0.01"]
 EF = ["--pipeline", "ef|zsign(use_kernel=true)"]
@@ -407,9 +412,13 @@ PATHS = [
      {"zsign_encode": 0, "ef_sign": [2, 2, 2], "zsign_compress": 0}),
 ]
 #: rounds of a path where it is not ROUNDS, and uplink bits per coordinate
-#: where it is not 1
+#: where it is not 1. A path whose rounds carry no state (no residual, cv
+#: row, Plateau sigma or async queue) runs one: its checks read round 0
 PATH_ROUNDS = {"dpgauss": 1, "async_zsign": 3, "async_ef_poly": 3,
-               "xlstm_round": 1}
+               "xlstm_round": 1, "zsign_packed_z2": 1, "zsign_groups": 1,
+               "zsign_stream": 1, "stosign": 1, "dp_zsign": 1,
+               "sigma_sched": 1, "vote": 1, "trimmed_stream": 1,
+               "median_attack": 1, "topk_coord_stream": 1, "qsgd": 1}
 PATH_BITS = {"dpgauss": 32, "ef_topk": 64 * 0.01,
              "topk_coord_stream": 64 * 0.01, "qsgd": 2}
 #: paths whose E1 calls the probe records (see _E1Probe)
@@ -503,8 +512,9 @@ E1_R1_ONCE = {"zsign_encode": 1, "sign_reduce": 1, "sign_reduce_fold": 0,
                 "ef_sign": 0, "zsign_compress": 0}
 #: xlstm-350m at full width (24 blocks: 18 mLSTM + 6 sLSTM, d_model 1024,
 #: 4 heads, vocab 50,304, bf16 with wr, bif, b f32; d = 164,979,856); seq 512
-#: gives the mLSTM two key chunks and the sLSTM two scan chunks
-XLSTM_COMMON = ["--arch", "xlstm_350m", "--local-steps", "2",
+#: gives the mLSTM two key chunks and the sLSTM two scan chunks; one local
+#: step (the sLSTM's Python loop makes each 20-25 s on the card's host)
+XLSTM_COMMON = ["--arch", "xlstm_350m", "--local-steps", "1",
                 "--micro-batch", "2", "--seq-len", "512", "--device", "cuda"]
 XLSTM_COORDS = 164_979_856
 XLSTM_FLAGS = ["--pipeline", "zsign(z=1,sigma=0.05)", "--sigma", "0.05",
@@ -522,11 +532,11 @@ HYBRID_COMMON = ["--arch", "jamba_1_5_large_398b", "--reduced",
                  "64", "--device", "cuda"]
 #: paths whose round-0 E1 and R1 are held against their plain versions
 PLAIN_CHECKED = ("moe_round", "xlstm_round", "encdec_round")
-#: serving of the new families: xLSTM 16 requests x 256 greedy steps (an
+#: serving of the new families: xLSTM 16 requests x 64 greedy steps (an
 #: O(1) recurrent cache), its f32 decode against the parallel forward over
 #: 64 positions; enc-dec 16 requests of 2048 source frames, 64 steps; the
 #: reduced hybrid 16 steps of 4 requests
-XLSTM_SERVE = {"batch": 16, "steps": 256, "dvf_positions": 64}
+XLSTM_SERVE = {"batch": 16, "steps": 64, "dvf_positions": 64}
 ENCDEC_SERVE = {"batch": 16, "steps": 64, "max_len": 128}
 HYBRID_DECODE = {"batch": 4, "steps": 16, "max_len": 32}
 #: one mamba sublayer at Jamba's width (d_model 8192, d_inner 16384, dt_rank
@@ -536,7 +546,7 @@ JAMBA_MAMBA = {"d_model": 8192, "batch": 2, "seq": 512}
 MAMBA_REL = 1e-4
 #: serving: requests, greedy steps, cache length (qwen2-0.5B full width);
 #: the MoE decode after its round
-SERVE = {"batch": 16, "steps": 256, "max_len": 4096}
+SERVE = {"batch": 16, "steps": 64, "max_len": 4096}
 MOE_SERVE = {"batch": 16, "steps": 64, "max_len": 512}
 #: the MoE layer check: a top-k counts as settled where every gap of the
 #: k + 1 largest gates exceeds MOE_GAP (the CPU tests' rule); output and aux
@@ -577,9 +587,9 @@ MULTI_TIMEOUT_S = 300
 #: the reference's tolerance on f32 results of the f32-weighted EF sum
 #: (tests/test_cohort_stream.py:382-384)
 EF_RTOL, EF_ATOL = 5e-5, 1e-7
-#: round_mfu: tokens of one zsign round (8 clients x E 2 x micro-batch 2 x
+#: round_mfu: tokens of one zsign round (8 clients x E 1 x micro-batch 2 x
 #: seq 64)
-MFU_TOKENS = 8 * 2 * 2 * 64
+MFU_TOKENS = 8 * 1 * 2 * 64
 
 
 def _wrappers():
@@ -1807,7 +1817,7 @@ def _serve_checks(label, seqs, cache, vocab, steps):
 
 def phase_serve(dev, smi):
     """serve_qwen2: qwen2-0.5B at full width (bf16, seed-0 weights), 16
-    requests of one start token, 256 greedy decode steps against
+    requests of one start token, 64 greedy decode steps against
     init_cache(16, 4096), through the bundle's decode_step."""
     from repro_torch.configs.common import get_arch
     from repro_torch.models.api import build_model
@@ -2031,11 +2041,11 @@ def _decode_vs_forward(bundle, params, toks, forward):
 
 def phase_xlstm(dev, smi):
     """xlstm_round: xlstm-350m at full width, zsign(z=1,sigma=0.05) at 4
-    clients under vmap, E = 2, micro-batch 2, seq 512, 1 round
+    clients under vmap, E = 1, micro-batch 2, seq 512, 1 round
     (PATH_ROUNDS) through launch.train.run: E1 and R1 once and equal to
     their plain versions. xlstm_serve: the trained params serve 16 requests
-    x 256 greedy steps; the recurrent cache has the same bytes after step 1
-    and step 256 and its state moved; then the params cast to f32, batch 2,
+    x 64 greedy steps; the recurrent cache has the same bytes after step 1
+    and step 64 and its state moved; then the params cast to f32, batch 2,
     64 positions: the one-token recurrence against the teacher-forced
     parallel form, max |delta| < 2e-2."""
     import dataclasses
@@ -3083,15 +3093,20 @@ SHARD_SEQ_SHARDS = SHARD_GRID[SHARD_AXES.index("model")]
 #: (label, arch, layers kept (None: all of them), rounds, seq, global
 #: batch). shard_granite_moe's 2 rounds cover the regular plan's later
 #: round. A global batch of 4 is a micro-batch of 2 a client step on the
-#: regular plan (2 clients side by side) and on qwen2.5-32b's big plan (2
-#: sequential groups of one); llama4-scout's big plan has 4 groups, so 8.
+#: regular plan (2 clients side by side) and on the big plans' 2
+#: sequential groups of one (llama4-scout's cut from 4 by SHARD_GROUPS).
 #: internvl2's sequence is its 256 stub image tokens and 256 text tokens.
 SHARD_PATHS = [("shard_qwen2", "qwen2_0_5b", None, 1, 256, 4),
-               ("shard_qwen25_32b", "qwen2_5_32b", 2, 1, 256, 4),
+               ("shard_qwen25_32b", "qwen2_5_32b", 1, 1, 256, 4),
                ("shard_granite_moe", "granite_moe_1b_a400m", None, 2, 256,
                 4),
                ("shard_internvl2", "internvl2_1b", None, 1, 512, 4),
-               ("shard_llama4_scout", "llama4_scout_17b_a16e", 1, 1, 256, 8)]
+               ("shard_llama4_scout", "llama4_scout_17b_a16e", 1, 1, 256, 4)]
+#: sequential client groups kept where a path cuts its config's, as layers
+#: are cut: llama4-scout's big plan has 4, each gathering the replica and
+#: reduce-scattering its gradients through gloo (~25 s a group on the
+#: card's host); 2 keep the groups' loop and a second E1 range a rank
+SHARD_GROUPS = {"llama4_scout_17b_a16e": 2}
 #: the paths whose rank peaks are gated against one process's
 SHARD_PEAK_GATED = ("shard_qwen25_32b", "shard_llama4_scout")
 #: params at coordinates whose wire bits agree: rtol (the CPU tests')
@@ -3157,6 +3172,37 @@ SHARD_SPEC_ROUNDS = [
 #: moved 0.495 of the set.
 SHARD_TOPK_SETDIFF_SHARE = 5e-2
 SHARD_TIMEOUT_S = 600
+#: serving on the grid (the dry run's prefill and decode cells), in these
+#: paths' ranks after their rounds, from the seed-0 weights, beside the
+#: one-process prefill and decode of the same weights and tokens: label ->
+#: (prefill (global batch, seq) or None, decode batch, cache slots, steps).
+#: A batch of 16 splits over the production mesh's 16 (``cache_specs``'
+#: rule), so over the 2 x 2 grid's `data`: 8 rows a rank; the slots split
+#: over `model` (4 and 2 a rank), and the steps cross from the first
+#: sequence rank's slots into the second's. A cache length must not equal
+#: another cache dimension (qwen2's 24 layers, 32B's 1; 16 rows), or
+#: ``cache_specs`` shards that dimension as the sequence. A step gathers the
+#: replica's weights through gloo: 1.1-2.1 s for qwen2's 0.99 GB, 5.4-7.7 s
+#: for 32B's 5.06 GB at 2 layers on an H100 80GB HBM3 at 700 W, so 6 and 4
+#: steps (20 and 8 took 105 s, above the phase's 45 s); 32B's 4 write every
+#: slot, two on each sequence rank
+SHARD_SERVE = {"shard_qwen2": ((4, 256), 16, 8, 6),
+               "shard_qwen25_32b": (None, 16, 4, 4)}
+#: the one-process decode's top-2 logit gap above which the grid's greedy
+#: token must be the one-process token: twice the largest logit error
+#: measured (0.0 on an H100 80GB HBM3 at 700 W: the grid's logits are the
+#: one-process bits), so every token with a gap; where a token differs the
+#: decode goes on teacher-forced from the one-process tokens, which both
+#: runs take as input at every step
+SERVE_GAP_MARGIN = 0.0
+#: the grid's logits (prefill and every decode step) and its cache slice
+#: against the one-process run's: relative L2, twice the most measured on
+#: an H100 80GB HBM3 at 700 W (0.0 for all three: the softmax's max and sum
+#: are folded before its probabilities are rounded to bf16 and the ranks'
+#: f32 V products added before their one rounding, as one process rounds
+#: them, and the gathered weights' bf16 matmuls give each row the same bits
+#: on 8 rows as on 16), so the same bits
+SERVE_REL_L2 = 0.0
 #: coordinates a chunk of the ranks' plain checks (a multiple of E1's tile)
 RANGE_CHECK_COORDS = 1 << 26
 
@@ -3174,6 +3220,9 @@ def _shard_arch(arch_id, layers):
     if layers is not None:
         arch = dataclasses.replace(arch, model=dataclasses.replace(
             arch.model, n_layers=layers))
+    if arch_id in SHARD_GROUPS:
+        arch = dataclasses.replace(arch,
+                                   seq_client_groups=SHARD_GROUPS[arch_id])
     return arch
 
 
@@ -4167,15 +4216,342 @@ def _shard_rank(rank, world, ctx, label, arch_id, layers, rounds, seq,
            "params_differing": differing,
            "shard_bytes": sum(v.numel() * v.element_size()
                               for _, v in tree_paths(state.params))}
+    del state
+    _free()
     if label == SHARD_EF_PATH:
-        del state
-        _free()
         rec["ef"] = _shard_ef_round(grid, arch, seq, gbatch, dev, rows)
         rec["specs"] = {tag: _shard_spec_round(grid, arch, seq, gbatch, dev,
                                                tmp, label, tag, spec, adv)
                         for tag, spec, adv in SHARD_SPEC_ROUNDS}
+    if label in SHARD_SERVE:
+        rec["serve"] = _shard_serve(grid, arch, dev, tmp, label)
     torch.save(rec, out.format(rank))
     dist.barrier()
+
+
+def _serve_shapes(label):
+    """(prefill ShapeCfg or None, decode ShapeCfg) of SHARD_SERVE[label]."""
+    from repro_torch.configs.common import ShapeCfg
+    pre, batch, slots, _ = SHARD_SERVE[label]
+    return (None if pre is None else
+            ShapeCfg(f"chip_prefill_{pre[1]}", "prefill", pre[1], pre[0]),
+            ShapeCfg(f"chip_decode_{slots}", "decode", slots, batch))
+
+
+def _serve_tokens(batch, seq, vocab, seed):
+    """(batch, seq) int32 tokens below ``vocab`` from a CPU generator of
+    ``seed`` (the same in every process)."""
+    return torch.randint(0, vocab, (batch, seq), dtype=torch.int32,
+                         generator=torch.Generator().manual_seed(seed))
+
+
+def _rel_l2(got, want) -> float:
+    g, w = got.double(), want.double()
+    return float(torch.linalg.vector_norm(g - w) /
+                 torch.linalg.vector_norm(w).clamp_min(1e-300))
+
+
+def _serve_one(label, arch_id, layers, tmp):
+    """SHARD_SERVE's one-process prefill and greedy decode on the card,
+    from the path's seed-0 weights through the bundle's entry points: the
+    prefill's last-token logits, each decode step's logits, argmax and the
+    top-2 logit gap of every row, and the final cache, written to ``tmp``
+    for the checks; ms a step (after the warm-up step) and the warm-up's.
+    -> the record."""
+    from repro_torch.models.api import build_model
+    arch = _shard_arch(arch_id, layers)
+    bundle = build_model(arch.model)
+    cfg = arch.model
+    pre, dec = _serve_shapes(label)
+    steps = SHARD_SERVE[label][3]
+    params = _shard_init(arch, DEV)
+    _free()
+    torch.cuda.reset_peak_memory_stats()
+    before = _counts()
+    out = {"steps": steps}
+    if pre is not None:
+        toks = _serve_tokens(pre.global_batch, pre.seq_len, cfg.vocab,
+                             7).to(DEV)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        prefill = bundle.prefill(params, toks)
+        torch.cuda.synchronize()
+        out["prefill_s"] = time.perf_counter() - t0
+        torch.save({"tokens": toks.cpu(), "logits": prefill.cpu()},
+                   os.path.join(tmp, label + "_prefill.pt"))
+        del prefill
+    cache = bundle.init_cache(dec.global_batch, dec.seq_len, DEV)
+    tok = _serve_tokens(dec.global_batch, 1, cfg.vocab, 8).to(DEV)
+    logits, tokens, gaps, ms = [], [tok.cpu()], [], []
+    for t in range(steps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        lg, cache = bundle.decode_step(params, cache, tok, t)
+        tok = torch.argmax(lg[:, -1:], dim=-1).to(torch.int32)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+        top2 = torch.topk(lg[:, -1], 2, dim=-1).values
+        gaps.append((top2[:, 0] - top2[:, 1]).cpu())
+        logits.append(lg.cpu())
+        tokens.append(tok.cpu())
+    out.update(peak=torch.cuda.max_memory_allocated(),
+               counts=_counts(), counts_before=before,
+               warmup_ms=ms[0], ms_per_step=sum(ms[1:]) / (steps - 1),
+               cache_bytes=sum(v.numel() * v.element_size()
+                               for v in cache.values()))
+    torch.save({"logits": torch.stack(logits), "tokens": torch.cat(
+        tokens, dim=1), "gaps": torch.stack(gaps),
+        "cache": {k: v.cpu() for k, v in cache.items()}},
+        os.path.join(tmp, label + "_decode.pt"))
+    del params, cache, logits
+    _free()
+    return out
+
+
+def _serve_slices(spec, grid, shape):
+    """This rank's index into a full tensor of ``shape`` under ``spec``."""
+    from repro_torch.launch import sharding as SH
+    idx = [slice(None)] * len(shape)
+    for dim, axes in SH.spec_dims(spec):
+        n = math.prod(grid.shape[a] for a in axes)
+        per = shape[dim] // n
+        i = grid.index(axes)
+        idx[dim] = slice(i * per, (i + 1) * per)
+    return tuple(idx)
+
+
+def _shard_serve(grid, arch, dev, tmp, label):
+    """SHARD_SERVE on this rank of the grid: the dry run's prefill and
+    decode cells (``dryrun.build_prefill_cell``, ``build_decode_cell``)
+    from this rank's shards of the seed-0 weights, beside the one-process
+    run's files in ``tmp``. The prefill's logits (the whole batch on every
+    rank) against the one-process prefill's; the decode fed the
+    one-process tokens at every step (teacher-forced where they differ),
+    each step's logits against the one-process step's, its own argmax
+    beside the one-process token, its collective bytes; then its cache
+    slice against the one-process cache's slice. -> the record."""
+    import torch.distributed as dist
+    from repro_torch.core.tree import tree_map
+    from repro_torch.launch import dryrun, hints
+    from repro_torch.models.api import shard_params
+    t_all = time.perf_counter()
+    pre, dec = _serve_shapes(label)
+    steps = SHARD_SERVE[label][3]
+    step, ex, plan = dryrun.build_decode_cell(arch, dec, grid)
+    full = _shard_init(arch, dev)
+    shards = shard_params(full, arch.model, grid, plan, device=dev)
+    del full
+    _free()
+    torch.cuda.reset_peak_memory_stats()
+    before = _counts()
+    rec = {"rank": grid.rank, "coords": dict(grid.coords)}
+
+    def by_use():
+        return {k: list(v) for k, v in hints.COLLECTIVES.items()}
+
+    if pre is not None:
+        prefill = dryrun.build_prefill_cell(arch, pre, grid)[0]
+        one = torch.load(os.path.join(tmp, label + "_prefill.pt"))
+        hints.reset_collective_stats()
+        dist.barrier()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        got = prefill(shards, one["tokens"].to(dev))
+        torch.cuda.synchronize()
+        rec["prefill"] = {"sec": time.perf_counter() - t0,
+                          "collective_by_use": by_use(),
+                          "shape": list(got.shape),
+                          "rel_l2": _rel_l2(got.cpu(), one["logits"]),
+                          "digest": _digest(got.reshape(-1))}
+        del got, one
+    one = torch.load(os.path.join(tmp, label + "_decode.pt"))
+    cache = tree_map(lambda leaf: torch.zeros(leaf.shape, dtype=leaf.dtype,
+                                              device=dev), ex["cache"])
+    per = []
+    for t in range(steps):
+        tok = one["tokens"][:, t:t + 1].to(dev)
+        hints.reset_collective_stats()
+        dist.barrier()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        lg, cache = step(shards, cache, tok, t)
+        torch.cuda.synchronize()
+        sec = time.perf_counter() - t0
+        mine = torch.argmax(lg[:, -1], dim=-1).cpu()
+        want = one["tokens"][:, t + 1]
+        per.append({"sec": sec, "collective_by_use": by_use(),
+                    "rel_l2": _rel_l2(lg.cpu(), one["logits"][t]),
+                    "max_abs_err": float((lg.cpu() - one["logits"][t])
+                                         .abs().max()),
+                    "differ": (mine != want).nonzero().reshape(-1).tolist(),
+                    "digest": _digest(lg.reshape(-1))})
+        del lg
+    rec.update(steps=per, counts=_counts(), counts_before=before,
+               peak=torch.cuda.max_memory_allocated(), cache={})
+    for k, v in cache.items():
+        idx = _serve_slices(ex["cache_specs"][k], grid, one["cache"][k].shape)
+        want = one["cache"][k][idx]
+        written = (v != 0).reshape(v.shape[0], v.shape[1], v.shape[2],
+                                   -1).any(dim=3).any(dim=1).any(dim=0)
+        rec["cache"][k] = {"shape": list(v.shape),
+                           "bytes": v.numel() * v.element_size(),
+                           "rel_l2": _rel_l2(v.cpu().float(), want.float()),
+                           "slots_written": int(written.sum())}
+    del cache, shards, one
+    _free()
+    dist.barrier()
+    rec["total_s"] = time.perf_counter() - t_all
+    return rec
+
+
+def _serve_predict(arch_id, layers, label, rank):
+    """``dryrun.analyze_serving`` of SHARD_SERVE[label]'s prefill and
+    decode cells for ``rank`` of a fake 2 x 2 group (meta tensors), in a
+    process of the predictions pool. -> (prefill record or None, decode
+    record)."""
+    import torch.distributed as dist
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import make_replica_grid
+    arch = _shard_arch(arch_id, layers)
+    pre, dec = _serve_shapes(label)
+    dryrun.fake_group(SHARD_RANKS, rank)
+    try:
+        grid = make_replica_grid(SHARD_GRID, SHARD_AXES, device_type="cpu")
+        out = []
+        for shape, build in ((pre, dryrun.build_prefill_cell),
+                             (dec, dryrun.build_decode_cell)):
+            if shape is None:
+                out.append(None)
+                continue
+            step, ex, _ = build(arch, shape, grid)
+            out.append(dryrun.analyze_serving(step, ex, grid, arch_id))
+        return tuple(out)
+    finally:
+        dist.destroy_process_group()
+
+
+def _shard_serve_checks(label, one, ranks, predicted, smi, tmp):
+    """The checks of SHARD_SERVE[label] on the grid, and its JSON line: no
+    kernel launched; each rank's collective bytes, by kind and use, of the
+    prefill and of every decode step equal to the dry run's cells for that
+    rank; the logits the same bits on every rank and within SERVE_REL_L2
+    of the one-process run's (prefill and every step); the grid's greedy
+    token the one-process token at every step where the one-process top-2
+    gap exceeds SERVE_GAP_MARGIN; each rank's cache slice of the
+    ``cache_specs`` shard's shape and bytes, within SERVE_REL_L2 of the
+    one-process cache's slice, with written slots on every sequence
+    rank."""
+    from repro_torch.launch import sharding as SH
+    from repro_torch.models.api import build_model
+    pre, dec = _serve_shapes(label)
+    arch = _shard_arch(*next((p[1], p[2]) for p in SHARD_PATHS
+                             if p[0] == label))
+    cfg = arch.model
+    plan = SH.make_plan(arch, dec, _GridShape())
+    meta = build_model(cfg).init_cache(dec.global_batch, dec.seq_len,
+                                       device="meta")
+    cspecs = SH.cache_specs(meta, plan, batch=dec.global_batch,
+                            seq_lens=(dec.seq_len, 2048))
+    gaps = torch.load(os.path.join(tmp, label + "_decode.pt"))["gaps"]
+    if one["counts"] != one["counts_before"]:
+        raise AssertionError(f"{label} serve: one process launched "
+                             f"kernels {one['counts']}")
+    worst = {"prefill": 0.0, "decode": 0.0, "cache": 0.0, "abs": 0.0}
+    forced = 0
+    for rk in ranks:
+        r, sv = rk["rank"], rk["serve"]
+        p_pre, p_dec = predicted[r]
+        if sv["counts"] != sv["counts_before"]:
+            raise AssertionError(f"{label} serve: rank {r} launched kernels")
+        if pre is not None:
+            got = {k: v[0] for k, v in sv["prefill"]["collective_by_use"]
+                   .items()}
+            if got != p_pre["collectives_by_use"]:
+                raise AssertionError(f"{label} prefill: rank {r} moved {got}"
+                                     f", the dry run counts "
+                                     f"{p_pre['collectives_by_use']}")
+            if sv["prefill"]["digest"] != ranks[0]["serve"]["prefill"][
+                    "digest"]:
+                raise AssertionError(f"{label} prefill: rank {r}'s logits "
+                                     "differ from rank 0's")
+            worst["prefill"] = max(worst["prefill"], sv["prefill"]["rel_l2"])
+        for t, st in enumerate(sv["steps"]):
+            got = {k: v[0] for k, v in st["collective_by_use"].items()}
+            if got != p_dec["collectives_by_use"]:
+                raise AssertionError(f"{label} decode: rank {r} step {t} "
+                                     f"moved {got}, the dry run counts "
+                                     f"{p_dec['collectives_by_use']}")
+            if st["digest"] != ranks[0]["serve"]["steps"][t]["digest"]:
+                raise AssertionError(f"{label} decode: rank {r} step {t}: "
+                                     "logits differ from rank 0's")
+            for b in st["differ"]:
+                if float(gaps[t, b]) > SERVE_GAP_MARGIN:
+                    raise AssertionError(
+                        f"{label} decode: step {t} row {b}: greedy token "
+                        f"off the one-process token at a top-2 gap of "
+                        f"{float(gaps[t, b])} (margin {SERVE_GAP_MARGIN})")
+            if r == 0:
+                forced += len(st["differ"])
+            worst["decode"] = max(worst["decode"], st["rel_l2"])
+            worst["abs"] = max(worst["abs"], st["max_abs_err"])
+        for k, c in sv["cache"].items():
+            want = SH.shard_shape(tuple(meta[k].shape), cspecs[k],
+                                  _GridShape())
+            if tuple(c["shape"]) != want or c["bytes"] != math.prod(
+                    want) * meta[k].element_size():
+                raise AssertionError(f"{label} cache {k}: rank {r} holds "
+                                     f"{c['shape']}, cache_specs' shard is "
+                                     f"{want}")
+            if c["slots_written"] == 0:
+                raise AssertionError(f"{label} cache {k}: rank {r} has no "
+                                     "written slot")
+            worst["cache"] = max(worst["cache"], c["rel_l2"])
+    for key in ("prefill", "decode", "cache"):
+        if not worst[key] <= SERVE_REL_L2:
+            raise AssertionError(f"{label} serve: {key} relative L2 "
+                                 f"{worst[key]} off one process (limit "
+                                 f"{SERVE_REL_L2})")
+    secs = [[st["sec"] for st in rk["serve"]["steps"]] for rk in ranks]
+    step_s = [max(x) for x in zip(*secs)]
+    line = {
+        "sharded_serve": label, "card": smi,
+        "grid": dict(zip(SHARD_AXES, SHARD_GRID)), "backend": "gloo",
+        "prefill": None if pre is None else {
+            "global_batch": pre.global_batch, "seq": pre.seq_len,
+            "s_ranks": [rk["serve"]["prefill"]["sec"] for rk in ranks],
+            "s_one_process": one["prefill_s"],
+            "rel_l2": worst["prefill"],
+            "collectives_by_use": ranks[0]["serve"]["prefill"][
+                "collective_by_use"]},
+        "decode": {"batch": dec.global_batch, "cache_slots": dec.seq_len,
+                   "steps": one["steps"],
+                   "cache_specs": {k: list(v) for k, v in cspecs.items()},
+                   "ms_per_step": 1e3 * sum(step_s[1:]) / (len(step_s) - 1),
+                   "warmup_step_ms": 1e3 * step_s[0],
+                   "one_process_ms_per_step": one["ms_per_step"],
+                   "one_process_warmup_ms": one["warmup_ms"],
+                   "logits_rel_l2": worst["decode"],
+                   "logits_max_abs_err": worst["abs"],
+                   "teacher_forced_tokens": forced,
+                   "tokens_held_above_margin": int(
+                       (gaps > SERVE_GAP_MARGIN).sum()),
+                   "tokens": int(gaps.numel()),
+                   "min_gap_one_process": float(gaps.min()),
+                   "collectives_by_use_step": ranks[0]["serve"]["steps"][-1][
+                       "collective_by_use"]},
+        "cache": {"rel_l2": worst["cache"],
+                  "rank_bytes": [sum(c["bytes"] for c in rk["serve"][
+                      "cache"].values()) for rk in ranks],
+                  "one_process_bytes": one["cache_bytes"],
+                  "slots_written": [rk["serve"]["cache"]["k"][
+                      "slots_written"] for rk in ranks]},
+        "limits": {"rel_l2": SERVE_REL_L2, "gap_margin": SERVE_GAP_MARGIN},
+        "peak_GB": {"one_process": one["peak"] / 1e9,
+                    "ranks": [rk["serve"]["peak"] / 1e9 for rk in ranks],
+                    "dry_run_decode": [p[1]["peak_bytes"] / 1e9
+                                       for p in predicted]}}
+    print(json.dumps(line))
+    return line
 
 
 def _shard_params_vs_one(params, path, arch, grid, plan, layout, dev):
@@ -4782,6 +5158,10 @@ def start_shard_predictions():
                 pending[p[0] + "_" + tag] = pool.starmap_async(
                     _shard_predict, [(p[1], p[2], p[4], p[5], r, spec, adv)
                                      for r in range(SHARD_RANKS)])
+        if p[0] in SHARD_SERVE:
+            pending[p[0] + "_serve"] = pool.starmap_async(
+                _serve_predict, [(p[1], p[2], p[0], r)
+                                 for r in range(SHARD_RANKS)])
     return pool, pending
 
 
@@ -4834,6 +5214,8 @@ def phase_sharded_replica(dev, smi, predictions=None):
             if label == SHARD_EF_PATH:
                 specs_one = _shard_specs_one(label, arch_id, layers, seq,
                                              gbatch, tmp)
+            if label in SHARD_SERVE:
+                serve_one = _serve_one(label, arch_id, layers, tmp)
             one_s = time.time() - t0
             if toucher.ident is None:
                 toucher.start()
@@ -4864,6 +5246,15 @@ def phase_sharded_replica(dev, smi, predictions=None):
                     {tag: pending[f"{label}_{tag}"] if pool is None else
                      pending[f"{label}_{tag}"].get(timeout=SHARD_TIMEOUT_S)
                      for tag, _, _ in SHARD_SPEC_ROUNDS}, smi))
+            if label in SHARD_SERVE:
+                key = label + "_serve"
+                _shard_serve_checks(
+                    label, serve_one, ranks,
+                    pending[key] if pool is None else
+                    pending[key].get(timeout=SHARD_TIMEOUT_S), smi, tmp)
+                print(f"# {label}: serving on the grid "
+                      f"{max(rk['serve']['total_s'] for rk in ranks):.1f} s "
+                      f"a rank")
             print(f"# {label}: one process {one_s:.1f} s, with the dry run "
                   f"beside it {predict_s:.1f} s, ranks {ranks_s:.1f} s; "
                   f"host peaks: Shmem {one['host']['shmem_peak']:.2f} GB, "
@@ -4917,11 +5308,16 @@ def main() -> int:
     print(f"# kernels built and checked at {t_new - t_start:.1f} s")
     results.update(phase_sharded_replica(dev, smi, predictions))
     print(f"# sharded-replica phase ran {time.time() - t_new:.1f} s")
+    t_new = time.time()
     for label, flags, per_round in PATHS:
         results[label] = phase_path(label, flags, per_round)
+    print(f"# full-width paths ran {time.time() - t_new:.1f} s")
+    t_new = time.time()
     phase_identities(results)
     phase_mlp(dev)
     dynamic = phase_dynamic_sigma(dev)
+    print(f"# identities, MLP and dynamic sigma ran "
+          f"{time.time() - t_new:.1f} s")
     t_new = time.time()
     params = phase_serve(dev, smi)[1]
     phase_decode_vs_forward(dev, smi, params)
@@ -4942,6 +5338,7 @@ def main() -> int:
     multi = phase_multi_device(dev, smi)
     results.update(multi)
     print(f"# multi-device phase ran {time.time() - t_new:.1f} s")
+    t_new = time.time()
     times = times_encode_reduce(dev)
     times["ef_sign"] = times_ef(dev)
     times["zsign_compress"] = times_compress(dev)
@@ -4955,6 +5352,7 @@ def main() -> int:
     print(json.dumps({"wire_layers": wire_layers,
                       "shape": f"n=8 d={QWEN2_COORDS} k={TOPK_K}",
                       "card": smi}))
+    print(f"# kernel and layer timings ran {time.time() - t_new:.1f} s")
     enc, red = times["zsign_encode"], times["sign_reduce"]
     secs = results["zsign"]["secs"]
     print(json.dumps({"round_split_ms": {

@@ -1,51 +1,61 @@
-"""Dry run of the model-sharded train cell (port of
-``repro.launch.dryrun``): one round of the sharded round step of an (arch x
-shape x production mesh) cell, traced as one rank of a FAKE process group
-of the mesh's size, with the per-rank bytes, FLOPs and collective bytes it
-would take, and the analytic roofline terms of the H100.
+"""Dry run of the model-sharded cells (port of ``repro.launch.dryrun``):
+one round of the sharded round step of a train cell, or one call of the
+serving prefill or decode step, of an (arch x shape x production mesh)
+cell, traced as one rank of a FAKE process group of the mesh's size, with
+the per-rank bytes, FLOPs and collective bytes it would take, and the
+analytic roofline terms of the H100.
 
-    PYTHONPATH=src python -m repro_torch.launch.dryrun --arch qwen2_5_32b \\
-        --shape train_4k [--multi-pod | --both-meshes] [--pipeline SPEC] \\
-        [--agg-backend B] [--encode-backend B] [--cohort POLICY] \\
+    PYTHONPATH=src python -m repro_torch.launch.dryrun --arch qwen2_5_32b \
+        --shape train_4k [--multi-pod | --both-meshes] [--pipeline SPEC] \
+        [--agg-backend B] [--encode-backend B] [--cohort POLICY] \
         [--adversary SPEC] [--out results.json]
+    PYTHONPATH=src python -m repro_torch.launch.dryrun --arch qwen2_5_32b \
+        --shape decode_32k            # or prefill_32k, long_500k
 
 The reference lowers and compiles the jitted step on 512 placeholder TPU
 devices and reads the compiled artifact. The port's counterpart builds the
 same step (``build_train_cell``: ``core/fedavg.build_sharded_round_step``
-on a ``launch/mesh.make_production_mesh`` grid) and runs it once in a
-``fake`` process group of 256 or 512 ranks
-(``torch.testing._internal.distributed.fake_pg.FakeStore``): every tensor
-has a shape and no storage (``meta`` tensors), every collective returns at
-once, and what the round does is counted, not computed. ``analyze``
-reports for this rank:
+on a ``launch/mesh.make_production_mesh`` grid; ``build_prefill_cell`` and
+``build_decode_cell``: the family's ``prefill`` and ``decode_step`` under
+``launch/hints.serving_hints``, the decode's KV cache cut by
+``sharding.cache_specs``) and runs it once in a ``fake`` process group of
+256 or 512 ranks (``torch.testing._internal.distributed.fake_pg.
+FakeStore``): every tensor has a shape and no storage (``meta`` tensors),
+every collective returns at once, and what the step does is counted, not
+computed. ``analyze`` (train) and ``analyze_serving`` (prefill, decode)
+report for this rank:
 
-  * bytes of the arguments (param shards, server state with this rank's
-    range of each pipeline state slot, batch and mask), of the outputs,
-    and the peak of everything live (``MemTracker``), the reference's
-    ``memory_analysis`` fields; the state slots' bytes in the range layout
-    and in the reference's replicated-coordinate one (``state_bytes``);
+  * bytes of the arguments (param shards; the server state with this
+    rank's range of each pipeline state slot, batch and mask; or the
+    tokens and the cache slice), of the outputs, and the peak of
+    everything live (``MemTracker``), the reference's ``memory_analysis``
+    fields; a train cell's state slots' bytes in the range layout and in
+    the reference's replicated-coordinate one (``state_bytes``);
   * FLOPs (``FlopCounterMode``);
   * collective bytes by kind (``launch/hints.collective_totals``: the bytes
     of each collective's result, as the reference sums the HLO's), and by
     kind and use (weight and K/V gathers, the MoE dispatch's all-to-alls,
-    the wire's re-layout, ...).
+    the wire's re-layout, the decode's softmax statistics, V products and
+    logits, ...).
 
 ``run_cell`` adds ``launch/roofline.terms_for`` with the H100 ``Chip`` (the
 reference's v5e constants are not ported) and the peak against one H100's
-80 GB (``HBM_BYTES``). The trace takes the card's
+80 GB (``HBM_BYTES``). It skips ``long_500k`` on an arch whose bundle is
+not ``subquadratic`` with the reference's record, before the family
+check. The trace takes the card's
 route through the wire (the ``auto`` backends): E1, R1, F1 and C1 stand
 in by their kernels' outputs (they count and do not compute), the dense
 noise draw by its output, and top-k's selection by its collectives and
 the range's even share of k; on a card ``chip_smoke.py`` runs this same
-``build_train_cell`` step for real on a 2 x 2 grid. Train cells of the
-dense, MoE and VLM families are ported (the MoE experts gathered a layer
-or, under ``moe_ep``, expert-parallel with the dispatch's all-to-alls
-counted), with every pipeline spec (``--pipeline``) and the reference's
+``build_train_cell`` step for real on a 2 x 2 grid, and the serving cells
+at its own shapes. Every cell of the dense, MoE and VLM families is
+ported (the MoE experts gathered a layer or, under ``moe_ep``,
+expert-parallel with the dispatch's all-to-alls counted, at decode too),
+with every pipeline spec (``--pipeline``) and the reference's
 ``--agg-backend``, ``--encode-backend``, ``--cohort`` and ``--adversary``;
-the recurrent, hybrid and enc-dec families on a grid, the prefill and
-decode cells, ``long_500k`` and a cohort that streams the big plan's
-sequential groups are not, and the CLI says so instead of printing a
-result.
+the recurrent, hybrid and enc-dec families on a grid and a cohort that
+streams the big plan's sequential groups are not, and the CLI says so
+instead of printing a result.
 """
 from __future__ import annotations
 
@@ -73,12 +83,11 @@ NOT_PORTED = {
     "family": "the {family} family on a grid is not ported yet (ROADMAP "
               "item 19: the recurrent, hybrid and enc-dec families on a "
               "grid)",
-    "prefill": "the prefill cell is not ported yet (ROADMAP: the prefill "
-               "and decode cells with cache_specs)",
-    "decode": "the decode cell is not ported yet (ROADMAP: the prefill and "
-              "decode cells with cache_specs)",
     "pipeline": "{msg}",
 }
+#: the reference's reason for skipping long_500k on an arch that is not
+#: sub-quadratic (``src/repro/launch/dryrun.py``'s ``run_cell``)
+LONG_SKIP = "full-attention arch: no sub-quadratic path (DESIGN.md)"
 
 
 #: one H100's device memory, the gate each rank's peak is reported against
@@ -107,10 +116,11 @@ def build_train_cell(arch, shape: ShapeCfg, grid, *,
     shards, a tree of ``BatchLeaf``), ``specs``, ``batch`` ((G, N, E,
     micro, S) leaves) and ``mask`` ((G, N)), and the step's ``layout``
     (its range state's); ``make_inputs`` builds them."""
-    if arch.model.family not in GRID_FAMILIES:
-        raise NotPorted(NOT_PORTED["family"].format(family=arch.model.family))
+    _check_family(arch)
     if shape.kind != "train":
-        raise NotPorted(NOT_PORTED[shape.kind])
+        raise ValueError(f"build_train_cell takes a train shape, not "
+                         f"{shape.kind} ({shape.name}): build_"
+                         f"{shape.kind}_cell")
     bundle = build_model(arch.model)
     plan = SH.make_plan(arch, shape, grid)
     comp = compression.Pipeline(
@@ -121,13 +131,7 @@ def build_train_cell(arch, shape: ShapeCfg, grid, *,
                             local_steps=plan.local_steps,
                             client_lr=arch.client_lr,
                             server_lr=arch.server_lr)
-    # each leaf in its own dtype (the MoE router is f32 in a bf16 model)
-    meta = family_module(arch.model).init_params(None, arch.model,
-                                                 device="meta")
-    specs = SH.param_specs(meta, grid, plan,
-                           moe_experts=arch.model.moe_experts)
-    params = tree_map(lambda t, sp: BatchLeaf(
-        SH.shard_shape(t.shape, sp, grid), t.dtype), meta, specs)
+    params, specs = _param_shards(arch, grid, plan)
     ctx = SH.round_context(plan, agg_backend=agg_backend,
                            encode_backend=encode_backend, cohort=cohort,
                            adversary=adversary)
@@ -149,6 +153,94 @@ def build_train_cell(arch, shape: ShapeCfg, grid, *,
                                  torch.float32),
                "fcfg": fcfg, "comp": comp, "plan": plan,
                "layout": step.layout, "vocab": arch.model.vocab}
+    return step, example, plan
+
+
+def _check_family(arch) -> None:
+    if arch.model.family not in GRID_FAMILIES:
+        raise NotPorted(NOT_PORTED["family"].format(family=arch.model.family))
+
+
+def _shard_leaves(meta, specs, grid):
+    """``BatchLeaf``s of this rank's shards of a tree of ``meta`` tensors
+    under ``specs``; a dimension that does not split over its axes raises
+    ``ValueError`` (a shard is never padded)."""
+    def leaf(t, sp):
+        for d, axes in SH.spec_dims(sp):
+            n = SH.axis_size(grid, axes)
+            if t.shape[d] % n:
+                raise ValueError(f"dimension {d} of {tuple(t.shape)} does "
+                                 f"not split over {n} ranks ({axes})")
+        return BatchLeaf(SH.shard_shape(t.shape, sp, grid), t.dtype)
+    return tree_map(leaf, meta, specs)
+
+
+def _param_shards(arch, grid, plan):
+    """(this rank's parameter shards as ``BatchLeaf``s, the spec tree):
+    each leaf in its own dtype (the MoE router is f32 in a bf16 model)."""
+    meta = family_module(arch.model).init_params(None, arch.model,
+                                                 device="meta")
+    specs = SH.param_specs(meta, grid, plan,
+                           moe_experts=arch.model.moe_experts)
+    return _shard_leaves(meta, specs, grid), specs
+
+
+def build_prefill_cell(arch, shape: ShapeCfg, grid):
+    """The serving prefill of a prefill cell (the reference's
+    ``build_prefill_cell``) -> (step, example, plan). ``step(params,
+    tokens)`` is the family's ``prefill`` (``models/transformer.prefill``:
+    the final hidden state, the last position's f32 logits) under
+    ``hints.serving_hints`` on ``grid``: ``params`` this rank's shards
+    (the train cell's specs), ``tokens`` the whole (B, S) batch, split over
+    the plan's client and micro axes and its seq axes; the VLM takes tokens
+    only, no image prefix, as the reference's cell does. -> (B, 1, V) on
+    every rank. ``example`` holds the shapes of its arguments."""
+    _check_family(arch)
+    bundle = build_model(arch.model)
+    plan = SH.make_plan(arch, shape, grid)
+    params, specs = _param_shards(arch, grid, plan)
+
+    def step(params, tokens):
+        with hints.serving_hints(grid, plan, specs):
+            return bundle.prefill(params, tokens)
+
+    example = {"params": params, "specs": specs, "plan": plan,
+               "tokens": BatchLeaf((shape.global_batch, shape.seq_len),
+                                   torch.int32)}
+    return step, example, plan
+
+
+def build_decode_cell(arch, shape: ShapeCfg, grid):
+    """One decode step of a decode cell (the reference's
+    ``build_decode_cell``) -> (step, example, plan). The cache is the
+    family's ``init_cache(batch, seq_len)`` cut by ``sharding.cache_specs``
+    (``seq_lens=(seq_len, 2048)``, the reference's): its batch rows over
+    the plan's client and micro axes and its slots over the seq axes, or,
+    at batch 1, its slots over every axis. ``step(params, cache, tokens,
+    position)`` is ``bundle.decode_step`` under ``hints.serving_hints``:
+    ``params`` this rank's shards, ``cache`` its slice, ``tokens`` the
+    whole (B, 1) batch -> (f32 logits (B, 1, V) on every rank, the cache
+    slice written in place). ``example`` holds the shapes of its
+    arguments and the cache's specs."""
+    _check_family(arch)
+    bundle = build_model(arch.model)
+    plan = SH.make_plan(arch, shape, grid)
+    params, specs = _param_shards(arch, grid, plan)
+    batch = shape.global_batch
+    meta = bundle.init_cache(batch, shape.seq_len, device="meta")
+    cspecs = SH.cache_specs(meta, plan, batch=batch,
+                            seq_lens=(shape.seq_len, 2048))
+    cache = _shard_leaves(meta, cspecs, grid)
+
+    def step(params, cache, tokens, position):
+        with hints.serving_hints(grid, plan, specs, cache_spec=cspecs["k"],
+                                 cache_len=shape.seq_len):
+            return bundle.decode_step(params, cache, tokens, position)
+
+    example = {"params": params, "specs": specs, "plan": plan,
+               "cache": cache, "cache_specs": cspecs,
+               "tokens": BatchLeaf((batch, 1), torch.int32),
+               "position": shape.seq_len - 1}
     return step, example, plan
 
 
@@ -269,8 +361,6 @@ def analyze(step, example, grid, label: str, seed: int = 0) -> dict:
     the tensors are ``meta`` tensors, and E1 and R1 stand in by their
     kernels' outputs, the card's memory, so ``step`` is built with the
     ``cuda`` backends (``run_cell`` does)."""
-    from torch.distributed._tools.mem_tracker import MemTracker
-    from torch.utils.flop_counter import FlopCounterMode
     t0 = time.time()
     state, batch, mask = make_inputs(example, seed=seed)
     args = {"params": _nbytes(state.params),
@@ -278,11 +368,6 @@ def analyze(step, example, grid, label: str, seed: int = 0) -> dict:
                               state.rng, state.sigma,
                               state.comp_server]),
             "batch": _nbytes(batch) + _nbytes(mask)}
-    mt = MemTracker()
-    mt.track_external(*[t for t in tree_leaves(
-        [state.params, batch, mask]) if isinstance(t, torch.Tensor)])
-    fc = FlopCounterMode(display=False)
-    hints.reset_collective_stats()
     layout = example["layout"](state.params)
     ops, eops = compression.K, compression.EK
     select, draw = compression.range_topk_select, znoise.sample_z_noise
@@ -291,26 +376,46 @@ def analyze(step, example, grid, label: str, seed: int = 0) -> dict:
     compression.range_topk_select = _topk_footprint(layout.spec.n_coords)
     znoise.sample_z_noise = _noise_footprint
     try:
-        with mt, fc:
-            new_state, metrics = step(state, batch, mask)
+        (new_state, metrics), peak, flops = _counted(
+            lambda: step(state, batch, mask), [state.params, batch, mask])
     finally:
         compression.K, compression.EK = ops, eops
         compression.range_topk_select, znoise.sample_z_noise = select, draw
-    peak = mt.get_tracker_snapshot("peak")
     out_bytes = _nbytes(new_state.params) + _nbytes(list(metrics))
+    return _record(label, grid, t0, args, out_bytes, peak, flops,
+                   state_bytes=state_bytes(example, layout, grid))
+
+
+def _counted(run, external):
+    """``run()`` under the memory tracker (``external``'s tensors counted
+    as live), the FLOP counter and fresh collective counts -> (its result,
+    the peak bytes, the FLOPs)."""
+    from torch.distributed._tools.mem_tracker import MemTracker
+    from torch.utils.flop_counter import FlopCounterMode
+    mt = MemTracker()
+    mt.track_external(*[t for t in tree_leaves(external)
+                        if isinstance(t, torch.Tensor)])
+    fc = FlopCounterMode(display=False)
+    hints.reset_collective_stats()
+    with mt, fc:
+        out = run()
     # the device's peak (the host's few bytes of keys and mask left out)
-    peak_total = max(v.get("Total", 0) for v in peak.values())
+    peak = max(v.get("Total", 0) for v in
+               mt.get_tracker_snapshot("peak").values())
+    return out, peak, float(fc.get_total_flops())
+
+
+def _record(label, grid, t0, args, out_bytes, peak, flops, **extra):
     arg_total = sum(args.values())
     return {
         "label": label, "devices": grid.size, "rank": grid.rank,
         "trace_s": round(time.time() - t0, 2),
         "argument_size_in_bytes": arg_total,
-        "argument_bytes": args,
-        "state_bytes": state_bytes(example, layout, grid),
+        "argument_bytes": args, **extra,
         "output_size_in_bytes": out_bytes,
-        "peak_bytes": peak_total,
-        "temp_size_in_bytes": max(0, peak_total - arg_total),
-        "flops_per_device": float(fc.get_total_flops()),
+        "peak_bytes": peak,
+        "temp_size_in_bytes": max(0, peak - arg_total),
+        "flops_per_device": flops,
         "collectives": hints.collective_totals(0),
         "collective_calls": hints.collective_totals(1),
         "collectives_by_use": {k: v[0] for k, v in
@@ -318,6 +423,39 @@ def analyze(step, example, grid, label: str, seed: int = 0) -> dict:
         "collective_bytes_per_device": sum(
             hints.collective_totals(0).values()),
     }
+
+
+def analyze_serving(step, example, grid, label: str) -> dict:
+    """``analyze`` of a prefill or decode cell: one call of ``step``
+    (``build_prefill_cell``'s or ``build_decode_cell``'s) traced as this
+    rank of a fake process group on ``meta`` tensors -> the same fields:
+    the argument bytes (param shards, the cache slice, the tokens), the
+    output bytes (the logits; a decode's cache slice too, as the
+    reference's cell returns it), the peak of everything live, the FLOPs
+    and the collective bytes by kind and by use (the layers' weight
+    gathers, ``decode_softmax``, ``decode_attn``, ``logits``,
+    ``prefill_last``, the MoE dispatch)."""
+    t0 = time.time()
+
+    def meta(tree):
+        return tree_map(lambda leaf: torch.empty(
+            leaf.shape, dtype=leaf.dtype, device="meta"), tree)
+
+    params, tokens = meta(example["params"]), meta(example["tokens"])
+    args = {"params": _nbytes(params), "tokens": _nbytes(tokens)}
+    if "cache" in example:
+        cache = meta(example["cache"])
+        args["cache"] = _nbytes(cache)
+        (logits, cache), peak, flops = _counted(
+            lambda: step(params, cache, tokens, example["position"]),
+            [params, cache, tokens])
+        out_bytes = _nbytes(logits) + _nbytes(cache)
+    else:
+        logits, peak, flops = _counted(lambda: step(params, tokens),
+                                       [params, tokens])
+        out_bytes = _nbytes(logits)
+    return _record(label, grid, t0, args, out_bytes, peak, flops,
+                   logits_shape=list(logits.shape))
 
 
 def fake_group(world: int, rank: int = 0) -> None:
@@ -342,19 +480,26 @@ def run_cell(arch_id: str, shape_name: str, *, multi_pod: bool,
     shape = SHAPES[shape_name]
     mesh_label = "pod2x16x16" if multi_pod else "16x16"
     label = f"{arch_id}/{shape_name}/{mesh_label}"
-    if shape_name == "long_500k":
-        return {"label": label, "not_ported": "long_500k is not ported "
-                "yet (a decode cell; ROADMAP)"}
+    # the reference's order: the arch's sub-quadratic path first, then
+    # whether its family runs on a grid
+    if shape_name == "long_500k" and not build_model(arch.model).subquadratic:
+        return {"label": f"{arch_id}/{shape_name}", "skipped": LONG_SKIP}
     fake_group(512 if multi_pod else 256, rank)
     try:
         grid = make_production_mesh(multi_pod=multi_pod, device_type="cpu")
-        step, example, plan = build_train_cell(
-            arch, shape, grid, pipeline=pipeline,
-            agg_backend="cuda" if agg_backend == "auto" else agg_backend,
-            encode_backend=("cuda" if encode_backend == "auto"
-                            else encode_backend),
-            cohort=cohort, adversary=adversary)
-        res = analyze(step, example, grid, label)
+        if shape.kind == "train":
+            step, example, plan = build_train_cell(
+                arch, shape, grid, pipeline=pipeline,
+                agg_backend="cuda" if agg_backend == "auto" else agg_backend,
+                encode_backend=("cuda" if encode_backend == "auto"
+                                else encode_backend),
+                cohort=cohort, adversary=adversary)
+            res = analyze(step, example, grid, label)
+        else:
+            build = (build_prefill_cell if shape.kind == "prefill" else
+                     build_decode_cell)
+            step, example, plan = build(arch, shape, grid)
+            res = analyze_serving(step, example, grid, label)
     finally:
         dist.destroy_process_group()
     res["plan"] = dataclasses.asdict(plan)
@@ -382,7 +527,11 @@ def run_cell(arch_id: str, shape_name: str, *, multi_pod: bool,
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--arch", default="all")
-    ap.add_argument("--shape", default="all")
+    ap.add_argument("--shape", default="all",
+                    help="train_4k | prefill_32k | decode_32k | long_500k "
+                         "(the serving cells: the prefill's last-token "
+                         "logits, one decode step against the sharded KV "
+                         "cache)")
     ap.add_argument("--multi-pod", action="store_true")
     ap.add_argument("--both-meshes", action="store_true")
     ap.add_argument("--agg-backend", default="auto",

@@ -28,6 +28,27 @@ each hint IS its collective, over a subgroup of a ``launch/mesh.ReplicaGrid``:
   ``reduce_sum(x, axes)``  a forward all-reduce with no gradient (the
                        loss's token sums, the MoE aux's expert counts)
 
+Serving (the prefill and decode cells) runs under ``serving_hints``: the
+batch rows split over the plan's client and micro axes (a decode's over the
+axes its cache's batch dimension takes, ``launch/sharding.cache_specs``),
+no layer rematerialized, and for a decode the cache's slots split over the
+axes of its sequence dimension (over every axis at batch 1). There
+
+  ``cache_bounds(n)``  [lo, hi) of this rank's n cache slots and the
+                       cache's length: the rank whose slots hold a
+                       position owns it (the only one that writes its K/V)
+  ``softmax_stats(m, l)``  the decode softmax's row max and sum of
+                       exponentials over every rank's slots, from each
+                       rank's (f32), all-gathered over the cache's sequence
+                       axes and folded in rank order: every rank of the
+                       group gets the same bits
+  ``sum_slots(y)``     the sum over those ranks of each rank's
+                       probability-weighted V, added in rank order
+  ``gather_rows(x)``   all-gather of this rank's batch rows (the logits)
+  ``last_position(x)`` the hidden state of the sequence's last position,
+                       which the last sequence rank holds, on every rank
+                       of its sequence group
+
 Every hint is the identity when no grid is set, so the single-device path is
 unchanged. ``seq_shard_view(n)`` sets, in one process and without a grid,
 the sequence shard count the MoE layer counts its capacity over, as the
@@ -69,7 +90,8 @@ from repro_torch.core.tree import tree_paths, tree_set
 
 _CTX = {"grid": None, "seq_axes": None, "batch_axes": None,
         "replica_axes": None, "specs": None, "seq_len": None,
-        "batch": None, "remat": None, "remat_on": True, "view": 1}
+        "batch": None, "remat": None, "remat_on": True, "view": 1,
+        "cache": None}
 
 KINDS = ("all_gather", "reduce_scatter", "all_to_all", "all_reduce")
 #: "<kind>:<use>" (e.g. "all_gather:weight", "reduce_scatter:kv",
@@ -112,7 +134,8 @@ def sharding_hints(grid, seq_axes, batch_axes=None, *, replica_axes=(),
     _CTX.update(grid=grid, seq_axes=tuple(seq_axes or ()),
                 batch_axes=tuple(batch_axes or ()),
                 replica_axes=tuple(replica_axes or ()), specs=specs,
-                seq_len=None, batch=None, remat=None, remat_on=remat)
+                seq_len=None, batch=None, remat=None, remat_on=remat,
+                cache=None)
     try:
         yield
     finally:
@@ -550,3 +573,137 @@ def sharded_over(path, dim: int, axes) -> bool:
 
 def replica_axes() -> Tuple[str, ...]:
     return _CTX["replica_axes"] or ()
+
+
+# ---------------------------------------------------------------------------
+# serving: the prefill and decode cells on a grid
+# ---------------------------------------------------------------------------
+
+def _spec_axes(entry) -> Tuple[str, ...]:
+    if entry is None:
+        return ()
+    return (entry,) if isinstance(entry, str) else tuple(entry)
+
+
+@contextmanager
+def serving_hints(grid, plan, specs, *, cache_spec=None,
+                  cache_len: Optional[int] = None):
+    """The grid for one serving call of the model-sharded replica: the
+    parameter shards of ``specs`` gathered a layer over the plan's replica
+    axes, no layer rematerialized. A prefill (no ``cache_spec``) splits the
+    sequence over the plan's seq axes and the batch rows over its client and
+    micro axes (the reference's prefill cell's token spec). A decode takes
+    the layout of its ``cache_len``-slot KV cache from ``cache_spec``, the
+    spec ``launch/sharding.cache_specs`` gives the (L, B, S, K, hd) cache:
+    the batch rows over the axes of dimension 1, the slots over those of
+    dimension 2 (every axis at batch 1); a spec that shards any other
+    dimension (a cache dimension of the same size as the batch or the
+    sequence) raises ``ValueError``. The lengths of the call are its own:
+    nothing a training forward recorded under an earlier context is read."""
+    if cache_spec is None:
+        rows = tuple(plan.client_axes) + tuple(plan.micro_axes)
+        cache = None
+    else:
+        spec = tuple(cache_spec) + (None,) * (5 - len(cache_spec))
+        if len(spec) != 5 or any(e is not None for i, e in enumerate(spec)
+                                 if i not in (1, 2)):
+            raise ValueError(f"cache spec {cache_spec}: only its batch (1) "
+                             f"and sequence (2) dimensions may be sharded "
+                             f"(a dimension of the cache has the batch's or "
+                             f"the sequence's size)")
+        rows = _spec_axes(spec[1])
+        cache = {"seq_axes": _spec_axes(spec[2]), "len": int(cache_len)}
+    with sharding_hints(grid, plan.seq_axes, rows,
+                        replica_axes=plan.replica_axes, specs=specs,
+                        remat=False):
+        _CTX["cache"] = cache
+        yield
+
+
+def serving() -> bool:
+    """Whether a decode's cache layout is set (``serving_hints``)."""
+    return active() and _CTX["cache"] is not None
+
+
+def cache_bounds(n_slots: int) -> Tuple[int, int, int]:
+    """(lo, hi, length): this rank's ``n_slots`` slots [lo, hi) of the
+    decode cache's ``length``; (0, n_slots, n_slots) where no cache layout
+    is set. Raises ``ValueError`` when the length does not split over the
+    cache's sequence axes or ``n_slots`` is not this rank's share."""
+    if not serving():
+        return 0, n_slots, n_slots
+    cache = _CTX["cache"]
+    n = _size(cache["seq_axes"])
+    if cache["len"] % n:
+        raise ValueError(f"a {cache['len']}-slot cache does not split over "
+                         f"{n} ranks")
+    per = cache["len"] // n
+    if n_slots != per:
+        raise ValueError(f"cache slice of {n_slots} slots, the grid's is "
+                         f"{per} of {cache['len']}")
+    i = _CTX["grid"].index(cache["seq_axes"])
+    return i * per, (i + 1) * per, cache["len"]
+
+
+def _slot_group():
+    """The group of the decode cache's sequence axes, None where the slots
+    are not split."""
+    if not serving():
+        return None
+    return _CTX["grid"].group(_CTX["cache"]["seq_axes"])
+
+
+def softmax_stats(m: torch.Tensor,
+                  l: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(M, L), the decode softmax's row max and sum of exp(score - M) over
+    every rank's slots, from each rank's f32 ``m`` (the max of its scores)
+    and ``l`` (the sum of exp(score - m) over its slots): the two
+    all-gathered over the cache's sequence axes in one tensor
+    (``all_gather:decode_softmax``) and folded in rank order, so every rank
+    of the group gets the same bits. ``(m, l)`` where the slots are not
+    split."""
+    group = _slot_group()
+    if group is None:
+        return m, l
+    parts = all_gather_dim(torch.stack([m, l]).unsqueeze(0), group, 0,
+                           "decode_softmax")
+    top = parts[:, 0].amax(dim=0)
+    total = torch.zeros_like(l)
+    for part in parts:
+        total = total + torch.exp(part[0] - top) * part[1]
+    return top, total
+
+
+def sum_slots(y: torch.Tensor) -> torch.Tensor:
+    """The sum over the ranks of the cache's sequence axes of each rank's
+    f32 ``y`` (the probability-weighted V over its slots): all-gathered
+    (``all_gather:decode_attn``) and added in rank order, the same bits on
+    every rank; ``y`` where the slots are not split."""
+    group = _slot_group()
+    if group is None:
+        return y
+    parts = all_gather_dim(y.unsqueeze(0), group, 0, "decode_attn")
+    total = torch.zeros_like(y)
+    for part in parts:
+        total = total + part
+    return total
+
+
+def gather_rows(x: torch.Tensor, use: str = "logits") -> torch.Tensor:
+    """All-gather along dim 0 of this rank's batch rows over the serving
+    call's batch axes (every row on every rank); the identity where the
+    rows are not split."""
+    if not active() or _size(_CTX["batch_axes"]) == 1:
+        return x
+    return all_gather_dim(x, _CTX["grid"].group(_CTX["batch_axes"]), 0, use)
+
+
+def last_position(x: torch.Tensor) -> torch.Tensor:
+    """(B, 1, D): the last position of a (B, S_loc, D) sequence slice, the
+    last sequence rank's, on every rank of the sequence group (the ranks'
+    last positions all-gathered, ``all_gather:prefill_last``)."""
+    last = x[:, -1:]
+    if not active() or seq_shard_count() == 1:
+        return last
+    group = _CTX["grid"].group(_CTX["seq_axes"])
+    return all_gather_dim(last, group, 1, "prefill_last")[:, -1:]

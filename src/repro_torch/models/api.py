@@ -7,7 +7,7 @@ from __future__ import annotations
 
 import dataclasses
 import importlib
-from typing import Any, Callable, NamedTuple
+from typing import Any, Callable, NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -78,6 +78,13 @@ class ModelBundle:
     #                               -> (logits, cache)
     init_cache: Callable          # (batch, max_len, device) -> cache
     train_batch_spec: Callable    # (micro_batch, seq_len) -> {name: BatchLeaf}
+    decode_supported: bool = True
+    #: eligible for the long_500k cell (the reference's rule, per family)
+    subquadratic: bool = False
+    #: (params, tokens) -> f32 logits of the last position (B, 1, V): the
+    #: decoder-only families' prefill (the dry run's prefill cell); None
+    #: where the family has none
+    prefill: Optional[Callable] = None
 
 
 def check_device(device) -> torch.device:
@@ -124,7 +131,16 @@ def build_model(cfg: ModelCfg) -> ModelBundle:
 
     common = dict(
         cfg=cfg, init=init, init_cache=init_cache,
-        decode_step=lambda p, c, t, pos: M.decode_step(p, c, t, pos, cfg))
+        decode_step=lambda p, c, t, pos: M.decode_step(p, c, t, pos, cfg),
+        # the reference's per-family rule: a sliding window makes the
+        # decoder-only transformer sub-quadratic (not the VLM's), the
+        # recurrent and hybrid families are, enc-dec is not
+        subquadratic={"dense": cfg.sliding_window > 0,
+                      "moe": cfg.sliding_window > 0, "vlm": False,
+                      "hybrid": True, "xlstm": True,
+                      "encdec": False}[cfg.family])
+    if cfg.family in ("dense", "moe", "vlm"):
+        common["prefill"] = lambda p, t: M.prefill(p, t, cfg)
     if cfg.family == "encdec":
         def encdec_spec(micro, seq):
             s_src = int(seq * cfg.src_frac)

@@ -8,9 +8,12 @@ names and layouts, so a parameter tree carries across the two packages as it
 is. Under a grid (``launch/hints.py``) attention is sequence-parallel as
 the reference's is: queries stay on this rank's slice, the GQA K/V are
 gathered along the sequence at kv-head width in their stored dtype, and the
-causal mask and RoPE take global positions; off a grid the hints are the
-identity. Matmuls whose reference asks for an f32 result
-(``preferred_element_type``) run on f32 copies of their operands.
+causal mask and RoPE take global positions; a decode step attends over
+this rank's slice of the KV cache and folds its softmax statistics and
+V products with the other sequence ranks' (``hints.softmax_stats``,
+``sum_slots``); off a grid the hints are the identity. Matmuls whose
+reference asks for an f32 result (``preferred_element_type``) run on f32
+copies of their operands.
 """
 from __future__ import annotations
 
@@ -215,17 +218,29 @@ def attention_decode(x, lp, cfg: AttnCfg, cache_k, cache_v, position: int):
     K/V (the reference returns updated copies). -> (y, cache_k, cache_v).
 
     The reference's ``dynamic_update_slice`` clamps a position past the
-    cache into its last slot; the port raises instead."""
-    S = cache_k.shape[1]
+    cache into its last slot; the port raises instead. On a grid
+    (``hints.serving``) the cache is this rank's slots [lo, hi) of the
+    whole (``hints.cache_bounds``): only the slot's owner writes the new
+    K/V, and the mask takes the keys' global positions (the sliding window
+    too). The softmax's row max and sum of exponentials are folded over
+    the ranks of the cache's sequence axes (``hints.softmax_stats``), and
+    each rank's softmax over its slots is scaled to its share of the whole
+    before the probabilities are rounded to x.dtype, as the reference
+    rounds them; their products with the V slots are taken in f32 and
+    summed over those ranks (``hints.sum_slots``) before one rounding to
+    x.dtype, as a bf16 matmul accumulates. Off a grid the cache is whole,
+    both hints are the identity and the share is exactly 1."""
+    lo, hi, S = hints.cache_bounds(cache_k.shape[1])
     if not 0 <= position < S:
         raise ValueError(f"decode position {position} is outside the "
                          f"cache's {S} slots")
     B = x.shape[0]
     pos = torch.full((1,), position, dtype=torch.long, device=x.device)
     q, k_new, v_new = _qkv(x, lp, cfg, pos)
-    cache_k[:, position] = k_new[:, 0].to(cache_k.dtype)
-    cache_v[:, position] = v_new[:, 0].to(cache_v.dtype)
-    k_pos = torch.arange(S, device=x.device)
+    if lo <= position < hi:
+        cache_k[:, position - lo] = k_new[:, 0].to(cache_k.dtype)
+        cache_v[:, position - lo] = v_new[:, 0].to(cache_v.dtype)
+    k_pos = torch.arange(lo, hi, device=x.device)
     valid = k_pos <= position
     if cfg.sliding_window > 0:
         valid &= (position - k_pos) < cfg.sliding_window
@@ -234,9 +249,18 @@ def attention_decode(x, lp, cfg: AttnCfg, cache_k, cache_v, position: int):
     scores = torch.einsum("bcgrd,bsgd->bgrcs", q5.to(torch.float32),
                           cache_k.to(torch.float32)) / (cfg.d_head ** 0.5)
     scores = torch.where(valid, scores, -1e30)
-    probs = torch.softmax(scores, dim=-1).to(x.dtype)
-    y = torch.einsum("bgrcs,bsgd->bcgrd", probs, cache_v).reshape(B, 1, -1)
-    return y @ lp["wo"], cache_k, cache_v
+    m = scores.amax(dim=-1, keepdim=True)
+    # a rank whose slots are all masked has m = -1e30 and adds nothing
+    l = torch.where(valid, torch.exp(scores - m), 0.0).sum(dim=-1,
+                                                            keepdim=True)
+    top, total = hints.softmax_stats(m, l)
+    # this rank's share of the whole softmax (exactly 1 off a grid)
+    share = torch.exp(m - top) * l / total
+    probs = (torch.softmax(scores, dim=-1) * share).to(x.dtype)
+    y = hints.sum_slots(torch.einsum("bgrcs,bsgd->bcgrd",
+                                     probs.to(torch.float32),
+                                     cache_v.to(torch.float32)))
+    return y.reshape(B, 1, -1).to(x.dtype) @ lp["wo"], cache_k, cache_v
 
 
 # ---------------------------------------------------------------------------
@@ -334,9 +358,10 @@ def _moe_aux(r: MoERoute, E: int, rows=None):
     the sequence positions it owns of a gathered sequence), so the counts
     are summed over the token axes before the product (a product of
     means is not the mean of the ranks' products); the value is the global
-    aux on every rank, the gradient this rank's share of it."""
+    aux on every rank, the gradient this rank's share of it. A decode step
+    on a grid (``hints.serving``) holds its rows whole: their aux alone."""
     top1 = F.one_hot(r.idx[..., 0], E).to(torch.float32)
-    if not hints.active():
+    if not hints.active() or hints.serving():
         frac = torch.mean(top1, dim=(0, 1))
         prob = torch.mean(r.gate_all, dim=(0, 1))
         return E * torch.sum(frac * prob)
@@ -374,11 +399,17 @@ def moe_apply(x, lp, n_experts: int, top_k: int,
     every shard's cells. The reference's ``ep`` branch dispatches by one-hot
     einsums; each kept cell receives exactly one value and every other term
     is a zero, so its buffer holds the values this ``index_put`` writes
-    (and its combine reads the cells this gather reads)."""
+    (and its combine reads the cells this gather reads).
+
+    A decode step on a grid (``hints.serving``, S = 1: every rank of the
+    sequence axes holds the same whole rows) routes its rows as one process
+    routes them (ns = 1, the reference's fallback), the aux over these rows
+    alone; with ``ep`` the dispatch still goes to the experts' ranks."""
     B, S, D = x.shape
     E, k = n_experts, top_k
-    grid = hints.active()
-    ns = moe_seq_shards(hints.seq_len(S), E, k)
+    local = hints.serving()
+    grid = hints.active() and not local
+    ns = 1 if local else moe_seq_shards(hints.seq_len(S), E, k)
     rows = None
     if grid and ns == 1 and hints.seq_shard_count() > 1:
         rows = hints.seq_bounds(hints.seq_len(S))

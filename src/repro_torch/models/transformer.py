@@ -23,6 +23,14 @@ The loss is the global token mean: local sums, then one all-reduce of the
 sum and the count over the replica axes; the MoE aux is global too
 (``layers._moe_aux``) and enters it once. Off a grid every hint is the
 identity and nothing is rematerialized.
+
+Serving on a grid (``hints.serving_hints``, the dry run's prefill and
+decode cells): ``prefill`` runs the forward above without remat and takes
+the last position's logits from the last sequence rank; ``decode_step``
+gathers each layer's weights just in time as training does, attends over
+this rank's slice of the KV cache with the softmax folded over the
+sequence ranks, and all-gathers the batch rows' logits. No rank keeps the
+gathered replica across steps.
 """
 from __future__ import annotations
 
@@ -85,15 +93,19 @@ def _expert_parallel(cfg, local_seq: int) -> bool:
     return ns > 1 and hints.sharded_over(("moe", "w1"), 1, hints.seq_axes())
 
 
-def _layer(cfg, x, lp, positions):
-    # FSDP: the layer's weight shards gathered just in time; expert-
-    # parallel experts keep their E shard (gathered over the other axes)
-    ep = cfg.moe_experts > 0 and _expert_parallel(cfg, x.shape[1])
+def _gather_layer(lp, ep: bool):
+    """FSDP: the layer's weight shards gathered just in time; expert-
+    parallel experts keep their E shard (gathered over the other axes)."""
     g = hints.fsdp_gather({k: v for k, v in lp.items() if k != "moe"})
     if "moe" in lp:
         g["moe"] = hints.fsdp_gather(
             lp["moe"], ("moe",), keep_axes=hints.seq_axes() if ep else ())
-    lp = g
+    return g
+
+
+def _layer(cfg, x, lp, positions):
+    ep = cfg.moe_experts > 0 and _expert_parallel(cfg, x.shape[1])
+    lp = _gather_layer(lp, ep)
     h = x + L.attention(L.rms_norm(x, lp["ln1"]), lp["attn"],
                         cfg.attn_cfg(), positions)
     h = hints.seq_shard(h)
@@ -182,9 +194,7 @@ def _sharded_loss(params, batch, cfg):
     gradient is this rank's share of it, which the reduce-scatters of the
     backward sum."""
     tokens = batch["tokens"]
-    p = dict(params)
-    p.update(hints.fsdp_gather({k: params[k] for k in _TOP if k in params},
-                               stacked=False))
+    p = _top(params)
     x, aux = forward_hidden(p, tokens, cfg, prefix=batch.get("img_embeds"))
     B, S = tokens.shape
     lo, hi = hints.seq_bounds(S)
@@ -225,14 +235,65 @@ def init_cache(cfg, batch_size: int, max_len: int, device="cpu"):
 def decode_step(params, cache, tokens, position: int, cfg):
     """One decode step: tokens (B, 1) at ``position`` (a Python int below
     the cache length) -> (f32 logits (B, 1, V), cache). The cache is
-    written in place and returned."""
-    x = params["embed"][tokens]
+    written in place and returned.
+
+    Under a grid's serving hints (``hints.serving_hints``) ``params`` are
+    this rank's shards, ``cache`` its slice of the KV cache (its batch rows
+    and slots, ``launch/sharding.cache_specs``) and ``tokens`` the whole
+    batch. The embedding, head and final norm are gathered once, each
+    layer's weights just in time and dropped after it (no rank keeps the
+    replica across steps); the attention runs on the cache slice with the
+    softmax folded over the sequence ranks (``layers.attention_decode``);
+    the MoE routes this rank's rows as one process does, its experts
+    gathered a layer or, under ``moe_ep`` where the grid stores E over the
+    seq axes, kept there with the dispatch swapped to their ranks. The
+    logits are this rank's rows all-gathered over the batch axes
+    (``all_gather:logits``), the same on every rank. Off a grid every hint
+    is the identity."""
+    B = tokens.shape[0]
+    b0, b1 = hints.batch_bounds(B)
+    nl, rows = cache["k"].shape[0], cache["k"].shape[1]
+    if nl != cfg.n_layers or rows != b1 - b0:
+        raise ValueError(f"cache slice of {nl} layers x {rows} rows, the "
+                         f"grid's is {cfg.n_layers} x {b1 - b0} of {B}")
+    top = _top(params)
+    x = top["embed"][tokens[b0:b1]]
+    ep = cfg.moe_experts > 0 and cfg.moe_ep and hints.sharded_over(
+        ("moe", "w1"), 1, hints.seq_axes())
     for i, lp in enumerate(_layer_params(params, cfg)):
-        y, _, _ = L.attention_decode(L.rms_norm(x, lp["ln1"]), lp["attn"],
+        g = _gather_layer(lp, ep)
+        y, _, _ = L.attention_decode(L.rms_norm(x, g["ln1"]), g["attn"],
                                      cfg.attn_cfg(), cache["k"][i],
                                      cache["v"][i], position)
         h = x + y
-        y, _ = _ffn(cfg, L.rms_norm(h, lp["ln2"]), lp)
+        y, _ = _ffn(cfg, L.rms_norm(h, g["ln2"]), g, ep)
         x = h + y
-    x = L.rms_norm(x, params["lnf"])
-    return (x @ lm_head(params, cfg)).to(torch.float32), cache
+        del g
+    x = L.rms_norm(x, top["lnf"])
+    logits = (x @ lm_head(top, cfg)).to(torch.float32)
+    return hints.gather_rows(logits), cache
+
+
+def _top(params):
+    """The leaves outside the layer stack, gathered once a call (a
+    vocab-sharded table whole)."""
+    p = dict(params)
+    p.update(hints.fsdp_gather({k: params[k] for k in _TOP if k in params},
+                               stacked=False))
+    return p
+
+
+@torch.no_grad()
+def prefill(params, tokens, cfg):
+    """The serving prefill (the reference's prefill cell): the final hidden
+    state of ``tokens`` (B, S) -> f32 logits of its last position (B, 1,
+    V). Under a grid's serving hints ``params`` are this rank's shards and
+    ``tokens`` the whole batch: the embedding, head and final norm are
+    gathered once, each layer as in training (no remat); the last position
+    is the last sequence rank's (``hints.last_position``), and the rows are
+    all-gathered over the batch axes, so every rank returns every row. Off
+    a grid every hint is the identity."""
+    p = _top(params)
+    x, _ = forward_hidden(p, tokens, cfg)
+    x = hints.last_position(x)
+    return hints.gather_rows((x @ lm_head(p, cfg)).to(torch.float32))

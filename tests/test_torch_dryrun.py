@@ -14,9 +14,13 @@ production-mesh cell traced as rank 0 of a fake process group of 256 ranks.
     llama4's expert-parallel dispatch: the all-to-all of each (B_loc, E,
     C, D) bf16 buffer, both ways, three times a layer a group.
   * The cells the port does not have yet say "not ported" and print no
-    result: the recurrent, hybrid and enc-dec families on a grid, prefill,
-    decode and long_500k, a non-``none`` adversary and a pipeline the grid
-    does not run yet.
+    result: the recurrent, hybrid and enc-dec families on a grid (every
+    cell) and a cohort the grid does not run yet.
+  * The serving cells (since the prefill and decode cells were ported):
+    qwen2_0_5b and llama4_scout_17b_a16e prefill_32k and decode_32k print
+    a record (qwen2's decode collectives in closed form), long_500k runs
+    for h2o_danube_3_4b and is skipped with the reference's reason for
+    every full-attention arch.
   * The reference's launch flags (``--agg-backend``, ``--encode-backend``,
     ``--cohort``, ``--adversary``) reach ``build_train_cell``; at the
     reduced dense model on a fake 2 x 2 group the stateful pipelines'
@@ -181,13 +185,131 @@ def test_moe_vlm_train_4k_shard_bytes_closed_form(arch_id, layers,
 
 @pytest.mark.parametrize("arch_id,shape", [
     ("jamba_1_5_large_398b", "train_4k"), ("xlstm_350m", "train_4k"),
-    ("qwen2_0_5b", "prefill_32k"), ("qwen2_0_5b", "decode_32k"),
-    ("qwen2_0_5b", "long_500k")])
+    ("jamba_1_5_large_398b", "decode_32k"), ("xlstm_350m", "prefill_32k"),
+    ("seamless_m4t_large_v2", "decode_32k"),
+    ("jamba_1_5_large_398b", "long_500k"), ("xlstm_350m", "long_500k")])
 def test_cells_not_ported_say_so(arch_id, shape, capsys):
+    """The recurrent, hybrid and enc-dec families on a grid (ROADMAP item
+    19), in every cell: their long_500k too, since both are sub-quadratic
+    and the family check comes after the long_500k one."""
     dryrun.main(["--arch", arch_id, "--shape", shape])
     line = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
     assert "not ported" in line["not_ported"]
     assert "flops_per_device" not in line and "error" not in line
+
+
+# ---------------------------------------------------------------------------
+# the serving cells: prefill_32k, decode_32k and long_500k
+# ---------------------------------------------------------------------------
+
+_SERVE_KEYS = ("argument_size_in_bytes", "output_size_in_bytes",
+               "peak_bytes", "flops_per_device", "collectives",
+               "collectives_by_use", "t_compute_s", "t_memory_s",
+               "t_collective_s", "dominant", "fits_hbm")
+
+
+@pytest.mark.parametrize("arch_id,shape", [
+    ("qwen2_0_5b", "prefill_32k"), ("qwen2_0_5b", "decode_32k"),
+    ("llama4_scout_17b_a16e", "prefill_32k"),
+    ("llama4_scout_17b_a16e", "decode_32k")])
+def test_serving_cells_print_a_record(arch_id, shape, capsys):
+    """Each serving cell prints the train cell's fields: bytes, peak
+    (under the H100's 80 GB), FLOPs, collectives by use, roofline terms;
+    the logits of every row of the batch on every rank. llama4's decode
+    swaps its dispatch to the experts' ranks (E over `model`) and gathers
+    one expert's d_ff a rank, never the layer's 16."""
+    dryrun.main(["--arch", arch_id, "--shape", shape])
+    line = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert "error" not in line and "not_ported" not in line, line
+    assert all(k in line for k in _SERVE_KEYS)
+    assert line["fits_hbm"] and line["peak_bytes"] > 0
+    sh = SHAPES[shape]
+    arch = get_arch(arch_id)
+    assert line["logits_shape"] == [sh.global_batch, 1, arch.model.vocab]
+    uses = line["collectives_by_use"]
+    assert uses["all_gather:logits"] == 4 * sh.global_batch * \
+        arch.model.vocab
+    if shape == "prefill_32k":
+        assert uses["all_gather:prefill_last"] > 0 and uses["all_gather:kv"]
+    else:
+        assert uses["all_gather:decode_softmax"] > 0
+        assert uses["all_gather:decode_attn"] > 0
+        assert line["argument_bytes"]["cache"] > 0
+    m = arch.model
+    if m.moe_ep:
+        assert uses["all_to_all:moe_dispatch"] == \
+            uses["all_to_all:moe_combine"] > 0
+        expert = 3 * m.d_model * m.d_ff * 2
+        # each layer's gathered bytes hold one expert (E/16 = 1) whole
+        assert uses["all_gather:weight"] < m.n_layers * 2 * expert + \
+            2 * m.vocab * m.d_model * 2 + m.n_layers * 2 * 4 * \
+            m.d_model * m.d_model
+
+
+def test_qwen2_decode_32k_collectives_closed_form(capsys):
+    """qwen2-0.5B's decode step on 16 x 16: every sharded leaf gathered
+    once (the layer stack a layer, the tied table once), the softmax's row
+    max and sum of this rank's 8 rows (14 heads x 2 f32) and their
+    probability-weighted V (14 heads x 64 f32) from the 16 sequence ranks
+    a layer, the (128, 1, 151936) f32 logits; the cache slice (24, 8,
+    2048, 2, 64) bf16, K and V."""
+    dryrun.main(["--arch", "qwen2_0_5b", "--shape", "decode_32k"])
+    line = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    arch = get_arch("qwen2_0_5b")
+    m = arch.model
+    plan = SH.make_plan(arch, SHAPES["decode_32k"], type(
+        "M", (), {"axis_names": ("data", "model"),
+                  "shape": {"data": 16, "model": 16}})())
+    shards = _shards(arch, (16, 16), plan)
+    gathered = sum(n for n, f in shards.values() if f > 1) * 2
+    hd = m.d_model // m.n_heads
+    assert line["collectives_by_use"] == {
+        "all_gather:weight": gathered,
+        "all_gather:decode_softmax": m.n_layers * 16 * 8 * m.n_heads
+        * 2 * 4,
+        "all_gather:decode_attn": m.n_layers * 16 * 8 * m.n_heads * hd * 4,
+        "all_gather:logits": 128 * m.vocab * 4}
+    assert line["argument_bytes"]["cache"] == \
+        2 * m.n_layers * 8 * 2048 * m.n_kv_heads * hd * 2
+
+
+def test_long_500k_runs_for_h2o_danube(capsys):
+    """h2o-danube-3-4b has a sliding window (4096), so the reference runs
+    its long_500k: batch 1, the 524,288-slot cache over all 256 ranks
+    (2,048 slots a rank), the softmax statistics and V products gathered
+    over all of them, no batch gather."""
+    dryrun.main(["--arch", "h2o_danube_3_4b", "--shape", "long_500k"])
+    line = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert "error" not in line and "skipped" not in line, line
+    m = get_arch("h2o_danube_3_4b").model
+    hd = m.d_model // m.n_heads
+    assert line["argument_bytes"]["cache"] == \
+        2 * m.n_layers * 1 * 2048 * m.n_kv_heads * hd * 2
+    uses = line["collectives_by_use"]
+    assert "all_gather:logits" not in uses
+    assert uses["all_gather:decode_softmax"] == \
+        m.n_layers * 256 * m.n_heads * 2 * 4
+    assert uses["all_gather:decode_attn"] == \
+        m.n_layers * 256 * m.n_heads * hd * 4
+    assert line["logits_shape"] == [1, 1, m.vocab] and line["fits_hbm"]
+
+
+@pytest.mark.parametrize("arch_id", [
+    "qwen2_0_5b", "granite_3_8b", "qwen2_5_32b", "granite_moe_1b_a400m",
+    "llama4_scout_17b_a16e", "internvl2_1b", "seamless_m4t_large_v2"])
+def test_long_500k_skipped_with_the_reference_reason(arch_id, capsys):
+    """A full-attention arch skips long_500k before any family check, with
+    the reference's record (``src/repro/launch/dryrun.py``'s
+    ``run_cell``)."""
+    dryrun.main(["--arch", arch_id, "--shape", "long_500k"])
+    line = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert line == {"label": f"{arch_id}/long_500k", "skipped":
+                    "full-attention arch: no sub-quadratic path "
+                    "(DESIGN.md)"}
+
+
+def test_not_ported_has_no_serving_entries():
+    assert set(dryrun.NOT_PORTED) == {"family", "pipeline"}
 
 
 # ---------------------------------------------------------------------------
