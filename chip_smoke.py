@@ -150,7 +150,8 @@ Phases, each of which raises (non-zero exit, no result line) on failure:
                       host-fed state's pinned rows restore pinned
      xlstm_round      xlstm-350m (24 blocks: 18 mLSTM + 6 sLSTM, d_model
                       1024, bf16; d = 164,979,856), zsign(z=1,sigma=0.05) at
-                      4 clients under vmap, seq 512 (two mLSTM key chunks,
+                      2 clients under vmap (4 until shard_xlstm took its
+                      time), seq 512 (two mLSTM key chunks,
                       two sLSTM scan chunks), 1 local step, 1 round (its
                       host-bound sLSTM scan takes 20-50 s a round at 2
                       local steps): E1 + R1 once, held against their plain
@@ -208,7 +209,7 @@ Phases, each of which raises (non-zero exit, no result line) on failure:
    against the zsign path's round times.
    ``sharded_replica`` (run before phase 3's paths, while the host's
    memory is free), the model-sharded client replica: four ranks
-   (fresh processes, started once for the five paths) of a (data=2,
+   (fresh processes, started once for the seven paths) of a (data=2,
    model=2) gloo grid share the card and
    run ``launch/dryrun.build_train_cell``'s step for real; each path runs
    first in this process without a grid (seed-0 weights, the same tokens
@@ -252,6 +253,26 @@ Phases, each of which raises (non-zero exit, no result line) on failure:
                       regular plan, seq 512 (256 stub image embeds + 256
                       text tokens), the text looked up in the gathered
                       table; 1 round
+     shard_xlstm      xlstm-350m at full width (d = 164,979,856; 18 mLSTM +
+                      6 sLSTM, bf16), the regular plan, zsign(z=1,
+                      sigma=0.05), seq 256: the mLSTM's K, V and gates
+                      gathered along the sequence (the forget gates'
+                      cumulative sum across the shards), the sLSTM's input
+                      gathered and its recurrence run whole on each
+                      sequence rank; 1 round
+     shard_hybrid     jamba-1.5-large-398b's REDUCED config (one
+                      super-block: attention, 7 mamba, 4 MoE of 4 experts
+                      top-2, 4 SwiGLU; d_model 64, f32; the full width does
+                      not fit one card), the big plan: 2 sequential groups,
+                      the mamba sublayers channel-parallel over `model`,
+                      the MoE expert-parallel; seq 64, 1 round. Then, in
+                      the same ranks, one mamba sublayer at Jamba's width
+                      (d_model 8192, d_inner 16384, bf16, B = 2, T = 512),
+                      forward and backward, its weights stored as the big
+                      plan's shards and gathered, channel-parallel on the
+                      four ranks, against the one-process block: the output
+                      rows, the input's and each weight shard's gradient
+                      within relative L2 SHARD_MAMBA_REL_L2
    The one-process runs count the MoE's capacity over the grid's 2
    sequence shards (``hints.seq_shard_view``), as the reference's
    ``moe_apply`` does under its mesh. Each rank: E1 (with its tile0) G
@@ -261,7 +282,8 @@ Phases, each of which raises (non-zero exit, no result line) on failure:
    leaf (relative L2 at most SHARD_PG_REL_L2 on round 0, a later round's
    limit by path in SHARD_PG_REL_L2_LATER); wire
    bits off the one-process run's only where the two pseudo-gradients
-   differ, at most SHARD_FLIP_SHARE of those sent; params off it (rtol
+   differ, at most SHARD_FLIP_SHARE of those sent (a path's own share in
+   SHARD_FLIP_SHARE_BY_PATH); params off it (rtol
    1e-5) only at coordinates where a wire bit differed; the loss within
    1e-4 of it; on shard_qwen25_32b and shard_llama4_scout a peak at most 0.6
    x one process's. Printed
@@ -518,7 +540,7 @@ XLSTM_COMMON = ["--arch", "xlstm_350m", "--local-steps", "1",
                 "--micro-batch", "2", "--seq-len", "512", "--device", "cuda"]
 XLSTM_COORDS = 164_979_856
 XLSTM_FLAGS = ["--pipeline", "zsign(z=1,sigma=0.05)", "--sigma", "0.05",
-               "--clients", "4", "--cohort", "vmap"]
+               "--clients", "2", "--cohort", "vmap"]
 #: seamless-m4t-large-v2 at full width (24 encoder + 24 decoder layers,
 #: d_model 1024, 16 heads, d_ff 8192, vocab 256,206, bf16; d =
 #: 1,772,429,312); seq 64 = 32 source frames + 32 tokens
@@ -2040,7 +2062,7 @@ def _decode_vs_forward(bundle, params, toks, forward):
 
 
 def phase_xlstm(dev, smi):
-    """xlstm_round: xlstm-350m at full width, zsign(z=1,sigma=0.05) at 4
+    """xlstm_round: xlstm-350m at full width, zsign(z=1,sigma=0.05) at 2
     clients under vmap, E = 1, micro-batch 2, seq 512, 1 round
     (PATH_ROUNDS) through launch.train.run: E1 and R1 once and equal to
     their plain versions. xlstm_serve: the trained params serve 16 requests
@@ -3090,18 +3112,44 @@ SHARD_RANKS = 4
 #: counted per shard, so the one-process rows run under
 #: ``hints.seq_shard_view`` of this count
 SHARD_SEQ_SHARDS = SHARD_GRID[SHARD_AXES.index("model")]
-#: (label, arch, layers kept (None: all of them), rounds, seq, global
-#: batch). shard_granite_moe's 2 rounds cover the regular plan's later
-#: round. A global batch of 4 is a micro-batch of 2 a client step on the
-#: regular plan (2 clients side by side) and on the big plans' 2
-#: sequential groups of one (llama4-scout's cut from 4 by SHARD_GROUPS).
-#: internvl2's sequence is its 256 stub image tokens and 256 text tokens.
+#: (label, arch, layers kept (None: all of them; "reduced": the arch's
+#: reduced config), rounds, seq, global batch). shard_granite_moe's 2
+#: rounds cover the regular plan's later round. A global batch of 4 is a
+#: micro-batch of 2 a client step on the regular plan (2 clients side by
+#: side) and on the big plans' 2 sequential groups of one (llama4-scout's
+#: cut from 4 by SHARD_GROUPS). internvl2's sequence is its 256 stub image
+#: tokens and 256 text tokens. xlstm-350m runs seq 256, not 128: at random
+#: init its mLSTM divides by a denominator that can pass near 0, so its
+#: gradient is ill-conditioned for some token sequences (seq 128's client 0
+#: moved 2.8e-2 relative L2 in one process, f32, under an exact change of
+#: the key chunk; the bf16 grid lay 0.4-1.0 from the one-process row on an
+#: H100 80GB HBM3 at 700 W), while seq 256 moves 1.2e-2 and its grid lies
+#: within 2.0e-2. Jamba at full width does not fit one card
+#: (one super-block is ~44 B parameters): its grid round runs the reduced
+#: config at seq 64, and one mamba sublayer at its width runs beside it
+#: (SHARD_MAMBA)
 SHARD_PATHS = [("shard_qwen2", "qwen2_0_5b", None, 1, 256, 4),
                ("shard_qwen25_32b", "qwen2_5_32b", 1, 1, 256, 4),
                ("shard_granite_moe", "granite_moe_1b_a400m", None, 2, 256,
                 4),
                ("shard_internvl2", "internvl2_1b", None, 1, 512, 4),
+               ("shard_xlstm", "xlstm_350m", None, 1, 256, 4),
+               ("shard_hybrid", "jamba_1_5_large_398b", "reduced", 1, 64,
+                4),
                ("shard_llama4_scout", "llama4_scout_17b_a16e", 1, 1, 256, 4)]
+#: the codec's sigma where a path's differs from its arch's default (the
+#: xlstm_round path's)
+SHARD_SIGMA = {"xlstm_350m": 0.05}
+#: the path whose ranks also run one mamba sublayer at Jamba's width,
+#: channel-parallel on the big plan's grid, after its round: its shape
+SHARD_MAMBA_PATH = "shard_hybrid"
+SHARD_MAMBA = {"d_model": 8192, "batch": 2, "seq": 512}
+#: its output rows, input gradient and each weight shard's gradient
+#: against the one-process block's: relative L2, the grid's bf16 limit
+#: (SHARD_PG_REL_L2): the ``x_proj`` and ``out_proj`` partials over the
+#: channel slices are rounded to bf16 and summed in bf16, the weight
+#: gradients' reduce-scatters too, where one process rounds one sum
+SHARD_MAMBA_REL_L2 = 3e-2
 #: sequential client groups kept where a path cuts its config's, as layers
 #: are cut: llama4-scout's big plan has 4, each gathering the replica and
 #: reduce-scattering its gradients through gloo (~25 s a group on the
@@ -3134,6 +3182,11 @@ SHARD_PG_REL_L2_LATER = {"shard_granite_moe": 0.25}
 #: wire bits that differ from the one-process run's, over all bits sent
 #: (7.0e-5 at most measured on the H100)
 SHARD_FLIP_SHARE = 2e-4
+#: the same share where a path's bf16 pseudo-gradients lie farther from
+#: the one-process run's: xlstm-350m's 1.75e-4 (round 0's worst leaf 2.0e-2:
+#: the sLSTM input's and the K/V gradients summed over the sequence ranks
+#: in bf16; an H100 80GB HBM3 at 700 W, seq 256), limit about twice that
+SHARD_FLIP_SHARE_BY_PATH = {"shard_xlstm": 4e-4}
 #: SHARD_PEAK_GATED: each rank's peak at most this share of one process's
 SHARD_PEAK_RATIO = 0.6
 #: the path whose ranks also run one EF round (F1 over each rank's range)
@@ -3217,9 +3270,13 @@ def _shard_arch(arch_id, layers):
     import dataclasses
     from repro_torch.configs.common import get_arch
     arch = get_arch(arch_id)
-    if layers is not None:
+    if layers == "reduced":
+        arch = arch.reduced()
+    elif layers is not None:
         arch = dataclasses.replace(arch, model=dataclasses.replace(
             arch.model, n_layers=layers))
+    if arch_id in SHARD_SIGMA:
+        arch = dataclasses.replace(arch, zsign_sigma=SHARD_SIGMA[arch_id])
     if arch_id in SHARD_GROUPS:
         arch = dataclasses.replace(arch,
                                    seq_client_groups=SHARD_GROUPS[arch_id])
@@ -4225,6 +4282,8 @@ def _shard_rank(rank, world, ctx, label, arch_id, layers, rounds, seq,
                         for tag, spec, adv in SHARD_SPEC_ROUNDS}
     if label in SHARD_SERVE:
         rec["serve"] = _shard_serve(grid, arch, dev, tmp, label)
+    if label == SHARD_MAMBA_PATH:
+        rec["mamba"] = _shard_mamba(grid, dev, tmp)
     torch.save(rec, out.format(rank))
     dist.barrier()
 
@@ -4552,6 +4611,166 @@ def _shard_serve_checks(label, one, ranks, predicted, smi, tmp):
                                        for p in predicted]}}
     print(json.dumps(line))
     return line
+
+
+def _mamba_inputs(dev):
+    """SHARD_MAMBA's sublayer: seed-0 weights (``mamba_init``, bf16; a_log
+    and d_skip f32), the input x and the upstream gradient dy, (B, T, D)
+    bf16, the same in every process."""
+    from repro_torch.models import mamba as M
+    D, B, T = (SHARD_MAMBA["d_model"], SHARD_MAMBA["batch"],
+               SHARD_MAMBA["seq"])
+    gen = torch.Generator(device=dev).manual_seed(0)
+    lp = {k: v[0] for k, v in M.mamba_init(gen, D, 1, torch.bfloat16,
+                                           dev).items()}
+    x = torch.randn((B, T, D), generator=gen, device=dev).to(torch.bfloat16)
+    dy = torch.randn((B, T, D), generator=gen, device=dev).to(
+        torch.bfloat16)
+    return lp, x, dy
+
+
+def _mamba_one(tmp):
+    """SHARD_MAMBA's sublayer in this process without a grid: forward and
+    backward of dy, timed after a warm-up pass (host clock, synchronized);
+    its output, input gradient and weight gradients written to ``tmp``
+    for the ranks. -> its record."""
+    from repro_torch.models import mamba as M
+    _free()
+    torch.cuda.reset_peak_memory_stats()
+    lp, x, dy = _mamba_inputs(DEV)
+    names = sorted(lp)
+    for v in lp.values():
+        v.requires_grad_(True)
+    x.requires_grad_(True)
+    secs = []
+    for _ in range(2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        y = M.mamba_block(x, lp, d_model=SHARD_MAMBA["d_model"])
+        grads = torch.autograd.grad(y, [x] + [lp[k] for k in names], dy)
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+    peak = torch.cuda.max_memory_allocated()
+    torch.save({"y": y.detach().cpu(), "dx": grads[0].cpu(),
+                "dw": {k: g.cpu() for k, g in zip(names, grads[1:])}},
+               os.path.join(tmp, "mamba_one.pt"))
+    n_w = sum(v.numel() for v in lp.values())
+    del lp, x, dy, y, grads
+    _free()
+    return {"sec": secs[1], "warmup_sec": secs[0], "peak": peak,
+            "weights": n_w}
+
+
+def _cut(v, spec, grid):
+    """This rank's shard of ``v`` under ``spec`` on ``grid``."""
+    from repro_torch.launch import sharding as SH
+    for d, axes in SH.spec_dims(spec):
+        n = SH.axis_size(grid, axes)
+        c = v.shape[d] // n
+        v = v.narrow(d, grid.index(axes) * c, c)
+    return v
+
+
+def _shard_mamba(grid, dev, tmp):
+    """SHARD_MAMBA's sublayer on a rank of the 2 x 2 grid under the big
+    plan's hints (the hybrid path's plan: the sequence over `model`, the
+    batch over `data`, the replica over both): its weights stored as the
+    plan's (1, ...) shards and gathered (``hints.fsdp_gather``), this
+    rank's (batch, sequence) slice of x and dy, forward and backward
+    through the channel-parallel ``mamba_block``, one pass (its time holds
+    the first call's warm-up); each result against the one-process run's (``_mamba_one``,
+    read from ``tmp``) by relative L2. -> its record."""
+    import torch.distributed as dist
+    from repro_torch.launch import hints
+    from repro_torch.launch import sharding as SH
+    from repro_torch.models import mamba as M
+    D, B, T = (SHARD_MAMBA["d_model"], SHARD_MAMBA["batch"],
+               SHARD_MAMBA["seq"])
+    arch = _shard_arch(*next((p[1], p[2]) for p in SHARD_PATHS
+                             if p[0] == SHARD_MAMBA_PATH))
+    plan = SH.make_plan(arch, _shard_shape(T, B), _GridShape())
+    lp, x, dy = _mamba_inputs(dev)
+    specs = SH.param_specs({"mamba": {k: (1,) + tuple(v.shape)
+                                      for k, v in lp.items()}}, grid, plan)
+    names = sorted(lp)
+    shards = {k: _cut(lp[k][None], specs["mamba"][k], grid).contiguous()
+              .requires_grad_(True) for k in names}
+    del lp
+    _free()
+    torch.cuda.reset_peak_memory_stats()
+    with hints.sharding_hints(grid, plan.seq_axes, plan.micro_axes,
+                              replica_axes=plan.replica_axes, specs=specs,
+                              remat=False):
+        hints.local_positions(B, T, dev)
+        (b0, b1), (s0, s1) = hints.batch_bounds(B), hints.seq_bounds(T)
+        xs = hints.seq_shard(x).contiguous().requires_grad_(True)
+        dys = hints.seq_shard(dy).contiguous()
+        hints.reset_collective_stats()
+        dist.barrier()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        w = hints.fsdp_gather({k: v[0] for k, v in shards.items()},
+                              ("mamba",))
+        y = M.mamba_block(xs, w, d_model=D)
+        grads = torch.autograd.grad(y, [xs] + [shards[k] for k in names],
+                                    dys)
+        torch.cuda.synchronize()
+        sec = time.perf_counter() - t0
+        del w
+    peak = torch.cuda.max_memory_allocated()
+    one = torch.load(os.path.join(tmp, "mamba_one.pt"))
+    rel = {"y": _rel_l2(y.detach(), one["y"][b0:b1, s0:s1].to(dev)),
+           "dx": _rel_l2(grads[0], one["dx"][b0:b1, s0:s1].to(dev))}
+    for k, g in zip(names, grads[1:]):
+        want = _cut(one["dw"][k][None], specs["mamba"][k], grid)
+        rel["dw." + k] = _rel_l2(g, want.to(dev))
+    return {"coords": dict(grid.coords), "rel_l2": rel, "sec": sec,
+            "peak": peak,
+            "shard_shapes": {k: list(v.shape) for k, v in shards.items()},
+            "collective_by_use": {k: list(v) for k, v in
+                                  hints.COLLECTIVES.items()}}
+
+
+def _shard_mamba_checks(one, ranks, smi):
+    """SHARD_MAMBA's gates: every rank's output rows, input gradient and
+    weight shards' gradients within SHARD_MAMBA_REL_L2 of the one-process
+    block's; the sublayer's collectives by use, the same on every rank."""
+    D, B, T = (SHARD_MAMBA["d_model"], SHARD_MAMBA["batch"],
+               SHARD_MAMBA["seq"])
+    recs = [rk["mamba"] for rk in ranks]
+    for r in recs:
+        bad = {k: v for k, v in r["rel_l2"].items()
+               if not v <= SHARD_MAMBA_REL_L2}
+        if bad:
+            raise AssertionError(f"mamba at Jamba's width on the grid, rank "
+                                 f"{r['coords']}: {bad} above relative L2 "
+                                 f"{SHARD_MAMBA_REL_L2}")
+    uses = {k: v[0] for k, v in recs[0]["collective_by_use"].items()}
+    for r in recs[1:]:
+        if {k: v[0] for k, v in r["collective_by_use"].items()} != uses:
+            raise AssertionError("mamba at Jamba's width: the ranks' "
+                                 "collective bytes differ")
+    # the input gathered over `model` at (B / 2, T, D) bf16, the output
+    # reduce-scattered to (B / 2, T / 2, D)
+    want = {"all_gather:mamba_in": B // 2 * T * D * 2,
+            "reduce_scatter:mamba_out": B // 2 * T // 2 * D * 2}
+    if any(uses.get(k) != v for k, v in want.items()):
+        raise AssertionError(f"mamba at Jamba's width: collectives {uses}, "
+                             f"want {want}")
+    print(json.dumps({
+        "sharded_mamba": "jamba_width", "card": smi,
+        "grid": dict(zip(SHARD_AXES, SHARD_GRID)), "d_model": D,
+        "d_inner": 2 * D, "batch": B, "seq": T, "dtype": "bfloat16",
+        "weights": one["weights"],
+        "s": {"one_process": one["sec"], "one_process_warmup":
+              one["warmup_sec"], "ranks_first_pass": [r["sec"]
+                                                       for r in recs]},
+        "peak_GB": {"one_process": one["peak"] / 1e9,
+                    "ranks": [r["peak"] / 1e9 for r in recs]},
+        "rel_l2": [r["rel_l2"] for r in recs],
+        "bound_rel_l2": SHARD_MAMBA_REL_L2,
+        "shard_shapes": recs[0]["shard_shapes"],
+        "collective_by_use": [r["collective_by_use"] for r in recs]}))
 
 
 def _shard_params_vs_one(params, path, arch, grid, plan, layout, dev):
@@ -5047,10 +5266,11 @@ def _shard_checks(label, layers, rounds, seq, gbatch, one, rows, ranks,
                                      "where the pseudo-gradients agree")
             n_flips += f["coords"].numel()
             union.append(f["coords"])
-    if n_flips > SHARD_FLIP_SHARE * n_sent:
+    flip_share = SHARD_FLIP_SHARE_BY_PATH.get(label, SHARD_FLIP_SHARE)
+    if n_flips > flip_share * n_sent:
         raise AssertionError(f"{label}: {n_flips} of {n_sent} wire bits "
                              "differ from the one-process run's (limit "
-                             f"{SHARD_FLIP_SHARE})")
+                             f"{flip_share})")
     # each param coordinate off the one-process run lies where some
     # client's wire bit differed in some round (the server step is
     # elementwise, and each coordinate's update is a function of the
@@ -5216,6 +5436,8 @@ def phase_sharded_replica(dev, smi, predictions=None):
                                              gbatch, tmp)
             if label in SHARD_SERVE:
                 serve_one = _serve_one(label, arch_id, layers, tmp)
+            if label == SHARD_MAMBA_PATH:
+                mamba_one = _mamba_one(tmp)
             one_s = time.time() - t0
             if toucher.ident is None:
                 toucher.start()
@@ -5255,6 +5477,8 @@ def phase_sharded_replica(dev, smi, predictions=None):
                 print(f"# {label}: serving on the grid "
                       f"{max(rk['serve']['total_s'] for rk in ranks):.1f} s "
                       f"a rank")
+            if label == SHARD_MAMBA_PATH:
+                _shard_mamba_checks(mamba_one, ranks, smi)
             print(f"# {label}: one process {one_s:.1f} s, with the dry run "
                   f"beside it {predict_s:.1f} s, ranks {ranks_s:.1f} s; "
                   f"host peaks: Shmem {one['host']['shmem_peak']:.2f} GB, "

@@ -53,9 +53,17 @@ ported (the MoE experts gathered a layer or, under ``moe_ep``,
 expert-parallel with the dispatch's all-to-alls counted, at decode too),
 with every pipeline spec (``--pipeline``) and the reference's
 ``--agg-backend``, ``--encode-backend``, ``--cohort`` and ``--adversary``;
-the recurrent, hybrid and enc-dec families on a grid and a cohort that
-streams the big plan's sequential groups are not, and the CLI says so
-instead of printing a result.
+so is the train cell of the xLSTM family (the mLSTM's K, V and gates and
+the sLSTM's input gathered along the sequence: ``all_gather:kv``,
+``:gates``, ``:slstm_in``) and of the hybrid (each mamba sublayer's input
+gathered, ``all_gather:mamba_in``, its ``x_proj`` partial all-reduced,
+``all_reduce:mamba_xproj``, its output reduce-scattered,
+``reduce_scatter:mamba_out``). Their serving cells (ROADMAP item 19 step
+3), every cell of the enc-dec family (step 2) and a cohort that streams
+the big plan's sequential groups are not ported, and the CLI says so
+instead of printing a result. The scans of the recurrent blocks are
+Python loops over the sequence, on meta tensors too: a full train_4k
+record of xlstm_350m or jamba_1_5_large_398b takes tens of minutes.
 """
 from __future__ import annotations
 
@@ -80,9 +88,8 @@ from repro_torch.models.api import BatchLeaf, build_model, family_module
 
 #: what each cell kind waits for (the CLI prints it, never a result)
 NOT_PORTED = {
-    "family": "the {family} family on a grid is not ported yet (ROADMAP "
-              "item 19: the recurrent, hybrid and enc-dec families on a "
-              "grid)",
+    "family": "the {family} family's {kind} cell on a grid is not ported "
+              "yet (ROADMAP item 19 step {step}: {what})",
     "pipeline": "{msg}",
 }
 #: the reference's reason for skipping long_500k on an arch that is not
@@ -92,8 +99,10 @@ LONG_SKIP = "full-attention arch: no sub-quadratic path (DESIGN.md)"
 
 #: one H100's device memory, the gate each rank's peak is reported against
 HBM_BYTES = 80e9
-#: the families whose train cell runs on a grid
-GRID_FAMILIES = ("dense", "moe", "vlm")
+#: the families whose train cell runs on a grid, and those of them whose
+#: serving cells (prefill, decode) do too
+GRID_FAMILIES = ("dense", "moe", "vlm", "xlstm", "hybrid")
+SERVING_FAMILIES = ("dense", "moe", "vlm")
 
 
 class NotPorted(NotImplementedError):
@@ -116,7 +125,7 @@ def build_train_cell(arch, shape: ShapeCfg, grid, *,
     shards, a tree of ``BatchLeaf``), ``specs``, ``batch`` ((G, N, E,
     micro, S) leaves) and ``mask`` ((G, N)), and the step's ``layout``
     (its range state's); ``make_inputs`` builds them."""
-    _check_family(arch)
+    _check_family(arch, "train")
     if shape.kind != "train":
         raise ValueError(f"build_train_cell takes a train shape, not "
                          f"{shape.kind} ({shape.name}): build_"
@@ -156,9 +165,18 @@ def build_train_cell(arch, shape: ShapeCfg, grid, *,
     return step, example, plan
 
 
-def _check_family(arch) -> None:
-    if arch.model.family not in GRID_FAMILIES:
-        raise NotPorted(NOT_PORTED["family"].format(family=arch.model.family))
+def _check_family(arch, kind: str) -> None:
+    """Raise ``NotPorted`` for a cell of ``kind`` ("train", "prefill" or
+    "decode") that the arch's family does not run on a grid yet."""
+    family = arch.model.family
+    if family not in GRID_FAMILIES:
+        raise NotPorted(NOT_PORTED["family"].format(
+            family=family, kind=kind, step=2,
+            what="the enc-dec family on a grid"))
+    if kind != "train" and family not in SERVING_FAMILIES:
+        raise NotPorted(NOT_PORTED["family"].format(
+            family=family, kind=kind, step=3,
+            what="the recurrent and hybrid families' serving cells"))
 
 
 def _shard_leaves(meta, specs, grid):
@@ -195,7 +213,7 @@ def build_prefill_cell(arch, shape: ShapeCfg, grid):
     the plan's client and micro axes and its seq axes; the VLM takes tokens
     only, no image prefix, as the reference's cell does. -> (B, 1, V) on
     every rank. ``example`` holds the shapes of its arguments."""
-    _check_family(arch)
+    _check_family(arch, "prefill")
     bundle = build_model(arch.model)
     plan = SH.make_plan(arch, shape, grid)
     params, specs = _param_shards(arch, grid, plan)
@@ -222,7 +240,7 @@ def build_decode_cell(arch, shape: ShapeCfg, grid):
     whole (B, 1) batch -> (f32 logits (B, 1, V) on every rank, the cache
     slice written in place). ``example`` holds the shapes of its
     arguments and the cache's specs."""
-    _check_family(arch)
+    _check_family(arch, "decode")
     bundle = build_model(arch.model)
     plan = SH.make_plan(arch, shape, grid)
     params, specs = _param_shards(arch, grid, plan)
@@ -531,7 +549,8 @@ def main(argv=None) -> None:
                     help="train_4k | prefill_32k | decode_32k | long_500k "
                          "(the serving cells: the prefill's last-token "
                          "logits, one decode step against the sharded KV "
-                         "cache)")
+                         "cache). Train cells: every family but enc-dec; "
+                         "serving cells: the dense, MoE and VLM families")
     ap.add_argument("--multi-pod", action="store_true")
     ap.add_argument("--both-meshes", action="store_true")
     ap.add_argument("--agg-backend", default="auto",

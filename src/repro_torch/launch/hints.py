@@ -27,6 +27,14 @@ each hint IS its collective, over a subgroup of a ``launch/mesh.ReplicaGrid``:
                        ``ep`` branch); its backward is the other direction
   ``reduce_sum(x, axes)``  a forward all-reduce with no gradient (the
                        loss's token sums, the MoE aux's expert counts)
+  ``scatter_seq(x)``   a full-length (B, S, ...) partial summed over the
+                       seq axes, this rank's sequence slice kept (the
+                       channel-parallel mamba block's output projection);
+                       its backward is the all-gather
+  ``sum_partials(x)``  the sum over the seq axes of partials whose
+                       consumers differ per rank (the mamba block's
+                       ``x_proj`` over a channel slice); its backward is
+                       the all-reduce of the gradients
 
 Serving (the prefill and decode cells) runs under ``serving_hints``: the
 batch rows split over the plan's client and micro axes (a decode's over the
@@ -66,7 +74,9 @@ all-to-all's received buffer), one call and the seconds inside it (staging
 included); ``collective_totals`` sums them by kind. ``launch/dryrun.py``
 and ``chip_smoke.py`` read them.
 
-Remat: ``remat_slot`` marks one layer's checkpointed forward. On its first
+Remat: ``remat(fn, x, save_weights)`` checkpoints one layer (a transformer
+layer, an xLSTM group, a hybrid super-block) inside a ``remat_slot``, which
+marks its forward. On its first
 run the gathered K/V (and, with ``save_weights``, the gathered weights) are
 kept; when ``torch.utils.checkpoint`` recomputes the layer in the backward
 pass the same hints return the kept tensors instead of gathering again
@@ -407,6 +417,22 @@ def remat_slot(slot: Optional[RematSlot]):
             slot.pos = 0
 
 
+def remat(fn, x, save_weights: bool):
+    """``fn(x)`` rematerialized in the backward pass (``torch.utils.
+    checkpoint``, non-reentrant) in a ``RematSlot``: the gathered K/V and
+    sequence gathers (and, with ``save_weights``, the gathered weights) of
+    the first forward are handed back on the recompute (the reference's
+    ``save_only_these_names("kv_gathered", "fsdp_gathered")``)."""
+    from torch.utils.checkpoint import checkpoint
+    slot = RematSlot(save_weights)
+
+    def run(x):
+        with remat_slot(slot):
+            return fn(x)
+
+    return checkpoint(run, x, use_reentrant=False)
+
+
 def _gather(x, group, dim, rest, keep: bool, use: str):
     slot = _CTX["remat"]
     if slot is None or not keep:
@@ -483,6 +509,62 @@ def gather_seq(x, seq_dim: int = 1, *, keep: bool = True, use: str = "kv"):
                    use)
 
 
+def seq_index() -> int:
+    """This rank's index over the seq axes (0 off a grid): its sequence
+    slice, and its channel slice in the channel-parallel mamba block."""
+    return _CTX["grid"].index(_CTX["seq_axes"]) if active() else 0
+
+
+class _ScatterSeq(torch.autograd.Function):
+    """Reduce-scatter along ``dim`` over ``group``; backward: the
+    all-gather."""
+
+    @staticmethod
+    def forward(ctx, x, group, dim, use):
+        ctx.group, ctx.dim, ctx.use = group, dim, use
+        return reduce_scatter_dim(x, group, dim, use)
+
+    @staticmethod
+    def backward(ctx, g):
+        return all_gather_dim(g, ctx.group, ctx.dim, ctx.use), None, None, \
+            None
+
+
+class _SumPartials(torch.autograd.Function):
+    """All-reduce (sum) over ``group``; backward: the all-reduce of the
+    gradients (each rank's consumers of the sum differ)."""
+
+    @staticmethod
+    def forward(ctx, x, group, use):
+        ctx.group, ctx.use = group, use
+        return all_reduce_sum(x, group, use)
+
+    @staticmethod
+    def backward(ctx, g):
+        return all_reduce_sum(g, ctx.group, ctx.use), None, None
+
+
+def scatter_seq(x, seq_dim: int = 1, *, use: str):
+    """This rank's sequence slice of the sum over the seq axes of a
+    full-length partial (B, S, ...): one reduce-scatter, whose backward
+    all-gathers the slice's gradient. The identity where the sequence is
+    not split."""
+    if not active() or seq_shard_count() == 1:
+        return x
+    return _ScatterSeq.apply(x, _CTX["grid"].group(_CTX["seq_axes"]),
+                             seq_dim, use)
+
+
+def sum_partials(x, *, use: str):
+    """The sum over the seq axes of each rank's partial ``x`` (the same
+    bits on every rank, ``all_reduce_sum``'s rank-order chain); its
+    backward all-reduces the gradients, since each rank's consumers of the
+    sum differ. The identity where the sequence is not split."""
+    if not active() or seq_shard_count() == 1:
+        return x
+    return _SumPartials.apply(x, _CTX["grid"].group(_CTX["seq_axes"]), use)
+
+
 def key_positions(positions, n_keys: int):
     """The global positions of the keys a gathered K/V holds."""
     if not active() or seq_shard_count() == 1:
@@ -499,11 +581,14 @@ def _leaf_spec(path):
     return specs
 
 
-def fsdp_gather(lp, prefix: Tuple[str, ...] = (), *, stacked: bool = True,
+def fsdp_gather(lp, prefix: Tuple[str, ...] = (), *, stacked: int = 1,
                 skip=(), keep_axes=()):
     """FSDP just-in-time gather of parameter shards: every leaf of ``lp``
     (the tree at ``prefix`` of the stored params; one layer's slice of the
-    depth-stacked leaves when ``stacked``) is all-gathered along each
+    stored leaves, which drops their ``stacked`` leading dimensions: 1 for
+    a depth stack, 2 for the hybrid's (nb, 7, ...) mamba and (nb, 4, ...)
+    MoE and MLP stacks or the xLSTM's (ng, 3, ...) mLSTM stack, 0 for a
+    leaf outside a stack) is all-gathered along each
     dimension its spec shards, except a dimension sharded over
     ``keep_axes`` (the E dimension of expert-parallel experts, which stays
     this rank's: the reference's ``_egather``); its backward reduce-scatters
@@ -525,11 +610,17 @@ def fsdp_gather(lp, prefix: Tuple[str, ...] = (), *, stacked: bool = True,
             tree_set(out, path, x)
             continue
         dims = spec_dims(_leaf_spec(prefix + path))
+        if any(d < int(stacked) for d, _ in dims):
+            raise ValueError(f"{prefix + path}: its spec {dims} cuts one of "
+                             f"the {int(stacked)} stacked dimensions a slice "
+                             f"drops: gather the stack first")
         held = {a for _, axes in dims for a in axes}
         rest = tuple(a for a in replica if a not in held)
         rest_group = grid.group(rest) if _size(rest) > 1 else None
+        # a dimension cut over axes of size 1 (the big plan's `data` on a
+        # 1 x n grid) is whole already
         cut = [(d, axes) for d, axes in dims
-               if not set(axes) & set(keep_axes)]
+               if not set(axes) & set(keep_axes) and _size(axes) > 1]
         if not cut:
             y = x if rest_group is None else _SumGrad.apply(x, rest_group)
         else:
@@ -537,12 +628,24 @@ def fsdp_gather(lp, prefix: Tuple[str, ...] = (), *, stacked: bool = True,
             # gradient once, in the outermost gather's backward
             y = x
             for i, (dim, axes) in enumerate(reversed(cut)):
-                d = dim - 1 if stacked else dim
+                d = dim - int(stacked)
                 y = _gather(y, grid.group(axes), d,
                             rest_group if i == len(cut) - 1 else None, keep,
                             "weight")
         tree_set(out, path, y)
     return out
+
+
+def cuts_dim(prefix: Tuple[str, ...], dim: int) -> bool:
+    """Whether the spec of a stored leaf under ``prefix`` shards its
+    dimension ``dim`` (False off a grid)."""
+    if not active():
+        return False
+    from repro_torch.launch.sharding import spec_dims
+    tree = _leaf_spec(prefix)
+    specs = [s for _, s in tree_paths(tree)] if isinstance(tree, dict) \
+        else [tree]
+    return any(d == dim for s in specs for d, _ in spec_dims(s))
 
 
 def reduce_sum(x: torch.Tensor, axes, use: str = "loss") -> torch.Tensor:

@@ -5,17 +5,35 @@ the MoE (even sublayers) and SwiGLU (odd), 4 of each a super-block.
 Parameters are the reference's tree, stacked over super-blocks
 (``n_layers // 8``): ``mamba`` (nb, 7, ...), ``moe`` and ``mlp`` (nb, 4,
 ...), ``ln_mix`` / ``ln_ffn`` (nb, 8, D). The forward walks the super-blocks
-in a Python loop (the reference's ``lax.scan``; its remat has no numerical
-effect); the sharding hints (``seq_shard``, ``fsdp_params``) have no
-counterpart on one card. The reference's ``moe_ep=True`` branch is the same
-function as the port's one MoE dispatch (``layers.moe_apply``).
+in a Python loop (the reference's ``lax.scan``). The reference's
+``moe_ep=True`` branch is the same function as the port's one MoE dispatch
+(``layers.moe_apply``).
+
+Under a grid (``launch/hints.py``, the model-sharded replica on the big
+plan) the params are this rank's shards and the residual stream its batch
+and sequence slice, kept there after each residual add (``seq_shard``).
+The attention sublayer and the SwiGLU MLPs gather their weights a sublayer
+as the transformer's layer does (``fsdp_gather``); the attention takes the
+global positions (``hints.local_positions``) and gathers its K/V. Each
+mamba sublayer gathers its weights whole and runs channel-parallel over
+the seq axes (``mamba.mamba_block``). The MoE sublayers run expert-parallel
+where the grid stores E over the seq axes (``moe_ep``,
+``transformer._expert_parallel``), their d_ff gathered over the other
+axes, else with their experts gathered. Each super-block is rematerialized
+keeping the gathered K/V and sequence gathers (and the gathered weights
+under ``remat_save_weights``), the reference's policy; the loss is the
+transformer's grid loss (``transformer.sharded_loss``), the aux global
+(``layers._moe_aux``) over ``n_layers // 2``. Off a grid every hint is the
+identity and nothing is rematerialized.
 """
 from __future__ import annotations
 
 import torch
 
+from repro_torch.launch import hints
 from repro_torch.models import layers as L
 from repro_torch.models import mamba as M
+from repro_torch.models import transformer as T
 
 SUB = 8  # sublayers per super-block: 1 attn + 7 mamba
 _STACK = ("attn", "mamba", "moe", "mlp", "ln_mix", "ln_ffn")
@@ -50,46 +68,88 @@ def param_shapes(cfg):
     return L.meta_shapes(init_params, cfg)
 
 
+#: the sublayer stacks of a super-block and their lengths
+_PER = {"mamba": SUB - 1, "moe": SUB // 2, "mlp": SUB - SUB // 2}
+
+
 def _sublayers(bp):
     """A super-block's stacked sublayer weights split per sublayer."""
-    return (L.unstack(bp["mamba"], SUB - 1), L.unstack(bp["moe"], SUB // 2),
-            L.unstack(bp["mlp"], SUB - SUB // 2))
+    return tuple(L.unstack(bp[name], n) for name, n in _PER.items())
 
 
-def _ffn(cfg, s, hn, moe, mlp):
-    """Sublayer s's FFN: the (s//2)-th MoE on even s, the (s//2)-th SwiGLU on
-    odd s. -> (y, aux or None)."""
+def _gathered_sublayers(bp, ep: bool):
+    """Under a grid: -> get(name, j), the j-th sublayer of the ``name``
+    stack ("mamba", "moe" or "mlp") with its weights gathered just in time
+    (the MoE's E dimension kept where ``ep``). A stack whose spec cuts its
+    sublayer dimension (the expert rule takes a stack of 4 for E where the
+    config has 4 experts, as the reduced one does) is gathered whole, once
+    a super-block. Off a grid: the stored slices as they are."""
+    keep = {"moe": hints.seq_axes() if ep else ()}
+    whole = {name for name in _PER if hints.cuts_dim((name,), 1)}
+    split = {name: L.unstack(hints.fsdp_gather(
+                 bp[name], (name,), keep_axes=keep.get(name, ()))
+                 if name in whole else bp[name], n)
+             for name, n in _PER.items()}
+
+    def get(name, j):
+        if name in whole:
+            return split[name][j]
+        return hints.fsdp_gather(split[name][j], (name,), stacked=2,
+                                 keep_axes=keep.get(name, ()))
+    return get
+
+
+def _ffn(cfg, s, hn, lp, ep: bool = False):
+    """Sublayer s's FFN from its weights ``lp``: the MoE on even s
+    (expert-parallel where ``ep``), a SwiGLU on odd s. -> (y, aux or
+    None)."""
     if s % 2 == 0:
-        return L.moe_apply(hn, moe[s // 2], cfg.moe_experts, cfg.moe_topk)
-    return L.swiglu(hn, mlp[s // 2]), None
+        return L.moe_apply(hn, lp, cfg.moe_experts, cfg.moe_topk, ep=ep)
+    return L.swiglu(hn, lp), None
 
 
 def _super_block(cfg, x, bp, positions):
     """8 sublayers: [attn, mamba x7]; FFN alternates MoE (even) / MLP (odd)."""
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    mamba, moe, mlp = _sublayers(bp)
+    ep = cfg.moe_experts > 0 and T._expert_parallel(cfg, x.shape[1], e_dim=2)
+    get = _gathered_sublayers(bp, ep)
+    ln = hints.fsdp_gather({k: bp[k] for k in ("ln_mix", "ln_ffn")})
     for s in range(SUB):
-        xn = L.rms_norm(x, bp["ln_mix"][s])
+        xn = L.rms_norm(x, ln["ln_mix"][s])
         if s == 0:
-            mix = L.attention(xn, bp["attn"], cfg.attn_cfg(), positions)
+            mix = L.attention(xn, hints.fsdp_gather(bp["attn"], ("attn",)),
+                              cfg.attn_cfg(), positions)
         else:
-            mix = M.mamba_block(xn, mamba[s - 1], d_model=cfg.d_model)
-        x = x + mix
-        y, a = _ffn(cfg, s, L.rms_norm(x, bp["ln_ffn"][s]), moe, mlp)
+            mix = M.mamba_block(xn, get("mamba", s - 1), d_model=cfg.d_model)
+        x = hints.seq_shard(x + mix)
+        y, a = _ffn(cfg, s, L.rms_norm(x, ln["ln_ffn"][s]),
+                    get("moe" if s % 2 == 0 else "mlp", s // 2), ep)
         if a is not None:
             aux = aux + a
-        x = x + y
+        x = hints.seq_shard(x + y)
     return x, aux
 
 
+def _remat_super_block(cfg, x, bp, positions):
+    """One super-block under the grid, rematerialized in the backward pass
+    with its gathered K/V and sequence gathers (and weights, under
+    ``remat_save_weights``) kept."""
+    return hints.remat(lambda x: _super_block(cfg, x, bp, positions), x,
+                       cfg.remat_save_weights)
+
+
 def forward_hidden(params, tokens, cfg):
-    """-> (final-norm hidden (B, S, D), aux / (n_layers // 2))."""
-    x = params["embed"][tokens]
-    positions = torch.arange(x.shape[1], device=x.device)
+    """-> (final-norm hidden (B, S, D), aux / (n_layers // 2)); under a
+    grid this rank's slice of the hidden states, the embedding looked up in
+    the table the caller gathered (``transformer._top``)."""
+    positions = hints.local_positions(tokens.shape[0], tokens.shape[1],
+                                      params["embed"].device)
+    x = params["embed"][hints.seq_shard(tokens)]
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    block = _remat_super_block if hints.remat_on() else _super_block
     for bp in L.unstack({k: params[k] for k in _STACK},
                         cfg.n_layers // SUB):
-        x, a = _super_block(cfg, x, bp, positions)
+        x, a = block(cfg, x, bp, positions)
         aux = aux + a
     return L.rms_norm(x, params["lnf"]), aux / (cfg.n_layers // 2)
 
@@ -104,6 +164,11 @@ def forward(params, tokens, cfg):
 
 
 def loss_fn(params, batch, cfg):
+    """Next-token cross entropy + 0.01 * the MoE aux; under a grid the
+    global token mean (``transformer.sharded_loss``)."""
+    if hints.active():
+        return T.sharded_loss(params, batch, cfg,
+                              lambda p, t: forward_hidden(p, t, cfg))
     x, aux = forward_hidden(params, batch["tokens"], cfg)
     ce = L.chunked_ce(x[:, :-1], _head(params, cfg), batch["tokens"][:, 1:],
                       chunk=cfg.q_chunk)
@@ -144,7 +209,8 @@ def decode_step(params, cache, tokens, position: int, cfg):
                 cache["h"][b, s - 1] = h
                 cache["conv"][b, s - 1] = conv
             x = x + mix
-            y, _ = _ffn(cfg, s, L.rms_norm(x, bp["ln_ffn"][s]), moe, mlp)
+            y, _ = _ffn(cfg, s, L.rms_norm(x, bp["ln_ffn"][s]),
+                        (moe if s % 2 == 0 else mlp)[s // 2])
             x = x + y
     x = L.rms_norm(x, params["lnf"])
     return (x @ _head(params, cfg)).to(torch.float32), cache

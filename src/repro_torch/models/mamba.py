@@ -5,16 +5,31 @@ for decode.
 The scan carries the (B, d_inner, d_state) f32 state through a Python loop
 over the time steps of each chunk; each chunk's decay and input terms are
 computed at once, elementwise as the reference's step computes them. The
-reference's per-chunk remat has no numerical effect and is left out, as are
-its sharding hints (``gather_seq``, ``shard_dim``, ``opt_barrier``,
-``seq_shard``), which have no counterpart on one card. Every tensor made
-here lies on the device of the inputs.
+reference's per-chunk remat has no numerical effect and is left out. Every
+tensor made here lies on the device of the inputs.
+
+Under a grid (``launch/hints.py``) the block is channel-parallel, as the
+reference's is: the time recurrence cannot be split over the sequence, but
+each channel of d_inner runs on its own. The input is gathered along the
+sequence (``gather_seq``), and this rank computes on its contiguous slice
+of d_inner over the seq axes, with every channel-indexed tensor cut the
+same way (the x- and z-half columns of ``in_proj``, ``conv_w``, the rows of
+``x_proj``, the columns of ``dt_proj``, ``dt_bias``, ``a_log``,
+``d_skip``, the rows of ``out_proj``). ``x_in @ x_proj`` over a channel
+slice is a partial, summed over the seq axes before dt, B and C are formed
+(``sum_partials``); ``y @ out_proj`` is one too, reduce-scattered to this
+rank's sequence slice (``scatter_seq``). The conv and the chunked scan run
+on the whole sequence, chunked on its global length. The caller hands in
+the sublayer's gathered weights (``hints.fsdp_gather``: the stored shards
+of ``in_proj`` do not line up with the channel slices, see
+``launch/sharding.py``). Off a grid every hint is the identity.
 """
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
 
+from repro_torch.launch import hints
 from repro_torch.models.layers import _init
 
 D_STATE = 16
@@ -55,7 +70,11 @@ def mamba_init(gen, d_model: int, n_layers: int, dtype, device,
 
 def _ssm_params(x_in, lp, dt_rank):
     """x_in: (B, T, d_in) -> dt (B, T, d_in), B_ / C_ (B, T, d_state), f32."""
-    proj = x_in @ lp["x_proj"]
+    return _ssm_from_proj(x_in @ lp["x_proj"], lp, dt_rank)
+
+
+def _ssm_from_proj(proj, lp, dt_rank):
+    """The ``x_proj`` output (B, T, dt_rank + 2 d_state) -> dt, B_, C_."""
     dt_low, B_, C_ = torch.split(proj, [dt_rank, D_STATE, D_STATE], dim=-1)
     dt = F.softplus(dt_low @ lp["dt_proj"] + lp["dt_bias"])
     return dt.float(), B_.float(), C_.float()
@@ -95,8 +114,12 @@ def _causal_conv(x, w):
 
 
 def mamba_block(x, lp, *, d_model: int):
-    """x: (B, T, D) -> (B, T, D). Training forward."""
+    """x: (B, T, D) -> (B, T, D). Training forward; channel-parallel under
+    a grid (x and the output this rank's sequence slice, ``lp`` the
+    gathered weights)."""
     del d_model
+    if hints.active():
+        return _channel_block(x, lp)
     d_in = lp["in_proj"].shape[-1] // 2
     dt_rank = lp["dt_proj"].shape[0]
     xz = x @ lp["in_proj"]
@@ -109,6 +132,39 @@ def mamba_block(x, lp, *, d_model: int):
     y = y + x_in.float() * lp["d_skip"]
     y = y.to(x.dtype) * F.silu(z)
     return y @ lp["out_proj"]
+
+
+def _channel_slice(d_in: int) -> slice:
+    """This rank's contiguous slice of the d_inner channels: d_inner over
+    the seq axes, in their rank order."""
+    n = hints.seq_shard_count()
+    if d_in % n:
+        raise ValueError(f"d_inner {d_in} does not split over {n} ranks")
+    c = d_in // n
+    i = hints.seq_index()
+    return slice(i * c, (i + 1) * c)
+
+
+def _channel_block(x, lp):
+    """``mamba_block`` on this rank's channel slice of the whole sequence:
+    x (B, T_loc, D) -> (B, T_loc, D)."""
+    d_in = lp["in_proj"].shape[-1] // 2
+    dt_rank = lp["dt_proj"].shape[0]
+    ch = _channel_slice(d_in)
+    zc = slice(d_in + ch.start, d_in + ch.stop)
+    xs = hints.gather_seq(x, use="mamba_in")                 # (B, S, D)
+    w_in = lp["in_proj"]
+    x_in = F.silu(_causal_conv(xs @ w_in[:, ch], lp["conv_w"][:, ch]))
+    z = xs @ w_in[:, zc]
+    proj = hints.sum_partials(x_in @ lp["x_proj"][ch], use="mamba_xproj")
+    part = {"dt_proj": lp["dt_proj"][:, ch], "dt_bias": lp["dt_bias"][ch]}
+    dt, B_, C_ = _ssm_from_proj(proj, part, dt_rank)
+    h0 = torch.zeros((x.shape[0], ch.stop - ch.start, D_STATE),
+                     dtype=torch.float32, device=x.device)
+    y, _ = _scan_chunked(dt, B_, C_, x_in, lp["a_log"][ch], h0)
+    y = y + x_in.float() * lp["d_skip"][ch]
+    y = y.to(x.dtype) * F.silu(z)
+    return hints.scatter_seq(y @ lp["out_proj"][ch], use="mamba_out")
 
 
 def mamba_cache_init(batch: int, d_model: int, n_layers: int, device,

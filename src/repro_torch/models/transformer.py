@@ -9,7 +9,8 @@ and the flat wire line up with the reference. The forward walks the layers
 in a Python loop over the stacked slices (the reference's ``lax.scan``).
 
 Under a grid (``launch/hints.py``; the model-sharded replica of the dense,
-MoE and VLM families) the params are this rank's shards: each layer gathers
+MoE and VLM families, whose grid loss ``sharded_loss`` the xLSTM and hybrid
+families share) the params are this rank's shards: each layer gathers
 its weights (``fsdp_gather``), computes on this rank's sequence slice and
 keeps its output there (``seq_shard``), as the reference's ``_layer`` does;
 each layer is rematerialized (``torch.utils.checkpoint``, non-reentrant)
@@ -37,7 +38,6 @@ from __future__ import annotations
 from typing import Any, Dict
 
 import torch
-from torch.utils.checkpoint import checkpoint
 
 from repro_torch.launch import hints
 from repro_torch.models import layers as L
@@ -82,15 +82,18 @@ def _ffn(cfg, hn, lp, ep: bool = False):
     return L.swiglu(hn, lp["mlp"]), 0.0
 
 
-def _expert_parallel(cfg, local_seq: int) -> bool:
+def _expert_parallel(cfg, local_seq: int, e_dim: int = 1) -> bool:
     """Whether this grid runs the MoE expert-parallel: ``moe_ep``, the
     reference's ns equal to the grid's sequence shards (no fallback to
-    one), and the experts' E dimension stored over the sequence axes."""
+    one), and the experts' E dimension (``e_dim`` of the stored ``moe.w1``:
+    1 under the depth stack, 2 under the hybrid's (nb, 4) one) stored over
+    the sequence axes."""
     if not (cfg.moe_ep and hints.active()):
         return False
     ns = L.moe_seq_shards(hints.seq_len(local_seq), cfg.moe_experts,
                           cfg.moe_topk)
-    return ns > 1 and hints.sharded_over(("moe", "w1"), 1, hints.seq_axes())
+    return ns > 1 and hints.sharded_over(("moe", "w1"), e_dim,
+                                         hints.seq_axes())
 
 
 def _gather_layer(lp, ep: bool):
@@ -116,14 +119,11 @@ def _layer(cfg, x, lp, positions):
 def _remat_layer(cfg, x, lp, positions):
     """One layer under the grid, rematerialized in the backward pass with
     the gathered K/V (and weights, under ``remat_save_weights``) kept."""
-    slot = hints.RematSlot(cfg.remat_save_weights)
-
     def run(x):
-        with hints.remat_slot(slot):
-            y, a = _layer(cfg, x, lp, positions)
+        y, a = _layer(cfg, x, lp, positions)
         return y, torch.as_tensor(a, dtype=torch.float32, device=y.device)
 
-    return checkpoint(run, x, use_reentrant=False)
+    return hints.remat(run, x, cfg.remat_save_weights)
 
 
 def _layer_params(params, cfg):
@@ -170,7 +170,8 @@ def loss_fn(params, batch, cfg):
     tokens' embeddings, the VLM's) and a ``loss_mask`` (B, S)."""
     tokens = batch["tokens"]
     if hints.active():
-        return _sharded_loss(params, batch, cfg)
+        return sharded_loss(params, batch, cfg, lambda p, t: forward_hidden(
+            p, t, cfg, prefix=batch.get("img_embeds")))
     x, aux = forward_hidden(params, tokens, cfg,
                             prefix=batch.get("img_embeds"))
     mask = batch.get("loss_mask")
@@ -184,18 +185,21 @@ def loss_fn(params, batch, cfg):
 _TOP = ("embed", "lm_head", "lnf")
 
 
-def _sharded_loss(params, batch, cfg):
-    """``loss_fn`` under a grid. The embedding, head and final norm are
-    gathered once (a vocab-sharded table whole: one all-gather of V x D,
-    whose backward reduce-scatters the dense table gradient). Every rank
-    holds the client's whole (B, S) token batch, so the next-token label of
-    its last position is the first token of the next slice; the sequence's
+def sharded_loss(params, batch, cfg, hidden):
+    """A family's ``loss_fn`` under a grid (this one's, the xLSTM's and the
+    hybrid's): ``hidden(params, tokens)`` is the family's forward to the
+    final-norm hidden states of this rank's slice and its aux (None where
+    the family has none). The embedding, head and final norm are gathered
+    once (a vocab-sharded table whole: one all-gather of V x D, whose
+    backward reduce-scatters the dense table gradient). Every rank holds
+    the client's whole (B, S) token batch, so the next-token label of its
+    last position is the first token of the next slice; the sequence's
     last position has none. The value is the global token mean; the
     gradient is this rank's share of it, which the reduce-scatters of the
     backward sum."""
     tokens = batch["tokens"]
     p = _top(params)
-    x, aux = forward_hidden(p, tokens, cfg, prefix=batch.get("img_embeds"))
+    x, aux = hidden(p, tokens)
     B, S = tokens.shape
     lo, hi = hints.seq_bounds(S)
     b0, b1 = hints.batch_bounds(B)
@@ -216,7 +220,7 @@ def _sharded_loss(params, batch, cfg):
     # the value is exactly the global mean (x - x is +0.0), the gradient
     # this rank's share of it
     ce = (ce - ce.detach()) + sums[0] / n
-    return ce + 0.01 * aux
+    return ce if aux is None else ce + 0.01 * aux
 
 
 # ---------------------------------------------------------------------------

@@ -7,16 +7,33 @@ axis with an online running max, in the reference's chunking and order of
 f32 updates; decode is the O(1) matrix-memory recurrence. sLSTM steps
 through the sequence in a Python loop (no parallel form exists); the
 reference's chunking of that scan is remat only and has no numerical
-effect. The sharding hints (``gather_seq``, ``opt_barrier``, ``seq_shard``,
-``fsdp_params``) have no counterpart on one card. The assigned xlstm-350m
-has d_ff = 0: the blocks carry their own projections. Every tensor made
-here lies on the device of the inputs.
+effect. The assigned xlstm-350m has d_ff = 0: the blocks carry their own
+projections. Every tensor made here lies on the device of the inputs.
+
+Under a grid (``launch/hints.py``, the model-sharded replica) the params
+are this rank's shards and the residual stream its sequence slice: each
+block gathers its weights (``fsdp_gather``, the reference's
+``fsdp_params``) and its output stays on the slice (``seq_shard``). The
+mLSTM keeps its query rows and gathers K, V, the input gate and log
+sigmoid(forget) along the sequence (``gather_seq``): the forget gates'
+cumulative sum crosses the shards, so it is taken over the gathered gates
+and this rank's rows are sliced out of it (the one-process values, where a
+per-rank prefix offset would add in another order); the causal mask takes
+the queries' global positions and the key chunks the global length. The
+sLSTM gathers its normed input (D wide, in the model's dtype), runs the
+recurrence over the whole sequence on every sequence rank and keeps this
+rank's rows before ``wo``; the gather's backward sums each rank's share.
+Each group of 4 blocks is rematerialized keeping the gathered tensors (and
+the gathered weights under ``remat_save_weights``). Off a grid every hint is
+the identity.
 """
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
 
+from repro_torch.launch import hints
+from repro_torch.models import transformer
 from repro_torch.models.layers import _init, chunked_ce, meta_shapes, \
     rms_norm, unstack
 
@@ -53,32 +70,41 @@ def _mlstm_gates(x, lp):
 
 
 def mlstm_block(x, lp, *, n_heads: int):
-    """Parallel (chunk-quadratic) mLSTM forward. x: (B, T, D). Keys are
-    chunked by kc = min(256, T) (kc = T when it does not divide T); row t
-    keeps the running max m (floored at -1e30), numerator and denominator
-    of sum_s exp(F_t - F_s + i_s - m) (q_t . k_s) over s <= t; masked
-    exponents are -inf, so they weigh exactly 0."""
+    """Parallel (chunk-quadratic) mLSTM forward. x: (B, T, D), under a grid
+    this rank's sequence slice [lo, lo + T) of the whole length S (S = T
+    off a grid). Keys are chunked by kc = min(256, S) (kc = S when it does
+    not divide S); row t keeps the running max m (floored at -1e30),
+    numerator and denominator of sum_s exp(F_t - F_s + i_s - m) (q_t .
+    k_s) over s <= t; masked exponents are -inf, so they weigh exactly
+    0."""
     B, T, D = x.shape
     H, hd = n_heads, D // n_heads
+    S = hints.seq_len(T)
+    lo, _ = hints.seq_bounds(S)
     q, k, v = torch.chunk(x @ lp["wqkv"], 3, dim=-1)
     q = q.reshape(B, T, H, hd).transpose(1, 2)            # (B, H, T, hd)
-    k = k.reshape(B, T, H, hd).transpose(1, 2) / (hd ** 0.5)
-    v = v.reshape(B, T, H, hd).transpose(1, 2)
+    # keys, values and gates of the whole sequence (gathered on a grid)
+    k = hints.gather_seq(k.reshape(B, T, H, hd) / (hd ** 0.5)).transpose(
+        1, 2)
+    v = hints.gather_seq(v.reshape(B, T, H, hd)).transpose(1, 2)
     i_pre, log_f = _mlstm_gates(x, lp)
-    i_pre = i_pre.transpose(1, 2)                         # (B, H, T)
-    Fc = torch.cumsum(log_f.transpose(1, 2), dim=-1)      # log prod f
-    kc = min(CHUNK, T)
-    if T % kc != 0:
-        kc = T
+    i_pre = hints.gather_seq(i_pre, use="gates").transpose(1, 2)  # (B,H,S)
+    Fc = torch.cumsum(hints.gather_seq(log_f, use="gates").transpose(1, 2),
+                      dim=-1)                             # log prod f
+    Fq = Fc[..., lo:lo + T]                               # the query rows
+    kc = min(CHUNK, S)
+    if S % kc != 0:
+        kc = S
     qf = q.float()
-    t_pos = torch.arange(T, device=x.device)
+    t_pos = torch.arange(lo, lo + T, device=x.device)
+    s_pos = torch.arange(S, device=x.device)
     m = torch.full((B, H, T), -1e30, dtype=torch.float32, device=x.device)
     num = torch.zeros((B, H, T, hd), dtype=torch.float32, device=x.device)
     den = torch.zeros((B, H, T), dtype=torch.float32, device=x.device)
-    for c0 in range(0, T, kc):
+    for c0 in range(0, S, kc):
         sl = slice(c0, c0 + kc)
-        expo = Fc[..., :, None] - Fc[..., None, sl] + i_pre[..., None, sl]
-        mask = t_pos[:, None] >= t_pos[None, sl]
+        expo = Fq[..., :, None] - Fc[..., None, sl] + i_pre[..., None, sl]
+        mask = t_pos[:, None] >= s_pos[None, sl]
         expo = torch.where(mask, expo, float("-inf"))      # (B, H, T, kc)
         m_new = torch.maximum(torch.maximum(m, expo.amax(dim=-1)),
                               m.new_tensor(-1e30))
@@ -181,16 +207,23 @@ def _slstm_carry0(batch, d_model, device):
 
 
 def slstm_block(x, lp, *, n_heads: int):
-    """Sequential sLSTM, x: (B, T, D): one step a position."""
+    """Sequential sLSTM, x: (B, T, D): one step a position. Under a grid x
+    is this rank's sequence slice: the slices are gathered (``gather_seq``,
+    D wide in x's dtype, not the 4D-wide f32 pre-activation), the
+    recurrence runs over the whole sequence and this rank's rows are kept
+    before ``wo``."""
     B, T, D = x.shape
-    x_pre = (x @ lp["wx"]).float() + lp["b"]                  # (B, T, 4D)
+    xs = hints.gather_seq(x, use="slstm_in")                 # (B, S, D)
+    S = xs.shape[1]
+    lo, hi = hints.seq_bounds(S)
+    x_pre = (xs @ lp["wx"]).float() + lp["b"]                 # (B, S, 4D)
     carry = _slstm_carry0(B, D, x.device)
     wr = lp["wr"].float()
     hs = []
-    for t in range(T):
+    for t in range(S):
         carry, h = _slstm_step(carry, x_pre[:, t], wr, n_heads)
         hs.append(h)
-    h = torch.stack(hs, dim=1).to(x.dtype)
+    h = torch.stack(hs, dim=1)[:, lo:hi].to(x.dtype)
     return rms_norm(h, lp["ln_sk"]) @ lp["wo"]
 
 
@@ -234,21 +267,41 @@ def param_shapes(cfg):
 
 
 def _group_fwd(cfg, x, gp):
+    """One group: 3 mLSTM blocks and the sLSTM, each on its pre-norm and
+    added to the residual; under a grid each block's weights gathered just
+    in time and its sum kept on this rank's slice."""
     mlstm = unstack(gp["mlstm"], GROUP - 1)
+    ln = hints.fsdp_gather({"ln": gp["ln"]})["ln"]
     for s in range(GROUP):
-        xn = rms_norm(x, gp["ln"][s])
+        xn = rms_norm(x, ln[s])
         if s < GROUP - 1:
-            x = x + mlstm_block(xn, mlstm[s], n_heads=cfg.n_heads)
+            lp = hints.fsdp_gather(mlstm[s], ("mlstm",), stacked=2)
+            x = hints.seq_shard(x + mlstm_block(xn, lp, n_heads=cfg.n_heads))
         else:
-            x = x + slstm_block(xn, gp["slstm"], n_heads=cfg.n_heads)
+            lp = hints.fsdp_gather(gp["slstm"], ("slstm",))
+            x = hints.seq_shard(x + slstm_block(xn, lp, n_heads=cfg.n_heads))
     return x
 
 
+def _remat_group(cfg, x, gp):
+    """One group under the grid, rematerialized in the backward pass with
+    its gathered K/V, gates and sLSTM input (and weights, under
+    ``remat_save_weights``) kept."""
+    return hints.remat(lambda x: _group_fwd(cfg, x, gp), x,
+                       cfg.remat_save_weights)
+
+
 def forward_hidden(params, tokens, cfg):
-    x = params["embed"][tokens]
+    """tokens (B, S) -> final-norm hidden states (B, S, D); under a grid
+    this rank's (batch and) sequence slice of them, the embedding looked up
+    in the table the caller gathered (``transformer._top``)."""
+    hints.local_positions(tokens.shape[0], tokens.shape[1],
+                          params["embed"].device)
+    x = params["embed"][hints.seq_shard(tokens)]
+    group = _remat_group if hints.remat_on() else _group_fwd
     for gp in unstack({k: params[k] for k in _STACK},
                       cfg.n_layers // GROUP):
-        x = _group_fwd(cfg, x, gp)
+        x = group(cfg, x, gp)
     return rms_norm(x, params["lnf"])
 
 
@@ -262,6 +315,12 @@ def forward(params, tokens, cfg):
 
 
 def loss_fn(params, batch, cfg):
+    """Next-token cross entropy, sequence-chunked; under a grid the global
+    token mean (``transformer.sharded_loss``)."""
+    if hints.active():
+        return transformer.sharded_loss(
+            params, batch, cfg,
+            lambda p, t: (forward_hidden(p, t, cfg), None))
     x = forward_hidden(params, batch["tokens"], cfg)
     return chunked_ce(x[:, :-1], _head(params, cfg), batch["tokens"][:, 1:],
                       chunk=cfg.q_chunk)

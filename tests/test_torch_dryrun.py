@@ -14,8 +14,8 @@ production-mesh cell traced as rank 0 of a fake process group of 256 ranks.
     llama4's expert-parallel dispatch: the all-to-all of each (B_loc, E,
     C, D) bf16 buffer, both ways, three times a layer a group.
   * The cells the port does not have yet say "not ported" and print no
-    result: the recurrent, hybrid and enc-dec families on a grid (every
-    cell) and a cohort the grid does not run yet.
+    result: the recurrent and hybrid families' serving cells, the enc-dec
+    family's every cell, and a cohort the grid does not run yet.
   * The serving cells (since the prefill and decode cells were ported):
     qwen2_0_5b and llama4_scout_17b_a16e prefill_32k and decode_32k print
     a record (qwen2's decode collectives in closed form), long_500k runs
@@ -184,14 +184,15 @@ def test_moe_vlm_train_4k_shard_bytes_closed_form(arch_id, layers,
 
 
 @pytest.mark.parametrize("arch_id,shape", [
-    ("jamba_1_5_large_398b", "train_4k"), ("xlstm_350m", "train_4k"),
     ("jamba_1_5_large_398b", "decode_32k"), ("xlstm_350m", "prefill_32k"),
     ("seamless_m4t_large_v2", "decode_32k"),
     ("jamba_1_5_large_398b", "long_500k"), ("xlstm_350m", "long_500k")])
 def test_cells_not_ported_say_so(arch_id, shape, capsys):
-    """The recurrent, hybrid and enc-dec families on a grid (ROADMAP item
-    19), in every cell: their long_500k too, since both are sub-quadratic
-    and the family check comes after the long_500k one."""
+    """The recurrent and hybrid families' serving cells and the enc-dec
+    family's cells on a grid (ROADMAP item 19 steps 2-3): their long_500k
+    too, since both are sub-quadratic and the family check comes after the
+    long_500k one. Their train cells run since the xLSTM and hybrid
+    families were put on the grid (``test_torch_sharded_recurrent.py``)."""
     dryrun.main(["--arch", arch_id, "--shape", shape])
     line = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
     assert "not ported" in line["not_ported"]
