@@ -272,7 +272,23 @@ Phases, each of which raises (non-zero exit, no result line) on failure:
                       plan's shards and gathered, channel-parallel on the
                       four ranks, against the one-process block: the output
                       rows, the input's and each weight shard's gradient
-                      within relative L2 SHARD_MAMBA_REL_L2
+                      within relative L2 SHARD_MAMBA_REL_L2. Then the same
+                      round again, from the same seed-0 weights and
+                      tokens, under the forced stream cohort
+                      SHARD_STREAM_COHORT (the big plan's 2 groups in
+                      shards of one: E1 and R1 in add mode once a shard
+                      over each range): its params bit-identical to the
+                      group round's on every rank, its collective bytes by
+                      use equal to the group round's
+     shard_encdec     seamless-m4t-large-v2 at full width (d_model 1024,
+                      16/16 heads, d_ff 8192, the tied 256,206-row table,
+                      bf16) with 4 + 4 of its 24 + 24 layers (d =
+                      514,035,712), the regular plan, seq 256 (128 frames
+                      and 128 target tokens): the encoder's bidirectional
+                      attention over the gathered K/V, its memory gathered
+                      along the sequence once and every decoder layer's
+                      cross-attention over all of it; 1 round; its
+                      collective bytes by use equal to the dry run's
    The one-process runs count the MoE's capacity over the grid's 2
    sequence shards (``hints.seq_shard_view``), as the reference's
    ``moe_apply`` does under its mesh. Each rank: E1 (with its tile0) G
@@ -3127,7 +3143,9 @@ SHARD_SEQ_SHARDS = SHARD_GRID[SHARD_AXES.index("model")]
 #: within 2.0e-2. Jamba at full width does not fit one card
 #: (one super-block is ~44 B parameters): its grid round runs the reduced
 #: config at seq 64, and one mamba sublayer at its width runs beside it
-#: (SHARD_MAMBA)
+#: (SHARD_MAMBA). seamless-m4t-large-v2 keeps 4 + 4 of its 24 + 24 layers
+#: (d = 514,035,712, near qwen2's; at full depth, d = 1,772,429,312, a
+#: round would take ~3.6x shard_qwen2's), seq 256: 128 frames, 128 tokens
 SHARD_PATHS = [("shard_qwen2", "qwen2_0_5b", None, 1, 256, 4),
                ("shard_qwen25_32b", "qwen2_5_32b", 1, 1, 256, 4),
                ("shard_granite_moe", "granite_moe_1b_a400m", None, 2, 256,
@@ -3136,6 +3154,7 @@ SHARD_PATHS = [("shard_qwen2", "qwen2_0_5b", None, 1, 256, 4),
                ("shard_xlstm", "xlstm_350m", None, 1, 256, 4),
                ("shard_hybrid", "jamba_1_5_large_398b", "reduced", 1, 64,
                 4),
+               ("shard_encdec", "seamless_m4t_large_v2", 4, 1, 256, 4),
                ("shard_llama4_scout", "llama4_scout_17b_a16e", 1, 1, 256, 4)]
 #: the codec's sigma where a path's differs from its arch's default (the
 #: xlstm_round path's)
@@ -3157,6 +3176,14 @@ SHARD_MAMBA_REL_L2 = 3e-2
 SHARD_GROUPS = {"llama4_scout_17b_a16e": 2}
 #: the paths whose rank peaks are gated against one process's
 SHARD_PEAK_GATED = ("shard_qwen25_32b", "shard_llama4_scout")
+#: the paths whose collective bytes are gated by use (every path's by
+#: kind) against the dry run's
+SHARD_BY_USE_GATED = ("shard_encdec",)
+#: the path whose ranks run its round 0 again under the forced stream
+#: cohort of a plan without client axes (the big plan's sequential
+#: groups, one a shard), from the same seed-0 weights and tokens
+SHARD_STREAM_PATH = "shard_hybrid"
+SHARD_STREAM_COHORT = "stream(shard=1)"
 #: params at coordinates whose wire bits agree: rtol (the CPU tests')
 SHARD_RTOL = 1e-5
 #: the round's loss against the one-process round's: rtol (bf16 model, the
@@ -4258,6 +4285,8 @@ def _shard_rank(rank, world, ctx, label, arch_id, layers, rounds, seq,
         compression.Pipeline.encode_range = enc
     peak = max(peak, seen["peak"], torch.cuda.max_memory_allocated())
     del batch, m, probe
+    group_params = ({p: v.clone() for p, v in tree_paths(state.params)}
+                    if label == SHARD_STREAM_PATH else None)
     outside, differing, off = _shard_params_vs_one(
         state.params, os.path.join(tmp, label + "_params.pt"), arch, grid,
         plan, layout, dev)
@@ -4284,8 +4313,109 @@ def _shard_rank(rank, world, ctx, label, arch_id, layers, rounds, seq,
         rec["serve"] = _shard_serve(grid, arch, dev, tmp, label)
     if label == SHARD_MAMBA_PATH:
         rec["mamba"] = _shard_mamba(grid, dev, tmp)
+    if label == SHARD_STREAM_PATH:
+        rec["stream"] = _shard_stream_round(grid, arch, seq, gbatch, dev,
+                                            group_params)
     torch.save(rec, out.format(rank))
     dist.barrier()
+
+
+def _shard_stream_round(grid, arch, seq, gbatch, dev, want):
+    """The path's round 0 again on this rank, from the seed-0 weights and
+    round 0's tokens, under SHARD_STREAM_COHORT (``fedavg.
+    build_sharded_round_step``'s stream plan: each shard's clients encoded
+    over the range at once, folded into one running range accumulator)
+    -> its time, launches, ``shard_clients``, loss, collective bytes by
+    use, and the params entries whose bits differ from the group round's
+    (``want``)."""
+    import torch.distributed as dist
+    from repro_torch.core import fedavg as TF
+    from repro_torch.core import noise as TN
+    from repro_torch.core.tree import tree_paths
+    from repro_torch.launch import dryrun, hints
+    from repro_torch.models.api import shard_params
+    step, example, plan = dryrun.build_train_cell(
+        arch, _shard_shape(seq, gbatch), grid, cohort=SHARD_STREAM_COHORT)
+    full = _shard_init(arch, dev)
+    shards = shard_params(full, arch.model, grid, plan, device=dev)
+    del full
+    state = TF.init_server_state(shards, example["fcfg"], example["comp"],
+                                 TN.prng_key(1))
+    del shards
+    batch = _shard_batch(plan, arch.model, seq, 0, dev)
+    mask = torch.ones((plan.client_groups, plan.n_clients))
+    hints.reset_collective_stats()
+    torch.cuda.reset_peak_memory_stats()
+    before = _counts()
+    dist.barrier()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    state, m = step(state, batch, mask)
+    torch.cuda.synchronize()
+    sec = time.perf_counter() - t0
+    after = _counts()
+    differing = sum(int((a.reshape(-1) != want[p].reshape(-1)).sum())
+                    if not _same_bits(a, want[p]) else 0
+                    for p, a in tree_paths(state.params))
+    return {"sec": sec, "counts": {k: after[k] - before[k] for k in after},
+            "shard_clients": int(m.shard_clients), "loss": float(m.loss),
+            "groups": plan.client_groups,
+            "peak": torch.cuda.max_memory_allocated(),
+            "collective_by_use": {k: list(v) for k, v in
+                                  hints.COLLECTIVES.items()},
+            "params_differing": differing,
+            "params_same_bits": all(_same_bits(a, want[p]) for p, a in
+                                    tree_paths(state.params))}
+
+
+def _shard_stream_checks(label, ranks, smi):
+    """The forced stream round of SHARD_STREAM_PATH's ranks: params
+    bit-identical to the group round's on every rank, E1 and R1 (add mode)
+    once a shard, ``shard_clients`` the shard, the loss within rtol 1e-6
+    and the collective bytes by use equal to the group round's (a shard of
+    one client a group runs the group round's per-client collectives). ->
+    its summary for the kernels line."""
+    for rk in ranks:
+        st, r = rk["stream"], rk["rank"]
+        n = st["groups"]
+        want = {"zsign_encode": n, "zsign_encode_range": n,
+                "sign_reduce": n, "sign_reduce_fold": 0, "ef_sign": 0}
+        got = {k: st["counts"][k] for k in want}
+        if got != want:
+            raise AssertionError(f"{label}_stream: rank {r} launched {got}, "
+                                 f"want {want}")
+        if not st["params_same_bits"]:
+            raise AssertionError(f"{label}_stream: rank {r}: "
+                                 f"{st['params_differing']} params entries "
+                                 f"off the group round's bits")
+        if st["shard_clients"] != 1 or abs(
+                st["loss"] - rk["rounds"][0]["loss"]) > 1e-6 * abs(
+                rk["rounds"][0]["loss"]):
+            raise AssertionError(f"{label}_stream: rank {r}: shard_clients "
+                                 f"{st['shard_clients']}, loss {st['loss']}"
+                                 f" against {rk['rounds'][0]['loss']}")
+        group = {k: v[0] for k, v in rk["rounds"][0][
+            "collective_by_use"].items()}
+        if {k: v[0] for k, v in st["collective_by_use"].items()} != group:
+            raise AssertionError(f"{label}_stream: rank {r} moved "
+                                 f"{st['collective_by_use']}, the group "
+                                 f"round {group}")
+    print(json.dumps({
+        "sharded_replica": label + "_stream", "card": smi,
+        "cohort": SHARD_STREAM_COHORT,
+        "round_s": {"group": [rk["rounds"][0]["sec"] for rk in ranks],
+                    "stream": [rk["stream"]["sec"] for rk in ranks]},
+        "launches": [rk["stream"]["counts"] for rk in ranks],
+        "params_differing": [rk["stream"]["params_differing"]
+                             for rk in ranks],
+        "peak_GB": [rk["stream"]["peak"] / 1e9 for rk in ranks],
+        "loss": [rk["stream"]["loss"] for rk in ranks]}))
+    summed = {k: sum(rk["stream"]["counts"][k] for rk in ranks)
+              for k in ranks[0]["stream"]["counts"]}
+    return {label + "_stream": {
+        "launches": summed,
+        "secs": [max(rk["stream"]["sec"] for rk in ranks)],
+        "peak": max(rk["stream"]["peak"] for rk in ranks)}}
 
 
 def _serve_shapes(label):
@@ -5231,6 +5361,13 @@ def _shard_checks(label, layers, rounds, seq, gbatch, one, rows, ranks,
                     f"{label}: rank {r} round {t} moved "
                     f"{rd['collective_bytes']}, the dry run counts "
                     f"{predicted[r]['collectives']}")
+            by_use = {k: v[0] for k, v in rd["collective_by_use"].items()}
+            if label in SHARD_BY_USE_GATED and \
+                    by_use != predicted[r]["collectives_by_use"]:
+                raise AssertionError(
+                    f"{label}: rank {r} round {t} moved {by_use} by use, "
+                    f"the dry run counts "
+                    f"{predicted[r]['collectives_by_use']}")
             if not math.isfinite(rd["loss"]) or abs(
                     rd["loss"] - one["loss"][t]) > SHARD_LOSS_RTOL * abs(
                     one["loss"][t]):
@@ -5479,6 +5616,8 @@ def phase_sharded_replica(dev, smi, predictions=None):
                       f"a rank")
             if label == SHARD_MAMBA_PATH:
                 _shard_mamba_checks(mamba_one, ranks, smi)
+            if label == SHARD_STREAM_PATH:
+                out.update(_shard_stream_checks(label, ranks, smi))
             print(f"# {label}: one process {one_s:.1f} s, with the dry run "
                   f"beside it {predict_s:.1f} s, ranks {ranks_s:.1f} s; "
                   f"host peaks: Shmem {one['host']['shmem_peak']:.2f} GB, "

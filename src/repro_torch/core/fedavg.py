@@ -853,9 +853,25 @@ def build_sharded_round_step(loss_fn: Callable, compressor, cfg: FedConfig,
     the unsharded round's. The cohort policy is resolved as the reference's
     launcher does, with the plan's client axes as ``spmd_axes``: ``auto``
     and ``stream`` run this round, a forced ``stream(shard=K)`` raises
-    ``ValueError``; on a plan without client axes (the big plan's
-    sequential groups), a policy that resolves to a stream plan raises
-    ``NotImplementedError``, as do async rounds.
+    ``ValueError``. On a plan without client axes (the big plan's
+    sequential groups, one client a group) the policy resolves as the
+    reference's does with no ``spmd_axes``, and a stream plan runs the
+    reference's ``stream_cohort`` on this rank's range: the G * N clients
+    in K-client shards (the last wrapped to the cohort's first rows under
+    a zero mask), each shard's K clients' local SGD written into one (K,
+    hi - lo) range buffer and encoded at once (E1 with n = K from the
+    range's first tile, or F1 under EF), folded into ONE running range
+    accumulator (R1 add mode, or fold mode into a ``wire.SignFoldAcc`` on
+    the f32-weighted routes), their state rows written back for the real
+    clients only; so a rank holds K payload rows, not G.
+    ``stream(feed=host)`` keeps the batch in (pinned) host memory and
+    copies each client's slice to the card as it runs, the same
+    computation; ``stream(devices=D)`` pads the shard count to a multiple
+    of D and finalizes each of the D contiguous slices' accumulators
+    apart, adding them in slice order, the reference's shard_map and psum
+    on the grid's own ranks (D at most the group's size, as
+    ``resolve_cohort`` checks). ``RoundMetrics.shard_clients`` is K, as
+    the reference sets it. Async rounds raise ``NotImplementedError``.
     ``remat`` rematerializes each layer (on by default, as in the
     reference; off only to show that it changes no bit)."""
     from repro_torch.core.compression import ENCODE_TILE
@@ -902,12 +918,8 @@ def build_sharded_round_step(loss_fn: Callable, compressor, cfg: FedConfig,
                 off += n
             spec = wire.TreeSpec(tuple(paths), tuple(shapes),
                                  tuple(offsets), off)
-            if not plan.client_axes and resolve_cohort(
-                    ctx.cohort, G * N, off).mode == "stream":
-                raise NotImplementedError(
-                    f"cohort {ctx.cohort!r} streams the sequential groups "
-                    f"of a plan without client axes: waits (ROADMAP: the "
-                    f"big plan's forced stream)")
+            cache["cohort"] = (VMAP_PLAN if plan.client_axes else
+                               resolve_cohort(ctx.cohort, G * N, off))
             cache["layout"] = wire.RangeLayout(spec, leaf_specs, grid,
                                                plan.replica_axes)
         return cache["layout"]
@@ -1042,15 +1054,132 @@ def build_sharded_round_step(loss_fn: Callable, compressor, cfg: FedConfig,
         hints.record("all_reduce", G * out.numel() * 4, t0, "client_sum")
         return out
 
+    def encode_rows(rnd, buf, rows, keys, mask_k, live_rows, gidx):
+        """One group's or shard's k = ``buf.shape[0]`` clients: the range
+        rows already in ``buf``, encoded at once with the range's state
+        ``rows`` ``{slot: (k, hi - lo)}`` (updated in place for the live
+        ones), then the adversary's attack by global client index ``gidx``
+        and the range's first byte -> the payload stack."""
+        extra = dict(rnd["extra"])
+        if rows is not None:
+            extra.update(state=rows, live=mask_k, live_rows=live_rows)
+        enc = compressor.encode_range(keys, buf, rnd["tile0"],
+                                      sigma=rnd["sigma"], **extra)
+        if adversary is not None:
+            adversary.corrupt(enc, gidx, rnd["round"], b0=rnd["lo"] // 8)
+        return enc
+
+    def group_rounds(rnd, params, batch, mask_all, cstate):
+        """The vmap plan: this rank's client of each of the G groups ->
+        (its G payloads, the masked loss sum)."""
+        layout, device = rnd["layout"], rnd["device"]
+        lo, hi = layout.bounds
+        buf = torch.empty((1, hi - lo), dtype=torch.float32, device=device)
+        payloads = []
+        loss_sum = torch.zeros((), dtype=torch.float32, device=device)
+        for g in range(G):
+            j = g * N + c
+            pseudo, loss = client_update(
+                params, tree_map(lambda x: x[g, c], batch))
+            with torch.no_grad():
+                layout.to_range(pseudo, out=buf[0])
+                del pseudo
+                w = mask_all[g, c].to(device)
+                # this client's rows, updated in place; a dead client
+                # keeps its own
+                rows = (None if cstate is None else
+                        {k: v[g] for k, v in cstate.items()})
+                payloads.append(encode_rows(
+                    rnd, buf, rows, rnd["keys"][j:j + 1], w.reshape(1),
+                    [0] if mask_all[g, c] > 0 else [], torch.tensor([j])))
+                if payloads[-1] is buf:
+                    # the dense wire's payload is the buffer itself
+                    buf = torch.empty_like(buf)
+                loss_sum = loss_sum + torch.where(w > 0, loss * w, 0.0)
+        return payloads, loss_sum
+
+    def stream_rounds(rnd, cplan, params, batch, mask_all, cstate):
+        """The stream plan on this rank's range (``stream_cohort`` of the
+        reference): K-client shards through one (K, hi - lo) buffer, each
+        folded into one running accumulator, finalized per device slice and
+        the slices added in order -> (the range's client sum, the masked
+        loss sum)."""
+        layout, device = rnd["layout"], rnd["device"]
+        lo, hi = layout.bounds
+        L, total, K = hi - lo, G * N, cplan.shard
+        n_shards = -(-total // K)
+        per = n_shards
+        if cplan.devices > 1:
+            per = -(-n_shards // cplan.devices)
+            n_shards = per * cplan.devices
+        if cplan.feed == "host":
+            batch = tree_map(lambda x: x.cpu().pin_memory()
+                             if device.type == "cuda" else x.cpu(), batch)
+        flat = (None if cstate is None else
+                {k: v.reshape((total, v.shape[-1]))
+                 for k, v in cstate.items()})
+        mask_flat = mask_all.reshape(-1).cpu()
+        buf = torch.empty((K, L), dtype=torch.float32, device=device)
+        loss_sum = torch.zeros((), dtype=torch.float32, device=device)
+        acc, enc_sum = None, None
+        for s in range(n_shards):
+            s0 = s * K
+            slots = range(s0, s0 + K)
+            # a slot past the cohort wraps to its first rows, weight 0
+            mask_k = torch.stack([mask_flat[j] if j < total
+                                  else torch.zeros(()) for j in slots])
+            losses = []
+            for i, j in enumerate(slots):
+                r = j % total
+                pseudo, loss = client_update(params, tree_map(
+                    lambda x: x[r // N, r % N].to(device, non_blocking=True),
+                    batch))
+                with torch.no_grad():
+                    layout.to_range(pseudo, out=buf[i])
+                del pseudo
+                losses.append(loss)
+            with torch.no_grad():
+                real = max(0, min(K, total - s0))
+                rows = None
+                if flat is not None:
+                    rows = ({k: v[s0:s0 + K] for k, v in flat.items()}
+                            if real == K else
+                            {k: v[torch.tensor(slots, device=v.device)
+                                  % total] for k, v in flat.items()})
+                mask_d = mask_k.to(device)
+                live = [i for i, j in enumerate(slots)
+                        if j < total and mask_flat[j] > 0]
+                enc = encode_rows(rnd, buf, rows,
+                                  znoise.client_keys(rnd["sub"], s0, K),
+                                  mask_d, live, torch.arange(s0, s0 + K))
+                if rows is not None and 0 < real < K:
+                    # the real rows of a wrapped shard's copies; the
+                    # padding's are never written back
+                    for k, v in flat.items():
+                        v[s0:s0 + real].copy_(rows[k][:real])
+                if acc is None:
+                    acc = compressor.fold_init(enc)
+                if acc is None:
+                    acc = compressor.zero_acc(enc, L)
+                acc = compressor.aggregate(enc, mask_d, L, acc=acc)
+                loss_sum = loss_sum + torch.sum(torch.where(
+                    mask_d > 0, torch.stack(losses) * mask_d, 0.0))
+                del enc, rows
+                if (s + 1) % per == 0:
+                    # a device slice's accumulator, finalized; the slices
+                    # add in order (the reference's psum)
+                    part = compressor.fold_finalize(acc)
+                    enc_sum = part if enc_sum is None else enc_sum + part
+                    acc = None
+        return enc_sum, loss_sum
+
     def round_step(state: ServerState, batch, mask):
         params = state.params
         device = tree_leaves(params)[0].device
         layout = layout_for(params)
+        cplan = cache["cohort"]
         check_state(state, layout)
         lo, hi = layout.bounds
-        # ranges start on an encode tile (``wire.flat_ranges``), whatever
-        # the codec's own pad multiple
-        tile0 = lo // ENCODE_TILE
         d = layout.spec.n_coords
         rng, sub = znoise.split(state.rng)
         mask_all = torch.as_tensor(mask, dtype=torch.float32).reshape(G, N)
@@ -1058,47 +1187,30 @@ def build_sharded_round_step(loss_fn: Callable, compressor, cfg: FedConfig,
             mask_all = adversary.drop_mask(mask_all, state.round)
         if ctx.debug_wire:
             wire.check_mask_membership(mask_all)
-        keys = znoise.client_keys(sub, 0, G * N)
         sigma = state.sigma if ctx.dynamic_sigma else None
-        # what the encodes read besides their rows
-        extra = {"n_coords": d, "all_sum": all_sum(layout.group),
-                 "rank_prefix": rank_prefix(layout),
-                 "server": state.comp_server, "spec": layout.spec}
-        buf = torch.empty((1, hi - lo), dtype=torch.float32, device=device)
-        payloads = []
-        loss_sum = torch.zeros((), dtype=torch.float32, device=device)
+        rnd = {"layout": layout, "device": device, "lo": lo, "sub": sub,
+               "keys": znoise.client_keys(sub, 0, G * N),
+               # ranges start on an encode tile (``wire.flat_ranges``),
+               # whatever the codec's own pad multiple
+               "tile0": lo // ENCODE_TILE, "sigma": sigma,
+               "round": state.round,
+               # what the encodes read besides their rows
+               "extra": {"n_coords": d, "all_sum": all_sum(layout.group),
+                         "rank_prefix": rank_prefix(layout),
+                         "server": state.comp_server, "spec": layout.spec}}
         with hints.sharding_hints(grid, plan.seq_axes, plan.micro_axes,
                                   replica_axes=plan.replica_axes,
                                   specs=specs, remat=remat):
-            for g in range(G):
-                pseudo, loss = client_update(
-                    params, tree_map(lambda x: x[g, c], batch))
-                with torch.no_grad():
-                    layout.to_range(pseudo, out=buf[0])
-                    del pseudo
-                    w = mask_all[g, c].to(device)
-                    if state.comp_state is not None:
-                        # this client's rows, updated in place; a dead
-                        # client keeps its own
-                        extra["state"] = {k: v[g] for k, v in
-                                          state.comp_state.items()}
-                        extra["live"] = w.reshape(1)
-                        extra["live_rows"] = [0] if mask_all[g, c] > 0 else []
-                    payloads.append(compressor.encode_range(
-                        keys[g * N + c:g * N + c + 1], buf, tile0,
-                        sigma=sigma, **extra))
-                    if adversary is not None:
-                        adversary.corrupt(payloads[-1],
-                                          torch.tensor([g * N + c]),
-                                          state.round, b0=lo // 8)
-                    if payloads[-1] is buf:
-                        # the dense wire's payload is the buffer itself
-                        buf = torch.empty_like(buf)
-                    loss_sum = loss_sum + torch.where(w > 0, loss * w, 0.0)
-        del buf
+            if cplan.mode == "stream":
+                enc_sum, loss_sum = stream_rounds(rnd, cplan, params, batch,
+                                                  mask_all, state.comp_state)
+            else:
+                payloads, loss_sum = group_rounds(rnd, params, batch,
+                                                  mask_all, state.comp_state)
         with torch.no_grad():
-            enc_sum = client_sum(payloads, mask_all, hi - lo, device)
-            del payloads
+            if cplan.mode != "stream":
+                enc_sum = client_sum(payloads, mask_all, hi - lo, device)
+                del payloads
             if client_group is not None:
                 t0 = time.perf_counter()
                 loss_sum = wire.reduce_accumulator(loss_sum.reshape(1),
@@ -1132,7 +1244,7 @@ def build_sharded_round_step(loss_fn: Callable, compressor, cfg: FedConfig,
                 participation=n_live,
                 uplink_bits=n_live * float(d
                                            * compressor.wire_bits_per_coord),
-                shard_clients=torch.tensor(0, dtype=torch.int32))
+                shard_clients=torch.tensor(cplan.shard, dtype=torch.int32))
             return ServerState(params=new_params, opt_state=new_opt,
                                comp_state=state.comp_state, rng=rng,
                                round=state.round + 1, sigma=state.sigma,

@@ -55,15 +55,19 @@ with every pipeline spec (``--pipeline``) and the reference's
 ``--agg-backend``, ``--encode-backend``, ``--cohort`` and ``--adversary``;
 so is the train cell of the xLSTM family (the mLSTM's K, V and gates and
 the sLSTM's input gathered along the sequence: ``all_gather:kv``,
-``:gates``, ``:slstm_in``) and of the hybrid (each mamba sublayer's input
+``:gates``, ``:slstm_in``), of the hybrid (each mamba sublayer's input
 gathered, ``all_gather:mamba_in``, its ``x_proj`` partial all-reduced,
 ``all_reduce:mamba_xproj``, its output reduce-scattered,
-``reduce_scatter:mamba_out``). Their serving cells (ROADMAP item 19 step
-3), every cell of the enc-dec family (step 2) and a cohort that streams
-the big plan's sequential groups are not ported, and the CLI says so
-instead of printing a result. The scans of the recurrent blocks are
-Python loops over the sequence, on meta tensors too: a full train_4k
-record of xlstm_350m or jamba_1_5_large_398b takes tens of minutes.
+``reduce_scatter:mamba_out``) and of the enc-dec family (the encoder's
+memory gathered along the sequence once, ``all_gather:enc_mem``, its
+gradient reduce-scattered once, ``reduce_scatter:enc_mem``). A cohort
+that streams the big plan's sequential groups (``--cohort
+"stream(shard=K)"``) runs the grid's stream plan. The serving cells of the
+recurrent, hybrid and enc-dec families (ROADMAP item 19 step 3) are not
+ported, and the CLI says so instead of printing a result. The scans of
+the recurrent blocks are Python loops over the sequence, on meta tensors
+too: a full train_4k record of xlstm_350m or jamba_1_5_large_398b takes
+tens of minutes.
 """
 from __future__ import annotations
 
@@ -78,7 +82,7 @@ import torch
 import torch.distributed as dist
 
 from repro_torch.configs.common import SHAPES, ShapeCfg, get_arch, list_archs
-from repro_torch.core import compression, fedavg
+from repro_torch.core import compression, fedavg, wire
 from repro_torch.core import noise as znoise
 from repro_torch.core.tree import tree_leaves, tree_map
 from repro_torch.launch import hints
@@ -99,9 +103,8 @@ LONG_SKIP = "full-attention arch: no sub-quadratic path (DESIGN.md)"
 
 #: one H100's device memory, the gate each rank's peak is reported against
 HBM_BYTES = 80e9
-#: the families whose train cell runs on a grid, and those of them whose
-#: serving cells (prefill, decode) do too
-GRID_FAMILIES = ("dense", "moe", "vlm", "xlstm", "hybrid")
+#: the families whose serving cells (prefill, decode) run on a grid (every
+#: family's train cell does)
 SERVING_FAMILIES = ("dense", "moe", "vlm")
 
 
@@ -120,7 +123,7 @@ def build_train_cell(arch, shape: ShapeCfg, grid, *,
     the arch's loss on ``grid`` under ``sharding.make_plan``'s plan, with
     the arch's default codec ``zsign(z=..,sigma=..)`` or ``pipeline``, and
     the reference's backend selectors, cohort policy and wire adversary
-    (a cohort that the grid does not run yet raises ``NotPorted``).
+    (a round mode that the grid does not run yet raises ``NotPorted``).
     ``example`` holds the shapes of its arguments: ``params`` (this rank's
     shards, a tree of ``BatchLeaf``), ``specs``, ``batch`` ((G, N, E,
     micro, S) leaves) and ``mask`` ((G, N)), and the step's ``layout``
@@ -148,8 +151,7 @@ def build_train_cell(arch, shape: ShapeCfg, grid, *,
         step = fedavg.build_sharded_round_step(
             bundle.loss_fn, comp, fcfg, ctx, grid=grid, plan=plan,
             specs=specs, remat=remat)
-        # the cohort's plan resolves with the layout (a stream of the big
-        # plan's sequential groups waits)
+        # the cohort's plan resolves with the layout
         step.layout(params)
     except NotImplementedError as e:
         raise NotPorted(NOT_PORTED["pipeline"].format(msg=e)) from e
@@ -169,14 +171,11 @@ def _check_family(arch, kind: str) -> None:
     """Raise ``NotPorted`` for a cell of ``kind`` ("train", "prefill" or
     "decode") that the arch's family does not run on a grid yet."""
     family = arch.model.family
-    if family not in GRID_FAMILIES:
-        raise NotPorted(NOT_PORTED["family"].format(
-            family=family, kind=kind, step=2,
-            what="the enc-dec family on a grid"))
     if kind != "train" and family not in SERVING_FAMILIES:
         raise NotPorted(NOT_PORTED["family"].format(
             family=family, kind=kind, step=3,
-            what="the recurrent and hybrid families' serving cells"))
+            what="the recurrent, hybrid and enc-dec families' serving "
+                 "cells"))
 
 
 def _shard_leaves(meta, specs, grid):
@@ -294,7 +293,8 @@ class _KernelFootprint:
     """Stands in for a kernel module inside ``core.compression`` while a
     trace runs: E1, R1 and F1 return empty outputs of their kernels'
     shapes, which is what the card allocates for them (F1 writes its
-    residual in place), and compute nothing."""
+    residual in place; R1's fold mode closes the streamed carry in place),
+    and compute nothing."""
 
     def __init__(self, ops):
         self._ops = ops
@@ -313,6 +313,17 @@ class _KernelFootprint:
         out = torch.empty((8 * packed.shape[1],), dtype=torch.float32,
                           device=packed.device)
         return out if acc is None else acc + out
+
+    @staticmethod
+    def _fold_close(rows, w, sums):
+        return sums
+
+    def sign_fold_step(self, packed, weights, acc):
+        return wire._sign_fold_step(packed, weights, acc,
+                                    close=self._fold_close)
+
+    def sign_fold_finalize(self, acc):
+        return wire.sign_fold_finalize(acc, close=self._fold_close)
 
     def ef_sign_rows(self, g2d, e2d, scale, *, live=None, in_place=False,
                      with_q=False):
@@ -549,8 +560,8 @@ def main(argv=None) -> None:
                     help="train_4k | prefill_32k | decode_32k | long_500k "
                          "(the serving cells: the prefill's last-token "
                          "logits, one decode step against the sharded KV "
-                         "cache). Train cells: every family but enc-dec; "
-                         "serving cells: the dense, MoE and VLM families")
+                         "cache). Train cells: every family; serving "
+                         "cells: the dense, MoE and VLM families")
     ap.add_argument("--multi-pod", action="store_true")
     ap.add_argument("--both-meshes", action="store_true")
     ap.add_argument("--agg-backend", default="auto",

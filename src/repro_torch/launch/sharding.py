@@ -21,8 +21,9 @@ mesh-like object with ``shape`` and ``axis_names`` (a
 ``launch/mesh.ReplicaGrid`` or a stub). The
 model-sharded client replica (``core/fedavg.build_sharded_round_step``)
 stores each parameter as this rank's shard of its spec
-(``models/api.shard_params``); the dense, MoE and VLM families run on a
-grid.
+(``models/api.shard_params``); every family's train cell runs on a grid
+(the enc-dec's frames, (G, N, E, micro, S_src, D), cut along their
+sequence as the tokens are).
 """
 from __future__ import annotations
 

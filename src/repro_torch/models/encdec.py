@@ -5,19 +5,43 @@ cross-attention.
 The modality frontend is a stub: the batch's ``embeds`` are precomputed
 frame embeddings (B, S_src, D); the encoder is the bidirectional stack on
 top of them. Both stacks walk their layers in a Python loop (the
-reference's ``lax.scan``; its remat has no numerical effect); the sharding
-hints (``seq_shard``, ``fsdp_params``) have no counterpart on one card.
+reference's ``lax.scan``).
 
 Cross-attention has no source mask, as in the reference: every slot of the
 memory takes softmax weight, zero slots included. A serving cache of
 ``src_len`` slots must therefore be filled over exactly ``src_len`` frames
 (``prefill_cache`` checks it).
+
+Under a grid (``launch/hints.py``, the model-sharded replica's train cell)
+the params are this rank's shards and each rank holds its (batch and)
+sequence slice of the frames and of the target tokens. Each layer of
+either stack gathers its weights just in time under its stack's prefix
+(``hints.fsdp_gather``: ``enc_*``, or ``dec_*`` and ``x_attn``), keeps its
+output on this rank's slice (``seq_shard``) and is rematerialized keeping
+the gathered K/V (and, under ``remat_save_weights``, the gathered
+weights), the reference's ``_remat_policy``. The encoder's bidirectional
+self-attention gathers K and V along the sequence and attends over every
+key unmasked, at the keys' global positions. The encoder's final memory
+is gathered along the sequence ONCE (``all_gather:enc_mem``, this rank's
+(B_loc, S_src / R, D) rows to (B_loc, S_src, D)) and kept for every
+decoder layer and its recompute: each rank projects the cross-attention K
+and V over the whole source from it, its own query rows attend over the
+whole unmasked memory, and the backward reduce-scatters the memory's
+gradient, summed over the decoder layers, once
+(``reduce_scatter:enc_mem``). D values a source position cross the grid
+that way, where gathering each layer's projected K and V (what GSPMD makes
+of the reference) would move 2 n_layers K hd. The loss is the grid's
+global token mean (``transformer.sharded_loss``), the next-token shift
+crossing the target's sequence shards. Off a grid every hint is the
+identity and nothing is rematerialized.
 """
 from __future__ import annotations
 
 import torch
 
+from repro_torch.launch import hints
 from repro_torch.models import layers as L
+from repro_torch.models import transformer as T
 
 _ENC = ("enc_attn", "enc_mlp", "enc_ln1", "enc_ln2")
 _DEC = ("dec_attn", "x_attn", "dec_mlp", "dec_ln1", "dec_ln2", "dec_ln3")
@@ -75,30 +99,75 @@ def _mem_kv(mem, lp, cfg):
             (mem @ lp["wv"]).reshape(B, S, K, hd))
 
 
+def _enc_layer(cfg, x, lp, positions):
+    """One encoder layer (bidirectional self-attention + SwiGLU); under a
+    grid its weights gathered just in time, its sums on this rank's
+    slice."""
+    lp = hints.fsdp_gather(lp)
+    h = hints.seq_shard(x + L.attention(L.rms_norm(x, lp["enc_ln1"]),
+                                        lp["enc_attn"], cfg.attn_cfg_bidir(),
+                                        positions))
+    return hints.seq_shard(h + L.swiglu(L.rms_norm(h, lp["enc_ln2"]),
+                                        lp["enc_mlp"]))
+
+
+def _dec_layer(cfg, x, lp, mem, positions):
+    """One decoder layer (causal self-attention, cross-attention over the
+    whole memory ``mem``, SwiGLU); under a grid as ``_enc_layer``."""
+    lp = hints.fsdp_gather(lp)
+    h = hints.seq_shard(x + L.attention(L.rms_norm(x, lp["dec_ln1"]),
+                                        lp["dec_attn"], cfg.attn_cfg(),
+                                        positions))
+    mk, mv = _mem_kv(mem, lp["x_attn"], cfg)
+    h = hints.seq_shard(h + _cross_attention(L.rms_norm(h, lp["dec_ln2"]),
+                                             mk, mv, lp["x_attn"], cfg))
+    return hints.seq_shard(h + L.swiglu(L.rms_norm(h, lp["dec_ln3"]),
+                                        lp["dec_mlp"]))
+
+
+def _layers(cfg, layer, x, stack, *extra):
+    """``layer`` over the stack's layers, each rematerialized under the
+    grid (``hints.remat``, keeping the gathered K/V and, under
+    ``remat_save_weights``, the gathered weights)."""
+    for lp in L.unstack(stack, cfg.n_layers):
+        if hints.remat_on():
+            x = hints.remat(lambda x, lp=lp: layer(cfg, x, lp, *extra), x,
+                            cfg.remat_save_weights)
+        else:
+            x = layer(cfg, x, lp, *extra)
+    return x
+
+
+def _final_norm(params, key):
+    """A replicated final norm's weight, its gradient summed over the
+    replica's ranks under a grid."""
+    return hints.fsdp_gather({key: params[key]}, stacked=False)[key]
+
+
 def encode(params, embeds, cfg):
-    """embeds: (B, S_src, D) stub frame embeddings -> encoder memory."""
-    x = embeds.to(cfg.dtype)
-    positions = torch.arange(x.shape[1], device=x.device)
-    bidir = cfg.attn_cfg_bidir()
-    for lp in L.unstack({k: params[k] for k in _ENC}, cfg.n_layers):
-        h = x + L.attention(L.rms_norm(x, lp["enc_ln1"]), lp["enc_attn"],
-                            bidir, positions)
-        x = h + L.swiglu(L.rms_norm(h, lp["enc_ln2"]), lp["enc_mlp"])
-    return L.rms_norm(x, params["enc_lnf"])
+    """embeds: (B, S_src, D) stub frame embeddings -> encoder memory (under
+    a grid this rank's slice of it)."""
+    positions = hints.local_positions(embeds.shape[0], embeds.shape[1],
+                                      embeds.device)
+    x = hints.seq_shard(embeds.to(cfg.dtype))
+    x = _layers(cfg, _enc_layer, x, {k: params[k] for k in _ENC},
+                positions)
+    return L.rms_norm(x, _final_norm(params, "enc_lnf"))
 
 
 def decode_train(params, mem, tokens, cfg):
-    """mem: (B, S_src, D); tokens: (B, S_tgt) -> final-norm hidden."""
-    x = params["embed"][tokens]
-    positions = torch.arange(x.shape[1], device=x.device)
-    for lp in L.unstack({k: params[k] for k in _DEC}, cfg.n_layers):
-        h = x + L.attention(L.rms_norm(x, lp["dec_ln1"]), lp["dec_attn"],
-                            cfg.attn_cfg(), positions)
-        mk, mv = _mem_kv(mem, lp["x_attn"], cfg)
-        h = h + _cross_attention(L.rms_norm(h, lp["dec_ln2"]), mk, mv,
-                                 lp["x_attn"], cfg)
-        x = h + L.swiglu(L.rms_norm(h, lp["dec_ln3"]), lp["dec_mlp"])
-    return L.rms_norm(x, params["dec_lnf"])
+    """mem: (B, S_src, D); tokens: (B, S_tgt) -> final-norm hidden. Under a
+    grid ``mem`` is this rank's slice of the memory, gathered here along
+    the sequence once (``all_gather:enc_mem``), and the hidden states are
+    this rank's slice; the embedding is looked up in the table the caller
+    gathered (``transformer._top``)."""
+    mem = hints.gather_seq(mem, keep=False, use="enc_mem")
+    positions = hints.local_positions(tokens.shape[0], tokens.shape[1],
+                                      mem.device)
+    x = params["embed"][hints.seq_shard(tokens)]
+    x = _layers(cfg, _dec_layer, x, {k: params[k] for k in _DEC}, mem,
+                positions)
+    return L.rms_norm(x, _final_norm(params, "dec_lnf"))
 
 
 def _head(params, cfg):
@@ -106,7 +175,12 @@ def _head(params, cfg):
 
 
 def loss_fn(params, batch, cfg):
-    """batch: {embeds (B, S_src, D), tokens (B, S_tgt)}."""
+    """batch: {embeds (B, S_src, D), tokens (B, S_tgt)}: next-token cross
+    entropy over the target tokens; under a grid the global token mean
+    (``transformer.sharded_loss``, the memory its hidden callable's)."""
+    if hints.active():
+        return T.sharded_loss(params, batch, cfg, lambda p, t: (
+            decode_train(p, encode(p, batch["embeds"], cfg), t, cfg), None))
     mem = encode(params, batch["embeds"], cfg)
     x = decode_train(params, mem, batch["tokens"], cfg)
     return L.chunked_ce(x[:, :-1], _head(params, cfg), batch["tokens"][:, 1:],

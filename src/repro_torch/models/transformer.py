@@ -9,8 +9,8 @@ and the flat wire line up with the reference. The forward walks the layers
 in a Python loop over the stacked slices (the reference's ``lax.scan``).
 
 Under a grid (``launch/hints.py``; the model-sharded replica of the dense,
-MoE and VLM families, whose grid loss ``sharded_loss`` the xLSTM and hybrid
-families share) the params are this rank's shards: each layer gathers
+MoE and VLM families, whose grid loss ``sharded_loss`` the xLSTM, hybrid
+and enc-dec families share) the params are this rank's shards: each layer gathers
 its weights (``fsdp_gather``), computes on this rank's sequence slice and
 keeps its output there (``seq_shard``), as the reference's ``_layer`` does;
 each layer is rematerialized (``torch.utils.checkpoint``, non-reentrant)
@@ -186,10 +186,12 @@ _TOP = ("embed", "lm_head", "lnf")
 
 
 def sharded_loss(params, batch, cfg, hidden):
-    """A family's ``loss_fn`` under a grid (this one's, the xLSTM's and the
-    hybrid's): ``hidden(params, tokens)`` is the family's forward to the
-    final-norm hidden states of this rank's slice and its aux (None where
-    the family has none). The embedding, head and final norm are gathered
+    """A family's ``loss_fn`` under a grid (this one's, the xLSTM's, the
+    hybrid's and the enc-dec's): ``hidden(params, tokens)`` is the family's
+    forward to the final-norm hidden states of this rank's slice and its
+    aux (None where the family has none); a family's other inputs (the
+    VLM's image prefix, the enc-dec's frames) are the callable's own. The
+    tokens are the ones the head predicts (the enc-dec's target tokens). The embedding, head and final norm are gathered
     once (a vocab-sharded table whole: one all-gather of V x D, whose
     backward reduce-scatters the dense table gradient). Every rank holds
     the client's whole (B, S) token batch, so the next-token label of its

@@ -319,9 +319,10 @@ def test_not_ported_has_no_serving_entries():
 # ---------------------------------------------------------------------------
 
 @functools.lru_cache(maxsize=None)
-def _small_cell(spec, big=False):
+def _small_cell(spec, big=False, cohort="auto"):
     """``analyze`` of the reduced dense model's train cell (seq 32, global
-    batch 4) for rank 0 of a fake 2 x 2 group, with ``spec``."""
+    batch 4) for rank 0 of a fake 2 x 2 group, with ``spec`` and the
+    cohort policy ``cohort``."""
     from repro_torch.launch.mesh import make_replica_grid
     dryrun.fake_group(4, 0)
     try:
@@ -329,7 +330,8 @@ def _small_cell(spec, big=False):
                                  device_type="cpu")
         step, ex, plan = dryrun.build_train_cell(
             R.arch(big), ShapeCfg("test", "train", R.SEQ, 4), grid,
-            pipeline=spec, agg_backend="cuda", encode_backend="cuda")
+            pipeline=spec, agg_backend="cuda", encode_backend="cuda",
+            cohort=cohort)
         res = dryrun.analyze(step, ex, grid, spec)
         # the step's layout, built by the traced round
         layout = ex["layout"](None)
@@ -410,17 +412,19 @@ def test_new_collectives_in_the_count(spec, new, big):
     assert res["collectives"] == totals
 
 
-@pytest.mark.parametrize("args,why", [
-    (["--arch", "qwen2_5_32b", "--cohort", "stream(shard=2)"],
-     "big plan's forced stream")])
-def test_grid_gaps_print_not_ported(args, why, capsys):
-    """A cohort that streams the big plan's sequential groups (ROADMAP item
-    21 step 6) prints a ``not_ported`` record naming what it waits for,
-    not an error."""
-    dryrun.main(["--shape", "train_4k"] + args)
-    line = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
-    assert why in line["not_ported"] and "ROADMAP" in line["not_ported"]
-    assert "error" not in line and "flops_per_device" not in line
+@pytest.mark.parametrize("spec", ["zsign", "ef|zsign(use_kernel=true)"])
+def test_forced_stream_on_the_big_plan_prints_a_record(spec):
+    """A cohort that streams the big plan's sequential groups runs the
+    grid's stream plan (its full qwen2.5-32b ``train_4k`` record is
+    ``test_torch_sharded_stream.py``'s): at the reduced dense model its 2
+    groups in one shard of 2 (R1's fold mode on the EF wire) run the group
+    round's collectives, byte for byte, from the same arguments."""
+    res, plan, _, _ = _small_cell(spec, True, "stream(shard=2)")
+    base = _small_cell(spec, True)[0]
+    assert plan.client_groups == 2 and not plan.client_axes
+    assert "not_ported" not in res and res["flops_per_device"] > 0
+    assert res["collectives_by_use"] == base["collectives_by_use"]
+    assert res["argument_bytes"] == base["argument_bytes"]
 
 
 @pytest.mark.parametrize("args", [

@@ -475,8 +475,9 @@ def test_other_pipelines_on_a_grid_raise(spec):
     """These six specs build on a grid and resolve their layout (their
     rounds are held in ``tests/test_torch_sharded_pipelines.py``); what
     still waits raises ``NotImplementedError`` naming ROADMAP with each of
-    them: an async round, and a cohort that streams the big plan's
-    sequential groups (ROADMAP item 21 step 6)."""
+    them: an async round. A cohort that streams the big plan's sequential
+    groups builds and resolves its stream plan with each of them (its
+    rounds are held in ``tests/test_torch_sharded_stream.py``)."""
     import dataclasses
 
     import torch.distributed as dist
@@ -500,9 +501,10 @@ def test_other_pipelines_on_a_grid_raise(spec):
             TF.build_sharded_round_step(
                 lambda p, b: 0.0, TC.Pipeline(spec), ex["fcfg"], ctx,
                 grid=grid, plan=plan, specs=ex["specs"])
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            dryrun.build_train_cell(R.arch(True), shape, grid,
-                                    pipeline=spec, cohort="stream(shard=1)")
+        step, ex, _ = dryrun.build_train_cell(
+            R.arch(True), shape, grid, pipeline=spec,
+            cohort="stream(shard=1)")
+        assert ex["layout"](None).spec.n_coords > 0
     finally:
         dist.destroy_process_group()
 

@@ -1,5 +1,6 @@
-"""The reference's side of ``tests/test_torch_sharded_recurrent.py``, run as
-a subprocess on a forced-host CPU platform of 4 devices
+"""The reference's side of ``tests/test_torch_sharded_recurrent.py`` (and
+of ``tests/test_torch_sharded_encdec.py``), run as a subprocess on a
+forced-host CPU platform of 4 devices
 (``XLA_FLAGS=--xla_force_host_platform_device_count=4``), beside the port's
 gloo ranks:
 
@@ -11,9 +12,11 @@ whose hints the reference runs under (the hybrid's MoE counts its capacity
 per sequence shard, so its grid function is the one under the mesh's
 ``sharding_hints(mesh, ("model",), ("data",))``), or None for one device
 (the xLSTM, whose function has no shard count), and the mLSTM's key chunk
-(``xlstm.CHUNK``) where the case cuts it. For every client of a
-round it writes the reference's loss, its flat gradient (``wire.tree_spec``
-order) and the MoE aux (``hybrid.forward_hidden``'s; 0 for the xLSTM).
+(``xlstm.CHUNK``) where the case cuts it. An enc-dec round's case also
+holds its (G, N, E, micro, S_src, D) frames, ``embeds``, beside the target
+tokens. For every client of a round it writes the reference's loss, its
+flat gradient (``wire.tree_spec`` order) and the MoE aux
+(``hybrid.forward_hidden``'s; 0 for the other families).
 """
 import pickle
 import sys
@@ -55,8 +58,10 @@ def _round(case):
         out = []
         for g in range(tokens.shape[0]):
             for c in range(tokens.shape[1]):
-                loss, grad, aux = step(params, {"tokens": jnp.asarray(
-                    tokens[g, c, 0])})
+                batch = {"tokens": jnp.asarray(tokens[g, c, 0])}
+                if "embeds" in case:
+                    batch["embeds"] = jnp.asarray(case["embeds"][g, c, 0])
+                loss, grad, aux = step(params, batch)
                 out.append({"loss": float(loss), "aux": float(aux),
                             "grad": np.asarray(spec.flatten(grad))})
     return out
