@@ -3267,7 +3267,24 @@ SHARD_TIMEOUT_S = 600
 #: steps (20 and 8 took 105 s, above the phase's 45 s); 32B's 4 write every
 #: slot, two on each sequence rank
 SHARD_SERVE = {"shard_qwen2": ((4, 256), 16, 8, 6),
-               "shard_qwen25_32b": (None, 16, 4, 4)}
+               "shard_qwen25_32b": (None, 16, 4, 4),
+               # xlstm-350m full width: the sLSTM's (6, 16, 1,024) state
+               # leaves cut over `model` on D, the mLSTM's on the rows
+               # (its cache has no slots: 8 is any length)
+               "shard_xlstm": ((4, 256), 16, 8, 6),
+               # jamba's reduced config (f32; d_inner 128 is under the
+               # state rule's 1,024: SHARD_MAMBA_DECODE cuts the state)
+               "shard_hybrid": ((4, 64), 16, 8, 6),
+               # seamless 4 + 4 layers: the prefill cell's 128 frames, then
+               # the 32 rows' memory of 2,048 seeded frames filled on the
+               # grid (``fill_cache``) beside 6 self-attention slots (3 a
+               # sequence rank, 4 steps into the second's; 4 would be the
+               # layers' count). 16 rows would equal its 16 kv heads, which
+               # ``cache_specs`` then cuts as rows too
+               "shard_encdec": ((4, 256), 32, 6, 4)}
+#: the seed of the enc-dec serving paths' f32 frames (N(0, 1)): the prefill
+#: cell's, then the decode memory's
+SERVE_FRAME_SEED = 9
 #: the one-process decode's top-2 logit gap above which the grid's greedy
 #: token must be the one-process token: twice the largest logit error
 #: measured (0.0 on an H100 80GB HBM3 at 700 W: the grid's logits are the
@@ -3283,6 +3300,43 @@ SERVE_GAP_MARGIN = 0.0
 #: them, and the gathered weights' bf16 matmuls give each row the same bits
 #: on 8 rows as on 16), so the same bits
 SERVE_REL_L2 = 0.0
+#: the limits where a path's design does not keep every sum whole: path ->
+#: {"prefill", "decode", "cache": relative L2 limit, "gap": top-2 margin},
+#: against the one-process run over each `data` rank's rows
+#: (SERVE_ROW_SPLIT). The reduced hybrid is f32: its channel-parallel
+#: mamba prefill sums the x_proj partials over the channel slices and its
+#: decode's softmax fold scales each rank's f32 softmax by its share (6.1e-6,
+#: 1.2e-6 and 8.5e-7 measured on an H100 80GB HBM3 at 700 W; the top-2
+#: gaps down to 7.0e-4), so 1e-4 and a gap of 1e-3. The
+#: enc-dec's cross-attention adds the memory slots' f32 products over the
+#: ranks where one process takes one bf16 matmul, and its encoder runs over
+#: sequence shards (6.5e-3, 8.3e-3 and 5.0e-3 measured, the logits 3.1e-2
+#: apart at most), so 2e-2 and a gap of 0.1. The xLSTM keeps 0.0: its
+#: prefill, decode and state were the reference's bits
+SERVE_LIMITS_BY_PATH = {
+    "shard_hybrid": {"prefill": 1e-4, "decode": 1e-4, "cache": 1e-4,
+                     "gap": 1e-3},
+    "shard_encdec": {"prefill": 2e-2, "decode": 2e-2, "cache": 2e-2,
+                     "gap": 0.1}}
+#: shard_hybrid's ranks also step one mamba sublayer at Jamba's width
+#: (SHARD_MAMBA's d_model) as the decode cell does, its h (B, d_inner, 16)
+#: and conv (B, 3, d_inner) state cut over `model` on d_inner, the rows
+#: over `data`: B rows, steps one-token steps from a zero state, beside the
+#: one-process ``mamba_decode_step``. Its activations are gathered over the
+#: channel ranks (every sum whole): every step's output and the final state
+#: slices are the one-process bits (limit 0.0)
+SHARD_MAMBA_DECODE = {"batch": 16, "steps": 4}
+#: the serving paths whose one-process reference runs over each `data`
+#: rank's rows alone (``_serve_row_split``), as the grid's ranks run them:
+#: the card's bf16 GEMMs may round a row otherwise at 16 rows than at 8
+#: (xlstm-350m's one-process decode over 16 rows lay 7.3e-2 relative L2
+#: from the same rows run 8 at a time, its prefill 0.104, on an H100 80GB
+#: HBM3 at 700 W: its mLSTM rms-normalizes near-zero products at random
+#: init), so the grid's bits are those of a run over
+#: its rows; the all-rows run's distance from it is printed as
+#: ``control``. The Jamba-width mamba decode (SHARD_MAMBA_DECODE) is held
+#: the same way
+SERVE_ROW_SPLIT = ("shard_xlstm", "shard_hybrid", "shard_encdec")
 #: coordinates a chunk of the ranks' plain checks (a multiple of E1's tile)
 RANGE_CHECK_COORDS = 1 << 26
 
@@ -4313,6 +4367,7 @@ def _shard_rank(rank, world, ctx, label, arch_id, layers, rounds, seq,
         rec["serve"] = _shard_serve(grid, arch, dev, tmp, label)
     if label == SHARD_MAMBA_PATH:
         rec["mamba"] = _shard_mamba(grid, dev, tmp)
+        rec["mamba_decode"] = _shard_mamba_decode(grid, dev, tmp)
     if label == SHARD_STREAM_PATH:
         rec["stream"] = _shard_stream_round(grid, arch, seq, gbatch, dev,
                                             group_params)
@@ -4440,13 +4495,110 @@ def _rel_l2(got, want) -> float:
                  torch.linalg.vector_norm(w).clamp_min(1e-300))
 
 
+def _serve_inputs(cfg, pre, dec):
+    """(the prefill cell's input, the enc-dec's decode memory frames or
+    None), on the CPU, the same in every process: the prefill's tokens or,
+    for the enc-dec, its seq // 2 f32 frames; the decode memory's
+    ENCDEC_SRC_LEN f32 frames of every row."""
+    from repro_torch.models.api import ENCDEC_SRC_LEN
+    gen = torch.Generator().manual_seed(SERVE_FRAME_SEED)
+    frames = None
+    if cfg.family == "encdec":
+        x = None if pre is None else torch.randn(
+            (pre.global_batch, pre.seq_len // 2, cfg.d_model), generator=gen)
+        frames = torch.randn((dec.global_batch, ENCDEC_SRC_LEN, cfg.d_model),
+                             generator=gen)
+    else:
+        x = None if pre is None else _serve_tokens(
+            pre.global_batch, pre.seq_len, cfg.vocab, 7)
+    return x, frames
+
+
+def _tree_bytes(tree) -> int:
+    from repro_torch.core.tree import tree_leaves
+    return sum(v.numel() * v.element_size() for v in tree_leaves(tree))
+
+
+def _row_blocks(n_rows):
+    """The rows of each `data` rank of the 2 x 2 grid: the blocks a
+    cache's batch dimension splits into (``cache_specs`` cuts it over
+    `data` on both plans)."""
+    n = SHARD_GRID[SHARD_AXES.index("data")]
+    per = n_rows // n
+    return [slice(i * per, (i + 1) * per) for i in range(n)]
+
+
+def _row_dims(arch, dec):
+    """{cache leaf path: its batch dimension} of SHARD_SERVE's decode
+    cache: the dimension ``cache_specs`` cuts over `data`."""
+    from repro_torch.core.tree import tree_paths
+    from repro_torch.launch import sharding as SH
+    from repro_torch.models.api import ENCDEC_SRC_LEN, build_model
+    plan = SH.make_plan(arch, dec, _GridShape())
+    meta = build_model(arch.model).init_cache(dec.global_batch, dec.seq_len,
+                                              device="meta")
+    cspecs = SH.cache_specs(meta, plan, batch=dec.global_batch,
+                            seq_lens=(dec.seq_len, ENCDEC_SRC_LEN))
+    return {p: next(d for d, a in SH.spec_dims(sp) if a == ("data",))
+            for p, sp in tree_paths(cspecs)}
+
+
+def _serve_row_split(bundle, params, arch, pre, dec, x, frames, feed,
+                     steps):
+    """SERVE_ROW_SPLIT: the one-process prefill and decode again over each
+    `data` rank's rows alone, the decode fed ``feed`` (the all-rows run's
+    tokens), from the family's initial cache (the enc-dec's memory filled
+    from those rows' frames) -> {"prefill", "logits": the blocks'
+    concatenated along the rows, "cache": the blocks' caches concatenated
+    along each leaf's batch dimension}. A rank's matmuls take its rows
+    only, and the card's GEMMs may round a row otherwise at another row
+    count, so these are the bits the grid's design keeps."""
+    from repro_torch.core.tree import tree_paths, tree_set
+    from repro_torch.launch import hints
+    from repro_torch.models import encdec
+    cfg = arch.model
+    out = {"prefill": None}
+    if x is not None:
+        with hints.seq_shard_view(SHARD_SEQ_SHARDS):
+            out["prefill"] = torch.cat(
+                [bundle.prefill(params, x[rows].to(DEV)).cpu()
+                 for rows in _row_blocks(x.shape[0])])
+    logits, caches = [], []
+    for rows in _row_blocks(dec.global_batch):
+        cache = bundle.init_cache(rows.stop - rows.start, dec.seq_len, DEV)
+        if frames is not None:
+            encdec.prefill_cache(params, cache, frames[rows].to(DEV), cfg)
+        lgs = []
+        for t in range(steps):
+            lg, cache = bundle.decode_step(params, cache,
+                                           feed[rows, t:t + 1].to(DEV), t)
+            lgs.append(lg.cpu())
+        logits.append(torch.stack(lgs))
+        caches.append(dict(tree_paths(cache)))
+        del cache
+    out["logits"] = torch.cat(logits, dim=1)
+    out["cache"] = {}
+    for path, dim in _row_dims(arch, dec).items():
+        tree_set(out["cache"], path, torch.cat([c[path].cpu()
+                                                for c in caches], dim=dim))
+    return out
+
+
 def _serve_one(label, arch_id, layers, tmp):
     """SHARD_SERVE's one-process prefill and greedy decode on the card,
     from the path's seed-0 weights through the bundle's entry points: the
-    prefill's last-token logits, each decode step's logits, argmax and the
-    top-2 logit gap of every row, and the final cache, written to ``tmp``
-    for the checks; ms a step (after the warm-up step) and the warm-up's.
-    -> the record."""
+    prefill's output (the last token's logits; the enc-dec's memory frame;
+    under ``hints.seq_shard_view``, the grid's MoE capacity), the enc-dec's
+    memory filled (``prefill_cache``), each decode step's logits and argmax
+    and the final cache; ms a step (after the warm-up step) and the
+    warm-up's. For SERVE_ROW_SPLIT the same again over each `data` rank's
+    rows (``_serve_row_split``): the reference the grid is held to, beside
+    its distance from the all-rows run (``control``). The reference's
+    output, logits, argmax, top-2 logit gaps, the tokens the grid is fed
+    and its cache are written to ``tmp`` for the checks. -> the record."""
+    from repro_torch.core.tree import tree_leaves, tree_map
+    from repro_torch.launch import hints
+    from repro_torch.models import encdec
     from repro_torch.models.api import build_model
     arch = _shard_arch(arch_id, layers)
     bundle = build_model(arch.model)
@@ -4454,24 +4606,30 @@ def _serve_one(label, arch_id, layers, tmp):
     pre, dec = _serve_shapes(label)
     steps = SHARD_SERVE[label][3]
     params = _shard_init(arch, DEV)
+    x, frames = _serve_inputs(cfg, pre, dec)
     _free()
     torch.cuda.reset_peak_memory_stats()
     before = _counts()
     out = {"steps": steps}
+    prefill = None
     if pre is not None:
-        toks = _serve_tokens(pre.global_batch, pre.seq_len, cfg.vocab,
-                             7).to(DEV)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        prefill = bundle.prefill(params, toks)
+        # the grid's MoE capacity, counted per sequence shard
+        with hints.seq_shard_view(SHARD_SEQ_SHARDS):
+            prefill = bundle.prefill(params, x.to(DEV))
         torch.cuda.synchronize()
         out["prefill_s"] = time.perf_counter() - t0
-        torch.save({"tokens": toks.cpu(), "logits": prefill.cpu()},
-                   os.path.join(tmp, label + "_prefill.pt"))
-        del prefill
+        prefill = prefill.cpu()
     cache = bundle.init_cache(dec.global_batch, dec.seq_len, DEV)
+    if frames is not None:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        encdec.prefill_cache(params, cache, frames.to(DEV), cfg)
+        torch.cuda.synchronize()
+        out["fill_s"] = time.perf_counter() - t0
     tok = _serve_tokens(dec.global_batch, 1, cfg.vocab, 8).to(DEV)
-    logits, tokens, gaps, ms = [], [tok.cpu()], [], []
+    logits, tokens, ms = [], [tok.cpu()], []
     for t in range(steps):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -4479,20 +4637,36 @@ def _serve_one(label, arch_id, layers, tmp):
         tok = torch.argmax(lg[:, -1:], dim=-1).to(torch.int32)
         torch.cuda.synchronize()
         ms.append((time.perf_counter() - t0) * 1e3)
-        top2 = torch.topk(lg[:, -1], 2, dim=-1).values
-        gaps.append((top2[:, 0] - top2[:, 1]).cpu())
         logits.append(lg.cpu())
         tokens.append(tok.cpu())
     out.update(peak=torch.cuda.max_memory_allocated(),
                counts=_counts(), counts_before=before,
                warmup_ms=ms[0], ms_per_step=sum(ms[1:]) / (steps - 1),
-               cache_bytes=sum(v.numel() * v.element_size()
-                               for v in cache.values()))
-    torch.save({"logits": torch.stack(logits), "tokens": torch.cat(
-        tokens, dim=1), "gaps": torch.stack(gaps),
-        "cache": {k: v.cpu() for k, v in cache.items()}},
-        os.path.join(tmp, label + "_decode.pt"))
-    del params, cache, logits
+               cache_bytes=_tree_bytes(cache))
+    ref = {"logits": torch.stack(logits), "tokens": torch.cat(tokens, dim=1),
+           "cache": tree_map(lambda v: v.cpu(), cache)}
+    del cache
+    if label in SERVE_ROW_SPLIT:
+        split = _serve_row_split(bundle, params, arch, pre, dec, x, frames,
+                                 ref["tokens"], steps)
+        out["control"] = {
+            "prefill": None if prefill is None else
+            _rel_l2(split["prefill"].float(), prefill.float()),
+            "decode": max(_rel_l2(a, b) for a, b in
+                          zip(split["logits"], ref["logits"])),
+            "cache": max(_rel_l2(a.float(), b.float()) for a, b in
+                         zip(tree_leaves(split["cache"]),
+                             tree_leaves(ref["cache"])))}
+        prefill = split["prefill"]
+        ref.update(logits=split["logits"], cache=split["cache"])
+    top2 = torch.topk(ref["logits"][:, :, -1], 2, dim=-1).values
+    ref.update(argmax=torch.argmax(ref["logits"][:, :, -1], dim=-1).T,
+               gaps=top2[..., 0] - top2[..., 1])
+    if prefill is not None:
+        torch.save({"tokens": x, "logits": prefill},
+                   os.path.join(tmp, label + "_prefill.pt"))
+    torch.save(ref, os.path.join(tmp, label + "_decode.pt"))
+    del params, ref, logits
     _free()
     return out
 
@@ -4513,16 +4687,20 @@ def _shard_serve(grid, arch, dev, tmp, label):
     """SHARD_SERVE on this rank of the grid: the dry run's prefill and
     decode cells (``dryrun.build_prefill_cell``, ``build_decode_cell``)
     from this rank's shards of the seed-0 weights, beside the one-process
-    run's files in ``tmp``. The prefill's logits (the whole batch on every
-    rank) against the one-process prefill's; the decode fed the
-    one-process tokens at every step (teacher-forced where they differ),
-    each step's logits against the one-process step's, its own argmax
-    beside the one-process token, its collective bytes; then its cache
-    slice against the one-process cache's slice. -> the record."""
+    run's files in ``tmp``. The prefill's output (the whole batch on every
+    rank) against the one-process prefill's; the decode from this rank's
+    slice of the family's initial cache (``models/api.shard_cache``; the
+    enc-dec's memory filled on the grid by the cell's ``fill_cache``, each
+    rank's frames into its own slots), fed the one-process tokens at every
+    step (teacher-forced where they differ), each step's logits against
+    the one-process step's, its own argmax beside the one-process token,
+    its collective bytes; then every leaf of its cache slice against the
+    one-process cache's slice. -> the record."""
     import torch.distributed as dist
-    from repro_torch.core.tree import tree_map
+    from repro_torch.core.tree import tree_map, tree_paths
     from repro_torch.launch import dryrun, hints
-    from repro_torch.models.api import shard_params
+    from repro_torch.models.api import build_model, shard_cache, \
+        shard_params
     t_all = time.perf_counter()
     pre, dec = _serve_shapes(label)
     steps = SHARD_SERVE[label][3]
@@ -4530,6 +4708,7 @@ def _shard_serve(grid, arch, dev, tmp, label):
     full = _shard_init(arch, dev)
     shards = shard_params(full, arch.model, grid, plan, device=dev)
     del full
+    x, frames = _serve_inputs(arch.model, pre, dec)
     _free()
     torch.cuda.reset_peak_memory_stats()
     before = _counts()
@@ -4538,36 +4717,41 @@ def _shard_serve(grid, arch, dev, tmp, label):
     def by_use():
         return {k: list(v) for k, v in hints.COLLECTIVES.items()}
 
+    def timed(fn):
+        hints.reset_collective_stats()
+        dist.barrier()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        got = fn()
+        torch.cuda.synchronize()
+        return got, time.perf_counter() - t0
+
     if pre is not None:
         prefill = dryrun.build_prefill_cell(arch, pre, grid)[0]
         one = torch.load(os.path.join(tmp, label + "_prefill.pt"))
-        hints.reset_collective_stats()
-        dist.barrier()
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        got = prefill(shards, one["tokens"].to(dev))
-        torch.cuda.synchronize()
-        rec["prefill"] = {"sec": time.perf_counter() - t0,
-                          "collective_by_use": by_use(),
+        got, sec = timed(lambda: prefill(shards, one["tokens"].to(dev)))
+        rec["prefill"] = {"sec": sec, "collective_by_use": by_use(),
                           "shape": list(got.shape),
-                          "rel_l2": _rel_l2(got.cpu(), one["logits"]),
-                          "digest": _digest(got.reshape(-1))}
+                          "rel_l2": _rel_l2(got.cpu().float(),
+                                            one["logits"].float()),
+                          "digest": _digest(got.float().reshape(-1))}
         del got, one
+    whole = build_model(arch.model).init_cache(dec.global_batch,
+                                               dec.seq_len, dev)
+    init = shard_cache(whole, ex["cache_specs"], grid, device=dev)
+    del whole
+    cache = tree_map(torch.clone, init)
+    if frames is not None:
+        _, sec = timed(lambda: ex["fill_cache"](shards, cache,
+                                               frames.to(dev)))
+        rec["fill"] = {"sec": sec, "collective_by_use": by_use()}
     one = torch.load(os.path.join(tmp, label + "_decode.pt"))
-    cache = tree_map(lambda leaf: torch.zeros(leaf.shape, dtype=leaf.dtype,
-                                              device=dev), ex["cache"])
     per = []
     for t in range(steps):
         tok = one["tokens"][:, t:t + 1].to(dev)
-        hints.reset_collective_stats()
-        dist.barrier()
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        lg, cache = step(shards, cache, tok, t)
-        torch.cuda.synchronize()
-        sec = time.perf_counter() - t0
+        (lg, cache), sec = timed(lambda: step(shards, cache, tok, t))
         mine = torch.argmax(lg[:, -1], dim=-1).cpu()
-        want = one["tokens"][:, t + 1]
+        want = one["argmax"][:, t]
         per.append({"sec": sec, "collective_by_use": by_use(),
                     "rel_l2": _rel_l2(lg.cpu(), one["logits"][t]),
                     "max_abs_err": float((lg.cpu() - one["logits"][t])
@@ -4577,16 +4761,26 @@ def _shard_serve(grid, arch, dev, tmp, label):
         del lg
     rec.update(steps=per, counts=_counts(), counts_before=before,
                peak=torch.cuda.max_memory_allocated(), cache={})
-    for k, v in cache.items():
-        idx = _serve_slices(ex["cache_specs"][k], grid, one["cache"][k].shape)
-        want = one["cache"][k][idx]
-        written = (v != 0).reshape(v.shape[0], v.shape[1], v.shape[2],
-                                   -1).any(dim=3).any(dim=1).any(dim=0)
-        rec["cache"][k] = {"shape": list(v.shape),
-                           "bytes": v.numel() * v.element_size(),
-                           "rel_l2": _rel_l2(v.cpu().float(), want.float()),
-                           "slots_written": int(written.sum())}
-    del cache, shards, one
+    specs = dict(tree_paths(ex["cache_specs"]))
+    inits = dict(tree_paths(init))
+    for path, v in tree_paths(cache):
+        whole = one["cache"]
+        for k in path:
+            whole = whole[k]
+        want = whole[_serve_slices(specs[path], grid, whole.shape)]
+        if len(path) == 1 and path[0] in hints.SLOT_LEAVES:
+            # the slots (dim 2) holding a written K/V
+            written = int((v != 0).reshape(v.shape[0], v.shape[1],
+                                           v.shape[2], -1).any(dim=3)
+                          .any(dim=1).any(dim=0).sum())
+        else:
+            # the state's entries stepped off their initial values
+            written = int((v != inits[path]).sum())
+        rec["cache"][".".join(path)] = {
+            "shape": list(v.shape), "bytes": v.numel() * v.element_size(),
+            "rel_l2": _rel_l2(v.cpu().float(), want.float()),
+            "written": written}
+    del cache, init, shards, one
     _free()
     dist.barrier()
     rec["total_s"] = time.perf_counter() - t_all
@@ -4619,20 +4813,34 @@ def _serve_predict(arch_id, layers, label, rank):
         dist.destroy_process_group()
 
 
+def _serve_limits(label) -> dict:
+    """SHARD_SERVE[label]'s limits: relative L2 of the prefill, the decode
+    logits and the cache against one process, and the top-2 gap margin
+    (SERVE_REL_L2 and SERVE_GAP_MARGIN unless SERVE_LIMITS_BY_PATH says
+    otherwise)."""
+    out = {"prefill": SERVE_REL_L2, "decode": SERVE_REL_L2,
+           "cache": SERVE_REL_L2, "gap": SERVE_GAP_MARGIN}
+    out.update(SERVE_LIMITS_BY_PATH.get(label, {}))
+    return out
+
+
 def _shard_serve_checks(label, one, ranks, predicted, smi, tmp):
     """The checks of SHARD_SERVE[label] on the grid, and its JSON line: no
     kernel launched; each rank's collective bytes, by kind and use, of the
     prefill and of every decode step equal to the dry run's cells for that
-    rank; the logits the same bits on every rank and within SERVE_REL_L2
-    of the one-process run's (prefill and every step); the grid's greedy
-    token the one-process token at every step where the one-process top-2
-    gap exceeds SERVE_GAP_MARGIN; each rank's cache slice of the
-    ``cache_specs`` shard's shape and bytes, within SERVE_REL_L2 of the
-    one-process cache's slice, with written slots on every sequence
-    rank."""
+    rank, and the enc-dec's memory fill gathering no memory; the outputs
+    the same bits on every rank and within the path's limits
+    (``_serve_limits``) of the one-process run's (prefill and every step);
+    the grid's greedy token the one-process token at every step where the
+    one-process top-2 gap exceeds the path's margin; each leaf of each
+    rank's cache slice of the ``cache_specs`` shard's shape and bytes,
+    within the path's limit of the one-process cache's slice, with written
+    slots (or stepped state) on every rank."""
+    from repro_torch.core.tree import tree_paths
     from repro_torch.launch import sharding as SH
-    from repro_torch.models.api import build_model
+    from repro_torch.models.api import ENCDEC_SRC_LEN, build_model
     pre, dec = _serve_shapes(label)
+    lim = _serve_limits(label)
     arch = _shard_arch(*next((p[1], p[2]) for p in SHARD_PATHS
                              if p[0] == label))
     cfg = arch.model
@@ -4640,7 +4848,9 @@ def _shard_serve_checks(label, one, ranks, predicted, smi, tmp):
     meta = build_model(cfg).init_cache(dec.global_batch, dec.seq_len,
                                        device="meta")
     cspecs = SH.cache_specs(meta, plan, batch=dec.global_batch,
-                            seq_lens=(dec.seq_len, 2048))
+                            seq_lens=(dec.seq_len, ENCDEC_SRC_LEN))
+    metas = {".".join(p): v for p, v in tree_paths(meta)}
+    specs = {".".join(p): v for p, v in tree_paths(cspecs)}
     gaps = torch.load(os.path.join(tmp, label + "_decode.pt"))["gaps"]
     if one["counts"] != one["counts_before"]:
         raise AssertionError(f"{label} serve: one process launched "
@@ -4661,9 +4871,13 @@ def _shard_serve_checks(label, one, ranks, predicted, smi, tmp):
                                      f"{p_pre['collectives_by_use']}")
             if sv["prefill"]["digest"] != ranks[0]["serve"]["prefill"][
                     "digest"]:
-                raise AssertionError(f"{label} prefill: rank {r}'s logits "
-                                     "differ from rank 0's")
+                raise AssertionError(f"{label} prefill: rank {r}'s output "
+                                     "differs from rank 0's")
             worst["prefill"] = max(worst["prefill"], sv["prefill"]["rel_l2"])
+        if "fill" in sv and any("mem" in k for k in
+                                sv["fill"]["collective_by_use"]):
+            raise AssertionError(f"{label} fill: rank {r} gathered the "
+                                 f"memory: {sv['fill']['collective_by_use']}")
         for t, st in enumerate(sv["steps"]):
             got = {k: v[0] for k, v in st["collective_by_use"].items()}
             if got != p_dec["collectives_by_use"]:
@@ -4674,32 +4888,35 @@ def _shard_serve_checks(label, one, ranks, predicted, smi, tmp):
                 raise AssertionError(f"{label} decode: rank {r} step {t}: "
                                      "logits differ from rank 0's")
             for b in st["differ"]:
-                if float(gaps[t, b]) > SERVE_GAP_MARGIN:
+                if float(gaps[t, b]) > lim["gap"]:
                     raise AssertionError(
                         f"{label} decode: step {t} row {b}: greedy token "
                         f"off the one-process token at a top-2 gap of "
-                        f"{float(gaps[t, b])} (margin {SERVE_GAP_MARGIN})")
+                        f"{float(gaps[t, b])} (margin {lim['gap']})")
             if r == 0:
                 forced += len(st["differ"])
             worst["decode"] = max(worst["decode"], st["rel_l2"])
             worst["abs"] = max(worst["abs"], st["max_abs_err"])
+        if set(sv["cache"]) != set(metas):
+            raise AssertionError(f"{label} cache: rank {r} holds "
+                                 f"{sorted(sv['cache'])}")
         for k, c in sv["cache"].items():
-            want = SH.shard_shape(tuple(meta[k].shape), cspecs[k],
+            want = SH.shard_shape(tuple(metas[k].shape), specs[k],
                                   _GridShape())
             if tuple(c["shape"]) != want or c["bytes"] != math.prod(
-                    want) * meta[k].element_size():
+                    want) * metas[k].element_size():
                 raise AssertionError(f"{label} cache {k}: rank {r} holds "
                                      f"{c['shape']}, cache_specs' shard is "
                                      f"{want}")
-            if c["slots_written"] == 0:
+            if c["written"] == 0:
                 raise AssertionError(f"{label} cache {k}: rank {r} has no "
-                                     "written slot")
+                                     "written slot or stepped state")
             worst["cache"] = max(worst["cache"], c["rel_l2"])
     for key in ("prefill", "decode", "cache"):
-        if not worst[key] <= SERVE_REL_L2:
+        if not worst[key] <= lim[key]:
             raise AssertionError(f"{label} serve: {key} relative L2 "
                                  f"{worst[key]} off one process (limit "
-                                 f"{SERVE_REL_L2})")
+                                 f"{lim[key]})")
     secs = [[st["sec"] for st in rk["serve"]["steps"]] for rk in ranks]
     step_s = [max(x) for x in zip(*secs)]
     line = {
@@ -4712,9 +4929,14 @@ def _shard_serve_checks(label, one, ranks, predicted, smi, tmp):
             "rel_l2": worst["prefill"],
             "collectives_by_use": ranks[0]["serve"]["prefill"][
                 "collective_by_use"]},
+        "fill": None if "fill" not in ranks[0]["serve"] else {
+            "s_ranks": [rk["serve"]["fill"]["sec"] for rk in ranks],
+            "s_one_process": one["fill_s"],
+            "collectives_by_use": ranks[0]["serve"]["fill"][
+                "collective_by_use"]},
         "decode": {"batch": dec.global_batch, "cache_slots": dec.seq_len,
                    "steps": one["steps"],
-                   "cache_specs": {k: list(v) for k, v in cspecs.items()},
+                   "cache_specs": {k: list(v) for k, v in specs.items()},
                    "ms_per_step": 1e3 * sum(step_s[1:]) / (len(step_s) - 1),
                    "warmup_step_ms": 1e3 * step_s[0],
                    "one_process_ms_per_step": one["ms_per_step"],
@@ -4723,7 +4945,7 @@ def _shard_serve_checks(label, one, ranks, predicted, smi, tmp):
                    "logits_max_abs_err": worst["abs"],
                    "teacher_forced_tokens": forced,
                    "tokens_held_above_margin": int(
-                       (gaps > SERVE_GAP_MARGIN).sum()),
+                       (gaps > lim["gap"]).sum()),
                    "tokens": int(gaps.numel()),
                    "min_gap_one_process": float(gaps.min()),
                    "collectives_by_use_step": ranks[0]["serve"]["steps"][-1][
@@ -4732,9 +4954,11 @@ def _shard_serve_checks(label, one, ranks, predicted, smi, tmp):
                   "rank_bytes": [sum(c["bytes"] for c in rk["serve"][
                       "cache"].values()) for rk in ranks],
                   "one_process_bytes": one["cache_bytes"],
-                  "slots_written": [rk["serve"]["cache"]["k"][
-                      "slots_written"] for rk in ranks]},
-        "limits": {"rel_l2": SERVE_REL_L2, "gap_margin": SERVE_GAP_MARGIN},
+                  "written": [{k: c["written"] for k, c in
+                               rk["serve"]["cache"].items()}
+                              for rk in ranks]},
+        "limits": lim,
+        "control_all_rows_rel_l2": one.get("control"),
         "peak_GB": {"one_process": one["peak"] / 1e9,
                     "ranks": [rk["serve"]["peak"] / 1e9 for rk in ranks],
                     "dry_run_decode": [p[1]["peak_bytes"] / 1e9
@@ -4901,6 +5125,189 @@ def _shard_mamba_checks(one, ranks, smi):
         "bound_rel_l2": SHARD_MAMBA_REL_L2,
         "shard_shapes": recs[0]["shard_shapes"],
         "collective_by_use": [r["collective_by_use"] for r in recs]}))
+
+
+def _mamba_decode_inputs(dev):
+    """SHARD_MAMBA_DECODE's sublayer: SHARD_MAMBA's seed-0 weights and
+    ``steps`` one-token inputs of ``batch`` rows, (steps, B, 1, D) bf16
+    N(0, 1), the same in every process."""
+    lp = _mamba_inputs(dev)[0]
+    B, n = SHARD_MAMBA_DECODE["batch"], SHARD_MAMBA_DECODE["steps"]
+    gen = torch.Generator().manual_seed(11)
+    xs = torch.randn((n, B, 1, SHARD_MAMBA["d_model"]), generator=gen)
+    return lp, xs.to(device=dev, dtype=torch.bfloat16)
+
+
+def _mamba_decode_one(tmp):
+    """SHARD_MAMBA_DECODE in this process without a grid: ``steps`` calls
+    of ``mamba_decode_step`` from a zero state, each timed (host clock,
+    synchronized); then the same over each `data` rank's rows alone, whose
+    outputs and final state (the reference, SERVE_ROW_SPLIT) are written to
+    ``tmp`` for the ranks. -> its record (``control``: the all-rows run's
+    relative L2 from the reference)."""
+    from repro_torch.models import mamba as M
+    D = SHARD_MAMBA["d_model"]
+    B = SHARD_MAMBA_DECODE["batch"]
+    _free()
+    torch.cuda.reset_peak_memory_stats()
+    lp, xs = _mamba_decode_inputs(DEV)
+    h = torch.zeros((B, 2 * D, M.D_STATE), dtype=torch.float32, device=DEV)
+    conv = torch.zeros((B, M.D_CONV - 1, 2 * D), dtype=torch.float32,
+                       device=DEV)
+    ys, secs = [], []
+    with torch.no_grad():
+        for x in xs:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            y, h, conv = M.mamba_decode_step(x, lp, h, conv, d_model=D)
+            torch.cuda.synchronize()
+            secs.append(time.perf_counter() - t0)
+            ys.append(y.cpu())
+        # the reference: each `data` rank's rows alone (SERVE_ROW_SPLIT)
+        blocks = []
+        for rows in _row_blocks(B):
+            hb = torch.zeros_like(h[rows])
+            cb = torch.zeros_like(conv[rows])
+            yb = []
+            for x in xs:
+                y, hb, cb = M.mamba_decode_step(x[rows], lp, hb, cb,
+                                                d_model=D)
+                yb.append(y.cpu())
+            blocks.append((torch.stack(yb), hb.cpu(), cb.cpu()))
+    ref = {k: torch.cat([b[i] for b in blocks], dim=1 if k == "y" else 0)
+           for i, k in enumerate(("y", "h", "conv"))}
+    control = max(_rel_l2(ref["y"], torch.stack(ys)),
+                  _rel_l2(ref["h"], h.cpu()), _rel_l2(ref["conv"], conv.cpu()))
+    torch.save(ref, os.path.join(tmp, "mamba_decode_one.pt"))
+    peak = torch.cuda.max_memory_allocated()
+    del lp, xs, h, conv
+    _free()
+    return {"secs": secs, "peak": peak, "control": control}
+
+
+def _shard_mamba_decode(grid, dev, tmp):
+    """SHARD_MAMBA_DECODE on a rank of the 2 x 2 grid under the decode
+    cell's serving hints on the big plan: the sublayer's weights stored as
+    the plan's (1, ...) shards and gathered each step
+    (``hints.fsdp_gather``), its state (1, B, d_inner, 16) and (1, B, 3,
+    d_inner) cut by ``cache_specs`` (the rows over `data`, d_inner over
+    `model`), this rank's rows of each step's input through
+    ``mamba_decode_step``; each step's output rows and the final state
+    slices against the one-process run's (``_mamba_decode_one``, read from
+    ``tmp``) by relative L2. -> its record."""
+    import torch.distributed as dist
+    from repro_torch.configs.common import ShapeCfg
+    from repro_torch.launch import hints
+    from repro_torch.launch import sharding as SH
+    from repro_torch.models import mamba as M
+    from repro_torch.models.api import ENCDEC_SRC_LEN
+    D = SHARD_MAMBA["d_model"]
+    B, d_in = SHARD_MAMBA_DECODE["batch"], 2 * SHARD_MAMBA["d_model"]
+    arch = _shard_arch(*next((p[1], p[2]) for p in SHARD_PATHS
+                             if p[0] == SHARD_MAMBA_PATH))
+    plan = SH.make_plan(arch, ShapeCfg("chip_mamba_decode", "decode", 8, B),
+                        _GridShape())
+    lp, xs = _mamba_decode_inputs(dev)
+    specs = SH.param_specs({"mamba": {k: (1,) + tuple(v.shape)
+                                      for k, v in lp.items()}}, grid, plan)
+    shards = {k: _cut(lp[k][None], specs["mamba"][k], grid).contiguous()
+              for k in sorted(lp)}
+    del lp
+    cshapes = {"h": (1, B, d_in, M.D_STATE),
+               "conv": (1, B, M.D_CONV - 1, d_in)}
+    seq_lens = (SHARD_MAMBA["seq"], ENCDEC_SRC_LEN)
+    cspecs = SH.cache_specs(cshapes, plan, batch=B, seq_lens=seq_lens)
+    state = {k: torch.zeros(SH.shard_shape(v, cspecs[k], grid),
+                            dtype=torch.float32, device=dev)
+             for k, v in cshapes.items()}
+    _free()
+    torch.cuda.reset_peak_memory_stats()
+    one = torch.load(os.path.join(tmp, "mamba_decode_one.pt"))
+    steps = []
+    with torch.no_grad(), hints.serving_hints(
+            grid, plan, specs, cache_specs=cspecs, cache_shapes=cshapes,
+            batch=B, seq_lens=seq_lens):
+        b0, b1 = hints.batch_bounds(B)
+        lo, hi = hints.state_bounds(d_in)
+        for t, x in enumerate(xs):
+            hints.reset_collective_stats()
+            dist.barrier()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            w = hints.fsdp_gather({k: v[0] for k, v in shards.items()},
+                                  ("mamba",))
+            y, h, conv = M.mamba_decode_step(x[b0:b1], w, state["h"][0],
+                                             state["conv"][0], d_model=D)
+            state["h"][0], state["conv"][0] = h, conv
+            torch.cuda.synchronize()
+            sec = time.perf_counter() - t0
+            del w
+            steps.append({"sec": sec, "rel_l2": _rel_l2(
+                y.cpu(), one["y"][t][b0:b1]),
+                "collective_by_use": {k: list(v) for k, v in
+                                      hints.COLLECTIVES.items()}})
+    rel = {"h": _rel_l2(state["h"][0].cpu(), one["h"][b0:b1, lo:hi]),
+           "conv": _rel_l2(state["conv"][0].cpu(),
+                           one["conv"][b0:b1, :, lo:hi])}
+    return {"coords": dict(grid.coords), "steps": steps, "state_rel_l2": rel,
+            "peak": torch.cuda.max_memory_allocated(),
+            "rows": [b0, b1], "channels": [lo, hi],
+            "cache_specs": {k: list(v) for k, v in cspecs.items()},
+            "gathered_weight_bytes": sum(
+                math.prod((1,) + tuple(v.shape[1:])) * v.element_size()
+                * math.prod(SH.axis_size(grid, a) for _, a in
+                            SH.spec_dims(specs["mamba"][k]))
+                for k, v in shards.items()
+                if SH.spec_dims(specs["mamba"][k]))}
+
+
+def _shard_mamba_decode_checks(one, ranks, smi):
+    """SHARD_MAMBA_DECODE's gates: every rank's output rows at every step
+    and its final state slices the one-process bits (relative L2 0.0:
+    every sum over channels is whole); each step's collectives by use the
+    sublayer's gathered weights and its activations' gathers, B_loc x
+    d_inner bf16 each."""
+    B, n = SHARD_MAMBA_DECODE["batch"], SHARD_MAMBA_DECODE["steps"]
+    d_in = 2 * SHARD_MAMBA["d_model"]
+    recs = [rk["mamba_decode"] for rk in ranks]
+    for r in recs:
+        worst = max([st["rel_l2"] for st in r["steps"]]
+                    + list(r["state_rel_l2"].values()))
+        if not worst == 0.0:
+            raise AssertionError(f"mamba decode at Jamba's width on the "
+                                 f"grid, rank {r['coords']}: relative L2 "
+                                 f"{worst} off one process (limit 0.0): "
+                                 f"{r['steps']} {r['state_rel_l2']}")
+        b_loc = r["rows"][1] - r["rows"][0]
+        want = {"all_gather:weight": r["gathered_weight_bytes"],
+                "all_gather:mamba_act": b_loc * d_in * 2,
+                "all_gather:mamba_y": b_loc * d_in * 2}
+        for st in r["steps"]:
+            got = {k: v[0] for k, v in st["collective_by_use"].items()}
+            if got != want:
+                raise AssertionError(f"mamba decode at Jamba's width: rank "
+                                     f"{r['coords']} moved {got}, want "
+                                     f"{want}")
+    step_s = [max(x) for x in zip(*[[st["sec"] for st in r["steps"]]
+                                    for r in recs])]
+    line = {"sharded_mamba_decode": "jamba_width", "card": smi,
+            "grid": dict(zip(SHARD_AXES, SHARD_GRID)),
+            "d_model": SHARD_MAMBA["d_model"], "d_inner": d_in, "batch": B,
+            "steps": n, "dtype": "bfloat16",
+            "cache_specs": recs[0]["cache_specs"],
+            "ms_per_step": 1e3 * sum(step_s[1:]) / (n - 1),
+            "warmup_step_ms": 1e3 * step_s[0],
+            "one_process_ms_per_step": 1e3 * sum(one["secs"][1:]) / (n - 1),
+            "one_process_warmup_ms": 1e3 * one["secs"][0],
+            "rel_l2": 0.0, "limit": 0.0,
+            "control_all_rows_rel_l2": one["control"],
+            "peak_GB": {"one_process": one["peak"] / 1e9,
+                        "ranks": [r["peak"] / 1e9 for r in recs]},
+            "collectives_by_use_step": {
+                k: v for k, v in recs[0]["steps"][-1][
+                    "collective_by_use"].items()}}
+    print(json.dumps(line))
+    return line
 
 
 def _shard_params_vs_one(params, path, arch, grid, plan, layout, dev):
@@ -5575,6 +5982,7 @@ def phase_sharded_replica(dev, smi, predictions=None):
                 serve_one = _serve_one(label, arch_id, layers, tmp)
             if label == SHARD_MAMBA_PATH:
                 mamba_one = _mamba_one(tmp)
+                mamba_decode_one = _mamba_decode_one(tmp)
             one_s = time.time() - t0
             if toucher.ident is None:
                 toucher.start()
@@ -5616,6 +6024,7 @@ def phase_sharded_replica(dev, smi, predictions=None):
                       f"a rank")
             if label == SHARD_MAMBA_PATH:
                 _shard_mamba_checks(mamba_one, ranks, smi)
+                _shard_mamba_decode_checks(mamba_decode_one, ranks, smi)
             if label == SHARD_STREAM_PATH:
                 out.update(_shard_stream_checks(label, ranks, smi))
             print(f"# {label}: one process {one_s:.1f} s, with the dry run "

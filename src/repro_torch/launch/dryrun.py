@@ -41,32 +41,34 @@ report for this rank:
 ``run_cell`` adds ``launch/roofline.terms_for`` with the H100 ``Chip`` (the
 reference's v5e constants are not ported) and the peak against one H100's
 80 GB (``HBM_BYTES``). It skips ``long_500k`` on an arch whose bundle is
-not ``subquadratic`` with the reference's record, before the family
-check. The trace takes the card's
-route through the wire (the ``auto`` backends): E1, R1, F1 and C1 stand
-in by their kernels' outputs (they count and do not compute), the dense
-noise draw by its output, and top-k's selection by its collectives and
-the range's even share of k; on a card ``chip_smoke.py`` runs this same
-``build_train_cell`` step for real on a 2 x 2 grid, and the serving cells
-at its own shapes. Every cell of the dense, MoE and VLM families is
-ported (the MoE experts gathered a layer or, under ``moe_ep``,
-expert-parallel with the dispatch's all-to-alls counted, at decode too),
-with every pipeline spec (``--pipeline``) and the reference's
-``--agg-backend``, ``--encode-backend``, ``--cohort`` and ``--adversary``;
-so is the train cell of the xLSTM family (the mLSTM's K, V and gates and
-the sLSTM's input gathered along the sequence: ``all_gather:kv``,
-``:gates``, ``:slstm_in``), of the hybrid (each mamba sublayer's input
-gathered, ``all_gather:mamba_in``, its ``x_proj`` partial all-reduced,
-``all_reduce:mamba_xproj``, its output reduce-scattered,
-``reduce_scatter:mamba_out``) and of the enc-dec family (the encoder's
-memory gathered along the sequence once, ``all_gather:enc_mem``, its
-gradient reduce-scattered once, ``reduce_scatter:enc_mem``). A cohort
-that streams the big plan's sequential groups (``--cohort
-"stream(shard=K)"``) runs the grid's stream plan. The serving cells of the
-recurrent, hybrid and enc-dec families (ROADMAP item 19 step 3) are not
-ported, and the CLI says so instead of printing a result. The scans of
-the recurrent blocks are Python loops over the sequence, on meta tensors
-too: a full train_4k record of xlstm_350m or jamba_1_5_large_398b takes
+not ``subquadratic`` with the reference's record. The trace takes the
+card's route through the wire (the ``auto`` backends): E1, R1, F1 and C1
+stand in by their kernels' outputs (they count and do not compute), the
+dense noise draw by its output, and top-k's selection by its collectives
+and the range's even share of k; on a card ``chip_smoke.py`` runs this
+same ``build_train_cell`` step for real on a 2 x 2 grid, and the serving
+cells at its own shapes. Every cell of every family runs: the MoE experts
+gathered a layer or, under ``moe_ep``, expert-parallel with the
+dispatch's all-to-alls counted, at decode too, with every pipeline spec
+(``--pipeline``) and the reference's ``--agg-backend``,
+``--encode-backend``, ``--cohort`` and ``--adversary``; the xLSTM's train
+cell gathers the mLSTM's K, V and gates and the sLSTM's input along the
+sequence (``all_gather:kv``, ``:gates``, ``:slstm_in``), the hybrid's each
+mamba sublayer's input (``all_gather:mamba_in``) with its ``x_proj``
+partial all-reduced (``all_reduce:mamba_xproj``) and its output
+reduce-scattered (``reduce_scatter:mamba_out``), the enc-dec's the
+encoder's memory once (``all_gather:enc_mem``, its gradient
+``reduce_scatter:enc_mem``). Their serving cells: the sLSTM's state, cut
+over `model` on its D, gathered a step (``all_gather:slstm_state``); a
+mamba step's activations gathered over its state's d_inner channels
+(``all_gather:mamba_act``, ``:mamba_y``); the enc-dec's cross-attention
+over its memory slots with the softmax folded over them
+(``all_gather:mem_softmax``, ``:mem_attn``), its prefill cell's memory
+frame gathered over the rows (``all_gather:mem_last``). A cohort that
+streams the big plan's sequential groups (``--cohort "stream(shard=K)"``)
+runs the grid's stream plan. The scans of the recurrent blocks are Python
+loops over the sequence, on meta tensors too: a full train_4k record of
+xlstm_350m or jamba_1_5_large_398b, and their prefill_32k records, take
 tens of minutes.
 """
 from __future__ import annotations
@@ -88,14 +90,12 @@ from repro_torch.core.tree import tree_leaves, tree_map
 from repro_torch.launch import hints
 from repro_torch.launch import sharding as SH
 from repro_torch.launch.mesh import make_production_mesh
-from repro_torch.models.api import BatchLeaf, build_model, family_module
+from repro_torch.models.api import ENCDEC_SRC_LEN, BatchLeaf, build_model, \
+    family_module
 
-#: what each cell kind waits for (the CLI prints it, never a result)
-NOT_PORTED = {
-    "family": "the {family} family's {kind} cell on a grid is not ported "
-              "yet (ROADMAP item 19 step {step}: {what})",
-    "pipeline": "{msg}",
-}
+#: what a cell waits for (the CLI prints it, never a result): a round
+#: mode the grid's train cell does not run
+NOT_PORTED = {"pipeline": "{msg}"}
 #: the reference's reason for skipping long_500k on an arch that is not
 #: sub-quadratic (``src/repro/launch/dryrun.py``'s ``run_cell``)
 LONG_SKIP = "full-attention arch: no sub-quadratic path (DESIGN.md)"
@@ -103,9 +103,6 @@ LONG_SKIP = "full-attention arch: no sub-quadratic path (DESIGN.md)"
 
 #: one H100's device memory, the gate each rank's peak is reported against
 HBM_BYTES = 80e9
-#: the families whose serving cells (prefill, decode) run on a grid (every
-#: family's train cell does)
-SERVING_FAMILIES = ("dense", "moe", "vlm")
 
 
 class NotPorted(NotImplementedError):
@@ -128,7 +125,6 @@ def build_train_cell(arch, shape: ShapeCfg, grid, *,
     shards, a tree of ``BatchLeaf``), ``specs``, ``batch`` ((G, N, E,
     micro, S) leaves) and ``mask`` ((G, N)), and the step's ``layout``
     (its range state's); ``make_inputs`` builds them."""
-    _check_family(arch, "train")
     if shape.kind != "train":
         raise ValueError(f"build_train_cell takes a train shape, not "
                          f"{shape.kind} ({shape.name}): build_"
@@ -167,17 +163,6 @@ def build_train_cell(arch, shape: ShapeCfg, grid, *,
     return step, example, plan
 
 
-def _check_family(arch, kind: str) -> None:
-    """Raise ``NotPorted`` for a cell of ``kind`` ("train", "prefill" or
-    "decode") that the arch's family does not run on a grid yet."""
-    family = arch.model.family
-    if kind != "train" and family not in SERVING_FAMILIES:
-        raise NotPorted(NOT_PORTED["family"].format(
-            family=family, kind=kind, step=3,
-            what="the recurrent, hybrid and enc-dec families' serving "
-                 "cells"))
-
-
 def _shard_leaves(meta, specs, grid):
     """``BatchLeaf``s of this rank's shards of a tree of ``meta`` tensors
     under ``specs``; a dimension that does not split over its axes raises
@@ -204,26 +189,33 @@ def _param_shards(arch, grid, plan):
 
 def build_prefill_cell(arch, shape: ShapeCfg, grid):
     """The serving prefill of a prefill cell (the reference's
-    ``build_prefill_cell``) -> (step, example, plan). ``step(params,
-    tokens)`` is the family's ``prefill`` (``models/transformer.prefill``:
-    the final hidden state, the last position's f32 logits) under
-    ``hints.serving_hints`` on ``grid``: ``params`` this rank's shards
-    (the train cell's specs), ``tokens`` the whole (B, S) batch, split over
-    the plan's client and micro axes and its seq axes; the VLM takes tokens
-    only, no image prefix, as the reference's cell does. -> (B, 1, V) on
-    every rank. ``example`` holds the shapes of its arguments."""
-    _check_family(arch, "prefill")
+    ``build_prefill_cell``) -> (step, example, plan). ``step(params, x)``
+    is the family's ``prefill`` under ``hints.serving_hints`` on ``grid``,
+    ``params`` this rank's shards (the train cell's specs) and ``x`` the
+    whole batch, split over the plan's client and micro axes and its seq
+    axes: for the decoder-only, hybrid and xLSTM families the (B, S)
+    ``tokens`` (the VLM's without an image prefix, as the reference's cell
+    takes them) -> the last position's f32 logits (B, 1, V); for the
+    enc-dec the (B, S // 2, D) f32 frames ``embeds`` -> the encoder
+    memory's last frame (B, 1, D), as the reference's cell returns it. The
+    output is whole on every rank. ``example`` holds the shapes of the
+    arguments, under the input's name."""
     bundle = build_model(arch.model)
     plan = SH.make_plan(arch, shape, grid)
     params, specs = _param_shards(arch, grid, plan)
 
-    def step(params, tokens):
+    def step(params, x):
         with hints.serving_hints(grid, plan, specs):
-            return bundle.prefill(params, tokens)
+            return bundle.prefill(params, x)
 
-    example = {"params": params, "specs": specs, "plan": plan,
-               "tokens": BatchLeaf((shape.global_batch, shape.seq_len),
-                                   torch.int32)}
+    example = {"params": params, "specs": specs, "plan": plan}
+    if arch.model.family == "encdec":
+        example["embeds"] = BatchLeaf((shape.global_batch,
+                                       shape.seq_len // 2, arch.model.d_model),
+                                      torch.float32)
+    else:
+        example["tokens"] = BatchLeaf((shape.global_batch, shape.seq_len),
+                                      torch.int32)
     return step, example, plan
 
 
@@ -232,32 +224,48 @@ def build_decode_cell(arch, shape: ShapeCfg, grid):
     ``build_decode_cell``) -> (step, example, plan). The cache is the
     family's ``init_cache(batch, seq_len)`` cut by ``sharding.cache_specs``
     (``seq_lens=(seq_len, 2048)``, the reference's): its batch rows over
-    the plan's client and micro axes and its slots over the seq axes, or,
-    at batch 1, its slots over every axis. ``step(params, cache, tokens,
-    position)`` is ``bundle.decode_step`` under ``hints.serving_hints``:
-    ``params`` this rank's shards, ``cache`` its slice, ``tokens`` the
-    whole (B, 1) batch -> (f32 logits (B, 1, V) on every rank, the cache
-    slice written in place). ``example`` holds the shapes of its
-    arguments and the cache's specs."""
-    _check_family(arch, "decode")
+    the plan's client and micro axes; the self-attention's slots over the
+    seq axes, or, at batch 1, over every axis; the enc-dec's 2,048 memory
+    slots likewise; a recurrent state's feature dimension of 1,024 or more
+    over `model` (Jamba's mamba d_inner, the sLSTM's D). ``step(params,
+    cache, tokens, position)`` is ``bundle.decode_step`` under
+    ``hints.serving_hints`` (the whole cache spec tree): ``params`` this
+    rank's shards, ``cache`` its slice, ``tokens`` the whole (B, 1) batch
+    -> (f32 logits (B, 1, V) on every rank, the cache slice written in
+    place). ``example`` holds the shapes of its arguments and the cache's
+    specs; for the enc-dec also ``fill_cache(params, cache, embeds)``, the
+    family's ``prefill_cache`` under the same hints (each rank's memory
+    slots from its own frames)."""
     bundle = build_model(arch.model)
     plan = SH.make_plan(arch, shape, grid)
     params, specs = _param_shards(arch, grid, plan)
     batch = shape.global_batch
     meta = bundle.init_cache(batch, shape.seq_len, device="meta")
-    cspecs = SH.cache_specs(meta, plan, batch=batch,
-                            seq_lens=(shape.seq_len, 2048))
+    seq_lens = (shape.seq_len, ENCDEC_SRC_LEN)
+    cspecs = SH.cache_specs(meta, plan, batch=batch, seq_lens=seq_lens)
     cache = _shard_leaves(meta, cspecs, grid)
 
+    def serving():
+        return hints.serving_hints(grid, plan, specs, cache_specs=cspecs,
+                                   cache_shapes=meta, batch=batch,
+                                   seq_lens=seq_lens)
+
     def step(params, cache, tokens, position):
-        with hints.serving_hints(grid, plan, specs, cache_spec=cspecs["k"],
-                                 cache_len=shape.seq_len):
+        with serving():
             return bundle.decode_step(params, cache, tokens, position)
 
     example = {"params": params, "specs": specs, "plan": plan,
                "cache": cache, "cache_specs": cspecs,
                "tokens": BatchLeaf((batch, 1), torch.int32),
                "position": shape.seq_len - 1}
+    if arch.model.family == "encdec":
+        from repro_torch.models import encdec
+
+        def fill_cache(params, cache, embeds):
+            with serving():
+                return encdec.prefill_cache(params, cache, embeds,
+                                            arch.model)
+        example["fill_cache"] = fill_cache
     return step, example, plan
 
 
@@ -458,20 +466,23 @@ def analyze_serving(step, example, grid, label: str) -> dict:
     """``analyze`` of a prefill or decode cell: one call of ``step``
     (``build_prefill_cell``'s or ``build_decode_cell``'s) traced as this
     rank of a fake process group on ``meta`` tensors -> the same fields:
-    the argument bytes (param shards, the cache slice, the tokens), the
-    output bytes (the logits; a decode's cache slice too, as the
-    reference's cell returns it), the peak of everything live, the FLOPs
-    and the collective bytes by kind and by use (the layers' weight
-    gathers, ``decode_softmax``, ``decode_attn``, ``logits``,
-    ``prefill_last``, the MoE dispatch)."""
+    the argument bytes (param shards, the cache slice, the tokens or the
+    enc-dec's frames), the output bytes (the logits or the memory frame; a
+    decode's cache slice too, as the reference's cell returns it), the
+    peak of everything live, the FLOPs and the collective bytes by kind and
+    by use (the layers' weight gathers, ``decode_softmax``,
+    ``decode_attn``, ``logits``, ``prefill_last``, the MoE dispatch, the
+    states' ``slstm_state``, ``mamba_act`` and ``mamba_y``, the memory's
+    ``mem_softmax`` and ``mem_attn``, ``mem_last``)."""
     t0 = time.time()
 
     def meta(tree):
         return tree_map(lambda leaf: torch.empty(
             leaf.shape, dtype=leaf.dtype, device="meta"), tree)
 
-    params, tokens = meta(example["params"]), meta(example["tokens"])
-    args = {"params": _nbytes(params), "tokens": _nbytes(tokens)}
+    name = "embeds" if "embeds" in example else "tokens"
+    params, tokens = meta(example["params"]), meta(example[name])
+    args = {"params": _nbytes(params), name: _nbytes(tokens)}
     if "cache" in example:
         cache = meta(example["cache"])
         args["cache"] = _nbytes(cache)
@@ -509,8 +520,7 @@ def run_cell(arch_id: str, shape_name: str, *, multi_pod: bool,
     shape = SHAPES[shape_name]
     mesh_label = "pod2x16x16" if multi_pod else "16x16"
     label = f"{arch_id}/{shape_name}/{mesh_label}"
-    # the reference's order: the arch's sub-quadratic path first, then
-    # whether its family runs on a grid
+    # the reference's skip of an arch with no sub-quadratic path
     if shape_name == "long_500k" and not build_model(arch.model).subquadratic:
         return {"label": f"{arch_id}/{shape_name}", "skipped": LONG_SKIP}
     fake_group(512 if multi_pod else 256, rank)
@@ -560,8 +570,8 @@ def main(argv=None) -> None:
                     help="train_4k | prefill_32k | decode_32k | long_500k "
                          "(the serving cells: the prefill's last-token "
                          "logits, one decode step against the sharded KV "
-                         "cache). Train cells: every family; serving "
-                         "cells: the dense, MoE and VLM families")
+                         "cache; the enc-dec's prefill the memory's last "
+                         "frame), every family")
     ap.add_argument("--multi-pod", action="store_true")
     ap.add_argument("--both-meshes", action="store_true")
     ap.add_argument("--agg-backend", default="auto",

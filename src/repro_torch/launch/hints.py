@@ -39,19 +39,27 @@ each hint IS its collective, over a subgroup of a ``launch/mesh.ReplicaGrid``:
 Serving (the prefill and decode cells) runs under ``serving_hints``: the
 batch rows split over the plan's client and micro axes (a decode's over the
 axes its cache's batch dimension takes, ``launch/sharding.cache_specs``),
-no layer rematerialized, and for a decode the cache's slots split over the
-axes of its sequence dimension (over every axis at batch 1). There
+no layer rematerialized. A decode reads its cache's layout from the whole
+spec tree: each slot layout (the self-attention's K/V and the enc-dec's
+cross-attention memory, each of its own length) over the axes of its slot
+dimension (over every axis at batch 1), and a recurrent state's feature
+dimension over the axes its spec names. There
 
-  ``cache_bounds(n)``  [lo, hi) of this rank's n cache slots and the
-                       cache's length: the rank whose slots hold a
+  ``cache_bounds(n, leaf)``  [lo, hi) of this rank's n slots of a slot
+                       layout and its length: the rank whose slots hold a
                        position owns it (the only one that writes its K/V)
-  ``softmax_stats(m, l)``  the decode softmax's row max and sum of
+  ``softmax_stats(m, l, leaf)``  a decode softmax's row max and sum of
                        exponentials over every rank's slots, from each
-                       rank's (f32), all-gathered over the cache's sequence
+                       rank's (f32), all-gathered over the layout's slot
                        axes and folded in rank order: every rank of the
                        group gets the same bits
-  ``sum_slots(y)``     the sum over those ranks of each rank's
+  ``sum_slots(y, leaf)``  the sum over those ranks of each rank's
                        probability-weighted V, added in rank order
+  ``state_bounds(n)``  [lo, hi) of this rank's channels of a recurrent
+                       state's cut feature dimension
+  ``gather_state(x, dim, use)``  all-gather of a channel slice over the
+                       state's axes (the sLSTM's state, the mamba step's
+                       activations), so every sum over channels is whole
   ``gather_rows(x)``   all-gather of this rank's batch rows (the logits)
   ``last_position(x)`` the hidden state of the sequence's last position,
                        which the last sequence rank holds, on every rank
@@ -688,34 +696,117 @@ def _spec_axes(entry) -> Tuple[str, ...]:
     return (entry,) if isinstance(entry, str) else tuple(entry)
 
 
+#: the slot leaves of a serving cache (top-level keys of the family's
+#: ``init_cache`` tree, shaped (L, B, S, K, hd)) and the slot layout each
+#: shares: the self-attention's K/V ("k") and the enc-dec's cross-attention
+#: memory ("mem_k"), each with a length of its own. Every other leaf is a
+#: recurrent state
+SLOT_LEAVES = {"k": "k", "v": "k", "mem_k": "mem_k", "mem_v": "mem_k"}
+#: the uses of a slot layout's softmax fold: (statistics, V products)
+_FOLD_USES = {"k": ("decode_softmax", "decode_attn"),
+              "mem_k": ("mem_softmax", "mem_attn")}
+
+
+def _same_axes(grid, a, b) -> bool:
+    return grid.axes(a) == grid.axes(b)
+
+
+def same_axes(a, b) -> bool:
+    """Whether two sets of axes are the same axes of the current grid (in
+    any order); off a grid, whether both are empty."""
+    if not active():
+        return not a and not b
+    return _same_axes(_CTX["grid"], a, b)
+
+
+def _cache_layout(grid, plan, cache_specs, cache_shapes, batch: int,
+                  seq_lens) -> dict:
+    """The layout of a decode cache from its spec tree (``launch/sharding.
+    cache_specs``' output over ``cache_shapes``, the whole cache's shapes,
+    at ``batch`` rows and the sequence lengths ``seq_lens`` it matched):
+    {"rows": the axes of every leaf's batch dimension, "slots": slot
+    layout -> (its slot dimension's axes, its length), "state": the axes
+    of the recurrent states' cut feature dimension}. Each cut must be one
+    of the three rules: a leaf's batch dimension over the plan's client and
+    micro axes; a slot leaf's (``SLOT_LEAVES``) slot dimension, 2; one
+    feature dimension of a state leaf, whose size is neither the batch's
+    (once the batch's dimension is cut) nor a sequence length (those are
+    the sequence rule's), over the same axes in every state leaf. Any other
+    cut raises ``ValueError``."""
+    from repro_torch.launch.sharding import spec_dims
+    shapes = {p: tuple(getattr(v, "shape", v))
+              for p, v in tree_paths(cache_shapes)}
+    row_axes = tuple(plan.client_axes) + tuple(plan.micro_axes)
+    rows, state, slots = [], [], {}
+
+    def unexplained(path, d, shape, axes):
+        return ValueError(
+            f"cache spec of {'.'.join(path)} {shape}: dimension {d} over "
+            f"{axes} is none of a batch, slot or state feature dimension (a "
+            f"cache dimension of the batch's or a sequence's size is cut as "
+            f"one)")
+
+    for path, spec in tree_paths(cache_specs):
+        shape = shapes[path]
+        slot = SLOT_LEAVES.get(path[-1]) if len(path) == 1 else None
+        got_batch = got_feature = False
+        for d, axes in spec_dims(spec):
+            is_batch = shape[d] == batch and _same_axes(grid, axes, row_axes)
+            if is_batch and not got_batch and (slot is None or d == 1):
+                rows.append(axes)
+                got_batch = True
+            elif slot is not None and d == 2 and shape[d] in seq_lens:
+                slots.setdefault(slot, []).append((axes, shape[d]))
+            elif slot is None and not got_feature and not is_batch and \
+                    shape[d] not in seq_lens:
+                state.append(axes)
+                got_feature = True
+            else:
+                raise unexplained(path, d, shape, axes)
+    out = {"rows": rows[0] if rows else (), "slots": {}, "state": ()}
+    for name, kind in (("rows", rows), ("state", state)):
+        if any(not _same_axes(grid, a, kind[0]) for a in kind):
+            raise ValueError(f"cache leaves cut their {name} dimension over "
+                             f"different axes: {kind}")
+        if kind:
+            out[name] = grid.axes(kind[0])
+    for slot, cuts in slots.items():
+        if any(not _same_axes(grid, a, cuts[0][0]) or n != cuts[0][1]
+               for a, n in cuts):
+            raise ValueError(f"the {slot} slot leaves differ in layout: "
+                             f"{cuts}")
+        out["slots"][slot] = (grid.axes(cuts[0][0]), int(cuts[0][1]))
+    return out
+
+
 @contextmanager
-def serving_hints(grid, plan, specs, *, cache_spec=None,
-                  cache_len: Optional[int] = None):
+def serving_hints(grid, plan, specs, *, cache_specs=None, cache_shapes=None,
+                  batch: Optional[int] = None, seq_lens=()):
     """The grid for one serving call of the model-sharded replica: the
     parameter shards of ``specs`` gathered a layer over the plan's replica
-    axes, no layer rematerialized. A prefill (no ``cache_spec``) splits the
-    sequence over the plan's seq axes and the batch rows over its client and
-    micro axes (the reference's prefill cell's token spec). A decode takes
-    the layout of its ``cache_len``-slot KV cache from ``cache_spec``, the
-    spec ``launch/sharding.cache_specs`` gives the (L, B, S, K, hd) cache:
-    the batch rows over the axes of dimension 1, the slots over those of
-    dimension 2 (every axis at batch 1); a spec that shards any other
-    dimension (a cache dimension of the same size as the batch or the
-    sequence) raises ``ValueError``. The lengths of the call are its own:
-    nothing a training forward recorded under an earlier context is read."""
-    if cache_spec is None:
+    axes, no layer rematerialized. A prefill (no ``cache_specs``) splits
+    the sequence over the plan's seq axes and the batch rows over its
+    client and micro axes (the reference's prefill cell's token spec). A
+    decode takes the layout of its cache from ``cache_specs``, the whole
+    spec tree ``launch/sharding.cache_specs`` gives the family's cache
+    (whose whole shapes are ``cache_shapes``, at ``batch`` rows, the slot
+    lengths ``seq_lens`` matched): the batch rows over the axes of the
+    leaves' batch dimension; each slot layout (``SLOT_LEAVES``: the
+    self-attention's K/V, the enc-dec's memory) over the axes of its slot
+    dimension, with its own length (every axis at batch 1); a recurrent
+    state's cut feature dimension over the axes its spec names (``model``
+    at any batch: at batch 1 the data ranks hold the same state and step it
+    alike). A spec that cuts a dimension none of these rules explains (a
+    cache dimension of the batch's or a sequence's size) raises
+    ``ValueError``. The lengths of the call are its own: nothing a training
+    forward recorded under an earlier context is read."""
+    if cache_specs is None:
         rows = tuple(plan.client_axes) + tuple(plan.micro_axes)
         cache = None
     else:
-        spec = tuple(cache_spec) + (None,) * (5 - len(cache_spec))
-        if len(spec) != 5 or any(e is not None for i, e in enumerate(spec)
-                                 if i not in (1, 2)):
-            raise ValueError(f"cache spec {cache_spec}: only its batch (1) "
-                             f"and sequence (2) dimensions may be sharded "
-                             f"(a dimension of the cache has the batch's or "
-                             f"the sequence's size)")
-        rows = _spec_axes(spec[1])
-        cache = {"seq_axes": _spec_axes(spec[2]), "len": int(cache_len)}
+        cache = _cache_layout(grid, plan, cache_specs, cache_shapes,
+                              int(batch), tuple(seq_lens))
+        rows = cache["rows"]
     with sharding_hints(grid, plan.seq_axes, rows,
                         replica_axes=plan.replica_axes, specs=specs,
                         remat=False):
@@ -728,48 +819,66 @@ def serving() -> bool:
     return active() and _CTX["cache"] is not None
 
 
-def cache_bounds(n_slots: int) -> Tuple[int, int, int]:
-    """(lo, hi, length): this rank's ``n_slots`` slots [lo, hi) of the
-    decode cache's ``length``; (0, n_slots, n_slots) where no cache layout
-    is set. Raises ``ValueError`` when the length does not split over the
-    cache's sequence axes or ``n_slots`` is not this rank's share."""
-    if not serving():
-        return 0, n_slots, n_slots
-    cache = _CTX["cache"]
-    n = _size(cache["seq_axes"])
-    if cache["len"] % n:
-        raise ValueError(f"a {cache['len']}-slot cache does not split over "
-                         f"{n} ranks")
-    per = cache["len"] // n
-    if n_slots != per:
-        raise ValueError(f"cache slice of {n_slots} slots, the grid's is "
-                         f"{per} of {cache['len']}")
-    i = _CTX["grid"].index(cache["seq_axes"])
-    return i * per, (i + 1) * per, cache["len"]
-
-
-def _slot_group():
-    """The group of the decode cache's sequence axes, None where the slots
-    are not split."""
+def _slots(leaf: str):
+    """(axes, length) of the slot layout of ``leaf`` ("k" or "mem_k", or a
+    leaf sharing one), None where no cache layout is set."""
     if not serving():
         return None
-    return _CTX["grid"].group(_CTX["cache"]["seq_axes"])
+    return _CTX["cache"]["slots"].get(SLOT_LEAVES[leaf])
 
 
-def softmax_stats(m: torch.Tensor,
-                  l: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-    """(M, L), the decode softmax's row max and sum of exp(score - M) over
-    every rank's slots, from each rank's f32 ``m`` (the max of its scores)
-    and ``l`` (the sum of exp(score - m) over its slots): the two
-    all-gathered over the cache's sequence axes in one tensor
-    (``all_gather:decode_softmax``) and folded in rank order, so every rank
-    of the group gets the same bits. ``(m, l)`` where the slots are not
+def slot_axes(leaf: str = "k") -> Tuple[str, ...]:
+    """The axes of the slot dimension of ``leaf``'s layout (() off a
+    grid)."""
+    slots = _slots(leaf)
+    return () if slots is None else slots[0]
+
+
+def cache_bounds(n_slots: int, leaf: str = "k") -> Tuple[int, int, int]:
+    """(lo, hi, length): this rank's ``n_slots`` slots [lo, hi) of the
+    length of ``leaf``'s slot layout (the self-attention's, "k", or the
+    enc-dec memory's, "mem_k"); (0, n_slots, n_slots) where no cache layout
+    is set. Raises ``ValueError`` when the length does not split over the
+    layout's axes or ``n_slots`` is not this rank's share."""
+    slots = _slots(leaf)
+    if slots is None:
+        return 0, n_slots, n_slots
+    axes, length = slots
+    n = _size(axes)
+    if length % n:
+        raise ValueError(f"a {length}-slot cache does not split over {n} "
+                         f"ranks")
+    per = length // n
+    if n_slots != per:
+        raise ValueError(f"cache slice of {n_slots} slots, the grid's is "
+                         f"{per} of {length}")
+    i = _CTX["grid"].index(axes)
+    return i * per, (i + 1) * per, length
+
+
+def _slot_group(leaf: str):
+    """The group of ``leaf``'s slot axes, None where the slots are not
     split."""
-    group = _slot_group()
+    slots = _slots(leaf)
+    if slots is None:
+        return None
+    return _CTX["grid"].group(slots[0])
+
+
+def softmax_stats(m: torch.Tensor, l: torch.Tensor,
+                  leaf: str = "k") -> Tuple[torch.Tensor, torch.Tensor]:
+    """(M, L), a decode softmax's row max and sum of exp(score - M) over
+    every rank's slots of ``leaf``'s layout, from each rank's f32 ``m``
+    (the max of its scores) and ``l`` (the sum of exp(score - m) over its
+    slots): the two all-gathered over the layout's slot axes in one tensor
+    (``all_gather:decode_softmax``, the memory's ``:mem_softmax``) and
+    folded in rank order, so every rank of the group gets the same bits.
+    ``(m, l)`` where the slots are not split."""
+    group = _slot_group(leaf)
     if group is None:
         return m, l
     parts = all_gather_dim(torch.stack([m, l]).unsqueeze(0), group, 0,
-                           "decode_softmax")
+                           _FOLD_USES[SLOT_LEAVES[leaf]][0])
     top = parts[:, 0].amax(dim=0)
     total = torch.zeros_like(l)
     for part in parts:
@@ -777,19 +886,58 @@ def softmax_stats(m: torch.Tensor,
     return top, total
 
 
-def sum_slots(y: torch.Tensor) -> torch.Tensor:
-    """The sum over the ranks of the cache's sequence axes of each rank's
-    f32 ``y`` (the probability-weighted V over its slots): all-gathered
-    (``all_gather:decode_attn``) and added in rank order, the same bits on
-    every rank; ``y`` where the slots are not split."""
-    group = _slot_group()
+def sum_slots(y: torch.Tensor, leaf: str = "k") -> torch.Tensor:
+    """The sum over the ranks of ``leaf``'s slot axes of each rank's f32
+    ``y`` (the probability-weighted V over its slots): all-gathered
+    (``all_gather:decode_attn``, the memory's ``:mem_attn``) and added in
+    rank order, the same bits on every rank; ``y`` where the slots are not
+    split."""
+    group = _slot_group(leaf)
     if group is None:
         return y
-    parts = all_gather_dim(y.unsqueeze(0), group, 0, "decode_attn")
+    parts = all_gather_dim(y.unsqueeze(0), group, 0,
+                           _FOLD_USES[SLOT_LEAVES[leaf]][1])
     total = torch.zeros_like(y)
     for part in parts:
         total = total + part
     return total
+
+
+def _state_axes() -> Tuple[str, ...]:
+    return _CTX["cache"]["state"] if serving() else ()
+
+
+def state_bounds(n: int) -> Tuple[int, int]:
+    """[lo, hi) of this rank's channels of a recurrent state's feature
+    dimension of ``n`` channels, cut over the axes the cache's spec names
+    for it (``serving_hints``); (0, n) where the state is not cut."""
+    axes = _state_axes()
+    k = _size(axes) if axes else 1
+    if n % k:
+        raise ValueError(f"a state of {n} channels does not split over {k} "
+                         f"ranks")
+    if k == 1:
+        return 0, n
+    i = _CTX["grid"].index(axes)
+    return i * (n // k), (i + 1) * (n // k)
+
+
+def gather_state(x: torch.Tensor, dim: int, use: str) -> torch.Tensor:
+    """All-gather along ``dim`` of this rank's channel slice over the axes
+    of the recurrent state's cut feature dimension, in their rank order
+    (every channel on every rank), laid out in memory in ``x``'s order of
+    dimensions: the whole tensor one process holds there has that layout
+    (the mamba step's activations come out of an einsum with the batch
+    innermost), and the card's matmul picks its kernel, so its bits, by
+    the layout (an H100 rounded ``x_proj`` otherwise for a row-major copy).
+    The identity where the state is not cut."""
+    axes = _state_axes()
+    if not axes or _size(axes) == 1:
+        return x
+    out = all_gather_dim(x, _CTX["grid"].group(axes), dim, use)
+    order = sorted(range(x.dim()), key=lambda i: (-x.stride(i), i))
+    back = sorted(range(x.dim()), key=order.__getitem__)
+    return out.permute(order).contiguous().permute(back)
 
 
 def gather_rows(x: torch.Tensor, use: str = "logits") -> torch.Tensor:

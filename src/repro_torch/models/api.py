@@ -81,9 +81,9 @@ class ModelBundle:
     decode_supported: bool = True
     #: eligible for the long_500k cell (the reference's rule, per family)
     subquadratic: bool = False
-    #: (params, tokens) -> f32 logits of the last position (B, 1, V): the
-    #: decoder-only families' prefill (the dry run's prefill cell); None
-    #: where the family has none
+    #: the serving prefill (the dry run's prefill cell): (params, tokens)
+    #: -> f32 logits of the last position (B, 1, V); the enc-dec's (params,
+    #: embeds (B, S_src, D)) -> the encoder memory's last frame (B, 1, D)
     prefill: Optional[Callable] = None
 
 
@@ -139,8 +139,7 @@ def build_model(cfg: ModelCfg) -> ModelBundle:
                       "moe": cfg.sliding_window > 0, "vlm": False,
                       "hybrid": True, "xlstm": True,
                       "encdec": False}[cfg.family])
-    if cfg.family in ("dense", "moe", "vlm"):
-        common["prefill"] = lambda p, t: M.prefill(p, t, cfg)
+    common["prefill"] = lambda p, t: M.prefill(p, t, cfg)
     if cfg.family == "encdec":
         def encdec_spec(micro, seq):
             s_src = int(seq * cfg.src_frac)
@@ -221,6 +220,21 @@ def params_from_numpy(tree, cfg: ModelCfg, device="cuda") -> dict:
     return out
 
 
+def _slice(leaf, spec, grid):
+    """``leaf`` cut along every dimension ``spec`` shards: the piece at
+    this rank's index over each dimension's axes."""
+    from repro_torch.launch.sharding import spec_dims
+    idx = [slice(None)] * len(leaf.shape)
+    for dim, axes in spec_dims(spec):
+        n = 1
+        for a in axes:
+            n *= grid.shape[a]
+        c = leaf.shape[dim] // n
+        i = grid.index(axes)
+        idx[dim] = slice(i * c, (i + 1) * c)
+    return leaf[tuple(idx)]
+
+
 def shard_params(tree, cfg: ModelCfg, grid, plan, device="cuda") -> dict:
     """This rank's shards of a full parameter tree (the reference's numpy
     arrays, as ``params_from_numpy`` takes them, or the port's tensors):
@@ -229,25 +243,34 @@ def shard_params(tree, cfg: ModelCfg, grid, plan, device="cuda") -> dict:
     expert tensor of the big plan along two), the piece at this rank's
     index over each dimension's axes, on ``device`` in the leaf's dtype. A
     replicated leaf is copied whole."""
-    from repro_torch.launch.sharding import param_specs, spec_dims
+    from repro_torch.launch.sharding import param_specs
     device = check_device(device)
     specs = dict(tree_paths(param_specs(
         family_module(cfg).param_shapes(cfg), grid, plan,
         moe_experts=cfg.moe_experts), ))
     out: dict = {}
     for path, leaf in _checked_leaves(tree, cfg).items():
-        idx = [slice(None)] * len(leaf.shape)
-        for dim, axes in spec_dims(specs[path]):
-            n = 1
-            for a in axes:
-                n *= grid.shape[a]
-            c = leaf.shape[dim] // n
-            i = grid.index(axes)
-            idx[dim] = slice(i * c, (i + 1) * c)
-        leaf = leaf[tuple(idx)]
+        leaf = _slice(leaf, specs[path], grid)
         if isinstance(leaf, torch.Tensor):
             piece = leaf.to(device=device).contiguous().clone()
         else:
             piece = _numpy_leaf(path, leaf, device)
         tree_set(out, path, piece)
+    return out
+
+
+def shard_cache(cache, cache_specs, grid, device="cuda") -> dict:
+    """This rank's slice of a whole serving cache (a family's
+    ``init_cache``, or a filled one) under its spec tree
+    (``launch/sharding.cache_specs``), each leaf a contiguous copy on
+    ``device``: the slice a grid decode step takes (a recurrent state's
+    initial values are not all zeros)."""
+    device = check_device(device)
+    out: dict = {}
+    for path, spec in tree_paths(cache_specs):
+        leaf = cache
+        for k in path:
+            leaf = leaf[k]
+        tree_set(out, path, _slice(leaf, spec, grid).to(
+            device=device).contiguous().clone())
     return out

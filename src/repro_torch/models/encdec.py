@@ -201,9 +201,13 @@ def init_cache(cfg, batch_size: int, max_len: int, src_len: int, device):
 @torch.no_grad()
 def prefill_memory(params, embeds, cfg):
     """Run the encoder once and project each layer's cross K/V. -> (ks, vs),
-    each (nl, B, S_src, K, hd)."""
+    each (nl, B, S_src, K, hd). Under a grid's serving hints this rank's
+    rows and frames of them: the encoder as in the train cell (without
+    remat), each layer's ``wk`` / ``wv`` gathered just in time, and this
+    rank's memory frames projected, nothing gathered along the source."""
     mem = encode(params, embeds, cfg)
-    kv = [_mem_kv(mem, {"wk": wk, "wv": wv}, cfg) for wk, wv in
+    kv = [_mem_kv(mem, hints.fsdp_gather({"wk": wk, "wv": wv}, ("x_attn",)),
+                  cfg) for wk, wv in
           zip(params["x_attn"]["wk"].unbind(0),
               params["x_attn"]["wv"].unbind(0))]
     return (torch.stack([k for k, _ in kv]),
@@ -214,33 +218,99 @@ def prefill_cache(params, cache, embeds, cfg):
     """Fill ``cache``'s memory K/V from ``prefill_memory`` over ``embeds``,
     which must hold exactly the cache's ``src_len`` frames: the
     cross-attention is unmasked, so unfilled zero slots would take softmax
-    weight. -> cache (written in place)."""
-    src_len = cache["mem_k"].shape[2]
+    weight. -> cache (written in place).
+
+    Under a grid's serving hints (the decode cell's: ``embeds`` the whole
+    (B, S_src, D) batch, ``cache`` this rank's slice) the encoder leaves
+    its memory split over the seq axes and each rank projects its own
+    frames into its own memory slots: the memory's slot axes must be the
+    encoder's sequence axes (they are at batch > 1, ``launch/sharding.
+    cache_specs``), so that the two splits are one; otherwise
+    ``ValueError``."""
+    lo, hi, src_len = hints.cache_bounds(cache["mem_k"].shape[2], "mem_k")
     if embeds.shape[1] != src_len:
         raise ValueError(f"{embeds.shape[1]} source frames for a cache of "
                          f"{src_len} memory slots (cross-attention has no "
                          f"source mask)")
+    if (lo, hi) != hints.seq_bounds(src_len) or hints.slot_axes("mem_k") \
+            and not hints.same_axes(hints.slot_axes("mem_k"),
+                                    hints.seq_axes()):
+        raise ValueError(f"the memory's slots lie over "
+                         f"{hints.slot_axes('mem_k')}, the encoder's frames "
+                         f"over {hints.seq_axes()}: not one split")
     ks, vs = prefill_memory(params, embeds, cfg)
     cache["mem_k"].copy_(ks)
     cache["mem_v"].copy_(vs)
     return cache
 
 
+def _top(params):
+    """The embedding, head and the decoder's final norm, gathered once a
+    call (identity off a grid)."""
+    p = dict(params)
+    p.update(hints.fsdp_gather({k: params[k] for k in
+                                ("embed", "lm_head", "dec_lnf")
+                                if k in params}, stacked=False))
+    return p
+
+
+def _cross_decode(x, mem_k, mem_v, lp, cfg):
+    """A decode step's cross-attention: the one-process ``_cross_attention``
+    off a grid; on one, over this rank's memory slots with the softmax
+    folded over the memory's slot ranks (``layers.cross_attention_decode``;
+    the memory is never gathered)."""
+    if hints.serving():
+        return L.cross_attention_decode(x, lp, cfg.attn_cfg(), mem_k, mem_v)
+    return _cross_attention(x, mem_k, mem_v, lp, cfg)
+
+
 @torch.no_grad()
 def decode_step(params, cache, tokens, position: int, cfg):
     """One decode step: tokens (B, 1) at ``position`` against the filled
     memory -> (f32 logits (B, 1, V), cache). The self-attention cache is
-    written in place and returned."""
-    x = params["embed"][tokens]
-    for i, lp in enumerate(L.unstack({k: params[k] for k in _DEC},
-                                     cfg.n_layers)):
-        y, _, _ = L.attention_decode(L.rms_norm(x, lp["dec_ln1"]),
-                                     lp["dec_attn"], cfg.attn_cfg(),
+    written in place and returned.
+
+    Under a grid's serving hints ``params`` are this rank's shards,
+    ``cache`` its slice (its batch rows; the self-attention's slots and
+    the memory's 2,048 slots, each over the axes of its slot dimension) and
+    ``tokens`` the whole batch: the embedding, head and final norm
+    gathered once a call, each decoder layer's weights just in time; the
+    self-attention over its K/V slots and the cross-attention over this
+    rank's memory slots, each softmax folded over its own slot ranks; the
+    logits this rank's rows all-gathered over the batch axes. Off a grid
+    every hint is the identity."""
+    nl = cfg.n_layers
+    B = tokens.shape[0]
+    b0, b1 = hints.batch_bounds(B)
+    if tuple(cache["k"].shape[:2]) != (nl, b1 - b0):
+        raise ValueError(f"cache slice of {tuple(cache['k'].shape[:2])} "
+                         f"layers x rows, the grid's is {(nl, b1 - b0)} of "
+                         f"{B} rows")
+    top = _top(params)
+    x = top["embed"][tokens[b0:b1]]
+    for i, lp in enumerate(L.unstack({k: params[k] for k in _DEC}, nl)):
+        g = hints.fsdp_gather(lp)
+        y, _, _ = L.attention_decode(L.rms_norm(x, g["dec_ln1"]),
+                                     g["dec_attn"], cfg.attn_cfg(),
                                      cache["k"][i], cache["v"][i], position)
         h = x + y
-        h = h + _cross_attention(L.rms_norm(h, lp["dec_ln2"]),
-                                 cache["mem_k"][i], cache["mem_v"][i],
-                                 lp["x_attn"], cfg)
-        x = h + L.swiglu(L.rms_norm(h, lp["dec_ln3"]), lp["dec_mlp"])
-    x = L.rms_norm(x, params["dec_lnf"])
-    return (x @ _head(params, cfg)).to(torch.float32), cache
+        h = h + _cross_decode(L.rms_norm(h, g["dec_ln2"]),
+                              cache["mem_k"][i], cache["mem_v"][i],
+                              g["x_attn"], cfg)
+        x = h + L.swiglu(L.rms_norm(h, g["dec_ln3"]), g["dec_mlp"])
+        del g
+    x = L.rms_norm(x, top["dec_lnf"])
+    return hints.gather_rows((x @ _head(top, cfg)).to(torch.float32)), cache
+
+
+@torch.no_grad()
+def prefill(params, embeds, cfg):
+    """The serving prefill (the reference's enc-dec prefill cell): the
+    encoder's memory over ``embeds`` (B, S_src, D) -> its last frame (B, 1,
+    D), in the model's dtype (not logits). Under a grid's serving hints the
+    encoder of the train cell (``embeds`` the whole batch, its rows over
+    the client and micro axes and its frames over the seq axes), without
+    remat; the last frame is the last sequence rank's and the rows are
+    all-gathered (``all_gather:mem_last``)."""
+    mem = hints.last_position(encode(params, embeds, cfg))
+    return hints.gather_rows(mem, use="mem_last")

@@ -72,11 +72,6 @@ def param_shapes(cfg):
 _PER = {"mamba": SUB - 1, "moe": SUB // 2, "mlp": SUB - SUB // 2}
 
 
-def _sublayers(bp):
-    """A super-block's stacked sublayer weights split per sublayer."""
-    return tuple(L.unstack(bp[name], n) for name, n in _PER.items())
-
-
 def _gathered_sublayers(bp, ep: bool):
     """Under a grid: -> get(name, j), the j-th sublayer of the ``name``
     stack ("mamba", "moe" or "mlp") with its weights gathered just in time
@@ -191,26 +186,62 @@ def init_cache(cfg, batch_size: int, max_len: int, device):
 @torch.no_grad()
 def decode_step(params, cache, tokens, position: int, cfg):
     """One decode step: tokens (B, 1) at ``position`` -> (f32 logits (B, 1,
-    V), cache). The cache is written in place and returned."""
-    x = params["embed"][tokens]
-    for b, bp in enumerate(L.unstack({k: params[k] for k in _STACK},
-                                     cfg.n_layers // SUB)):
-        mamba, moe, mlp = _sublayers(bp)
+    V), cache). The cache is written in place and returned.
+
+    Under a grid's serving hints ``params`` are this rank's shards,
+    ``cache`` its slice (``launch/sharding.cache_specs``: its batch rows,
+    the attention's slots, the mamba state's d_inner channels) and
+    ``tokens`` the whole batch. The embedding, head and final norm are
+    gathered once a call, each sublayer's weights just in time and
+    dropped after it, as ``transformer.decode_step`` does: the attention
+    over its K/V slots with the softmax folded over the slot ranks, each
+    mamba sublayer on its state channels (``mamba.mamba_decode_step``), the
+    MoE expert-parallel where the grid stores E over the seq axes. The
+    logits are this rank's rows all-gathered over the batch axes. Off a
+    grid every hint is the identity."""
+    nb = cfg.n_layers // SUB
+    B = tokens.shape[0]
+    b0, b1 = hints.batch_bounds(B)
+    if tuple(cache["k"].shape[:2]) != (nb, b1 - b0):
+        raise ValueError(f"cache slice of {tuple(cache['k'].shape[:2])} "
+                         f"super-blocks x rows, the grid's is "
+                         f"{(nb, b1 - b0)} of {B} rows")
+    top = T._top(params)
+    x = top["embed"][tokens[b0:b1]]
+    ep = cfg.moe_experts > 0 and cfg.moe_ep and hints.sharded_over(
+        ("moe", "w1"), 2, hints.seq_axes())
+    for b, bp in enumerate(L.unstack({k: params[k] for k in _STACK}, nb)):
+        get = _gathered_sublayers(bp, ep)
+        ln = hints.fsdp_gather({k: bp[k] for k in ("ln_mix", "ln_ffn")})
         for s in range(SUB):
-            xn = L.rms_norm(x, bp["ln_mix"][s])
+            xn = L.rms_norm(x, ln["ln_mix"][s])
             if s == 0:
-                mix, _, _ = L.attention_decode(xn, bp["attn"], cfg.attn_cfg(),
-                                               cache["k"][b], cache["v"][b],
-                                               position)
+                mix, _, _ = L.attention_decode(
+                    xn, hints.fsdp_gather(bp["attn"], ("attn",)),
+                    cfg.attn_cfg(), cache["k"][b], cache["v"][b], position)
             else:
                 mix, h, conv = M.mamba_decode_step(
-                    xn, mamba[s - 1], cache["h"][b, s - 1],
+                    xn, get("mamba", s - 1), cache["h"][b, s - 1],
                     cache["conv"][b, s - 1], d_model=cfg.d_model)
                 cache["h"][b, s - 1] = h
                 cache["conv"][b, s - 1] = conv
             x = x + mix
-            y, _ = _ffn(cfg, s, L.rms_norm(x, bp["ln_ffn"][s]),
-                        (moe if s % 2 == 0 else mlp)[s // 2])
+            y, _ = _ffn(cfg, s, L.rms_norm(x, ln["ln_ffn"][s]),
+                        get("moe" if s % 2 == 0 else "mlp", s // 2), ep)
             x = x + y
-    x = L.rms_norm(x, params["lnf"])
-    return (x @ _head(params, cfg)).to(torch.float32), cache
+    x = L.rms_norm(x, top["lnf"])
+    return hints.gather_rows((x @ _head(top, cfg)).to(torch.float32)), cache
+
+
+@torch.no_grad()
+def prefill(params, tokens, cfg):
+    """The serving prefill (the reference's hybrid prefill cell): the final
+    hidden state of ``tokens`` (B, S) -> f32 logits of its last position
+    (B, 1, V). Under a grid's serving hints the forward of the train cell
+    (the channel-parallel mamba sublayers, the attention's K/V gathered),
+    without remat; the last position is the last sequence rank's and the
+    rows are all-gathered, as ``transformer.prefill`` does."""
+    p = T._top(params)
+    x, _ = forward_hidden(p, tokens, cfg)
+    x = hints.last_position(x)
+    return hints.gather_rows((x @ _head(p, cfg)).to(torch.float32))

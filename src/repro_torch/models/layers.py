@@ -234,7 +234,6 @@ def attention_decode(x, lp, cfg: AttnCfg, cache_k, cache_v, position: int):
     if not 0 <= position < S:
         raise ValueError(f"decode position {position} is outside the "
                          f"cache's {S} slots")
-    B = x.shape[0]
     pos = torch.full((1,), position, dtype=torch.long, device=x.device)
     q, k_new, v_new = _qkv(x, lp, cfg, pos)
     if lo <= position < hi:
@@ -244,23 +243,54 @@ def attention_decode(x, lp, cfg: AttnCfg, cache_k, cache_v, position: int):
     valid = k_pos <= position
     if cfg.sliding_window > 0:
         valid &= (position - k_pos) < cfg.sliding_window
+    y = _attend_slots(q, cache_k, cache_v, valid, cfg, x.dtype, "k")
+    return y @ lp["wo"], cache_k, cache_v
+
+
+def _attend_slots(q, cache_k, cache_v, valid, cfg: AttnCfg, dtype,
+                  leaf: str):
+    """One query a row (q: (B, 1, H, hd)) over this rank's slots of a
+    cache layout (cache_k / cache_v: (B, S_loc, K, hd); ``leaf`` names the
+    layout, ``hints.SLOT_LEAVES``), the keys where ``valid`` (None: every
+    slot) -> (B, 1, H * hd) in ``dtype``. The softmax's row max and sum
+    of exponentials are folded over the layout's slot ranks
+    (``hints.softmax_stats``), each rank's softmax scaled to its share of
+    the whole before the probabilities are rounded to ``dtype``; their f32
+    products with V are summed over those ranks (``hints.sum_slots``)
+    before one rounding. Off a grid the share is exactly 1."""
+    B = q.shape[0]
     K, rep = cfg.n_kv_heads, cfg.n_heads // cfg.n_kv_heads
     q5 = q.reshape(B, 1, K, rep, cfg.d_head)
     scores = torch.einsum("bcgrd,bsgd->bgrcs", q5.to(torch.float32),
                           cache_k.to(torch.float32)) / (cfg.d_head ** 0.5)
-    scores = torch.where(valid, scores, -1e30)
+    if valid is not None:
+        scores = torch.where(valid, scores, -1e30)
     m = scores.amax(dim=-1, keepdim=True)
     # a rank whose slots are all masked has m = -1e30 and adds nothing
-    l = torch.where(valid, torch.exp(scores - m), 0.0).sum(dim=-1,
-                                                            keepdim=True)
-    top, total = hints.softmax_stats(m, l)
+    e = torch.exp(scores - m)
+    l = (e if valid is None else torch.where(valid, e, 0.0)).sum(
+        dim=-1, keepdim=True)
+    top, total = hints.softmax_stats(m, l, leaf)
     # this rank's share of the whole softmax (exactly 1 off a grid)
     share = torch.exp(m - top) * l / total
-    probs = (torch.softmax(scores, dim=-1) * share).to(x.dtype)
+    probs = (torch.softmax(scores, dim=-1) * share).to(dtype)
     y = hints.sum_slots(torch.einsum("bgrcs,bsgd->bcgrd",
                                      probs.to(torch.float32),
-                                     cache_v.to(torch.float32)))
-    return y.reshape(B, 1, -1).to(x.dtype) @ lp["wo"], cache_k, cache_v
+                                     cache_v.to(torch.float32)), leaf)
+    return y.reshape(B, 1, -1).to(dtype)
+
+
+def cross_attention_decode(x, lp, cfg: AttnCfg, mem_k, mem_v):
+    """One-token cross-attention over this rank's slots of the enc-dec
+    memory (mem_k / mem_v: (B, S_src_loc, K, hd), the ``mem_k`` layout),
+    unmasked, as the reference's ``_cross_attention``: x (B, 1, D) -> (B,
+    1, D). On a grid the softmax is folded over the memory's slot ranks
+    before the probabilities are rounded (``_attend_slots``); the memory is
+    never gathered."""
+    B = x.shape[0]
+    q = (x @ lp["wq"]).reshape(B, 1, cfg.n_heads, cfg.d_head)
+    return _attend_slots(q, mem_k, mem_v, None, cfg, x.dtype,
+                         "mem_k") @ lp["wo"]
 
 
 # ---------------------------------------------------------------------------

@@ -176,25 +176,61 @@ def mamba_cache_init(batch: int, d_model: int, n_layers: int, device,
                                 dtype=torch.float32, device=device)}
 
 
+def _whole_width(t, ch: slice, d_in: int):
+    """``t``, this rank's channels ``ch`` of d_inner along its last
+    dimension, laid into zeros of the whole width (``t`` itself where ``ch`` is every
+    channel). The card's batched matmul behind the decode step's conv
+    einsum sums a channel's taps otherwise over a slice of the channels
+    than over all of them (an H100 gave 9.5e-7 apart at 8,192 of 16,384
+    channels): at the whole width each channel is summed as one process
+    sums it."""
+    if ch.stop - ch.start == d_in:
+        return t
+    whole = t.new_zeros(t.shape[:-1] + (d_in,))
+    whole[..., ch] = t
+    return whole
+
+
 def mamba_decode_step(x, lp, h, conv_tail, *, d_model: int):
     """One-token recurrence. x: (B, 1, D); h: (B, d_in, N); conv_tail: (B,
     D_CONV-1, d_in). -> (y, h, conv_tail). Its conv is an f32 einsum over
     an f32 window (the training conv sums in x's dtype), as the
-    reference's."""
+    reference's.
+
+    Under a grid's serving hints whose cache cuts the state's d_inner
+    (``hints.state_bounds``: over the axes the cache's spec names), ``h``
+    and ``conv_tail`` are this rank's channels [lo, hi) and only they are
+    stepped; ``lp`` holds the sublayer's gathered weights. The conv's
+    activations (the input of ``x_proj``) and the gated output (the input
+    of ``out_proj``) are all-gathered over the channel ranks, B_loc x
+    d_inner each in x's dtype (``all_gather:mamba_act``, ``:mamba_y``), so
+    every sum over channels is the one-process sum and every rank returns
+    the one-process bits (the conv's taps are summed at the whole width,
+    ``_whole_width``). Off a grid the channels are all of d_inner and both
+    gathers are the identity."""
     del d_model
     d_in = lp["in_proj"].shape[-1] // 2
     dt_rank = lp["dt_proj"].shape[0]
+    lo, hi = hints.state_bounds(d_in)
+    if h.shape[1] != hi - lo or conv_tail.shape[2] != hi - lo:
+        raise ValueError(f"mamba state slice of {h.shape[1]} / "
+                         f"{conv_tail.shape[2]} channels, the grid's is "
+                         f"{hi - lo} of {d_in}")
+    ch = slice(lo, hi)
     xz = x @ lp["in_proj"]
     x_in, z = torch.split(xz, d_in, dim=-1)                    # (B, 1, d_in)
-    window = torch.cat([conv_tail, x_in.float()], dim=1)
-    conv_out = torch.einsum("bkd,kd->bd", window, lp["conv_w"].float())
-    x_c = F.silu(conv_out)[:, None, :]                         # (B, 1, d_in)
-    dt, B_, C_ = _ssm_params(x_c.to(x.dtype), lp, dt_rank)
-    A = -torch.exp(lp["a_log"])
-    da = torch.exp(dt[:, 0, :, None] * A)
-    h = da * h + (dt[:, 0] * x_c[:, 0].float())[..., None] \
+    window = torch.cat([conv_tail, x_in[..., ch].float()], dim=1)
+    conv_out = torch.einsum("bkd,kd->bd", _whole_width(window, ch, d_in),
+                            lp["conv_w"].float())[:, ch]
+    x_c = F.silu(conv_out)[:, None, :]                         # (B, 1, c)
+    x_all = hints.gather_state(x_c.to(x.dtype), 2, "mamba_act")
+    dt, B_, C_ = _ssm_params(x_all, lp, dt_rank)
+    A = -torch.exp(lp["a_log"][ch])
+    da = torch.exp(dt[:, 0, ch, None] * A)
+    h = da * h + (dt[:, 0, ch] * x_c[:, 0].float())[..., None] \
         * B_[:, 0, None, :]
     y = torch.einsum("bdn,bn->bd", h, C_[:, 0])
-    y = y + x_c[:, 0].float() * lp["d_skip"]
-    y = y[:, None, :].to(x.dtype) * F.silu(z)
+    y = y + x_c[:, 0].float() * lp["d_skip"][ch]
+    y = y[:, None, :].to(x.dtype) * F.silu(z[..., ch])
+    y = hints.gather_state(y, 2, "mamba_y")
     return y @ lp["out_proj"], h, window[:, 1:]

@@ -233,10 +233,28 @@ def slstm_cache_init(batch, d_model, n_layers, device):
 
 
 def slstm_decode_step(x, lp, h, c, n, m, *, n_heads: int):
+    """One sLSTM step, x: (B, 1, D) -> (y, h, c, n, m). Under a grid's
+    serving hints whose cache cuts the state's D (``hints.state_bounds``)
+    h, c, n and m are this rank's channels [lo, hi): the recurrence mixes
+    channels across heads (``rec`` is (B, H, 4 hd) laid out as (B, 4D) and
+    split into the four gates), so the four slices are all-gathered over
+    the channel ranks in one tensor (``all_gather:slstm_state``), the step
+    runs whole as in one process and this rank's slice of the new state is
+    kept. Off a grid the state is whole."""
+    D = x.shape[-1]
+    lo, hi = hints.state_bounds(D)
+    if h.shape[-1] != hi - lo:
+        raise ValueError(f"sLSTM state slice of {h.shape[-1]} channels, the "
+                         f"grid's is {hi - lo} of {D}")
+    if hi - lo < D:
+        h, c, n, m = hints.gather_state(torch.stack([h, c, n, m]), 2,
+                                        "slstm_state").unbind(0)
     x_pre = (x[:, 0] @ lp["wx"]).float() + lp["b"]
     (h, c, n, m), h_out = _slstm_step((h, c, n, m), x_pre, lp["wr"].float(),
                                       n_heads)
     y = rms_norm(h_out[:, None, :].to(x.dtype), lp["ln_sk"])
+    if hi - lo < D:
+        h, c, n, m = (t[:, lo:hi] for t in (h, c, n, m))
     return y @ lp["wo"], h, c, n, m
 
 
@@ -343,27 +361,60 @@ def init_cache(cfg, batch_size: int, max_len: int, device):
 def decode_step(params, cache, tokens, position: int, cfg):
     """One decode step: tokens (B, 1) -> (f32 logits (B, 1, V), cache); the
     recurrent state is written in place and returned (``position`` is not
-    needed)."""
+    needed).
+
+    Under a grid's serving hints ``params`` are this rank's shards,
+    ``cache`` its slice (``launch/sharding.cache_specs``: its batch rows;
+    the sLSTM's D channels over the axes its spec names) and ``tokens``
+    the whole batch. The embedding, head and final norm are gathered once a
+    call, each block's weights just in time and dropped after it; the
+    mLSTM steps this rank's rows, the sLSTM gathers its state's channels
+    (``slstm_decode_step``); the logits are this rank's rows all-gathered
+    over the batch axes. Off a grid every hint is the identity."""
     del position
-    x = params["embed"][tokens]
+    ng = cfg.n_layers // GROUP
+    B = tokens.shape[0]
+    b0, b1 = hints.batch_bounds(B)
     mc, sc = cache["m"], cache["s"]
-    for g, gp in enumerate(unstack({k: params[k] for k in _STACK},
-                                   cfg.n_layers // GROUP)):
+    if tuple(mc["C"].shape[:3]) != (ng, GROUP - 1, b1 - b0):
+        raise ValueError(f"cache slice of {tuple(mc['C'].shape[:3])} "
+                         f"groups x blocks x rows, the grid's is "
+                         f"{(ng, GROUP - 1, b1 - b0)} of {B} rows")
+    top = transformer._top(params)
+    x = top["embed"][tokens[b0:b1]]
+    for g, gp in enumerate(unstack({k: params[k] for k in _STACK}, ng)):
         mlstm = unstack(gp["mlstm"], GROUP - 1)
+        ln = hints.fsdp_gather({"ln": gp["ln"]})["ln"]
         for s in range(GROUP):
-            xn = rms_norm(x, gp["ln"][s])
+            xn = rms_norm(x, ln[s])
             if s < GROUP - 1:
+                lp = hints.fsdp_gather(mlstm[s], ("mlstm",), stacked=2)
                 y, *state = mlstm_decode_step(
-                    xn, mlstm[s], mc["C"][g, s], mc["n"][g, s],
-                    mc["m"][g, s], n_heads=cfg.n_heads)
+                    xn, lp, mc["C"][g, s], mc["n"][g, s], mc["m"][g, s],
+                    n_heads=cfg.n_heads)
                 for name, new in zip("Cnm", state):
                     mc[name][g, s] = new
             else:
+                lp = hints.fsdp_gather(gp["slstm"], ("slstm",))
                 y, *state = slstm_decode_step(
-                    xn, gp["slstm"], *(sc[name][g] for name in "hcnm"),
+                    xn, lp, *(sc[name][g] for name in "hcnm"),
                     n_heads=cfg.n_heads)
                 for name, new in zip("hcnm", state):
                     sc[name][g] = new
             x = x + y
-    x = rms_norm(x, params["lnf"])
-    return (x @ _head(params, cfg)).to(torch.float32), cache
+            del lp
+    x = rms_norm(x, top["lnf"])
+    return hints.gather_rows((x @ _head(top, cfg)).to(torch.float32)), cache
+
+
+@torch.no_grad()
+def prefill(params, tokens, cfg):
+    """The serving prefill (the reference's xLSTM prefill cell): the final
+    hidden state of ``tokens`` (B, S) -> f32 logits of its last position
+    (B, 1, V). Under a grid's serving hints the forward of the train cell
+    (the mLSTM across sequence shards, the sLSTM run whole on each sequence
+    rank), without remat; the last position is the last sequence rank's
+    and the rows are all-gathered, as ``transformer.prefill`` does."""
+    p = transformer._top(params)
+    x = hints.last_position(forward_hidden(p, tokens, cfg))
+    return hints.gather_rows((x @ _head(p, cfg)).to(torch.float32))

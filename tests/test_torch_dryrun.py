@@ -13,9 +13,9 @@ production-mesh cell traced as rank 0 of a fake process group of 256 ranks.
     tensors cut along E and d_ff), each peak under the H100's 80 GB, and
     llama4's expert-parallel dispatch: the all-to-all of each (B_loc, E,
     C, D) bf16 buffer, both ways, three times a layer a group.
-  * The cells the port does not have yet say "not ported" and print no
-    result: the recurrent and hybrid families' serving cells, the enc-dec
-    family's every cell, and a cohort the grid does not run yet.
+  * Every family's serving cells print a record (the xLSTM, hybrid and
+    enc-dec families' since their cache layouts were ported); a cohort the
+    grid does not run yet says "not ported" and prints no result.
   * The serving cells (since the prefill and decode cells were ported):
     qwen2_0_5b and llama4_scout_17b_a16e prefill_32k and decode_32k print
     a record (qwen2's decode collectives in closed form), long_500k runs
@@ -188,15 +188,22 @@ def test_moe_vlm_train_4k_shard_bytes_closed_form(arch_id, layers,
     ("seamless_m4t_large_v2", "decode_32k"),
     ("jamba_1_5_large_398b", "long_500k"), ("xlstm_350m", "long_500k")])
 def test_cells_not_ported_say_so(arch_id, shape, capsys):
-    """The recurrent and hybrid families' serving cells and the enc-dec
-    family's cells on a grid (ROADMAP item 19 steps 2-3): their long_500k
-    too, since both are sub-quadratic and the family check comes after the
-    long_500k one. Their train cells run since the xLSTM and hybrid
-    families were put on the grid (``test_torch_sharded_recurrent.py``)."""
-    dryrun.main(["--arch", arch_id, "--shape", shape])
-    line = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
-    assert "not ported" in line["not_ported"]
-    assert "flops_per_device" not in line and "error" not in line
+    """Five of the serving cells that waited for the recurrent, hybrid and
+    enc-dec families' serving layouts (ROADMAP item 19 step 3) print a
+    record: no ``not_ported``, a peak under 80 GB on 16 x 16, the uses
+    their layouts call for (the mamba step's activations gathered over its
+    state's channels, the sLSTM's state, the enc-dec's memory fold). The
+    decode cells at full depth through the CLI; xlstm's prefill_32k at one
+    of its six groups and seq 256 (its sLSTM loops over the sequence, on
+    meta tensors too; the full record is the CLI's and PERF.md's)."""
+    from test_torch_sharded_serving import check_family_serving_record, \
+        serving_record
+    if shape == "prefill_32k":
+        line = serving_record(arch_id, shape, layers=4, seq=256)
+    else:
+        dryrun.main(["--arch", arch_id, "--shape", shape])
+        line = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    check_family_serving_record(line, arch_id, shape)
 
 
 # ---------------------------------------------------------------------------
@@ -310,7 +317,7 @@ def test_long_500k_skipped_with_the_reference_reason(arch_id, capsys):
 
 
 def test_not_ported_has_no_serving_entries():
-    assert set(dryrun.NOT_PORTED) == {"family", "pipeline"}
+    assert set(dryrun.NOT_PORTED) == {"pipeline"}
 
 
 # ---------------------------------------------------------------------------
