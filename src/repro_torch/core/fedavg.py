@@ -437,7 +437,8 @@ def _write_rows(dst, src, n: int) -> None:
 
 
 def build_round_step(loss_fn: Callable, compressor, cfg: FedConfig,
-                     ctx: Optional[RoundContext] = None, group=None):
+                     ctx: Optional[RoundContext] = None, group=None, *,
+                     remat: bool = True):
     """-> round_step(state, batch, mask) -> (state, RoundMetrics).
 
     ``loss_fn(params, batch_slice)`` is a scalar loss; ``batch`` is a tree
@@ -448,7 +449,11 @@ def build_round_step(loss_fn: Callable, compressor, cfg: FedConfig,
     same batch and mask. The launcher always takes the default group; a
     subgroup exists for tests that run D = 2 on pairs of a 4-rank group
     (``tests/torch_multidevice_ranks.py``), as do the ``group`` arguments
-    of ``init_server_state`` and ``resolve_cohort``."""
+    of ``init_server_state`` and ``resolve_cohort``. ``remat``
+    rematerializes each layer and scan chunk of the client's local SGD (on
+    by default, as in the reference; off only to show that it changes no
+    bit), as ``build_sharded_round_step``'s does on a grid."""
+    from repro_torch.launch import hints
     ctx = ctx or RoundContext()
     compressor = compressor.with_context(ctx)
     policy = CohortPolicy.parse(ctx.cohort)
@@ -465,6 +470,10 @@ def build_round_step(loss_fn: Callable, compressor, cfg: FedConfig,
     def client_update(spec, params0, client_batch, row, gamma_t):
         """One client: local SGD, then its pseudo-gradient written into
         ``row`` (its f32 row of the cohort buffer). -> mean local loss."""
+        with hints.remat_mode(remat):
+            return local_sgd(spec, params0, client_batch, row, gamma_t)
+
+    def local_sgd(spec, params0, client_batch, row, gamma_t):
         paths = [p for p, _ in tree_paths(params0)]
         if cfg.local_steps == 1:
             # E == 1: the pseudo-gradient (x0 - x1)/gamma IS the batch

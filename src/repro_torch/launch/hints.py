@@ -82,14 +82,28 @@ all-to-all's received buffer), one call and the seconds inside it (staging
 included); ``collective_totals`` sums them by kind. ``launch/dryrun.py``
 and ``chip_smoke.py`` read them.
 
-Remat: ``remat(fn, x, save_weights)`` checkpoints one layer (a transformer
-layer, an xLSTM group, a hybrid super-block) inside a ``remat_slot``, which
-marks its forward. On its first
-run the gathered K/V (and, with ``save_weights``, the gathered weights) are
-kept; when ``torch.utils.checkpoint`` recomputes the layer in the backward
-pass the same hints return the kept tensors instead of gathering again
-(the reference's ``save_only_these_names("kv_gathered",
-"fsdp_gathered")`` policy).
+Remat, on a grid and off it, as the reference's ``jax.checkpoint`` does,
+whenever autograd records (``remat_on``; ``remat_mode(False)`` and the
+grid's ``sharding_hints(remat=False)`` are the one off switch, which
+changes no bit): ``remat(fn, save_weights, *args)`` runs one layer (a
+transformer or enc-dec layer, an xLSTM group, a hybrid super-block) in a
+``remat_slot``, which marks its forward, and keeps only its arguments (the
+layer's input and weights) for the backward pass, which runs it again and
+differentiates it. On its first run the gathered K/V and sequence gathers
+(and, with ``save_weights``, the gathered weights) are kept; on the
+recompute the same hints return the kept tensors instead of gathering
+again (the reference's ``save_only_these_names("kv_gathered",
+"fsdp_gathered")`` policy). Off a grid only the input is kept: the
+recompute runs the whole layer, so keeping the roped K/V, which the
+reference names there too, would save no work. ``remat_chunk(fn, *args)``
+does the same for one mamba or sLSTM scan chunk or one cross-entropy
+chunk, in a region of its own nested in its layer's: only its arguments
+(the carry and the chunk's input slices) are kept, and it makes no
+collective, so a layer's recompute replays its gathers from the slot in
+their order. Off a grid a region is ``_Recomputed``: its first forward
+records no graph, where ``torch.utils.checkpoint``'s hooks pack and unpack
+every tensor it saves (the one-process local step is bound by the host's
+dispatch); on a grid it is that checkpoint (``_recomputed``).
 
 The reference's ``opt_barrier`` and its grad/vmap rules for
 ``optimization_barrier`` (``hints.py:28-72``) are jax-only: torch neither
@@ -179,8 +193,23 @@ def active() -> bool:
 
 
 def remat_on() -> bool:
-    """Whether the layers under the grid are rematerialized."""
-    return active() and _CTX["remat_on"]
+    """Whether layers and scan chunks are rematerialized: whenever autograd
+    records, on a grid or off it, unless ``remat_mode(False)`` (or the
+    grid's ``sharding_hints(remat=False)``) turned it off."""
+    return _CTX["remat_on"] and torch.is_grad_enabled()
+
+
+@contextmanager
+def remat_mode(on: bool):
+    """Rematerialize (the default) or keep every activation: the one
+    switch ``build_round_step(remat=)`` and ``build_sharded_round_step(
+    remat=)`` set, which changes no bit of a result."""
+    old = _CTX["remat_on"]
+    _CTX["remat_on"] = bool(on)
+    try:
+        yield
+    finally:
+        _CTX["remat_on"] = old
 
 
 def _size(axes) -> int:
@@ -425,20 +454,134 @@ def remat_slot(slot: Optional[RematSlot]):
             slot.pos = 0
 
 
-def remat(fn, x, save_weights: bool):
-    """``fn(x)`` rematerialized in the backward pass (``torch.utils.
-    checkpoint``, non-reentrant) in a ``RematSlot``: the gathered K/V and
-    sequence gathers (and, with ``save_weights``, the gathered weights) of
-    the first forward are handed back on the recompute (the reference's
-    ``save_only_these_names("kv_gathered", "fsdp_gathered")``)."""
-    from torch.utils.checkpoint import checkpoint
+def remat(fn, save_weights: bool, *args):
+    """``fn(*args)``, one layer, rematerialized in the backward pass
+    (``_recomputed``) in a ``RematSlot``: the gathered K/V and sequence
+    gathers (and, with ``save_weights``, the gathered weights) of the first
+    forward are handed back on the recompute (the reference's
+    ``save_only_these_names("kv_gathered", "fsdp_gathered")``); nothing
+    else of the layer is kept but ``args``. ``args`` are tensors, nested
+    dicts of them, or constants. Without remat ``_plain``."""
+    if not remat_on():
+        return _plain(fn, args)
     slot = RematSlot(save_weights)
 
-    def run(x):
+    def run(*args):
         with remat_slot(slot):
-            return fn(x)
+            return fn(*args)
 
-    return checkpoint(run, x, use_reentrant=False)
+    return _recomputed(run, args)
+
+
+def remat_chunk(fn, *args):
+    """``fn(*args)``, one scan or cross-entropy chunk, rematerialized in the
+    backward pass in a region of its own (nested in its layer's): only
+    ``args`` are kept, the reference's per-chunk ``jax.checkpoint``. ``fn``
+    makes no collective. Without remat ``_plain``."""
+    if not remat_on():
+        return _plain(fn, args)
+    return _recomputed(fn, args)
+
+
+def _plain(fn, args):
+    """``fn(*args)`` without remat. Where autograd records off a grid,
+    ``fn`` gets a view of each tensor of ``args``: the view sums the
+    region's uses of the tensor before they join its other uses, as
+    ``_Recomputed``'s backward does, so that a gradient summed over regions
+    (the enc-dec memory's over the decoder layers, the sLSTM's ``wr`` over
+    the scan chunks) is added in the same order, and to the same bits,
+    with remat and without. On a grid the checkpoint's recompute joins the
+    backward's graph, which sums them as the plain call does."""
+    if not torch.is_grad_enabled() or active():
+        return fn(*args)
+    leaves = []
+    rebuild = _flat(args, leaves)
+    return fn(*rebuild([t.view_as(t) for t in leaves]))
+
+
+def _recomputed(fn, args):
+    """``fn(*args)`` rematerialized: off a grid by ``_Recomputed``; on a
+    grid by ``torch.utils.checkpoint`` (non-reentrant), whose recompute
+    stops after the last tensor the backward needs, so that a layer's tail
+    is not run again (``_Recomputed`` raised the dry run's rank peak by
+    11,472 bytes on the reduced model's big-plan cell). The ranks are
+    bound by their collectives, not by the hooks' host time. The models
+    draw no random numbers, so neither keeps an RNG state."""
+    fn = _replayed(fn)
+    if active():
+        from torch.utils.checkpoint import checkpoint
+        return checkpoint(fn, *args, use_reentrant=False,
+                          preserve_rng_state=False)
+    leaves = []
+    rebuild = _flat(args, leaves)
+    return _Recomputed.apply(fn, rebuild, *leaves)
+
+
+def _flat(tree, leaves: list):
+    """Append the tensors of ``tree`` (nested dicts, lists and tuples) to
+    ``leaves``; -> a function of such a list that rebuilds ``tree`` with
+    its tensors."""
+    if isinstance(tree, torch.Tensor):
+        i = len(leaves)
+        leaves.append(tree)
+        return lambda ts: ts[i]
+    if isinstance(tree, dict):
+        parts = {k: _flat(v, leaves) for k, v in tree.items()}
+        return lambda ts: {k: f(ts) for k, f in parts.items()}
+    if isinstance(tree, (list, tuple)):
+        parts = [_flat(v, leaves) for v in tree]
+        return lambda ts: type(tree)(f(ts) for f in parts)
+    return lambda ts: tree
+
+
+class _Recomputed(torch.autograd.Function):
+    """``fn(*rebuild(leaves))`` computed without autograd, keeping only
+    ``leaves``; the backward pass computes it again with autograd from
+    them and differentiates it. The same ops in the same order as without
+    remat, so the same bits."""
+
+    @staticmethod
+    def forward(ctx, fn, rebuild, *leaves):
+        ctx.fn, ctx.rebuild = fn, rebuild
+        ctx.save_for_backward(*leaves)
+        ctx.set_materialize_grads(False)
+        return fn(*rebuild(leaves))
+
+    @staticmethod
+    def backward(ctx, *grads):
+        leaves = [t.detach().requires_grad_(t.requires_grad)
+                  for t in ctx.saved_tensors]
+        with torch.enable_grad():
+            out = ctx.fn(*ctx.rebuild(leaves))
+        outs = [out] if isinstance(out, torch.Tensor) else list(out)
+        pairs = [(o, g) for o, g in zip(outs, grads)
+                 if g is not None and isinstance(o, torch.Tensor)
+                 and o.requires_grad]
+        wanted = [t for t in leaves if t.requires_grad]
+        got = iter(torch.autograd.grad(
+            [o for o, _ in pairs], wanted, [g for _, g in pairs],
+            allow_unused=True) if pairs and wanted else [None] * len(wanted))
+        return (None, None) + tuple(next(got) if t.requires_grad else None
+                                    for t in leaves)
+
+
+def _replayed(fn):
+    """``fn`` run under the hints as they are now, also when the backward
+    pass recomputes it later, outside the caller's contexts (a
+    ``seq_shard_view`` the MoE capacity reads, the remat switch the nested
+    chunk regions read)."""
+    snap = dict(_CTX)
+
+    def run(*args):
+        old = dict(_CTX)
+        _CTX.update(snap)
+        try:
+            return fn(*args)
+        finally:
+            _CTX.clear()
+            _CTX.update(old)
+
+    return run
 
 
 def _gather(x, group, dim, rest, keep: bool, use: str):

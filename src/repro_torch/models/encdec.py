@@ -33,9 +33,13 @@ that way, where gathering each layer's projected K and V (what GSPMD makes
 of the reference) would move 2 n_layers K hd. The loss is the grid's
 global token mean (``transformer.sharded_loss``), the next-token shift
 crossing the target's sequence shards. Off a grid every hint is the
-identity and nothing is rematerialized.
+identity, and each layer of either stack is still rematerialized keeping
+its input (and, in the decoder, the memory it reads), as the reference's
+layer scans are on one device.
 """
 from __future__ import annotations
+
+from functools import partial
 
 import torch
 
@@ -126,15 +130,12 @@ def _dec_layer(cfg, x, lp, mem, positions):
 
 
 def _layers(cfg, layer, x, stack, *extra):
-    """``layer`` over the stack's layers, each rematerialized under the
-    grid (``hints.remat``, keeping the gathered K/V and, under
-    ``remat_save_weights``, the gathered weights)."""
+    """``layer`` over the stack's layers, each rematerialized
+    (``hints.remat``, keeping its input and, under a grid, its gathered K/V
+    and, under ``remat_save_weights``, the gathered weights)."""
     for lp in L.unstack(stack, cfg.n_layers):
-        if hints.remat_on():
-            x = hints.remat(lambda x, lp=lp: layer(cfg, x, lp, *extra), x,
-                            cfg.remat_save_weights)
-        else:
-            x = layer(cfg, x, lp, *extra)
+        x = hints.remat(partial(layer, cfg), cfg.remat_save_weights, x, lp,
+                        *extra)
     return x
 
 

@@ -24,9 +24,14 @@ keeping the gathered K/V and sequence gathers (and the gathered weights
 under ``remat_save_weights``), the reference's policy; the loss is the
 transformer's grid loss (``transformer.sharded_loss``), the aux global
 (``layers._moe_aux``) over ``n_layers // 2``. Off a grid every hint is the
-identity and nothing is rematerialized.
+identity, and each super-block is still rematerialized keeping its input,
+as the reference's is on one device; each
+mamba scan chunk is a remat region of its own, on a grid and off it
+(``mamba._scan_chunked``).
 """
 from __future__ import annotations
+
+from functools import partial
 
 import torch
 
@@ -126,11 +131,11 @@ def _super_block(cfg, x, bp, positions):
 
 
 def _remat_super_block(cfg, x, bp, positions):
-    """One super-block under the grid, rematerialized in the backward pass
-    with its gathered K/V and sequence gathers (and weights, under
-    ``remat_save_weights``) kept."""
-    return hints.remat(lambda x: _super_block(cfg, x, bp, positions), x,
-                       cfg.remat_save_weights)
+    """One super-block rematerialized in the backward pass from its input;
+    under a grid with its gathered K/V and sequence gathers (and weights,
+    under ``remat_save_weights``) kept."""
+    return hints.remat(partial(_super_block, cfg), cfg.remat_save_weights,
+                       x, bp, positions)
 
 
 def forward_hidden(params, tokens, cfg):
@@ -141,10 +146,9 @@ def forward_hidden(params, tokens, cfg):
                                       params["embed"].device)
     x = params["embed"][hints.seq_shard(tokens)]
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    block = _remat_super_block if hints.remat_on() else _super_block
     for bp in L.unstack({k: params[k] for k in _STACK},
                         cfg.n_layers // SUB):
-        x, a = block(cfg, x, bp, positions)
+        x, a = _remat_super_block(cfg, x, bp, positions)
         aux = aux + a
     return L.rms_norm(x, params["lnf"]), aux / (cfg.n_layers // 2)
 

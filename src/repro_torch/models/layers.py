@@ -475,14 +475,26 @@ def moe_apply(x, lp, n_experts: int, top_k: int,
 
 def chunked_ce(x, head, targets, mask=None, chunk: int = 512):
     """Sequence-chunked mean cross entropy: logits exist one (B, chunk, V)
-    chunk at a time. x: (B, S, D); head: (D, V); targets: (B, S) int;
-    mask: (B, S) float or None."""
+    chunk at a time, in the forward and, each chunk rematerialized, in the
+    backward. x: (B, S, D); head: (D, V); targets: (B, S) int; mask: (B, S)
+    float or None."""
     tot, cnt = chunked_ce_sums(x, head, targets, mask, chunk)
     return tot / torch.clamp_min(cnt, 1.0)
 
 
+def _ce_chunk(xc, head, tc, mc):
+    """One chunk's (masked NLL sum, mask sum)."""
+    logits = (xc @ head).to(torch.float32)
+    lse = torch.logsumexp(logits, dim=-1)
+    tgt = torch.gather(logits, -1, tc[..., None].long())
+    return torch.sum((lse - tgt[..., 0]) * mc), torch.sum(mc)
+
+
 def chunked_ce_sums(x, head, targets, mask=None, chunk: int = 512):
-    """``chunked_ce``'s (masked NLL sum, mask sum), each f32."""
+    """``chunked_ce``'s (masked NLL sum, mask sum), each f32. Each chunk is
+    its own remat region (``hints.remat_chunk``, the reference's per-chunk
+    ``jax.checkpoint``): the backward keeps its input slice, not its f32
+    logits."""
     B, S, _ = x.shape
     if mask is None:
         mask = torch.ones((B, S), dtype=torch.float32, device=x.device)
@@ -490,11 +502,9 @@ def chunked_ce_sums(x, head, targets, mask=None, chunk: int = 512):
     tot = torch.zeros((), dtype=torch.float32, device=x.device)
     cnt = torch.zeros((), dtype=torch.float32, device=x.device)
     for s0 in range(0, S, c):
-        logits = (x[:, s0:s0 + c] @ head).to(torch.float32)
-        lse = torch.logsumexp(logits, dim=-1)
-        tgt = torch.gather(logits, -1, targets[:, s0:s0 + c, None].long())
-        nll = lse - tgt[..., 0]
-        mb = mask[:, s0:s0 + c]
-        tot = tot + torch.sum(nll * mb)
-        cnt = cnt + torch.sum(mb)
+        sl = slice(s0, s0 + c)
+        t, n = hints.remat_chunk(_ce_chunk, x[:, sl], head, targets[:, sl],
+                                 mask[:, sl])
+        tot = tot + t
+        cnt = cnt + n
     return tot, cnt

@@ -4,9 +4,10 @@ for decode.
 
 The scan carries the (B, d_inner, d_state) f32 state through a Python loop
 over the time steps of each chunk; each chunk's decay and input terms are
-computed at once, elementwise as the reference's step computes them. The
-reference's per-chunk remat has no numerical effect and is left out. Every
-tensor made here lies on the device of the inputs.
+computed at once, elementwise as the reference's step computes them. Each
+chunk is rematerialized in the backward pass, as the reference's is
+(``hints.remat_chunk``): the backward keeps the chunk carries, not every
+step's state. Every tensor made here lies on the device of the inputs.
 
 Under a grid (``launch/hints.py``) the block is channel-parallel, as the
 reference's is: the time recurrence cannot be split over the sequence, but
@@ -80,12 +81,28 @@ def _ssm_from_proj(proj, lp, dt_rank):
     return dt.float(), B_.float(), C_.float()
 
 
+def _scan_chunk(h, dt, B_, C_, x, A):
+    """One chunk of the scan from the carry ``h``: dt / x (B, c, d_in)
+    (x f32), B_ / C_ (B, c, N), A (d_in, N). -> y (B, c, d_in) f32, h at
+    the chunk's end. The decay and input terms of the chunk are computed at
+    once, elementwise as the reference's step computes them."""
+    da = torch.exp(dt[..., None] * A)                     # (B, c, d_in, N)
+    dbx = (dt * x)[..., None] * B_[:, :, None, :]
+    hs = []
+    for t in range(da.shape[1]):
+        h = da[:, t] * h + dbx[:, t]
+        hs.append(h)
+    return torch.einsum("btdn,btn->btd", torch.stack(hs, dim=1), C_), h
+
+
 def _scan_chunked(dt, B_, C_, x, a_log, h0):
     """Selective scan. dt / x: (B, T, d_in); B_ / C_: (B, T, N); h0: (B, d_in,
     N) f32. -> y (B, T, d_in) f32, h_T. Step t: h = exp(dt_t A) h + (dt_t
     x_t) B_t; y_t = sum_n h C_t. The steps run in the reference's chunks
     of c = T // max(1, T // 256) (with a shorter last chunk where they do
-    not tile T, a length the reference's reshape refuses)."""
+    not tile T, a length the reference's reshape refuses), each chunk its
+    own remat region (``hints.remat_chunk``): the backward keeps the chunk
+    carries and the inputs, and holds one chunk's steps at a time."""
     T = x.shape[1]
     c = T // max(1, T // CHUNK)
     A = -torch.exp(a_log)                                      # (d_in, N)
@@ -93,14 +110,9 @@ def _scan_chunked(dt, B_, C_, x, a_log, h0):
     h, ys = h0, []
     for c0 in range(0, T, c):
         sl = slice(c0, c0 + c)
-        da = torch.exp(dt[:, sl, :, None] * A)            # (B, c, d_in, N)
-        dbx = (dt[:, sl] * x[:, sl])[..., None] * B_[:, sl, None, :]
-        hs = []
-        for t in range(da.shape[1]):
-            h = da[:, t] * h + dbx[:, t]
-            hs.append(h)
-        ys.append(torch.einsum("btdn,btn->btd", torch.stack(hs, dim=1),
-                               C_[:, sl]))
+        y, h = hints.remat_chunk(_scan_chunk, h, dt[:, sl], B_[:, sl],
+                                 C_[:, sl], x[:, sl], A)
+        ys.append(y)
     return torch.cat(ys, dim=1), h
 
 

@@ -13,9 +13,9 @@ MoE and VLM families, whose grid loss ``sharded_loss`` the xLSTM, hybrid
 and enc-dec families share) the params are this rank's shards: each layer gathers
 its weights (``fsdp_gather``), computes on this rank's sequence slice and
 keeps its output there (``seq_shard``), as the reference's ``_layer`` does;
-each layer is rematerialized (``torch.utils.checkpoint``, non-reentrant)
-keeping the gathered K/V, and the gathered weights under
-``remat_save_weights``, the reference's ``_remat_policy``. MoE experts are
+each layer is rematerialized (``hints.remat``) keeping the gathered K/V,
+and the gathered weights under ``remat_save_weights``, the reference's
+``_remat_policy``. MoE experts are
 gathered like any weight (replicated experts, granite) or, under
 ``moe_ep`` where the grid stores E over the sequence axes, keep their E
 shard and take the dispatch by an all-to-all (llama4, jamba); the f32
@@ -23,7 +23,9 @@ router's gradient is summed over the replica axes as any replicated leaf's.
 The loss is the global token mean: local sums, then one all-reduce of the
 sum and the count over the replica axes; the MoE aux is global too
 (``layers._moe_aux``) and enters it once. Off a grid every hint is the
-identity and nothing is rematerialized.
+identity, and each layer is still rematerialized as the reference's layer
+scan is on one device: its input kept, the rest (its K/V too, which the
+reference keeps there: ``hints``) recomputed.
 
 Serving on a grid (``hints.serving_hints``, the dry run's prefill and
 decode cells): ``prefill`` runs the forward above without remat and takes
@@ -117,13 +119,14 @@ def _layer(cfg, x, lp, positions):
 
 
 def _remat_layer(cfg, x, lp, positions):
-    """One layer under the grid, rematerialized in the backward pass with
-    the gathered K/V (and weights, under ``remat_save_weights``) kept."""
-    def run(x):
+    """One layer rematerialized in the backward pass from its input; under
+    a grid with its gathered K/V kept, and its gathered weights under
+    ``remat_save_weights``."""
+    def run(x, lp, positions):
         y, a = _layer(cfg, x, lp, positions)
         return y, torch.as_tensor(a, dtype=torch.float32, device=y.device)
 
-    return hints.remat(run, x, cfg.remat_save_weights)
+    return hints.remat(run, cfg.remat_save_weights, x, lp, positions)
 
 
 def _layer_params(params, cfg):
@@ -147,9 +150,8 @@ def forward_hidden(params, tokens, cfg, *, prefix=None):
     else:
         x = params["embed"][hints.seq_shard(tokens)]
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    layer = _remat_layer if hints.remat_on() else _layer
     for lp in _layer_params(params, cfg):
-        x, a = layer(cfg, x, lp, positions)
+        x, a = _remat_layer(cfg, x, lp, positions)
         aux = aux + a
     return L.rms_norm(x, params["lnf"]), aux / cfg.n_layers
 

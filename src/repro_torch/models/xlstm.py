@@ -5,10 +5,11 @@ strictly recurrent, and the LM of groups of 3 mLSTM + 1 sLSTM blocks.
 mLSTM trains by the stabilised log-gate decay matrix, chunked over the KEY
 axis with an online running max, in the reference's chunking and order of
 f32 updates; decode is the O(1) matrix-memory recurrence. sLSTM steps
-through the sequence in a Python loop (no parallel form exists); the
-reference's chunking of that scan is remat only and has no numerical
-effect. The assigned xlstm-350m has d_ff = 0: the blocks carry their own
-projections. Every tensor made here lies on the device of the inputs.
+through the sequence in a Python loop (no parallel form exists), each of
+the reference's scan chunks rematerialized in the backward pass as the
+reference's is. The assigned xlstm-350m has d_ff = 0: the blocks carry
+their own projections. Every tensor made here lies on the device of the
+inputs.
 
 Under a grid (``launch/hints.py``, the model-sharded replica) the params
 are this rank's shards and the residual stream its sequence slice: each
@@ -23,11 +24,14 @@ the queries' global positions and the key chunks the global length. The
 sLSTM gathers its normed input (D wide, in the model's dtype), runs the
 recurrence over the whole sequence on every sequence rank and keeps this
 rank's rows before ``wo``; the gather's backward sums each rank's share.
-Each group of 4 blocks is rematerialized keeping the gathered tensors (and
-the gathered weights under ``remat_save_weights``). Off a grid every hint is
-the identity.
+Each group of 4 blocks is rematerialized (``hints.remat``), on a grid and
+off it as the reference's is: under a grid keeping the gathered tensors
+(and the gathered weights under ``remat_save_weights``), off it only the
+group's input. Off a grid every other hint is the identity.
 """
 from __future__ import annotations
+
+from functools import partial
 
 import torch
 import torch.nn.functional as F
@@ -196,6 +200,34 @@ def _slstm_step(carry, x_t, wr, n_heads):
     return (h_new, c, n, m_new), h_new
 
 
+def _slstm_chunk(h, c, n, m, x_pre, wr, *, n_heads):
+    """The steps of one scan chunk from the carry (h, c, n, m): x_pre (B,
+    c, 4D). -> (h, c, n, m at the chunk's end, every step's h (B, c,
+    D))."""
+    carry, hs = (h, c, n, m), []
+    for t in range(x_pre.shape[1]):
+        carry, h = _slstm_step(carry, x_pre[:, t], wr, n_heads)
+        hs.append(h)
+    return (*carry, torch.stack(hs, dim=1))
+
+
+def _slstm_scan(x_pre, wr, n_heads):
+    """The recurrence over x_pre (B, S, 4D) from the zero carry -> every
+    step's h (B, S, D), in the reference's chunks of c = S // max(1, S //
+    256) steps (a shorter last chunk where they do not tile S), each chunk
+    its own remat region (``hints.remat_chunk``): the backward keeps the
+    chunk carries and the pre-activation, one chunk's steps at a time."""
+    B, S = x_pre.shape[:2]
+    carry = _slstm_carry0(B, x_pre.shape[2] // 4, x_pre.device)
+    c = S // max(1, S // CHUNK)
+    hs = []
+    for c0 in range(0, S, c):
+        *carry, h = hints.remat_chunk(partial(_slstm_chunk, n_heads=n_heads),
+                                      *carry, x_pre[:, c0:c0 + c], wr)
+        hs.append(h)
+    return torch.cat(hs, dim=1)
+
+
 def _slstm_carry0(batch, d_model, device):
     """h = c = 0, n = 1e-6, m = -1e30 (four tensors: decode writes them in
     place)."""
@@ -207,23 +239,16 @@ def _slstm_carry0(batch, d_model, device):
 
 
 def slstm_block(x, lp, *, n_heads: int):
-    """Sequential sLSTM, x: (B, T, D): one step a position. Under a grid x
-    is this rank's sequence slice: the slices are gathered (``gather_seq``,
-    D wide in x's dtype, not the 4D-wide f32 pre-activation), the
-    recurrence runs over the whole sequence and this rank's rows are kept
-    before ``wo``."""
-    B, T, D = x.shape
+    """Sequential sLSTM, x: (B, T, D): one step a position, each scan
+    chunk rematerialized (``_slstm_scan``). Under a grid x is this rank's
+    sequence slice: the slices are gathered (``gather_seq``, D wide in x's
+    dtype, not the 4D-wide f32 pre-activation), the recurrence runs over
+    the whole sequence and this rank's rows are kept before ``wo``."""
     xs = hints.gather_seq(x, use="slstm_in")                 # (B, S, D)
     S = xs.shape[1]
     lo, hi = hints.seq_bounds(S)
     x_pre = (xs @ lp["wx"]).float() + lp["b"]                 # (B, S, 4D)
-    carry = _slstm_carry0(B, D, x.device)
-    wr = lp["wr"].float()
-    hs = []
-    for t in range(S):
-        carry, h = _slstm_step(carry, x_pre[:, t], wr, n_heads)
-        hs.append(h)
-    h = torch.stack(hs, dim=1)[:, lo:hi].to(x.dtype)
+    h = _slstm_scan(x_pre, lp["wr"].float(), n_heads)[:, lo:hi].to(x.dtype)
     return rms_norm(h, lp["ln_sk"]) @ lp["wo"]
 
 
@@ -302,11 +327,11 @@ def _group_fwd(cfg, x, gp):
 
 
 def _remat_group(cfg, x, gp):
-    """One group under the grid, rematerialized in the backward pass with
+    """One group rematerialized in the backward pass; under a grid with
     its gathered K/V, gates and sLSTM input (and weights, under
     ``remat_save_weights``) kept."""
-    return hints.remat(lambda x: _group_fwd(cfg, x, gp), x,
-                       cfg.remat_save_weights)
+    return hints.remat(partial(_group_fwd, cfg), cfg.remat_save_weights,
+                       x, gp)
 
 
 def forward_hidden(params, tokens, cfg):
@@ -316,10 +341,9 @@ def forward_hidden(params, tokens, cfg):
     hints.local_positions(tokens.shape[0], tokens.shape[1],
                           params["embed"].device)
     x = params["embed"][hints.seq_shard(tokens)]
-    group = _remat_group if hints.remat_on() else _group_fwd
     for gp in unstack({k: params[k] for k in _STACK},
                       cfg.n_layers // GROUP):
-        x = group(cfg, x, gp)
+        x = _remat_group(cfg, x, gp)
     return rms_norm(x, params["lnf"])
 
 
